@@ -277,6 +277,31 @@ def test_fused_route_runs_the_kernel_twins(tiny, monkeypatch):
     assert calls == [False] * spec.num_layers
 
 
+def test_text_mlp_takes_the_mlp_kernel(tiny, monkeypatch):
+    """The eval text tower's blocks decline the fused block (N < 256) but
+    send their MLP through K13 (on the CPU: its twin) once a block has
+    MLP_MIN_ROWS rows, as the JAX eval's fused_mlp does under its Pallas
+    flag (ops/mlp.py:209-225); kernels=False keeps the plain MLP."""
+    from vl_merging_tpu_torch.ops import mlp as TM
+
+    jspec, spec, arrays, jparams, params = tiny
+    _, text_ids, text_masks = _inputs()
+    calls = []
+    real = TM.mlp_kernel_reference
+    monkeypatch.setattr(TM, "mlp_kernel_reference",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    batch = {"text_ids": torch.from_numpy(text_ids),
+             "text_masks": torch.from_numpy(text_masks)}
+    assert text_ids.size >= mome.MLP_MIN_ROWS
+    model.infer_text_ft(params, spec, batch)
+    assert calls == [text_ids.shape + (128,)] * spec.num_layers
+    calls.clear()
+    model.infer_text_ft(params, spec, batch, kernels=False)
+    small = {k: v[:mome.MLP_MIN_ROWS // 8 - 1] for k, v in batch.items()}
+    model.infer_text_ft(params, spec, small)
+    assert calls == []
+
+
 def test_vl_block_is_not_ported(tiny):
     jspec, spec, arrays, jparams, params = tiny
     x = torch.zeros(1, spec.max_text_len + spec.image_len, 128)

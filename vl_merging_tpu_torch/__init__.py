@@ -7,13 +7,14 @@ every Pallas kernel the JAX package runs on the ported path is a
 hand-written CUDA C++ kernel for ``sm_90a`` under ``csrc/``, built at
 first use by ``ops/_build.py``.
 
-This package imports ``torch`` and never ``jax`` nor the JAX package.
-The one file it shares with the JAX package is the pure-Python
-``vl_merging_tpu/config.py``, which ``config.py`` executes by path.
+This package imports ``torch`` and never ``jax`` nor the JAX package,
+and reads no file of it: ``config.py`` is its own copy of the
+pure-Python config module.
 
 Ported so far: the COCO/Flickr retrieval eval (``evaluation.retrieval``)
 over the single-modality towers (``models.model.infer_image_ft`` /
-``infer_text_ft``), eval only.
+``infer_text_ft``), and the irtr fine-tune step over the same towers
+(``train.loop.build_train_step``).
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,14 @@
-"""Parameter dicts from arrays, and the one-time eval cast.
+"""Parameter dicts to and from arrays, f32 training masters, and the
+one-time eval cast.
 
 The JAX package keeps its params as a flat dict keyed like the reference
 state_dict, in torch layout (Linear weight = (out, in)), so moving them
-into the port is a per-key copy: no renames, no transposes.
+into the port and back is a per-key copy: no renames, no transposes.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -38,6 +39,23 @@ def params_from_numpy(params: Mapping[str, object],
             t = t.to(dtype)
         out[k] = t.to(device)
     return out
+
+
+def params_to_numpy(params: Params) -> Dict[str, np.ndarray]:
+    """Each tensor as a float32 (floating point) or integer numpy array on
+    the host: the port's params in the form the JAX package takes."""
+    return {k: (v.detach().float() if v.is_floating_point() else v.detach())
+            .cpu().numpy() for k, v in params.items()}
+
+
+def master_params(params: Params) -> Params:
+    """f32 training masters: a float32 copy of every leaf (the param
+    schema holds floating-point leaves only), each a leaf tensor that
+    requires grad, on the leaf's device.  The train
+    step updates them in place, so they never alias the caller's
+    tensors."""
+    return {k: v.detach().to(torch.float32, copy=True).requires_grad_()
+            for k, v in params.items()}
 
 
 def eval_cast_params(params: Params, spec: ModelSpec, cfg: Mapping) -> Params:

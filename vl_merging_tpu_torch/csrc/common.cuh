@@ -1,4 +1,4 @@
-// Shared pieces of the eval-block kernels (sm_90a, bf16 tensor cores).
+// Shared pieces of the port's kernels (sm_90a, bf16 tensor cores).
 //
 // Conventions shared by every kernel here:
 //   * activations and weights are bf16; LN parameters, biases and
@@ -8,8 +8,9 @@
 //   * shared-memory rows carry kPad bf16 of padding: a 16-row fragment
 //     then starts on a 32-byte boundary (WMMA's alignment rule) and
 //     consecutive rows start in different banks;
-//   * the GEMM kernels (K1, K3) use WMMA fragments; the attention kernel
-//     (K2) uses mma.sync directly, for its documented register layout.
+//   * the GEMM kernels (K1, K3, K13) use WMMA fragments; the attention
+//     kernels (K2, K9) use mma.sync directly, for its documented register
+//     layout.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -216,6 +217,96 @@ __device__ __forceinline__ const float* frag_to_scratch(const FragC& f, float* s
   row = lane >> 1;
   col0 = (lane & 1) * 8;
   return scratch + row * 16 + col0;
+}
+
+// mma.sync helpers of the attention kernels (K2, K9).
+
+// d += a · b for one m16n8k16 tile (a: 16 x 16 row-major, b: 16 x 8 col-major).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Four 8x8 bf16 matrices from shared memory, transposed (B operands of
+// P·V from a row-major V tile).  Lane l gives the address of row l % 8 of
+// matrix l / 8.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// The MLP body of K3 and K13 for one block of kMlpRows rows: 8 warps, each
+// covering all kMlpRows rows.  The (rows, Hd) f32 hidden never exists: the
+// block walks the hidden dimension in kHiddenChunk-wide chunks, rounds each
+// chunk's gelu(fc1 + b1) to bf16 into Hs, and contracts it at once with the
+// matching kHiddenChunk columns of W2 into acc (f32, registers, kept over the
+// whole MLP).  Weight tiles stream through cp.async rings in Ws (fc1: 6-deep
+// 128 x 64 tiles; fc2: double-buffered C x 32 tiles).  Only the f32
+// summation order of fc2 differs from a product over the whole hidden.
+constexpr int kMlpRows = 32, kHiddenChunk = 128;
+constexpr int kBkWide = 32, kStagesWide = 2;  // GEMMs over the model width
+constexpr int kBkHid = 64, kStagesHid = 6;    // fc1 into one hidden chunk
+constexpr int kMlpMF = kMlpRows / 16;
+// staging area for weight tiles, in bf16 elements, for model widths <= 768
+constexpr int kMlpStaging =
+    kStagesWide * 768 * (kBkWide + kPad) > kStagesHid * kHiddenChunk * (kBkHid + kPad)
+        ? kStagesWide * 768 * (kBkWide + kPad)
+        : kStagesHid * kHiddenChunk * (kBkHid + kPad);
+
+// Dynamic shared memory of a kernel built on mlp_hidden_chunks, for width C:
+// the A rows, the hidden chunk, the weight staging and 8 warps' scratch.
+__host__ __device__ constexpr size_t mlp_smem_bytes(int C) {
+  return (size_t)(kMlpRows * (C + kPad) + kMlpRows * (kHiddenChunk + kPad) + kMlpStaging) *
+             sizeof(bf16) +
+         (kGemmThreads / 32) * 256 * sizeof(float);
+}
+
+// acc += gelu(As·W1ᵀ + b1)·W2ᵀ.  As holds the block's rows (bf16, stride
+// lda); the first call's leading barrier publishes what the block wrote to
+// As.  gelu maps an f32 pre-activation to the f32 value rounded into Hs.
+template <int NF, class Gelu>
+__device__ __forceinline__ void mlp_hidden_chunks(FragC (&acc)[kMlpMF][NF], const bf16* As,
+                                                  int lda, const bf16* __restrict__ w1,
+                                                  const float* __restrict__ b1,
+                                                  const bf16* __restrict__ w2, int Hd, bf16* Hs,
+                                                  bf16* Ws, float* sc, Gelu gelu) {
+  constexpr int C = 8 * NF * 16, LDH = kHiddenChunk + kPad;
+  static_assert(C <= 768, "the staging area is sized for C <= 768");
+  const int warp = threadIdx.x >> 5;
+  for (int j0 = 0; j0 < Hd; j0 += kHiddenChunk) {
+    FragC hacc[kMlpMF][1];
+    zero_acc(hacc);
+    gemm_smem_a<kMlpMF, 1, 8, kBkHid, kStagesHid>(hacc, As, lda, w1 + (size_t)j0 * C, C, C, Ws);
+    __syncthreads();  // every warp is done with the last W1 tile: W2's tiles may land
+    gemm_prefetch<C, kBkWide, kStagesWide>(w2 + j0, Hd, kHiddenChunk, Ws);
+#pragma unroll
+    for (int i = 0; i < kMlpMF; ++i) {
+      int r, c0;
+      const float* v = frag_to_scratch(hacc[i][0], sc, r, c0);
+      const int rr = i * 16 + r, col = warp * 16 + c0;
+      Pack8 hv;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) hv.h()[e] = __float2bfloat16(gelu(v[e] + b1[j0 + col + e]));
+      *reinterpret_cast<uint4*>(Hs + rr * LDH + col) = hv.u;
+      __syncwarp();
+    }
+    gemm_main<kMlpMF, NF, 8, kBkWide, kStagesWide>(acc, Hs, LDH, w2 + j0, Hd, kHiddenChunk, Ws);
+  }
 }
 
 

@@ -40,35 +40,6 @@ namespace {
 constexpr int D = 64, BQ = 64, BKV = 64, WARPS = 4, THREADS = WARPS * 32;
 constexpr int LDT = D + kPad;  // bf16 tile stride: 144 bytes, conflict-free fragment loads
 
-// d += a · b for one m16n8k16 tile (a: 16 x 16 row-major, b: 16 x 8 col-major).
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed (B operands of
-// P·V from a row-major V tile).  Lane l gives the address of row l % 8 of
-// matrix l / 8.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
 // Start loading key tile [k0, k0 + BKV) of K and V into shared memory
 // (rows past N are zeros) and record which of its keys are valid.
 __device__ __forceinline__ void load_kv_tile(bf16* Kt, bf16* Vt, int* kvalid,

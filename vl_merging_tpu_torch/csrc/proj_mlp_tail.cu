@@ -20,33 +20,25 @@
 // register-resident 64-row accumulators or a multicast of the weight
 // tiles across a cluster: later work.  The TPU kernel keeps
 // a (512, 3072) f32 hidden in VMEM; a block here gets at most 227 KB of
-// shared memory, so it owns 32 rows and walks the hidden dimension in
-// 128-wide chunks: each chunk's fc1 output goes through gelu into a
-// 32 x 128 bf16 tile and is immediately contracted with the matching 128
-// columns of W2 into the f32 output accumulators, which stay in registers
-// for the whole MLP.  Only the f32 summation order of fc2 changes.  The
-// LN2 output stays in shared memory; x' is parked in the block's own rows
-// of the output (an L2-resident 48 KB per block) to leave shared memory
-// for the weight tiles, which stream through cp.async rings (double-
-// buffered 768 x 32 tiles for proj and fc2, 6-stage 128 x 64 tiles for
-// fc1) into WMMA bf16 products.
+// shared memory, so it owns 32 rows and runs the MLP as
+// common.cuh:mlp_hidden_chunks (128-wide hidden chunks, the f32 output
+// accumulators in registers for the whole MLP).  The LN2 output stays in
+// shared memory; x' is parked in the block's own rows of the output (an
+// L2-resident 48 KB per block) to leave shared memory for the weight
+// tiles.
 #include "common.cuh"
 
 using namespace vlm;
 
 namespace {
 
-constexpr int BM = 32, HC = 128;
-constexpr int BK_WIDE = 32, STAGES_WIDE = 2;  // GEMMs over the model width
-constexpr int BK_HID = 64, STAGES_HID = 6;    // fc1 into one hidden chunk
-constexpr int MF = 2;                         // every warp covers all 32 rows
-constexpr int WS = STAGES_WIDE * 768 * (BK_WIDE + kPad) > STAGES_HID * HC * (BK_HID + kPad)
-                       ? STAGES_WIDE * 768 * (BK_WIDE + kPad)
-                       : STAGES_HID * HC * (BK_HID + kPad);  // staging, for C <= 768
+constexpr int BM = kMlpRows, MF = kMlpMF;  // every warp covers all 32 rows
 
-__device__ __forceinline__ float gelu_erf(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
+struct ErffGelu {
+  __device__ __forceinline__ float operator()(float v) const {
+    return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+  }
+};
 
 // NF: 16-column fragments per warp over the model width, C = 8 * NF * 16.
 template <int NF>
@@ -59,13 +51,12 @@ proj_mlp_tail_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ res,
                      const float* __restrict__ b2, const float* __restrict__ g2,
                      bf16* __restrict__ out, int M, int Hd, float eps) {
   constexpr int C = 8 * NF * 16;
-  constexpr int LDA = C + kPad, LDH = HC + kPad, WARPS = kGemmThreads / 32;
-  static_assert(C <= 768, "the staging area WS is sized for C <= 768");
+  constexpr int LDA = C + kPad, WARPS = kGemmThreads / 32;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);         // BM x LDA: ctx, then LN2(x')
-  bf16* Hs = As + BM * LDA;                          // BM x LDH: gelu(fc1) chunk
-  bf16* Ws = Hs + BM * LDH;                          // weight tile staging
-  float* scratch = reinterpret_cast<float*>(Ws + WS);  // 8 x 16 x 16
+  bf16* Hs = As + BM * LDA;                          // BM x (HC + kPad): gelu(fc1) chunk
+  bf16* Ws = Hs + BM * (kHiddenChunk + kPad);        // weight tile staging
+  float* scratch = reinterpret_cast<float*>(Ws + kMlpStaging);  // 8 x 16 x 16
 
   const int row0 = blockIdx.x * BM;
   const int warp = threadIdx.x >> 5;
@@ -74,7 +65,7 @@ proj_mlp_tail_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ res,
 
   // proj + LayerScale + residual -> x' (bf16, shared memory); the first
   // Wp tiles are in flight while the ctx rows load
-  gemm_prefetch<C, BK_WIDE, STAGES_WIDE>(wp, C, C, Ws);
+  gemm_prefetch<C, kBkWide, kStagesWide>(wp, C, C, Ws);
   for (int v = threadIdx.x; v < BM * C / 8; v += kGemmThreads) {
     const int r = v / (C / 8), c = (v % (C / 8)) * 8;
     *reinterpret_cast<uint4*>(As + r * LDA + c) =
@@ -83,7 +74,7 @@ proj_mlp_tail_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ res,
   }
   FragC acc[MF][NF];
   zero_acc(acc);
-  gemm_main<MF, NF, 8, BK_WIDE, STAGES_WIDE>(acc, As, LDA, wp, C, C, Ws);
+  gemm_main<MF, NF, 8, kBkWide, kStagesWide>(acc, As, LDA, wp, C, C, Ws);
 #pragma unroll
   for (int i = 0; i < MF; ++i) {
 #pragma unroll
@@ -113,25 +104,7 @@ proj_mlp_tail_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ res,
 
   // MLP over 128-wide hidden chunks; fc2 partials accumulate in acc
   zero_acc(acc);
-  for (int j0 = 0; j0 < Hd; j0 += HC) {
-    FragC hacc[MF][1];
-    zero_acc(hacc);
-    gemm_smem_a<MF, 1, 8, BK_HID, STAGES_HID>(hacc, As, LDA, w1 + (size_t)j0 * C, C, C, Ws);
-    __syncthreads();  // every warp is done with the last W1 tile: W2's tiles may land
-    gemm_prefetch<C, BK_WIDE, STAGES_WIDE>(w2 + j0, Hd, HC, Ws);
-#pragma unroll
-    for (int i = 0; i < MF; ++i) {
-      int r, c0;
-      const float* v = frag_to_scratch(hacc[i][0], sc, r, c0);
-      const int rr = i * 16 + r, col = warp * 16 + c0;
-      Pack8 hv;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) hv.h()[e] = __float2bfloat16(gelu_erf(v[e] + b1[j0 + col + e]));
-      *reinterpret_cast<uint4*>(Hs + rr * LDH + col) = hv.u;
-      __syncwarp();
-    }
-    gemm_main<MF, NF, 8, BK_WIDE, STAGES_WIDE>(acc, Hs, LDH, w2 + j0, Hd, HC, Ws);
-  }
+  mlp_hidden_chunks<NF>(acc, As, LDA, w1, b1, w2, Hd, Hs, Ws, sc, ErffGelu());
 
   // fc2 bias + LayerScale + residual -> out
 #pragma unroll
@@ -160,8 +133,7 @@ int launch(const void* ctx, const void* res, const void* wp, const void* bp,
            const void* b1, const void* w2, const void* b2, const void* g2, void* out,
            int M, int Hd, float eps, cudaStream_t stream) {
   constexpr int C = 8 * NF * 16;
-  const size_t smem = (size_t)(BM * (C + kPad) + BM * (HC + kPad) + WS) * sizeof(bf16) +
-                      (kGemmThreads / 32) * 256 * sizeof(float);
+  constexpr size_t smem = mlp_smem_bytes(C);
   cudaError_t err = cudaFuncSetAttribute(
       proj_mlp_tail_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -183,7 +155,7 @@ extern "C" int vlm_proj_mlp_tail(const void* ctx, const void* res, const void* w
                                  const void* ln_b, const void* w1, const void* b1,
                                  const void* w2, const void* b2, const void* g2, void* out,
                                  int M, int C, int Hd, float eps, void* stream) {
-  if (M <= 0 || Hd <= 0 || Hd % HC != 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || Hd <= 0 || Hd % kHiddenChunk != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 768:

@@ -1,5 +1,5 @@
-"""Primitive layers: torch-layout linear, layernorm, gelu (port of
-``vl_merging_tpu/models/layers.py``, eval only).
+"""Primitive layers: torch-layout linear, layernorm, dropout, drop_path
+(port of ``vl_merging_tpu/models/layers.py``).
 
 Rounding follows the JAX package: ``linear`` rounds the product to the
 compute dtype before adding the bias in that dtype, and ``layer_norm``
@@ -38,6 +38,28 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
-def gelu(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU, matching torch nn.GELU's default."""
-    return F.gelu(x)
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
+    """Elementwise dropout with a mask drawn from ``generator``; the
+    identity unless training with a generator and rate > 0."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator,
+                      device=generator.device).to(x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator],
+              train: bool) -> torch.Tensor:
+    """Stochastic depth: drop the whole residual branch per sample and
+    scale the kept ones by 1/keep (timm DropPath); the identity unless
+    training with a generator and rate > 0."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.rand(shape, generator=generator,
+                      device=generator.device).to(x.device) < keep
+    return x * (mask.to(x.dtype) / keep)

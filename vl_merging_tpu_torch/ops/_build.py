@@ -1,8 +1,8 @@
 """Build the CUDA kernels under ``csrc/`` and load them with ctypes.
 
-All ``csrc/*.cu`` files compile in one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds).  The library lands in ``vl_merging_tpu_torch/build/`` under a
+Each ``csrc/*.cu`` file compiles in its own ``nvcc`` process, all started
+together, and one more call links the objects into one shared library with
+a plain C interface (no PyTorch headers, so the build takes seconds).  The library lands in ``vl_merging_tpu_torch/build/`` under a
 name keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads the existing file.  The build runs at
 the first kernel launch of a process; nothing is built at import.
@@ -27,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +37,9 @@ _SIGNATURES = {
     "vlm_ln_linear": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "vlm_packed_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "vlm_proj_mlp_tail": (_P,) * 13 + (_I, _I, _I, _F, _P),
+    "vlm_mlp": (_P,) * 6 + (_I, _I, _I, _P),
+    "vlm_packed_attention_bwd": (_P,) * 8 + (_I,) * 5 + (_F, _P),
+    "vlm_packed_attention_bwd_groups": (_I,),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -70,21 +73,34 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists.
-    nvcc's output (ptxas register and spill counts) goes to
-    ``build/nvcc.log``."""
+    """Compile the kernels unless the library for these sources exists:
+    one nvcc process per source, all at once, then one link.  nvcc's
+    output (ptxas register and spill counts) goes to ``build/nvcc.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    nvcc, tmp = _nvcc(), out.with_suffix(f".{os.getpid()}.tmp")
+    objs = [tmp.with_suffix(f".{f.stem}.o") for f in cu]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for f, o in zip(cu, objs)]
+    steps = [(f.name, p.communicate()[0], p.returncode)
+             for f, p in zip(cu, procs)]
+    if not any(rc for _, _, rc in steps):
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        steps.append(("link", link.stdout + link.stderr, link.returncode))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    (BUILD_DIR / "nvcc.log").write_text(
+        "".join(f"== {name}\n{log}" for name, log, _ in steps))
+    failed = [f"{name} ({rc}):\n{log[-4000:]}" for name, log, rc in steps if rc]
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out
 
