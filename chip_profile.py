@@ -7,6 +7,8 @@ GPU):
 Traces, with ``torch.profiler`` (CPU and CUDA activities), one warm call
 of each window at ``chip_smoke.py``'s shapes and seeded inputs:
   * ``eval``: ``compute_irtr_recall`` over 64 images and 320 captions;
+  * ``eval int8``: the same in the W8A8 int8 eval mode (``eval_int8``:
+    K14 → K2 → K15 per image block);
   * ``train (kernels)`` / ``train (plain)``: one optimizer step (2
     micro-batches of 32 pairs) on the kernel path and on the plain path
     (K9's three CUDA kernels, statistics + dq, dk/dv + dbias partials and
@@ -88,6 +90,12 @@ def main() -> None:
     text_b, image_b, tiids, iids = smoke.synthetic_eval_set(spec, dev, gen)
     trace("eval", lambda: compute_irtr_recall(params, spec, text_b, image_b,
                                               tiids, iids), card)
+    cfg8 = build_config(*smoke.CONFIG, overrides=dict(eval_int8=True))
+    spec8 = make_model_spec(cfg8)
+    params8 = eval_cast_params(base, spec8, cfg8)
+    trace("eval int8", lambda: compute_irtr_recall(
+        params8, spec8, text_b, image_b, tiids, iids), card)
+    del params8
 
     train_cfg = smoke.train_config(kernels=True)
     batch = smoke.synthetic_train_batch(spec, accum_steps(train_cfg), dev,

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Both paths run ``task_finetune_irtr_coco_square_randaug_base_image384`` +
+All paths run ``task_finetune_irtr_coco_square_randaug_base_image384`` +
 ``ufo`` at the full width of ViT-B/16 @384 (bf16): 577 image tokens, 12
 layers, C=768, 12 heads, MLP 3072; 40 text tokens.  Weights are random
 from a seed, with a non-zero rel-pos bias table and q/v biases; images
@@ -13,22 +13,36 @@ and captions are synthetic.
     (``vl_merging_tpu_torch.evaluation.retrieval.compute_irtr_recall``);
   * the irtr fine-tune step (``vl_merging_tpu_torch.train.loop.
     build_train_step``): f32 master params, micro-batches of 32 image/
-    caption pairs, 2 micro-batches per optimizer step, 3 steps, no warmup.
+    caption pairs, 2 micro-batches per optimizer step, 3 steps, no warmup;
+  * the W8A8 int8 retrieval eval (``eval_int8: True``, the int8 weights
+    quantized by ``eval_cast_params``), and its image tower with the
+    opt-in int8-QK attention (``qk_int8=True``).
 
 Phases, each fatal on failure:
   1. a CUDA device (printed as nvidia-smi names it, with its power limit);
   2. the kernels built from ``vl_merging_tpu_torch/csrc`` (build time);
   3. each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail,
-     K9 packed_attention_bwd, K13 mlp) at main-path shapes against its
-     plain twin on the same inputs, with its tolerance; kernel, twin and
-     (where one PyTorch call computes the same function) library call
-     timed with CUDA events, beside the least time the card could take;
+     K9 packed_attention_bwd, K13 mlp, K12 packed_attention_i8qk, K14
+     ln_linear_i8, K15 proj_mlp_tail_i8) at main-path shapes against its
+     plain twin on the same inputs, with its tolerance and the share of
+     elements that differ; kernel, twin and (where one PyTorch call
+     computes the same function) library call timed with CUDA events,
+     beside the least time the card could take; K14, K15 and K12 beside
+     K1, K3 and K2 at the same shapes;
   4. ``compute_irtr_recall`` over 64 images (batches of 32) and 320
      captions (batches of 64): K1-K3 launched 12 times per image batch,
      K13 12 times per text batch; finite features, image cls_feats within
      cosine 0.999 of the plain path's; the image tower's images/s on both
      paths;
-  5. three train steps: K2 and K9 launched 12 times and K13 24 times per
+  5. the int8 eval: ``compute_irtr_recall`` (K14, K2 and K15 launched 12
+     times per image batch, K1 = K3 = K12 = 0, K13 12 per text batch) and
+     R@{1,5,10}; the image tower with ``qk_int8`` (K12 12 per image batch,
+     K2 0); int8 kernel-path image features within cosine 0.999 of the
+     int8 plain path's (``ops/int8.ref_fused_eval_block_i8``) in both
+     modes, and their cosine to the bf16 kernel path's (printed, no
+     gate); the image tower's images/s with int8 kernels, int8 plain and
+     bf16 kernels, in turns;
+  6. three train steps: K2 and K9 launched 12 times and K13 24 times per
      micro-batch, finite loss and grad norm every step; kernel-path
      gradients within global cosine 0.999 of the plain path's at the same
      params, batch and random draws; step time, pairs/s and peak memory on
@@ -41,6 +55,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -56,10 +71,12 @@ from vl_merging_tpu_torch.config import build_config
 from vl_merging_tpu_torch.device import require_cuda
 from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall, \
     extract_features
+from vl_merging_tpu_torch.models import mome
 from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
 from vl_merging_tpu_torch.ops import _build
 from vl_merging_tpu_torch.ops import attention as attn_ops
 from vl_merging_tpu_torch.ops import fused_block as fb_ops
+from vl_merging_tpu_torch.ops import int8 as i8_ops
 from vl_merging_tpu_torch.ops import mlp as mlp_ops
 from vl_merging_tpu_torch.train import train_step
 from vl_merging_tpu_torch.train.loop import accum_steps, build_train_step
@@ -78,14 +95,20 @@ BF16_ULP = 2.0 ** -7
 # accumulation of q·kᵀ: 4 ulps.  K9 rounds p and ds where its twin does,
 # but a ds on the other side of a rounding boundary moves the dq/dk sums
 # it enters: 4 ulps; its f32 dbias (a sum over 32 samples) is held to a
-# relative norm error of 1e-3.
+# relative norm error of 1e-3.  The int8 kernels quantize as their twins
+# do and sum s8·s8 products exactly in s32; the f32 LayerNorm statistics
+# are summed in another order, which can move a quantized value across a
+# rounding tie: K14 2 ulps, K15 (three chained quantizers) 4; K12 rounds
+# its softmax as K2 does: 4.
 ULPS = {"ln_linear": 2, "packed_attention": 4, "proj_mlp_tail": 2,
-        "packed_attention_bwd": 4, "mlp": 2}
+        "packed_attention_bwd": 4, "mlp": 2, "ln_linear_i8": 2,
+        "proj_mlp_tail_i8": 4, "packed_attention_i8qk": 4}
 DBIAS_REL = 1e-3
 MIN_COSINE = 0.999
 TIMED_ITERS = 20
-# H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
-PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor cores,
+# HBM3
+PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -116,10 +139,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, bytes_: float) -> tuple:
+def bound(flops: float, bytes_: float, int8_ops: float = 0.0) -> tuple:
     """The least time (ms) the card could take: the larger of the
-    operations over the bf16 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, bytes_ / PEAK_BYTES
+    operations over their peak (bf16 flops, int8 ops) and the bytes over
+    the memory rate."""
+    t_ops = flops / PEAK_BF16_FLOPS + int8_ops / PEAK_INT8_OPS
+    t_bytes = bytes_ / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -136,6 +161,9 @@ def kernel_inputs(dev, gen):
     def r(*shape, s=1.0, bf16=False, shift=0.0):
         t = shift + s * torch.randn(*shape, device=dev, generator=gen)
         return t.bfloat16() if bf16 else t
+
+    def q(*shape):   # an int8 weight and its per-channel scales
+        return i8_ops.quantize_weight(r(*shape, s=0.02))
 
     mask = torch.ones(B, N, dtype=torch.int32, device=dev)
     mask[-1, 500:] = 0   # exercise the key mask too
@@ -157,6 +185,15 @@ def kernel_inputs(dev, gen):
         "mlp": (r(B, N, C, bf16=True), r(HIDDEN, C, s=0.02, bf16=True),
                 r(HIDDEN, s=0.1), r(C, HIDDEN, s=0.02, bf16=True),
                 r(C, s=0.1)),
+        "ln_linear_i8": (r(B, N, C, bf16=True), r(C, s=0.1, shift=1.0),
+                         r(C, s=0.1), *q(3 * C, C), r(3 * C, s=0.1)),
+        "proj_mlp_tail_i8": (r(B, N, C, bf16=True), *q(C, C), r(C, s=0.1),
+                             r(C, s=0.1), r(B, N, C, bf16=True),
+                             r(C, s=0.1, shift=1.0), r(C, s=0.1),
+                             *q(HIDDEN, C), r(HIDDEN, s=0.1), *q(C, HIDDEN),
+                             r(C, s=0.1), r(C, s=0.1)),
+        "packed_attention_i8qk": (r(B, N, 3 * C, bf16=True), r(HEADS, N, N),
+                                  mask, 64 ** -0.5, HEADS),
     }
 
 
@@ -165,8 +202,9 @@ def _valid_keys(mask) -> int:
 
 
 def work(name: str, args) -> tuple:
-    """(flops, bytes) the function needs on these inputs: each input read
-    once, each output written once, products over valid keys only."""
+    """(bf16 flops, bytes, int8 ops) the function needs on these inputs:
+    each input read once, each output written once, products over valid
+    keys only (K15's second fc1 pass is not required work)."""
     if name == "ln_linear":
         x, lw, lb, w, b = args
         M, O = x.shape[0] * x.shape[1], w.shape[0]
@@ -186,6 +224,18 @@ def work(name: str, args) -> tuple:
     if name == "mlp":
         M = args[0].shape[0] * args[0].shape[1]
         return 4 * M * C * HIDDEN, nbytes(*args) + M * C * 2
+    if name == "ln_linear_i8":
+        x, wq = args[0], args[3]
+        M, O = x.shape[0] * x.shape[1], wq.shape[0]
+        return 0, nbytes(*args) + M * O * 2, 2 * M * C * O
+    if name == "proj_mlp_tail_i8":
+        M = args[0].shape[0] * args[0].shape[1]
+        return 0, nbytes(*args) + M * C * 2, \
+            2 * M * C * C + 4 * M * C * HIDDEN
+    if name == "packed_attention_i8qk":
+        qkv, bias, mask = args[:3]
+        pairs = 2 * 64 * N * HEADS * _valid_keys(mask)   # QKᵀ int8, P·V bf16
+        return pairs, nbytes(qkv, bias, mask) + qkv.numel() // 3 * 2, pairs
     raise KeyError(name)
 
 
@@ -239,14 +289,30 @@ KERNELS = {
     "mlp": (mlp_ops.mlp_kernel, mlp_ops.mlp_kernel_reference,
             "vl_merging_tpu_torch/csrc/mlp.cu",
             "vl_merging_tpu/ops/mlp.py:140"),
+    "ln_linear_i8": (i8_ops.ln_linear_i8, i8_ops.ref_ln_linear_i8,
+                     "vl_merging_tpu_torch/csrc/ln_linear_i8.cu",
+                     "vl_merging_tpu/ops/int8.py:154"),
+    "proj_mlp_tail_i8": (i8_ops.proj_mlp_tail_i8,
+                         i8_ops.ref_proj_mlp_tail_i8,
+                         "vl_merging_tpu_torch/csrc/proj_mlp_tail_i8.cu",
+                         "vl_merging_tpu/ops/int8.py:164"),
+    "packed_attention_i8qk": (attn_ops.packed_attention_i8qk,
+                              attn_ops.packed_attention_i8qk_reference,
+                              "vl_merging_tpu_torch/csrc/packed_attention.cu",
+                              "vl_merging_tpu/ops/attention.py:271"),
 }
+# the int8 kernels' bf16 counterparts, timed at the same shapes
+BF16_TWIN = {"ln_linear_i8": "ln_linear", "proj_mlp_tail_i8": "proj_mlp_tail",
+             "packed_attention_i8qk": "packed_attention"}
 
 
 def ulp_check(name: str, got, want) -> tuple:
+    """(max |kernel - twin|, worst error as a share of the bound, share of
+    elements that differ at all)."""
     err = (got.float() - want.float()).abs()
     ref = want.float().abs()
     worst = float((err / (ULPS[name] * BF16_ULP * (ref + ref.mean()))).max())
-    return float(err.max()), worst
+    return float(err.max()), worst, float((err > 0).float().mean())
 
 
 def check_kernels(dev, card: str) -> dict:
@@ -264,9 +330,10 @@ def check_kernels(dev, card: str) -> dict:
                   f"{DBIAS_REL})")
             if not bool(torch.isfinite(dbias).all()) or rel > DBIAS_REL:
                 fail(f"{name}: dbias disagrees with its plain twin")
-        max_err, worst = ulp_check(name, got, want)
+        max_err, worst, differ = ulp_check(name, got, want)
         print(f"{name}: max |kernel - twin| = {max_err:.6g}, worst "
-              f"err/bound = {worst:.3f} (bound {ULPS[name]} bf16 ulps)")
+              f"err/bound = {worst:.3f} (bound {ULPS[name]} bf16 ulps), "
+              f"{differ:.3e} of the elements differ")
         if not bool(torch.isfinite(got).all()) or worst > 1.0:
             fail(f"{name} disagrees with its plain twin")
         ms = time_ms(lambda: kernel(*args))
@@ -275,6 +342,10 @@ def check_kernels(dev, card: str) -> dict:
         library_ms = None if lib is None else time_ms(lib)
         bound_ms, bound_by = bound(*work(name, args))
         shape = "x".join(map(str, args[0].shape))
+        if name in BF16_TWIN:
+            print(f"{name}: {ms:.4f} ms against {BF16_TWIN[name]} "
+                  f"{rows[BF16_TWIN[name]]['ms']:.4f} ms at the same shapes "
+                  f"[{card}]")
         print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               + ("none (no single PyTorch call computes it)"
                  if library_ms is None else f"{library_ms:.4f} ms")
@@ -288,14 +359,23 @@ def check_kernels(dev, card: str) -> dict:
     # K13 also runs on the eval's text blocks: 64 captions x 40 tokens
     args = (inputs["mlp"][0].reshape(-1, C)[:TEXT_BATCH * 40].reshape(
         TEXT_BATCH, 40, C), *inputs["mlp"][1:])
-    max_err, worst = ulp_check("mlp", mlp_ops.mlp_kernel(*args),
-                               mlp_ops.mlp_kernel_reference(*args))
+    max_err, worst, _ = ulp_check("mlp", mlp_ops.mlp_kernel(*args),
+                                  mlp_ops.mlp_kernel_reference(*args))
     print(f"mlp at 64x40 rows: max |kernel - twin| = {max_err:.6g}, worst "
           f"err/bound = {worst:.3f}, kernel "
           f"{time_ms(lambda: mlp_ops.mlp_kernel(*args)):.4f} ms, bound "
           f"{bound(*work('mlp', args))[0]:.4f} ms [{card}]")
     if worst > 1.0:
         fail("mlp disagrees with its plain twin at the text tower's rows")
+    # a note, not a yardstick: torch's int8 GEMM alone at K14's GEMM shape
+    x = inputs["ln_linear_i8"][0].reshape(-1, C)
+    xq = attn_ops.quant_rows(x.float())[0]
+    wt = inputs["ln_linear_i8"][3].t()
+    note = (f"{time_ms(lambda: torch._int_mm(xq, wt)):.4f} ms"
+            if hasattr(torch, "_int_mm") else "not available")
+    print(f"note: torch._int_mm (s8 {tuple(xq.shape)} @ s8 "
+          f"{tuple(wt.shape)} -> s32, the GEMM of K14 without its LN, "
+          f"quantizer and epilogue): {note} [{card}]")
     return rows
 
 
@@ -306,6 +386,11 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {name: k.launches for name, (k, *_r) in KERNELS.items()}
+
+
+def want_launches(**counts) -> dict:
+    """Every kernel's expected launches: the given counts, 0 elsewhere."""
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 # --------------------------------------------------------------------------
@@ -375,9 +460,9 @@ def run_eval(dev, card: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = read_launches()
     per_image = spec.num_layers * len(image_batches)
-    want = {"ln_linear": per_image, "packed_attention": per_image,
-            "proj_mlp_tail": per_image, "packed_attention_bwd": 0,
-            "mlp": spec.num_layers * len(text_batches)}
+    want = want_launches(ln_linear=per_image, packed_attention=per_image,
+                         proj_mlp_tail=per_image,
+                         mlp=spec.num_layers * len(text_batches))
     print(f"compute_irtr_recall: {seconds:.3f} s for {N_IMAGES} images and "
           f"{len(tiids)} captions; kernel launches {launches} (want {want}: "
           f"K1-K3 {spec.num_layers} per image batch, K13 "
@@ -420,7 +505,113 @@ def run_eval(dev, card: str) -> dict:
 
 
 # --------------------------------------------------------------------------
-# Phase 5: the irtr fine-tune step
+# Phase 5: the W8A8 int8 eval
+# --------------------------------------------------------------------------
+
+class int8_plain_path:
+    """Within the block, mome's int8 eval blocks run the plain twins
+    (``ref_fused_eval_block_i8``) instead of K14 → K2/K12 → K15."""
+
+    def __enter__(self):
+        mome.fused_eval_block_i8 = i8_ops.ref_fused_eval_block_i8
+
+    def __exit__(self, *exc):
+        mome.fused_eval_block_i8 = i8_ops.fused_eval_block_i8
+
+
+def min_cosine(a, b) -> float:
+    return float(F.cosine_similarity(a.float(), b.float(), dim=-1).min())
+
+
+def run_eval_int8(dev, card: str) -> dict:
+    cfg = build_config(*CONFIG, overrides=dict(eval_int8=True))
+    spec = make_model_spec(cfg)
+    base = seeded_params(spec, dev)
+    params = eval_cast_params(base, spec, cfg)
+    params_bf16 = {k: v for k, v in params.items() if "::" not in k}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    text_batches, image_batches, tiids, iids = synthetic_eval_set(
+        spec, dev, gen)
+    L = spec.num_layers
+    per_image = L * len(image_batches)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recall = compute_irtr_recall(params, spec, text_batches, image_batches,
+                                 tiids, iids)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    want = want_launches(ln_linear_i8=per_image, packed_attention=per_image,
+                         proj_mlp_tail_i8=per_image,
+                         mlp=L * len(text_batches))
+    print(f"int8 compute_irtr_recall: {seconds:.3f} s for {N_IMAGES} images "
+          f"and {len(tiids)} captions; kernel launches {launches} (want "
+          f"K14, K2, K15 {L} per image batch, K13 {L} per text batch)")
+    if launches != want:
+        fail(f"int8 eval kernel launches {launches}, want {want}")
+    print("int8 recall: " + json.dumps(recall))
+    if not all(0.0 <= v <= 1.0 for v in recall.values()):
+        fail(f"int8 recall out of range: {recall}")
+
+    reset_launches()
+    with torch.no_grad():
+        img_qk = extract_features(params, spec, image_batches, "image",
+                                  qk_int8=True)
+    qk_launches = read_launches()
+    want = want_launches(ln_linear_i8=per_image,
+                         packed_attention_i8qk=per_image,
+                         proj_mlp_tail_i8=per_image)
+    print(f"int8 image tower with qk_int8: kernel launches {qk_launches} "
+          f"(want K14, K12, K15 {L} per image batch, K2 0)")
+    if qk_launches != want:
+        fail(f"int8-QK kernel launches {qk_launches}, want {want}")
+
+    with torch.no_grad():
+        img_k = extract_features(params, spec, image_batches, "image")
+        img_bf16 = extract_features(params_bf16, spec, image_batches,
+                                    "image")
+        with int8_plain_path():
+            img_p = extract_features(params, spec, image_batches, "image")
+            img_qk_p = extract_features(params, spec, image_batches,
+                                        "image", qk_int8=True)
+    for name, t in (("int8", img_k), ("int8-QK", img_qk), ("plain", img_p),
+                    ("plain int8-QK", img_qk_p)):
+        if t.shape != (N_IMAGES, spec.hidden_size) or \
+                not bool(torch.isfinite(t).all()):
+            fail(f"{name} image features: shape {tuple(t.shape)} or not "
+                 f"finite")
+    for name, k, p in (("int8", img_k, img_p),
+                       ("int8-QK", img_qk, img_qk_p)):
+        cos = min_cosine(k, p)
+        print(f"{name} image cls_feats, kernels vs int8 plain path: min "
+              f"cosine {cos:.6f} (need >= {MIN_COSINE})")
+        if cos < MIN_COSINE:
+            fail(f"{name} kernel-path image features disagree with the "
+                 f"int8 plain path")
+    print(f"int8 image cls_feats against the bf16 kernel path (no gate): "
+          f"min cosine {min_cosine(img_k, img_bf16):.6f}; int8-QK "
+          f"{min_cosine(img_qk, img_bf16):.6f}")
+
+    # int8 plain, int8 kernels, bf16 kernels, and back: compare only here
+    paths = {"int8 kernels": (params, False), "int8 plain": (params, True),
+             "bf16 kernels": (params_bf16, False)}
+    rates = {k: [] for k in paths}
+    order = list(paths) + list(paths)[::-1]
+    for which in order:
+        p, plain = paths[which]
+        with int8_plain_path() if plain else contextlib.nullcontext():
+            rates[which].append(images_per_sec(p, spec, image_batches,
+                                               kernels=True))
+    print(f"image tower (ViT-B/16 @384, batch {IMAGE_BATCH}): "
+          + ", ".join(f"{k} {max(v):.1f} img/s" for k, v in rates.items())
+          + f" (best of 2, {N_IMAGES} images each) [{card}]")
+    return {k: launches[k] + qk_launches[k] for k in launches}
+
+
+# --------------------------------------------------------------------------
+# Phase 6: the irtr fine-tune step
 # --------------------------------------------------------------------------
 
 def train_config(kernels: bool):
@@ -477,9 +668,8 @@ def run_training(dev, card: str) -> dict:
     launches = read_launches()
     micro = TRAIN_STEPS * accum
     L = spec.num_layers
-    want = {"ln_linear": 0, "packed_attention": L * micro,
-            "proj_mlp_tail": 0, "packed_attention_bwd": L * micro,
-            "mlp": 2 * L * micro}
+    want = want_launches(packed_attention=L * micro,
+                         packed_attention_bwd=L * micro, mlp=2 * L * micro)
     print(f"train: kernel launches {launches} over {micro} micro-batches "
           f"(want {want}: K2 {L}, K9 {L}, K13 {2 * L} per micro-batch)")
     if launches != want:
@@ -547,11 +737,16 @@ def main() -> int:
 
     rows = check_kernels(dev, card)
     eval_launches = run_eval(dev, card)
+    int8_launches = run_eval_int8(dev, card)
     train_launches = run_training(dev, card)
     for name, row in rows.items():
         row["launches_eval"] = eval_launches[name]
+        row["launches_eval_int8"] = int8_launches[name]
         row["launches_train"] = train_launches[name]
-        row["launches"] = eval_launches[name] + train_launches[name]
+        row["launches"] = (eval_launches[name] + int8_launches[name]
+                           + train_launches[name])
+        if row["launches"] == 0:
+            fail(f"{name} was launched no time on the main paths")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

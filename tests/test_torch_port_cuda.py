@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain twins, on the card.
 
 Each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail, K9
-packed_attention_bwd, K13 mlp) runs at its main-path widths (N = 577
+packed_attention_bwd, K13 mlp, and the int8 eval's K12
+packed_attention_i8qk, K14 ln_linear_i8, K15 proj_mlp_tail_i8) runs at
+its main-path widths (N = 577
 tokens, C = 768, 12 heads, MLP 3072) in bf16 and is held against its
 plain PyTorch twin on the same inputs.  K1, K3 and K13 round at the same
 points as their twins, so they agree to 2 bf16 ulps (f32 summation order
@@ -12,7 +14,11 @@ f32 accumulation of q·kᵀ, so it gets 4 ulps.  K9 rounds ds and p to bf16
 where its twin does, but a ds that lands on the other side of a rounding
 boundary moves the dq and dk sums it enters: 4 ulps of the output plus
 4 ulps of the output's mean magnitude; its f32 dbias is held to a
-relative norm error of 1e-3.
+relative norm error of 1e-3.  The int8 kernels quantize exactly as their
+twins do and sum their s8·s8 products exactly in s32; what differs is
+the f32 LayerNorm statistics' summation order (K14, K15), which can move
+a quantized value across a rounding tie, and K2's softmax (K12): K14 is
+held to 2 ulps, K15 and K12 to 4.
 
 This file imports no JAX (the machine with the card has none), so it runs
 without tests/conftest.py:
@@ -27,6 +33,7 @@ import torch
 
 from vl_merging_tpu_torch.ops import attention as TA
 from vl_merging_tpu_torch.ops import fused_block as TF
+from vl_merging_tpu_torch.ops import int8 as TI
 from vl_merging_tpu_torch.ops import mlp as TM
 
 BF16_ULP = 2.0 ** -7
@@ -168,3 +175,70 @@ def test_fused_wrappers_backward_on_card(cuda_device):
     grads = torch.autograd.grad(y.float().square().sum(), (x, w1, b1, w2, b2))
     assert [t.dtype for t in grads] == [torch.bfloat16] + [torch.float32] * 4
     assert all(bool(torch.isfinite(t).all()) for t in grads)
+
+
+def _int8_tail_args(dev, g, B, N, C=768, Hd=3072):
+    def r(*shape, s=1.0, bf16=False):
+        t = s * torch.randn(*shape, device=dev, generator=g)
+        return t.bfloat16() if bf16 else t
+
+    pq, ps = TI.quantize_weight(r(C, C, s=0.02))
+    w1q, w1s = TI.quantize_weight(r(Hd, C, s=0.02))
+    w2q, w2s = TI.quantize_weight(r(C, Hd, s=0.02))
+    return (r(B, N, C, bf16=True), pq, ps, r(C, s=0.1), r(C, s=0.1),
+            r(B, N, C, bf16=True), 1 + r(C, s=0.1), r(C, s=0.1), w1q, w1s,
+            r(Hd, s=0.1), w2q, w2s, r(C, s=0.1), r(C, s=0.1))
+
+
+@pytest.mark.cuda
+def test_ln_linear_i8_kernel_matches_twin_on_card(cuda_device):
+    """M = 3·577 rows, not a multiple of the 64-row block; two launches
+    agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    B, N, C, O = 3, 577, 768, 2304
+    x = torch.randn(B, N, C, device=cuda_device, generator=g).bfloat16()
+    lnw = 1 + 0.1 * torch.randn(C, device=cuda_device, generator=g)
+    lnb = 0.1 * torch.randn(C, device=cuda_device, generator=g)
+    wq, ws = TI.quantize_weight(
+        0.02 * torch.randn(O, C, device=cuda_device, generator=g))
+    b = 0.1 * torch.randn(O, device=cuda_device, generator=g)
+    n = TI.ln_linear_i8.launches
+    got = TI.ln_linear_i8(x, lnw, lnb, wq, ws, b)
+    assert TI.ln_linear_i8.launches == n + 1
+    _bf16_close(got, TI.ref_ln_linear_i8(x, lnw, lnb, wq, ws, b))
+    assert torch.equal(TI.ln_linear_i8(x, lnw, lnb, wq, ws, b), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gelu", ["poly", "poly11", "poly13", "erf"])
+def test_proj_mlp_tail_i8_kernel_matches_twin_on_card(cuda_device, gelu):
+    """M = 3·577 rows, not a multiple of the 32-row block; every gelu;
+    two launches agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    args = _int8_tail_args(cuda_device, g, 3, 577)
+    n = TI.proj_mlp_tail_i8.launches
+    got = TI.proj_mlp_tail_i8(*args, gelu=gelu)
+    assert TI.proj_mlp_tail_i8.launches == n + 1
+    _bf16_close(got, TI.ref_proj_mlp_tail_i8(*args, gelu=gelu), ulps=4)
+    assert torch.equal(TI.proj_mlp_tail_i8(*args, gelu=gelu), got)
+
+
+@pytest.mark.cuda
+def test_packed_attention_i8qk_kernel_matches_twin_on_card(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    B, N, H = 3, 577, 12
+    C = 64 * H
+    qkv = torch.randn(B, N, 3 * C, device=cuda_device, generator=g).bfloat16()
+    bias = torch.randn(H, N, N, device=cuda_device, generator=g)
+    mask = torch.ones(B, N, dtype=torch.int32, device=cuda_device)
+    mask[-1, 500:] = 0
+    n = TA.packed_attention_i8qk.launches
+    got = TA.packed_attention_i8qk(qkv, bias, mask, 0.125, H)
+    assert TA.packed_attention_i8qk.launches == n + 1
+    want = TA.packed_attention_i8qk_reference(qkv, bias, mask, 0.125, H)
+    _bf16_close(got, want, ulps=4)
+    assert torch.equal(TA.packed_attention_i8qk(qkv, bias, mask, 0.125, H),
+                       got)
+    with pytest.raises(ValueError, match="eval only"):
+        TA.packed_attention_i8qk(qkv.clone().requires_grad_(), bias, mask,
+                                 0.125, H)

@@ -159,8 +159,22 @@ def test_params_from_numpy_and_eval_cast():
         assert v.dtype == (torch.float32 if keep else torch.bfloat16), k
     int8_cfg = tiny_cfg("ufo", precision="bf16")
     int8_cfg["eval_int8"] = True
-    with pytest.raises(NotImplementedError, match="A5"):
-        eval_cast_params({}, make_model_spec(int8_cfg), int8_cfg)
+    masters = init_params(spec)
+    cast8 = eval_cast_params(masters, make_model_spec(int8_cfg), int8_cfg)
+    added = {k for k in cast8 if k not in masters}
+    projections = [k for k in masters if k.startswith("transformer.blocks.")
+                   and k.endswith((".qkv.weight", ".proj.weight",
+                                   ".fc1.weight", ".fc2.weight"))]
+    assert projections and added == {
+        k + sfx for k in projections for sfx in ("::int8", "::scale8")}
+    for k in projections:
+        q, s = cast8[k + "::int8"], cast8[k + "::scale8"]
+        assert q.dtype == torch.int8 and s.dtype == torch.float32
+        assert s.shape == masters[k].shape[:1]
+        assert cast8[k].dtype == torch.bfloat16   # the bf16 cast stays
+        # per-channel symmetric: within half a step of the f32 master
+        assert bool(((q.float() * s[:, None] - masters[k]).abs()
+                     <= s[:, None] / 2 + 1e-9).all())
 
 
 def test_image_tower_matches_jax(tiny, routing):

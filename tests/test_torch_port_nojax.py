@@ -1,7 +1,8 @@
 """The port never imports JAX, nor the JAX package, nor reads its files.
 
 The machine with the GPU has no JAX, so importing and running the port
-(the retrieval eval and one irtr train step) must leave ``jax`` (and
+(the retrieval eval, the int8 retrieval eval and one irtr train step)
+must leave ``jax`` (and
 ``vl_merging_tpu``, whose subpackages import jax) out of
 ``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
 opened (executing a file by path opens it) or imported.  The check runs in a fresh interpreter
@@ -65,6 +66,16 @@ SCRIPT = textwrap.dedent("""
         [{"image": images}], np.repeat(np.arange(4), 2), np.arange(4))
     assert set(out) == {f"{d}_r{k}" for d in ("tr", "ir") for k in (1, 5, 10)}
     assert all(0.0 <= v <= 1.0 for v in out.values())
+
+    cfg8 = dict(cfg, eval_int8=True)
+    spec8 = make_model_spec(cfg8)
+    params8 = eval_cast_params(init_params(spec8, g), spec8, cfg8)
+    assert any(k.endswith("::int8") for k in params8)
+    out8 = compute_irtr_recall(
+        params8, spec8, [{"text_ids": ids, "text_masks": masks}],
+        [{"image": images}], np.repeat(np.arange(4), 2), np.arange(4),
+        qk_int8=True)
+    assert set(out8) == set(out)
 
     cfg.update(pallas_attention=True, per_device_batch_size=4,
                warmup_steps=0)

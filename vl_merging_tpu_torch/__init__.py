@@ -13,7 +13,8 @@ pure-Python config module.
 
 Ported so far: the COCO/Flickr retrieval eval (``evaluation.retrieval``)
 over the single-modality towers (``models.model.infer_image_ft`` /
-``infer_text_ft``), and the irtr fine-tune step over the same towers
+``infer_text_ft``), in bf16 and in the W8A8 int8 mode (``eval_int8``,
+``ops.int8``), and the irtr fine-tune step over the same towers
 (``train.loop.build_train_step``).
 """
 

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..models.spec import ModelSpec, Params
+from ..ops.int8 import SCALE_SUFFIX, quantize_eval_params
 
 
 def _to_tensor(v) -> torch.Tensor:
@@ -30,12 +31,14 @@ def params_from_numpy(params: Mapping[str, object],
                       dtype: Optional[torch.dtype] = None) -> Params:
     """Copy each array (numpy, or already a tensor) to ``device``.
 
-    ``dtype`` casts the floating-point leaves; None keeps each leaf's
-    dtype."""
+    ``dtype`` casts the floating-point leaves but the f32 scales of int8
+    weights (``::scale8``, part of the quantized weight); None keeps each
+    leaf's dtype."""
     out: Params = {}
     for k, v in params.items():
         t = _to_tensor(v)
-        if dtype is not None and t.is_floating_point():
+        if (dtype is not None and t.is_floating_point()
+                and not k.endswith(SCALE_SUFFIX)):
             t = t.to(dtype)
         out[k] = t.to(device)
     return out
@@ -59,7 +62,7 @@ def master_params(params: Params) -> Params:
 
 
 def eval_cast_params(params: Params, spec: ModelSpec, cfg: Mapping) -> Params:
-    """One-time bf16 pre-cast of f32 master params for eval (port of
+    """One-time eval cast of f32 master params (port of
     ``vl_merging_tpu/train/loop.py:eval_cast_params``).
 
     When the compute dtype is bf16 every matmul casts its weight per use
@@ -67,14 +70,17 @@ def eval_cast_params(params: Params, spec: ModelSpec, cfg: Mapping) -> Params:
     identical and halves weight reads.  Kept f32: 1-D leaves (LN scales
     and biases, gammas), the rel-pos bias tables, and the
     ``text_embeddings.*`` tables, whose LayerNorm runs on the f32 rows
-    before the compute-dtype cast (``model.text_embed``)."""
-    if spec.eval_int8:
-        raise NotImplementedError(
-            "eval_int8 (W8A8 eval) is not ported yet: ROADMAP A5")
+    before the compute-dtype cast (``model.text_embed``).
+
+    With ``spec.eval_int8`` (W8A8 eval) the block projection weights also
+    get int8 companions (``ops/int8.quantize_eval_params``: ``::int8`` and
+    ``::scale8`` keys), quantized from the f32 masters in either branch;
+    ``mome._block_fast`` routes a block through the int8 kernels when it
+    finds them."""
     if (spec.compute_dtype != "bfloat16"
             or not cfg.get("eval_params_bf16", True)):
-        return params
-    return {
+        return quantize_eval_params(params) if spec.eval_int8 else params
+    out = {
         k: (v.to(torch.bfloat16)
             if (v.dtype == torch.float32 and v.ndim >= 2
                 and k.endswith(".weight")
@@ -82,3 +88,7 @@ def eval_cast_params(params: Params, spec: ModelSpec, cfg: Mapping) -> Params:
                 and not k.startswith("text_embeddings."))
             else v)
         for k, v in params.items()}
+    if spec.eval_int8:
+        q = quantize_eval_params(params)
+        out.update({k: v for k, v in q.items() if k not in params})
+    return out

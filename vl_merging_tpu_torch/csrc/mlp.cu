@@ -25,22 +25,6 @@ namespace {
 
 constexpr int BM = kMlpRows, MF = kMlpMF;
 
-// gelu with the A&S 7.1.26 erf, as vl_merging_tpu/ops/mlp.py:_erf_gelu.
-struct ErfApproxGelu {
-  __device__ __forceinline__ float operator()(float v) const {
-    const float x = v * 0.70710678118654752f;
-    const float ax = fabsf(x);
-    const float t = 1.f / (1.f + 0.3275911f * ax);
-    const float poly =
-        ((((1.061405429f * t - 1.453152027f) * t + 1.421413741f) * t - 0.284496736f) * t +
-         0.254829592f) *
-        t;
-    const float y = 1.f - poly * expf(-ax * ax);
-    const float erf_x = x > 0.f ? y : (x < 0.f ? -y : 0.f);
-    return 0.5f * v * (1.f + erf_x);
-  }
-};
-
 template <int NF>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,

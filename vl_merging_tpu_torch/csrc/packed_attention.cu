@@ -31,7 +31,19 @@
 // accumulators in place and P feeds the P·V product without a trip
 // through shared memory.  K and V tiles are double-buffered with
 // cp.async.
-#include "common.cuh"
+//
+// K12 (``I8QK``): the same kernel with QKᵀ as s8·s8→s32.  Replaces
+// vl_merging_tpu/ops/attention.py:_packed_kernel_i8qk (via
+// _pallas_packed_attention(qk_int8=True)), the opt-in int8-QK mode of the
+// int8 eval.  q and k are quantized per (token, head) row of 64 (scale
+// max(amax, 1e-8)/127, no clip; the TPU's zero pad of the depth to 128 is
+// a tiling detail and is dropped), q once per block straight from device
+// memory, each 64-key tile of k in shared memory right after it lands;
+// the logits are ((float(si) · (sq·scale)) · sk) + bias in f32, one
+// rounding per operation, and the softmax and P·V are K2's.  The int8
+// tiles and their scales live beside K2's bf16 K/V ring (48 KB of static
+// shared memory in all).  Bound: as K2, by bytes (~130 MB at B=32).
+#include "int8.cuh"
 
 using namespace vlm;
 
@@ -39,6 +51,46 @@ namespace {
 
 constexpr int D = 64, BQ = 64, BKV = 64, WARPS = 4, THREADS = WARPS * 32;
 constexpr int LDT = D + kPad;  // bf16 tile stride: 144 bytes, conflict-free fragment loads
+constexpr int LDI = D + kPad8;  // int8 tile stride: 80 bytes, conflict-free fragment loads
+
+// Quantize 16 rows of 64 bf16 values (row i at src + i*ld; rows i >=
+// nvalid read as zeros) per token into int8 dst + i*LDI, their scales
+// (times mul) into scale[i].  One warp, two rows a step (lanes 0-15 row
+// 2s, lanes 16-31 row 2s + 1), four values a lane; the 16 IEEE divisions
+// and reciprocals of the scales run once, lane r for row r.
+__device__ __forceinline__ void quant_rows16(const bf16* src, size_t ld, int nvalid,
+                                             int8_t* dst, float* scale, float mul) {
+  const int lane = threadIdx.x & 31, half = lane >> 4, c = (lane & 15) * 4;
+  float v[8][4];
+  float amax_row = 0.f;  // lane r < 16: the amax of row r
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int i = 2 * s + half;
+    uint2 raw = make_uint2(0u, 0u);
+    if (i < nvalid) raw = *reinterpret_cast<const uint2*>(src + i * ld + c);
+    const bf16* h = reinterpret_cast<const bf16*>(&raw);
+    float m = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[s][e] = __bfloat162float(h[e]);
+      m = fmaxf(m, fabsf(v[s][e]));
+    }
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float row_m = __shfl_sync(0xffffffffu, m, (lane & 1) << 4);  // row 2s + (lane & 1)
+    if ((lane >> 1) == s) amax_row = row_m;
+  }
+  const float sc = quant_scale(amax_row), inv = __frcp_rn(sc);
+  if (lane < 16) scale[lane] = __fmul_rn(sc, mul);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int i = 2 * s + half;
+    const float iv = __shfl_sync(0xffffffffu, inv, i);
+    *reinterpret_cast<uint32_t*>(dst + i * LDI + c) =
+        pack_s8x4(quantize(v[s][0], iv), quantize(v[s][1], iv), quantize(v[s][2], iv),
+                  quantize(v[s][3], iv));
+  }
+}
 
 // Start loading key tile [k0, k0 + BKV) of K and V into shared memory
 // (rows past N are zeros) and record which of its keys are valid.
@@ -60,14 +112,19 @@ __device__ __forceinline__ void load_kv_tile(bf16* Kt, bf16* Vt, int* kvalid,
     kvalid[threadIdx.x] = (k0 + (int)threadIdx.x < N) && mask_b[k0 + threadIdx.x] != 0;
 }
 
+// I8QK: K12 (int8 q·kᵀ) instead of K2 (bf16 q·kᵀ)
+template <bool I8QK>
 __global__ void __launch_bounds__(THREADS)
 packed_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                         const int* __restrict__ mask, bf16* __restrict__ out, int N,
                         int H, float scale) {
-  __shared__ __align__(128) bf16 Qs[BQ * LDT];
+  __shared__ __align__(128) bf16 Qs[I8QK ? 8 : BQ * LDT];
   __shared__ __align__(128) bf16 Ks[2][BKV * LDT];
   __shared__ __align__(128) bf16 Vs[2][BKV * LDT];
   __shared__ int kvalid[2][BKV];
+  __shared__ __align__(16) int8_t Qi[I8QK ? BQ * LDI : 16];   // K12: int8 q, k tiles
+  __shared__ __align__(16) int8_t Ki[I8QK ? BKV * LDI : 16];
+  __shared__ float qscale_s[I8QK ? BQ : 1], kscale_s[I8QK ? BKV : 1];
 
   const int b = blockIdx.x, q0 = blockIdx.y * BQ, h = blockIdx.z;
   const int C = H * D;
@@ -80,29 +137,48 @@ packed_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
   load_kv_tile(Ks[0], Vs[0], kvalid[0], base, ld, C, 0, N, mask_b);
   cp_async_commit();
 
-  const float qscale = __bfloat162float(__float2bfloat16(scale));
-  for (int v = tid; v < BQ * D / 8; v += THREADS) {
-    const int r = v / (D / 8), c = (v % (D / 8)) * 8;
-    Pack8 p;
-    p.u = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < N) {
-      p.u = __ldg(reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * ld + c));
-#pragma unroll
-      for (int e = 0; e < 8; ++e) p.h()[e] = __float2bfloat16(p.f(e) * qscale);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LDT + c) = p.u;
-  }
-  __syncthreads();
-
-  // the warp's 16 scaled query rows as A fragments, for every key tile
+  // the warp's 16 query rows as A fragments, for every key tile: K2 scales
+  // them in bf16, K12 quantizes them (its row scales absorb the softmax
+  // scale)
   uint32_t qa[D / 16][4];
-  const bf16* qw = Qs + warp * 16 * LDT;
+  float qs0 = 0.f, qs1 = 0.f;
+  if constexpr (I8QK) {
+    const int left = N - (q0 + warp * 16);
+    quant_rows16(base + (size_t)(q0 + warp * 16) * ld, ld, left, Qi + warp * 16 * LDI,
+                 qscale_s + warp * 16, scale);
+    __syncwarp();
+    const int8_t* qw = Qi + warp * 16 * LDI;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = ld32(qw + g * LDT + kk * 16 + 2 * t);
-    qa[kk][1] = ld32(qw + (g + 8) * LDT + kk * 16 + 2 * t);
-    qa[kk][2] = ld32(qw + g * LDT + kk * 16 + 2 * t + 8);
-    qa[kk][3] = ld32(qw + (g + 8) * LDT + kk * 16 + 2 * t + 8);
+    for (int kk = 0; kk < D / 32; ++kk) {
+      qa[kk][0] = ld32(qw + g * LDI + kk * 32 + 4 * t);
+      qa[kk][1] = ld32(qw + (g + 8) * LDI + kk * 32 + 4 * t);
+      qa[kk][2] = ld32(qw + g * LDI + kk * 32 + 4 * t + 16);
+      qa[kk][3] = ld32(qw + (g + 8) * LDI + kk * 32 + 4 * t + 16);
+    }
+    qs0 = qscale_s[warp * 16 + g];
+    qs1 = qscale_s[warp * 16 + g + 8];
+  } else {
+    const float qscale = __bfloat162float(__float2bfloat16(scale));
+    for (int v = tid; v < BQ * D / 8; v += THREADS) {
+      const int r = v / (D / 8), c = (v % (D / 8)) * 8;
+      Pack8 p;
+      p.u = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + r < N) {
+        p.u = __ldg(reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * ld + c));
+#pragma unroll
+        for (int e = 0; e < 8; ++e) p.h()[e] = __float2bfloat16(p.f(e) * qscale);
+      }
+      *reinterpret_cast<uint4*>(Qs + r * LDT + c) = p.u;
+    }
+    __syncthreads();
+    const bf16* qw = Qs + warp * 16 * LDT;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk][0] = ld32(qw + g * LDT + kk * 16 + 2 * t);
+      qa[kk][1] = ld32(qw + (g + 8) * LDT + kk * 16 + 2 * t);
+      qa[kk][2] = ld32(qw + g * LDT + kk * 16 + 2 * t + 8);
+      qa[kk][3] = ld32(qw + (g + 8) * LDT + kk * 16 + 2 * t + 8);
+    }
   }
 
   // this thread's two query rows: g and g + 8 of the warp's 16
@@ -125,8 +201,14 @@ packed_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
     const bf16* Kt = Ks[st];
     const bf16* Vt = Vs[st];
     const int* kv = kvalid[st];
+    if constexpr (I8QK) {  // quantize the landed key tile, 16 rows a warp
+      quant_rows16(Kt + warp * 16 * LDT, LDT, 16, Ki + warp * 16 * LDI, kscale_s + warp * 16,
+                   1.f);
+      __syncthreads();
+    }
 
-    // s starts as bias (or -inf for an invalid key), then += q·kᵀ
+    // s starts as bias (or -inf for an invalid key), then += q·kᵀ; K12
+    // adds its dequantized s32 products to the bias instead
     float s[BKV / 8][4];
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j) {
@@ -137,12 +219,29 @@ packed_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
       s[j][2] = v0 ? __ldg(brow1 + k0 + c) : -INFINITY;
       s[j][3] = v1 ? __ldg(brow1 + k0 + c + 1) : -INFINITY;
     }
+    if constexpr (I8QK) {
 #pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-      const bf16* krow = Kt + (j * 8 + g) * LDT + 2 * t;
+      for (int j = 0; j < BKV / 8; ++j) {
+        const int8_t* krow = Ki + (j * 8 + g) * LDI + 4 * t;
+        int si[4] = {0, 0, 0, 0};
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma16816(s[j], qa[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
+        for (int kk = 0; kk < D / 32; ++kk)
+          mma16832(si, qa[kk], ld32(krow + kk * 32), ld32(krow + kk * 32 + 16));
+        const int c = j * 8 + 2 * t;
+        const float ks0 = kscale_s[c], ks1 = kscale_s[c + 1];
+        s[j][0] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(si[0]), qs0), ks0), s[j][0]);
+        s[j][1] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(si[1]), qs0), ks1), s[j][1]);
+        s[j][2] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(si[2]), qs1), ks0), s[j][2]);
+        s[j][3] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(si[3]), qs1), ks1), s[j][3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j) {
+        const bf16* krow = Kt + (j * 8 + g) * LDT + 2 * t;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma16816(s[j], qa[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
+      }
     }
 
     // online softmax: a row's 64 keys are spread over the 4 threads of a group
@@ -217,15 +316,27 @@ packed_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
   }
 }
 
+template <bool I8QK>
+int launch(const void* qkv, const void* bias, const void* mask, void* out, int B, int N, int H,
+           float scale, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B, (N + BQ - 1) / BQ, H);
+  packed_attention_kernel<I8QK><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
+      static_cast<const int*>(mask), static_cast<bf16*>(out), N, H, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int vlm_packed_attention(const void* qkv, const void* bias, const void* mask,
                                     void* out, int B, int N, int H, float scale,
                                     void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(B, (N + BQ - 1) / BQ, H);
-  packed_attention_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
-      static_cast<const int*>(mask), static_cast<bf16*>(out), N, H, scale);
-  return (int)cudaGetLastError();
+  return launch<false>(qkv, bias, mask, out, B, N, H, scale, stream);
+}
+
+extern "C" int vlm_packed_attention_i8qk(const void* qkv, const void* bias, const void* mask,
+                                         void* out, int B, int N, int H, float scale,
+                                         void* stream) {
+  return launch<true>(qkv, bias, mask, out, B, N, H, scale, stream);
 }

@@ -20,9 +20,14 @@ from ..models.spec import ModelSpec, Params
 
 @torch.no_grad()
 def extract_features(params: Params, spec: ModelSpec, batches: Iterable[Dict],
-                     kind: str, *, kernels: bool = True) -> torch.Tensor:
+                     kind: str, *, kernels: bool = True,
+                     int8_gelu: str = "poly",
+                     qk_int8: bool = False) -> torch.Tensor:
     """Run one single-modality tower over ``batches``; returns the stacked
-    ``cls_feats`` (N, hs).  The rel-pos bias is gathered once per call."""
+    ``cls_feats`` (N, hs).  The rel-pos bias is gathered once per call.
+    ``int8_gelu`` and ``qk_int8`` reach the int8 eval blocks
+    (``mome._block_fast``); the JAX package reads them from
+    ``VLM_TPU_I8_GELU`` and ``VLM_TPU_I8_QK``."""
     if kind == "text":
         run, bias_kind = model.infer_text_ft, "text"
     elif kind == "image":
@@ -36,8 +41,8 @@ def extract_features(params: Params, spec: ModelSpec, batches: Iterable[Dict],
             true_length = b["text_ids"].shape[1] if (
                 kind == "text" and spec.max_vl_text_len is not None) else None
             bias = model.precompute_bias(params, spec, bias_kind, true_length)
-        feats.append(run(params, spec, b, rel_bias=bias,
-                         kernels=kernels)["cls_feats"])
+        feats.append(run(params, spec, b, rel_bias=bias, kernels=kernels,
+                         int8_gelu=int8_gelu, qk_int8=qk_int8)["cls_feats"])
     return torch.cat(feats, dim=0)
 
 
@@ -87,7 +92,8 @@ def compute_irtr_recall(params: Params, spec: ModelSpec,
                         text_batches: List[Dict], image_batches: List[Dict],
                         tiids: np.ndarray, iids: np.ndarray, *,
                         itm_rerank_topk: int = 0,
-                        kernels: bool = True) -> Dict[str, float]:
+                        kernels: bool = True, int8_gelu: str = "poly",
+                        qk_int8: bool = False) -> Dict[str, float]:
     """Full recall pipeline over preloaded batches.
 
     Batches may be padded past the true counts; features are sliced back
@@ -97,7 +103,9 @@ def compute_irtr_recall(params: Params, spec: ModelSpec,
             "ITM reranking needs the fused VL pass, not ported yet: "
             "ROADMAP A4")
     txt = extract_features(params, spec, text_batches, "text",
-                           kernels=kernels)[:len(tiids)]
+                           kernels=kernels, int8_gelu=int8_gelu,
+                           qk_int8=qk_int8)[:len(tiids)]
     img = extract_features(params, spec, image_batches, "image",
-                           kernels=kernels)[:len(iids)]
+                           kernels=kernels, int8_gelu=int8_gelu,
+                           qk_int8=qk_int8)[:len(iids)]
     return retrieval_recall(img, txt, iids, tiids)

@@ -138,7 +138,9 @@ def pooler(params: Params, hidden_states: torch.Tensor) -> torch.Tensor:
 def _text_trunk(params: Params, spec: ModelSpec, batch: Dict, *,
                 rel_bias: Optional[torch.Tensor] = None,
                 kernels: bool = True, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                int8_gelu: str = "poly",
+                qk_int8: bool = False) -> torch.Tensor:
     """Text tower body of infer_text_ft (vilt_module.py:1226-1285), without
     the vlffn re-run; returns the last hidden state.  In training the bias
     is gathered here, inside the autograd graph, so that its gradient
@@ -157,18 +159,23 @@ def _text_trunk(params: Params, spec: ModelSpec, batch: Dict, *,
     for i, b in enumerate(spec.blocks):
         x = block_forward(params, spec, b, x, text_masks, bias[i], L,
                           kernels=kernels, train=train,
-                          dp_scale=None if dp is None else dp[i])
+                          dp_scale=None if dp is None else dp[i],
+                          int8_gelu=int8_gelu, qk_int8=qk_int8)
     return x
 
 
 def infer_text_ft(params: Params, spec: ModelSpec, batch: Dict, *,
                   rel_bias: Optional[torch.Tensor] = None,
                   kernels: bool = True, train: bool = False,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  int8_gelu: str = "poly", qk_int8: bool = False
                   ) -> Dict[str, Optional[torch.Tensor]]:
-    """Single-branch text pass (vilt_module.py:1226-1285)."""
+    """Single-branch text pass (vilt_module.py:1226-1285).  ``int8_gelu``
+    and ``qk_int8`` select the int8 eval block's activation and attention
+    (``mome._block_fast``)."""
     hidden = _text_trunk(params, spec, batch, rel_bias=rel_bias,
-                         kernels=kernels, train=train, generator=generator)
+                         kernels=kernels, train=train, generator=generator,
+                         int8_gelu=int8_gelu, qk_int8=qk_int8)
     lffn = _final_norm(params, hidden)
     cls_feats = None
     if "ifm_text_proj.fc.weight" in params:
@@ -182,7 +189,8 @@ def infer_text_ft(params: Params, spec: ModelSpec, batch: Dict, *,
 def _image_trunk(params: Params, spec: ModelSpec, image: torch.Tensor, *,
                  rel_bias: Optional[torch.Tensor] = None,
                  kernels: bool = True, train: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 int8_gelu: str = "poly", qk_int8: bool = False):
     """Image tower body of infer_image_ft, without the vlffn re-run;
     returns (last hidden state, image masks).  Token type 1 marks the
     (first) image; NLVR2's second image comes with the fused VL pass.  In
@@ -195,19 +203,24 @@ def _image_trunk(params: Params, spec: ModelSpec, image: torch.Tensor, *,
     for i, b in enumerate(spec.blocks):
         x = block_forward(params, spec, b, x, image_masks, bias[i], V,
                           kernels=kernels, train=train,
-                          dp_scale=None if dp is None else dp[i])
+                          dp_scale=None if dp is None else dp[i],
+                          int8_gelu=int8_gelu, qk_int8=qk_int8)
     return x, image_masks
 
 
 def infer_image_ft(params: Params, spec: ModelSpec, batch: Dict, *,
                    rel_bias: Optional[torch.Tensor] = None,
                    kernels: bool = True, train: bool = False,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   int8_gelu: str = "poly", qk_int8: bool = False
                    ) -> Dict[str, Optional[torch.Tensor]]:
-    """Single-branch image pass (vilt_module.py:1378-1464)."""
+    """Single-branch image pass (vilt_module.py:1378-1464).  ``int8_gelu``
+    and ``qk_int8`` select the int8 eval block's activation and attention
+    (``mome._block_fast``)."""
     hidden, image_masks = _image_trunk(params, spec, batch["image"],
                                        rel_bias=rel_bias, kernels=kernels,
-                                       train=train, generator=generator)
+                                       train=train, generator=generator,
+                                       int8_gelu=int8_gelu, qk_int8=qk_int8)
     vffn = _final_norm(params, hidden)
     if "ifm_image_proj.fc.weight" in params:
         cls_feats = _l2norm(linear(vffn[:, 0],

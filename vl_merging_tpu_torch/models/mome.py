@@ -13,7 +13,8 @@ routing mode (plain, separate_plain, moe) reduces to one expert per
 module.  Routing follows the JAX package under its kernel flag
 (``kernels``):
   * eval: a block whose sequence is long enough goes through the fused
-    eval kernels (``_block_fast``: K1 → K2 → K3);
+    eval kernels (``_block_fast``: K1 → K2 → K3; in the W8A8 int8 eval,
+    when the params carry int8 companions, K14 → K2 or K12 → K15);
   * otherwise (every training block, and the short text blocks of the
     eval) the block is composed of LN, the qkv projection, attention
     (``packed_fused_attention``, K2 forward + K9 backward, when the
@@ -33,6 +34,7 @@ import torch
 
 from ..ops.attention import packed_fused_attention, reference_attention
 from ..ops.fused_block import fused_eval_block
+from ..ops.int8 import INT8_SUFFIX, SCALE_SUFFIX, fused_eval_block_i8
 from ..ops.mlp import fused_mlp, reference_mlp
 from .layers import layer_norm, linear
 from .spec import BlockSpec, ModelSpec, Params, L, V
@@ -124,11 +126,15 @@ def _ln(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def _block_fast(params, spec, b, x, mask, rel_bias, type_id, *,
-                kernels: bool):
+                kernels: bool, int8_gelu: str = "poly",
+                qk_int8: bool = False):
     """Whole eval block through the fused kernels (ops/fused_block.py):
     LN1+qkv → packed attention → proj+LayerScale+residual+LN2+MLP+
-    LayerScale+residual.  Returns None when the attention does not take
-    the kernels (``_attention_kernel_ok``)."""
+    LayerScale+residual; with ``spec.eval_int8`` and the int8 companions
+    of ``quantize_eval_params`` in params, the int8 block of ops/int8.py
+    (mome.py:258-275), whose MLP activation is ``int8_gelu`` and whose
+    attention is K12 when ``qk_int8``.  Returns None when the attention
+    does not take the kernels (``_attention_kernel_ok``)."""
     if not _attention_kernel_ok(spec, x.shape[1], mask, rel_bias, kernels):
         return None
     p = f"transformer.blocks.{b.index}"
@@ -136,10 +142,24 @@ def _block_fast(params, spec, b, x, mask, rel_bias, type_id, *,
     mp = f"{p}.mlp{_expert(b, type_id, 'mlp')}"
     n1 = f"{p}.norm1{_expert(b, type_id, 'norm1')}"
     n2 = f"{p}.norm2{_expert(b, type_id, 'norm2')}"
+    scale = spec.head_dim ** -0.5
+    if spec.eval_int8 and f"{ap}.qkv.weight{INT8_SUFFIX}" in params:
+        def qw(name):
+            return (params[f"{name}.weight{INT8_SUFFIX}"],
+                    params[f"{name}.weight{SCALE_SUFFIX}"])
+
+        return fused_eval_block_i8(
+            x, params[f"{n1}.weight"], params[f"{n1}.bias"], *qw(f"{ap}.qkv"),
+            _qkv_bias(params, ap), rel_bias, mask, scale, spec.num_heads,
+            *qw(f"{ap}.proj"), params[f"{ap}.proj.bias"],
+            params[f"{p}.gamma_1"], params[f"{n2}.weight"],
+            params[f"{n2}.bias"], *qw(f"{mp}.fc1"), params[f"{mp}.fc1.bias"],
+            *qw(f"{mp}.fc2"), params[f"{mp}.fc2.bias"],
+            params[f"{p}.gamma_2"], gelu=int8_gelu, qk_int8=qk_int8)
     return fused_eval_block(
         x, params[f"{n1}.weight"], params[f"{n1}.bias"],
         params[f"{ap}.qkv.weight"], _qkv_bias(params, ap), rel_bias, mask,
-        spec.head_dim ** -0.5, spec.num_heads, params[f"{ap}.proj.weight"],
+        scale, spec.num_heads, params[f"{ap}.proj.weight"],
         params[f"{ap}.proj.bias"], params[f"{p}.gamma_1"],
         params[f"{n2}.weight"], params[f"{n2}.bias"],
         params[f"{mp}.fc1.weight"], params[f"{mp}.fc1.bias"],
@@ -161,20 +181,24 @@ def block_forward(params: Params, spec: ModelSpec, b: BlockSpec,
                   x: torch.Tensor, mask: Optional[torch.Tensor],
                   rel_bias: Optional[torch.Tensor], type_id: int, *,
                   kernels: bool = True, train: bool = False,
-                  dp_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  dp_scale: Optional[torch.Tensor] = None,
+                  int8_gelu: str = "poly",
+                  qk_int8: bool = False) -> torch.Tensor:
     """One MoME block over a single-modality sequence, type V or L
     (vision_transformer.py:683-691 dispatch; plain :525-530,
     separate_plain and moe experts :560-654 reduce to one expert per
     module for one modality).  ``dp_scale``: the block's (2, B)
     stochastic-depth scales in training (``model._dp_scale_table``), or
-    None."""
+    None.  ``int8_gelu`` and ``qk_int8`` reach the int8 eval block
+    (``_block_fast``)."""
     if type_id not in _TASK_OF_TYPE:
         raise NotImplementedError(
             "type-VL blocks (the fused VL pass) are not ported yet: "
             "ROADMAP A4")
     if not train:
         fast = _block_fast(params, spec, b, x, mask, rel_bias, type_id,
-                           kernels=kernels)
+                           kernels=kernels, int8_gelu=int8_gelu,
+                           qk_int8=qk_int8)
         if fast is not None:
             return fast
         dp_scale = None

@@ -40,6 +40,9 @@ _SIGNATURES = {
     "vlm_mlp": (_P,) * 6 + (_I, _I, _I, _P),
     "vlm_packed_attention_bwd": (_P,) * 8 + (_I,) * 5 + (_F, _P),
     "vlm_packed_attention_bwd_groups": (_I,),
+    "vlm_ln_linear_i8": (_P,) * 7 + (_I, _I, _I, _F, _P),
+    "vlm_proj_mlp_tail_i8": (_P,) * 16 + (_I, _I, _I, _I, _F, _P),
+    "vlm_packed_attention_i8qk": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

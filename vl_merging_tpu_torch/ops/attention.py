@@ -8,9 +8,13 @@ off the kernel route use it).  ``packed_attention`` is kernel K2,
 ``packed_attention_bwd`` is kernel K9, ``csrc/packed_attention_bwd.cu``:
 its backward, (dqkv, dbias summed over the batch).
 ``packed_fused_attention`` joins them into one differentiable function
-(the JAX package's ``_packed_attention_diff``).  On CPU tensors each
-wrapper runs its plain twin (``packed_attention_reference``, the JAX
-package's ``_packed_reference``; ``packed_attention_bwd_reference``).
+(the JAX package's ``_packed_attention_diff``).  ``packed_attention_i8qk``
+is kernel K12, a variant of K2's source: QKᵀ as s8·s8→s32 on
+per-(token, head) int8 q and k (``quant_rows``, the quantizer of every
+int8 kernel), for the int8 eval's opt-in int8-QK mode; eval only.  On
+CPU tensors each wrapper runs its plain twin (``packed_attention_reference``,
+the JAX package's ``_packed_reference``; ``packed_attention_bwd_reference``;
+``packed_attention_i8qk_reference``, its ``_packed_reference_i8qk``).
 """
 
 from __future__ import annotations
@@ -93,6 +97,84 @@ def packed_attention(qkv: torch.Tensor, bias: torch.Tensor,
 
 
 packed_attention.launches = 0
+
+
+def quant_rows(x32: torch.Tensor):
+    """Per-row symmetric int8 over the trailing dim: f32 (..., n) →
+    (int8 (..., n), f32 scale (..., 1)), scale = max(amax, 1e-8)/127 and
+    q = round-half-even(x · (1/scale)), no clip: |x/scale| ≤ 127 by
+    construction (``vl_merging_tpu/ops/int8.py:_quant_rows``,
+    ``attention.py:_quant_last_i8``).  The quantizer of K12, K14 and
+    K15."""
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp_min(1e-8) / 127.0
+    return torch.round(x32 * (1.0 / scale)).to(torch.int8), scale
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 @ int8 → int32 for the plain twins.  ``torch.matmul`` of
+    int8 tensors returns int8 and wraps, so the CPU multiplies in int32;
+    on the card, which has no general int32 matmul, in float64, exact for
+    sums below 2⁵³ (|Σ| ≤ 127²·K)."""
+    if a.is_cuda:
+        return torch.matmul(a.double(), b.double()).to(torch.int32)
+    return torch.matmul(a.int(), b.int())
+
+
+def packed_attention_i8qk_reference(qkv, bias, mask, scale: float,
+                                    num_heads: int) -> torch.Tensor:
+    """Plain twin of K12 (``vl_merging_tpu/ops/attention.py:
+    _packed_reference_i8qk``): q and k quantized per (token, head) row of
+    64, logits = (si · (sq·scale)) · skᵀ in f32, + bias, masked keys at
+    -inf, f32 softmax, probabilities in qkv's dtype contracted with v in
+    f32; (B, N, 3C) → (B, N, C)."""
+    B, N, threeC = qkv.shape
+    C = threeC // 3
+    q, k, v = (_heads(t, num_heads) for t in qkv.split(C, dim=-1))
+    qi, sq = quant_rows(q.float())
+    ki, sk = quant_rows(k.float())
+    si = int8_matmul(qi, ki.transpose(-1, -2))
+    s = si.float() * (sq * scale) * sk.transpose(-1, -2)
+    s = s + bias[None].float()
+    s = s.masked_fill(mask[:, None, None, :] <= 0, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(qkv.dtype)
+    out = torch.matmul(p.float(), v.float()).to(qkv.dtype)
+    return out.transpose(1, 2).reshape(B, N, C)
+
+
+def packed_attention_i8qk(qkv: torch.Tensor, bias: torch.Tensor,
+                          mask: torch.Tensor, scale: float,
+                          num_heads: int) -> torch.Tensor:
+    """K12: ``packed_attention`` with QKᵀ as s8·s8→s32 on per-(token, head)
+    int8 q and k, the opt-in int8-QK mode of the int8 eval.  Eval only:
+    it has no backward and raises on a qkv that requires grad."""
+    if qkv.requires_grad:
+        raise ValueError("packed_attention_i8qk is eval only (no backward)")
+    if not qkv.is_cuda:
+        return packed_attention_i8qk_reference(qkv, bias, mask, scale,
+                                               num_heads)
+    B, N, threeC = qkv.shape
+    C = threeC // 3
+    if C != num_heads * HEAD_DIM:
+        raise ValueError(f"packed_attention_i8qk kernel takes head_dim "
+                         f"{HEAD_DIM}; got C={C}, heads={num_heads}")
+    bias = bias.float()
+    mask = mask.to(torch.int32)
+    dev = qkv.device
+    _build.expect(qkv, "qkv", torch.bfloat16, (B, N, 3 * C), dev)
+    _build.expect(bias, "bias", torch.float32, (num_heads, N, N), dev)
+    _build.expect(mask, "mask", torch.int32, (B, N), dev)
+    out = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
+    lib = _build.library()
+    _build.check(lib.vlm_packed_attention_i8qk(
+        qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        B, N, num_heads, float(scale), _build.stream_handle(dev)),
+        "packed_attention_i8qk")
+    packed_attention_i8qk.launches += 1
+    return out
+
+
+packed_attention_i8qk.launches = 0
 
 
 def packed_attention_bwd_reference(qkv, bias, mask, g, scale: float,

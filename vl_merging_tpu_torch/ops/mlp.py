@@ -51,6 +51,59 @@ def _erf_gelu(x: torch.Tensor) -> torch.Tensor:
     return 0.5 * x * (1.0 + _erf_approx(x * (2.0 ** -0.5)))
 
 
+# Clip-saturated odd-polynomial gelus, the fma-only activations of the int8
+# MLP (K15): erf(x/√2) ≈ u·P(u²) with u = clip(x, −T, T)/T, the
+# coefficients c₀.. in ascending odd powers of u summing to 1, so the
+# clipped tails are exactly gelu(x) = x and 0.  Copied from
+# ``vl_merging_tpu/ops/mlp.py:64-137``: degree 19 (the int8 default, max
+# |Δ| 4.7e-5 against exact erf-gelu), 11 (8.2e-4) and 13 (1.75e-4).
+_GELU_POLY_T = 4.5
+_GELU_POLY_COEF = (
+    3.590282846823918, -12.10273623182234, 36.461995337755816,
+    -85.03475787176419, 152.33199218079585, -204.54489822051983,
+    196.73375743149893, -126.45531926658512, 48.21324671368246,
+    -8.1935629198655)
+_GELU_POLY11_T = 3.5
+_GELU_POLY11_COEF = (
+    2.781156562, -5.458430753, 8.694525338, -8.887355099,
+    5.116006695, -1.245902743)
+_GELU_POLY13_T = 3.95
+_GELU_POLY13_COEF = (
+    3.144041517, -7.974838082, 16.980673852, -24.785977463,
+    23.048449174, -12.161256715, 2.748907717)
+
+
+def _clipped_poly_gelu(x: torch.Tensor, t: float, coef) -> torch.Tensor:
+    """Clip, then Horner in u² in f32, one rounding per operation."""
+    u = torch.clamp(x, -t, t) * (1.0 / t)
+    u2 = u * u
+    p = torch.full_like(u2, coef[-1])
+    for c in coef[-2::-1]:
+        p = p * u2 + c
+    return 0.5 * x * (1.0 + u * p)
+
+
+def poly_gelu(x: torch.Tensor) -> torch.Tensor:
+    """Degree-19 fma-only gelu, the int8 MLP's default."""
+    return _clipped_poly_gelu(x, _GELU_POLY_T, _GELU_POLY_COEF)
+
+
+def poly11_gelu(x: torch.Tensor) -> torch.Tensor:
+    """Degree-11 fma-only gelu (5 Horner steps)."""
+    return _clipped_poly_gelu(x, _GELU_POLY11_T, _GELU_POLY11_COEF)
+
+
+def poly13_gelu(x: torch.Tensor) -> torch.Tensor:
+    """Degree-13 fma-only gelu (6 Horner steps)."""
+    return _clipped_poly_gelu(x, _GELU_POLY13_T, _GELU_POLY13_COEF)
+
+
+# the int8 MLP's activations by name (``gelu=`` of ops/int8.py), in the
+# order of the kernel's switch (csrc/proj_mlp_tail_i8.cu)
+GELUS = {"poly": poly_gelu, "poly11": poly11_gelu, "poly13": poly13_gelu,
+         "erf": _erf_gelu}
+
+
 def mlp_kernel_reference(x, w1, b1, w2, b2):
     """Plain twin of K13 with the kernel's rounding points: fc1 of operands
     in x's dtype accumulated in f32, + b1 in f32, the A&S-erf GELU in f32,
