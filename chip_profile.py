@@ -9,6 +9,9 @@ of each window at ``chip_smoke.py``'s shapes and seeded inputs:
   * ``eval``: ``compute_irtr_recall`` over 64 images and 320 captions;
   * ``eval int8``: the same in the W8A8 int8 eval mode (``eval_int8``:
     K14 → K2 → K15 per image block);
+  * ``image tower, fusion <route>``: ``extract_features`` over the 64
+    images under each eval-block route ("pair" K1 → K2 → K4 → K5, "tail"
+    K1 → K2 → K3, "qkv" K8 → K3, "mega" K7);
   * ``train (kernels)`` / ``train (plain)``: one optimizer step (2
     micro-batches of 32 pairs) on the kernel path and on the plain path
     (K9's three CUDA kernels, statistics + dq, dk/dv + dbias partials and
@@ -29,8 +32,10 @@ import chip_smoke as smoke
 from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, master_params
 from vl_merging_tpu_torch.config import build_config
 from vl_merging_tpu_torch.device import require_cuda
-from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall
+from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall, \
+    extract_features
 from vl_merging_tpu_torch.models.spec import make_model_spec
+from vl_merging_tpu_torch.ops.fused_block import FUSIONS
 from vl_merging_tpu_torch.train.loop import accum_steps, build_train_step
 
 TOP = 14
@@ -90,6 +95,9 @@ def main() -> None:
     text_b, image_b, tiids, iids = smoke.synthetic_eval_set(spec, dev, gen)
     trace("eval", lambda: compute_irtr_recall(params, spec, text_b, image_b,
                                               tiids, iids), card)
+    for fusion in FUSIONS:
+        trace(f"image tower, fusion {fusion}", lambda: extract_features(
+            params, spec, image_b, "image", fusion=fusion), card)
     cfg8 = build_config(*smoke.CONFIG, overrides=dict(eval_int8=True))
     spec8 = make_model_spec(cfg8)
     params8 = eval_cast_params(base, spec8, cfg8)

@@ -16,24 +16,35 @@ and captions are synthetic.
     caption pairs, 2 micro-batches per optimizer step, 3 steps, no warmup;
   * the W8A8 int8 retrieval eval (``eval_int8: True``, the int8 weights
     quantized by ``eval_cast_params``), and its image tower with the
-    opt-in int8-QK attention (``qk_int8=True``).
+    opt-in int8-QK attention (``qk_int8=True``);
+  * the image tower under each of the eval block's four routes
+    (``fusion``: "pair" K1 → K2 → K4 → K5, "tail" K1 → K2 → K3, "qkv"
+    K8 → K3, "mega" K7), and the retrieval eval under "mega".
 
 Phases, each fatal on failure:
   1. a CUDA device (printed as nvidia-smi names it, with its power limit);
   2. the kernels built from ``vl_merging_tpu_torch/csrc`` (build time);
   3. each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail,
      K9 packed_attention_bwd, K13 mlp, K12 packed_attention_i8qk, K14
-     ln_linear_i8, K15 proj_mlp_tail_i8) at main-path shapes against its
+     ln_linear_i8, K15 proj_mlp_tail_i8, K4 linear_residual, K5 mlp_tail,
+     K8 ln_qkv_attention, K7 block_eval) at main-path shapes against its
      plain twin on the same inputs, with its tolerance and the share of
      elements that differ; kernel, twin and (where one PyTorch call
      computes the same function) library call timed with CUDA events,
      beside the least time the card could take; K14, K15 and K12 beside
-     K1, K3 and K2 at the same shapes;
+     K1, K3 and K2 at the same shapes; K4 + K5, K8 and K7 beside the
+     staged kernels they replace (K3, K1 + K2, K1 + K2 + K3), in time and
+     output (bit-equal or not, and the share of elements that differ);
   4. ``compute_irtr_recall`` over 64 images (batches of 32) and 320
      captions (batches of 64): K1-K3 launched 12 times per image batch,
      K13 12 times per text batch; finite features, image cls_feats within
      cosine 0.999 of the plain path's; the image tower's images/s on both
-     paths;
+     paths; then the image tower under each ``fusion`` (launches per image
+     batch: "pair" K1, K2, K4, K5 12 each; "tail" K1-K3 12 each; "qkv" K8
+     and K3 12 each; "mega" K7 12; nothing else), finite cls_feats within
+     cosine 0.999 of the plain path's, the least cosine between routes,
+     and each route's images/s in turns; ``compute_irtr_recall`` under
+     "mega" (K7 12 per image batch, K13 12 per text batch);
   5. the int8 eval: ``compute_irtr_recall`` (K14, K2 and K15 launched 12
      times per image batch, K1 = K3 = K12 = 0, K13 12 per text batch) and
      R@{1,5,10}; the image tower with ``qk_int8`` (K12 12 per image batch,
@@ -99,10 +110,16 @@ BF16_ULP = 2.0 ** -7
 # do and sum s8·s8 products exactly in s32; the f32 LayerNorm statistics
 # are summed in another order, which can move a quantized value across a
 # rounding tie: K14 2 ulps, K15 (three chained quantizers) 4; K12 rounds
-# its softmax as K2 does: 4.
+# its softmax as K2 does: 4.  K4 and K5 round where their twins do (K3's
+# two halves): 2 ulps.  K8 rounds its softmax as K2 does: 4 ulps.  K7's
+# context carries K8's 4-ulp error into the proj, where γ1·Wp scales it
+# down (|γ1| ~ 0.1 at these inputs), so the output adds to K3's own 2
+# ulps a small fraction of 4: 4 ulps.
 ULPS = {"ln_linear": 2, "packed_attention": 4, "proj_mlp_tail": 2,
         "packed_attention_bwd": 4, "mlp": 2, "ln_linear_i8": 2,
-        "proj_mlp_tail_i8": 4, "packed_attention_i8qk": 4}
+        "proj_mlp_tail_i8": 4, "packed_attention_i8qk": 4,
+        "linear_residual": 2, "mlp_tail": 2, "ln_qkv_attention": 4,
+        "block_eval": 4}
 DBIAS_REL = 1e-3
 MIN_COSINE = 0.999
 TIMED_ITERS = 20
@@ -197,6 +214,23 @@ def kernel_inputs(dev, gen):
     }
 
 
+def fusion_inputs(inputs):
+    """The fusion kernels' inputs, made of K1-K3's (no new draws): K4 and
+    K5 take K3's two halves (K5 fed K4's twin's x'), K8 K1's x, LN and
+    weights with K2's bias and mask, K7 those and K3's weights."""
+    x, ln1_w, ln1_b, w_qkv, qkv_bias = inputs["ln_linear"]
+    _, bias, mask, scale, heads = inputs["packed_attention"]
+    ctx, wp, bp, g1, res, ln2_w, ln2_b, w1, b1, w2, b2, g2 = \
+        inputs["proj_mlp_tail"]
+    attn = (x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask, scale, heads)
+    x1 = fb_ops.linear_residual_reference(ctx, wp, bp, g1, res)
+    return {"linear_residual": (ctx, wp, bp, g1, res),
+            "mlp_tail": (x1, ln2_w, ln2_b, w1, b1, w2, b2, g2),
+            "ln_qkv_attention": attn,
+            "block_eval": attn + (wp, bp, g1, ln2_w, ln2_b, w1, b1, w2, b2,
+                                  g2)}
+
+
 def _valid_keys(mask) -> int:
     return int(mask.sum())
 
@@ -232,6 +266,21 @@ def work(name: str, args) -> tuple:
         M = args[0].shape[0] * args[0].shape[1]
         return 0, nbytes(*args) + M * C * 2, \
             2 * M * C * C + 4 * M * C * HIDDEN
+    if name == "linear_residual":
+        x, w = args[:2]
+        M, O = x.shape[0] * x.shape[1], w.shape[0]
+        return 2 * M * C * O, nbytes(*args) + M * O * 2
+    if name == "mlp_tail":
+        M = args[0].shape[0] * args[0].shape[1]
+        return 4 * M * C * HIDDEN, nbytes(*args) + M * C * 2
+    if name in ("ln_qkv_attention", "block_eval"):
+        x, mask = args[0], args[6]
+        M = x.shape[0] * x.shape[1]
+        flops = 2 * M * C * 3 * C + 4 * 64 * N * HEADS * _valid_keys(mask)
+        if name == "block_eval":
+            flops += 2 * M * C * C + 4 * M * C * HIDDEN
+        tensors = [t for t in args if isinstance(t, torch.Tensor)]
+        return flops, nbytes(*tensors) + M * C * 2
     if name == "packed_attention_i8qk":
         qkv, bias, mask = args[:3]
         pairs = 2 * 64 * N * HEADS * _valid_keys(mask)   # QKᵀ int8, P·V bf16
@@ -300,6 +349,20 @@ KERNELS = {
                               attn_ops.packed_attention_i8qk_reference,
                               "vl_merging_tpu_torch/csrc/packed_attention.cu",
                               "vl_merging_tpu/ops/attention.py:271"),
+    "linear_residual": (fb_ops.linear_residual,
+                        fb_ops.linear_residual_reference,
+                        "vl_merging_tpu_torch/csrc/linear_residual.cu",
+                        "vl_merging_tpu/ops/fused_block.py:94"),
+    "mlp_tail": (fb_ops.mlp_tail, fb_ops.mlp_tail_reference,
+                 "vl_merging_tpu_torch/csrc/mlp_tail.cu",
+                 "vl_merging_tpu/ops/fused_block.py:102"),
+    "ln_qkv_attention": (fb_ops.ln_qkv_attention,
+                         fb_ops.ln_qkv_attention_reference,
+                         "vl_merging_tpu_torch/csrc/ln_qkv_attention.cu",
+                         "vl_merging_tpu/ops/attention.py:384"),
+    "block_eval": (fb_ops.block_eval, fb_ops.block_eval_reference,
+                   "vl_merging_tpu_torch/csrc/block_eval.cu",
+                   "vl_merging_tpu/ops/fused_block.py:471"),
 }
 # the int8 kernels' bf16 counterparts, timed at the same shapes
 BF16_TWIN = {"ln_linear_i8": "ln_linear", "proj_mlp_tail_i8": "proj_mlp_tail",
@@ -315,9 +378,53 @@ def ulp_check(name: str, got, want) -> tuple:
     return float(err.max()), worst, float((err > 0).float().mean())
 
 
+def differ_share(a, b) -> float:
+    return float((a.float() != b.float()).float().mean())
+
+
+def staged_comparisons(inputs, card: str) -> None:
+    """The fusion kernels against the staged kernels they replace, on the
+    same inputs: output (bit-equal or not, share of elements that differ)
+    and time."""
+    ctx, wp, bp, g1, res, ln2_w, ln2_b, w1, b1, w2, b2, g2 = \
+        inputs["proj_mlp_tail"]
+    x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask, scale, heads = \
+        inputs["ln_qkv_attention"]
+
+    def k1_k2():
+        qkv = fb_ops.ln_linear(x, ln1_w, ln1_b, w_qkv, qkv_bias)
+        return attn_ops.packed_attention(qkv, bias, mask, scale, heads)
+
+    def k1_k2_k3():
+        return fb_ops.proj_mlp_tail(k1_k2(), wp, bp, g1, x, ln2_w, ln2_b, w1,
+                                    b1, w2, b2, g2)
+
+    def k4_k5():
+        return fb_ops.mlp_tail(fb_ops.linear_residual(ctx, wp, bp, g1, res),
+                               ln2_w, ln2_b, w1, b1, w2, b2, g2)
+
+    cases = (
+        ("K4 -> K5 vs K3", k4_k5, "K3", lambda: fb_ops.proj_mlp_tail(
+            ctx, wp, bp, g1, res, ln2_w, ln2_b, w1, b1, w2, b2, g2)),
+        ("K8 vs K1 -> K2",
+         lambda: fb_ops.ln_qkv_attention(*inputs["ln_qkv_attention"]),
+         "K1 + K2", k1_k2),
+        ("K7 vs K1 -> K2 -> K3",
+         lambda: fb_ops.block_eval(*inputs["block_eval"]), "K1 + K2 + K3",
+         k1_k2_k3))
+    for label, fused, staged_name, staged in cases:
+        got, want = fused(), staged()
+        torch.cuda.synchronize()
+        print(f"{label}: bit-equal {torch.equal(got, want)}, "
+              f"{differ_share(got, want):.3e} of the elements differ; "
+              f"{time_ms(fused):.4f} ms against {staged_name} "
+              f"{time_ms(staged):.4f} ms at the same shapes [{card}]")
+
+
 def check_kernels(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     inputs = kernel_inputs(dev, gen)
+    inputs.update(fusion_inputs(inputs))
     rows = {}
     for name, (kernel, twin, source, replaces) in KERNELS.items():
         args = inputs[name]
@@ -367,6 +474,7 @@ def check_kernels(dev, card: str) -> dict:
           f"{bound(*work('mlp', args))[0]:.4f} ms [{card}]")
     if worst > 1.0:
         fail("mlp disagrees with its plain twin at the text tower's rows")
+    staged_comparisons(inputs, card)
     # a note, not a yardstick: torch's int8 GEMM alone at K14's GEMM shape
     x = inputs["ln_linear_i8"][0].reshape(-1, C)
     xq = attn_ops.quant_rows(x.float())[0]
@@ -435,10 +543,12 @@ def synthetic_eval_set(spec, dev, gen):
     return text_batches, image_batches, tiids, np.arange(N_IMAGES)
 
 
-def images_per_sec(params, spec, image_batches, kernels: bool) -> float:
+def images_per_sec(params, spec, image_batches, kernels: bool,
+                   fusion: str = "tail") -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    extract_features(params, spec, image_batches, "image", kernels=kernels)
+    extract_features(params, spec, image_batches, "image", kernels=kernels,
+                     fusion=fusion)
     torch.cuda.synchronize()
     return N_IMAGES / (time.perf_counter() - t0)
 
@@ -501,6 +611,86 @@ def run_eval(dev, card: str) -> dict:
           f"kernels {max(rates['kernels']):.1f} img/s, plain "
           f"{max(rates['plain']):.1f} img/s (best of 2, {N_IMAGES} images "
           f"each) [{card}]")
+    route_launches = run_routes(params, spec, text_batches, image_batches,
+                                tiids, iids, img_p, card)
+    return {k: launches[k] + route_launches[k] for k in launches}
+
+
+# the kernels of each route's image block, 1 launch per layer and batch
+ROUTE_KERNELS = {
+    "pair": ("ln_linear", "packed_attention", "linear_residual", "mlp_tail"),
+    "tail": ("ln_linear", "packed_attention", "proj_mlp_tail"),
+    "qkv": ("ln_qkv_attention", "proj_mlp_tail"),
+    "mega": ("block_eval",)}
+
+
+def run_routes(params, spec, text_batches, image_batches, tiids, iids,
+               img_plain, card: str) -> dict:
+    """The image tower under each ``fusion``: launches, features against
+    the plain path's and each other's, images/s in turns; then
+    ``compute_irtr_recall`` under "mega"."""
+    per_image = spec.num_layers * len(image_batches)
+    launches = dict.fromkeys(KERNELS, 0)
+    feats = {}
+    for fusion in fb_ops.FUSIONS:
+        reset_launches()
+        with torch.no_grad():
+            feats[fusion] = extract_features(params, spec, image_batches,
+                                             "image", fusion=fusion)
+        got = read_launches()
+        want = want_launches(**dict.fromkeys(ROUTE_KERNELS[fusion],
+                                             per_image))
+        print(f"fusion {fusion!r}: kernel launches "
+              f"{ {k: v for k, v in got.items() if v} } (want "
+              f"{' '.join(ROUTE_KERNELS[fusion])} {spec.num_layers} per image "
+              f"batch, nothing else)")
+        if got != want:
+            fail(f"fusion {fusion!r}: kernel launches {got}, want {want}")
+        for k, v in got.items():
+            launches[k] += v
+        t = feats[fusion]
+        if t.shape != (N_IMAGES, spec.hidden_size) or \
+                not bool(torch.isfinite(t).all()):
+            fail(f"fusion {fusion!r}: features of shape {tuple(t.shape)} or "
+                 f"not finite")
+        cos = min_cosine(t, img_plain)
+        print(f"fusion {fusion!r}: image cls_feats vs plain path: min cosine "
+              f"{cos:.6f} (need >= {MIN_COSINE})")
+        if cos < MIN_COSINE:
+            fail(f"fusion {fusion!r}: image features disagree with the plain "
+                 f"path")
+    between = min(min_cosine(feats[a], feats[b]) for a in fb_ops.FUSIONS
+                  for b in fb_ops.FUSIONS if a < b)
+    print(f"image cls_feats between routes: min cosine {between:.6f}; "
+          f"bit-equal to 'tail': "
+          + ", ".join(f"{f} {torch.equal(feats[f], feats['tail'])}"
+                      for f in fb_ops.FUSIONS))
+
+    rates = {f: [] for f in fb_ops.FUSIONS}
+    for fusion in fb_ops.FUSIONS + fb_ops.FUSIONS[::-1]:
+        rates[fusion].append(images_per_sec(params, spec, image_batches,
+                                            kernels=True, fusion=fusion))
+    best = {f: max(v) for f, v in rates.items()}
+    print(f"image tower by route (ViT-B/16 @384, bf16, batch {IMAGE_BATCH}): "
+          + ", ".join(f"{f} {v:.1f} img/s" for f, v in best.items())
+          + f" (best of 2, {N_IMAGES} images each, in turns); fastest: "
+          f"{max(best, key=best.get)} [{card}]")
+
+    reset_launches()
+    recall = compute_irtr_recall(params, spec, text_batches, image_batches,
+                                 tiids, iids, fusion="mega")
+    got = read_launches()
+    want = want_launches(block_eval=per_image,
+                         mlp=spec.num_layers * len(text_batches))
+    print(f"compute_irtr_recall (fusion 'mega'): kernel launches "
+          f"{ {k: v for k, v in got.items() if v} }; recall "
+          + json.dumps(recall))
+    if got != want:
+        fail(f"eval kernel launches under 'mega' {got}, want {want}")
+    if not all(0.0 <= v <= 1.0 for v in recall.values()):
+        fail(f"recall out of range: {recall}")
+    for k, v in got.items():
+        launches[k] += v
     return launches
 
 

@@ -18,7 +18,11 @@ relative norm error of 1e-3.  The int8 kernels quantize exactly as their
 twins do and sum their s8·s8 products exactly in s32; what differs is
 the f32 LayerNorm statistics' summation order (K14, K15), which can move
 a quantized value across a rounding tie, and K2's softmax (K12): K14 is
-held to 2 ulps, K15 and K12 to 4.
+held to 2 ulps, K15 and K12 to 4.  The eval block's fusion kernels: K4
+linear_residual and K5 mlp_tail round where their twins do (K3's two
+halves), 2 ulps; K8 ln_qkv_attention rounds its softmax as K2 does, 4
+ulps; K7 block_eval carries K8's context error through the proj, 4 ulps.
+The image tower takes the launches of the route ``fusion`` names.
 
 This file imports no JAX (the machine with the card has none), so it runs
 without tests/conftest.py:
@@ -242,3 +246,121 @@ def test_packed_attention_i8qk_kernel_matches_twin_on_card(cuda_device):
     with pytest.raises(ValueError, match="eval only"):
         TA.packed_attention_i8qk(qkv.clone().requires_grad_(), bias, mask,
                                  0.125, H)
+
+
+def _block_args(dev, g, B, N, C=768, H=12, Hd=3072):
+    def r(*shape, s=1.0, bf16=False):
+        t = s * torch.randn(*shape, device=dev, generator=g)
+        return t.bfloat16() if bf16 else t
+
+    mask = torch.ones(B, N, dtype=torch.int32, device=dev)
+    mask[-1, N - 70:] = 0
+    return (r(B, N, C, bf16=True), 1 + r(C, s=0.1), r(C, s=0.1),
+            r(3 * C, C, s=0.02, bf16=True), r(3 * C, s=0.1), r(H, N, N), mask,
+            0.125, H, r(C, C, s=0.02, bf16=True), r(C, s=0.1), r(C, s=0.1),
+            1 + r(C, s=0.1), r(C, s=0.1), r(Hd, C, s=0.02, bf16=True),
+            r(Hd, s=0.1), r(C, Hd, s=0.02, bf16=True), r(C, s=0.1),
+            r(C, s=0.1))
+
+
+@pytest.mark.cuda
+def test_linear_residual_and_mlp_tail_kernels_match_twins_on_card(
+        cuda_device):
+    """K4 and K5 at M = 3·577 rows (not a multiple of their row blocks);
+    K4 → K5 within 2 ulps of K3 on the same inputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    args = _block_args(cuda_device, g, 3, 577)
+    ctx = args[0]
+    wp, bp, g1, lnw, lnb, w1, b1, w2, b2, g2 = args[9:]
+    res = torch.randn(ctx.shape, device=cuda_device, generator=g).bfloat16()
+    n = (TF.linear_residual.launches, TF.mlp_tail.launches)
+    x1 = TF.linear_residual(ctx, wp, bp, g1, res)
+    _bf16_close(x1, TF.linear_residual_reference(ctx, wp, bp, g1, res))
+    out = TF.mlp_tail(x1, lnw, lnb, w1, b1, w2, b2, g2)
+    _bf16_close(out, TF.mlp_tail_reference(x1, lnw, lnb, w1, b1, w2, b2, g2))
+    assert (TF.linear_residual.launches, TF.mlp_tail.launches) == \
+        (n[0] + 1, n[1] + 1)
+    k3 = TF.proj_mlp_tail(ctx, wp, bp, g1, res, lnw, lnb, w1, b1, w2, b2, g2)
+    _bf16_close(out, k3)
+    assert torch.equal(TF.proj_mlp_tail(ctx, wp, bp, g1, res, lnw, lnb, w1,
+                                        b1, w2, b2, g2, fusion="pair"), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(3, 577), (2, 300)])
+def test_ln_qkv_attention_kernel_matches_twin_on_card(cuda_device, B, N):
+    """K8 against its twin (K1's then K2's) and within 4 ulps of the K1 →
+    K2 kernels; a ragged key mask; two launches agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    args = _block_args(cuda_device, g, B, N)[:9]
+    n = TF.ln_qkv_attention.launches
+    got = TF.ln_qkv_attention(*args)
+    assert TF.ln_qkv_attention.launches == n + 1
+    _bf16_close(got, TF.ln_qkv_attention_reference(*args), ulps=4)
+    x, lnw, lnb, w, b, bias, mask, scale, H = args
+    staged = TA.packed_attention(TF.ln_linear(x, lnw, lnb, w, b), bias, mask,
+                                 scale, H)
+    _bf16_close(got, staged, ulps=4)
+    assert torch.equal(TF.ln_qkv_attention(*args), got)
+    with pytest.raises(ValueError, match="N <= 640"):
+        TF.ln_qkv_attention(torch.zeros(1, 641, 768, device=cuda_device,
+                                        dtype=torch.bfloat16), *args[1:5],
+                            torch.zeros(H, 641, 641, device=cuda_device),
+                            torch.ones(1, 641, device=cuda_device), scale, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(3, 577), (2, 300)])
+def test_block_eval_kernel_matches_twin_on_card(cuda_device, B, N):
+    """K7 against its twin and within 4 ulps of the K1 → K2 → K3 kernels;
+    two launches agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    args = _block_args(cuda_device, g, B, N)
+    n = TF.block_eval.launches
+    got = TF.block_eval(*args)
+    assert TF.block_eval.launches == n + 1
+    _bf16_close(got, TF.block_eval_reference(*args), ulps=4)
+    _bf16_close(got, TF.fused_eval_block(*args), ulps=4)
+    assert torch.equal(TF.block_eval(*args), got)
+
+
+@pytest.mark.cuda
+def test_image_tower_routes_launch_their_kernels_on_card(cuda_device):
+    """One ViT-B/16 @384 layer (577 tokens), two images: each ``fusion``
+    launches its route's kernels once per layer, and the four routes'
+    features agree (cosine 0.9999)."""
+    from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, \
+        params_from_numpy
+    from vl_merging_tpu_torch.config import build_config
+    from vl_merging_tpu_torch.models import model
+    from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
+
+    cfg = build_config("task_finetune_irtr_coco_square_randaug_base_image384",
+                       "ufo", overrides=dict(num_layers=1))
+    spec = make_model_spec(cfg)
+    gen = torch.Generator().manual_seed(12)
+    params = eval_cast_params(params_from_numpy(init_params(spec, gen),
+                                                cuda_device), spec, cfg)
+    image = {"image": torch.randn(2, 3, 384, 384, generator=gen).to(
+        cuda_device)}
+    kernels = {"ln_linear": TF.ln_linear, "packed_attention":
+               TA.packed_attention, "proj_mlp_tail": TF.proj_mlp_tail,
+               "linear_residual": TF.linear_residual, "mlp_tail":
+               TF.mlp_tail, "ln_qkv_attention": TF.ln_qkv_attention,
+               "block_eval": TF.block_eval}
+    routes = {"pair": {"ln_linear", "packed_attention", "linear_residual",
+                       "mlp_tail"},
+              "tail": {"ln_linear", "packed_attention", "proj_mlp_tail"},
+              "qkv": {"ln_qkv_attention", "proj_mlp_tail"},
+              "mega": {"block_eval"}}
+    feats = {}
+    for fusion, used in routes.items():
+        before = {k: f.launches for k, f in kernels.items()}
+        with torch.no_grad():
+            feats[fusion] = model.infer_image_ft(params, spec, image,
+                                                 fusion=fusion)["cls_feats"]
+        launched = {k: f.launches - before[k] for k, f in kernels.items()}
+        assert launched == {k: int(k in used) for k in kernels}, fusion
+        cos = torch.nn.functional.cosine_similarity(
+            feats[fusion].float(), feats["pair"].float(), dim=-1)
+        assert float(cos.min()) >= 0.9999, (fusion, float(cos.min()))

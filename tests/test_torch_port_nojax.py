@@ -1,7 +1,8 @@
 """The port never imports JAX, nor the JAX package, nor reads its files.
 
 The machine with the GPU has no JAX, so importing and running the port
-(the retrieval eval, the int8 retrieval eval and one irtr train step)
+(the retrieval eval, the image tower under each eval-block route, the
+int8 retrieval eval and one irtr train step)
 must leave ``jax`` (and
 ``vl_merging_tpu``, whose subpackages import jax) out of
 ``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
@@ -42,7 +43,9 @@ SCRIPT = textwrap.dedent("""
     from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, \
         master_params
     from vl_merging_tpu_torch.config import build_config
-    from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall
+    from vl_merging_tpu_torch.evaluation.retrieval import \
+        compute_irtr_recall, extract_features
+    from vl_merging_tpu_torch.ops.fused_block import FUSIONS
     from vl_merging_tpu_torch.models import mome
     from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
     from vl_merging_tpu_torch.train.loop import build_train_step
@@ -66,6 +69,10 @@ SCRIPT = textwrap.dedent("""
         [{"image": images}], np.repeat(np.arange(4), 2), np.arange(4))
     assert set(out) == {f"{d}_r{k}" for d in ("tr", "ir") for k in (1, 5, 10)}
     assert all(0.0 <= v <= 1.0 for v in out.values())
+    for fusion in FUSIONS:   # every eval-block route's twins
+        feats = extract_features(params, spec, [{"image": images}], "image",
+                                 fusion=fusion)
+        assert feats.shape == (4, spec.hidden_size)
 
     cfg8 = dict(cfg, eval_int8=True)
     spec8 = make_model_spec(cfg8)

@@ -49,8 +49,8 @@ using namespace vlm;
 
 namespace {
 
-constexpr int D = 64, BQ = 64, BKV = 64, WARPS = 4, THREADS = WARPS * 32;
-constexpr int LDT = D + kPad;  // bf16 tile stride: 144 bytes, conflict-free fragment loads
+constexpr int D = kAttnDim, BQ = 64, BKV = kAttnKeys, WARPS = 4, THREADS = WARPS * 32;
+constexpr int LDT = kAttnLdt;  // bf16 tile stride: 144 bytes, conflict-free fragment loads
 constexpr int LDI = D + kPad8;  // int8 tile stride: 80 bytes, conflict-free fragment loads
 
 // Quantize 16 rows of 64 bf16 values (row i at src + i*ld; rows i >=
@@ -210,15 +210,7 @@ packed_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
     // s starts as bias (or -inf for an invalid key), then += q·kᵀ; K12
     // adds its dequantized s32 products to the bias instead
     float s[BKV / 8][4];
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-      const int c = j * 8 + 2 * t;
-      const bool v0 = kv[c], v1 = kv[c + 1];
-      s[j][0] = v0 ? __ldg(brow0 + k0 + c) : -INFINITY;
-      s[j][1] = v1 ? __ldg(brow0 + k0 + c + 1) : -INFINITY;
-      s[j][2] = v0 ? __ldg(brow1 + k0 + c) : -INFINITY;
-      s[j][3] = v1 ? __ldg(brow1 + k0 + c + 1) : -INFINITY;
-    }
+    logits_from_bias(s, kv, brow0 + k0, brow1 + k0);
     if constexpr (I8QK) {
 #pragma unroll
       for (int j = 0; j < BKV / 8; ++j) {
@@ -235,85 +227,13 @@ packed_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
         s[j][3] = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(si[3]), qs1), ks1), s[j][3]);
       }
     } else {
-#pragma unroll
-      for (int j = 0; j < BKV / 8; ++j) {
-        const bf16* krow = Kt + (j * 8 + g) * LDT + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-          mma16816(s[j], qa[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-      }
+      add_qk_bf16(s, qa, Kt);
     }
 
-    // online softmax: a row's 64 keys are spread over the 4 threads of a group
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int sh = 1; sh <= 2; sh <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float u0 = mn0 == -INFINITY ? 0.f : mn0;  // no valid key yet
-    const float u1 = mn1 == -INFINITY ? 0.f : mn1;
-    const float a0 = expf(m0 - u0), a1 = expf(m1 - u1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-      s[j][0] = expf(s[j][0] - u0);
-      s[j][1] = expf(s[j][1] - u0);
-      s[j][2] = expf(s[j][2] - u1);
-      s[j][3] = expf(s[j][3] - u1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-#pragma unroll
-    for (int sh = 1; sh <= 2; sh <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, sh);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, sh);
-    }
-    l0 = l0 * a0 + sum0;
-    l1 = l1 * a1 + sum1;
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o[n][0] *= a0;
-      o[n][1] *= a0;
-      o[n][2] *= a1;
-      o[n][3] *= a1;
-    }
-
-    // o += bf16(p) · v; the accumulator layout of s is the A layout of p
-#pragma unroll
-    for (int kc = 0; kc < BKV / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, Vt + (kc * 16 + (lane & 15)) * LDT + np * 16 + (lane >> 4) * 8);
-        mma16816(o[2 * np], pa, vb[0], vb[1]);
-        mma16816(o[2 * np + 1], pa, vb[2], vb[3]);
-      }
-    }
+    online_softmax_pv(s, o, m0, m1, l0, l1, Vt);
   }
 
-  bf16* out_b = out + (size_t)b * N * C + h * D + 2 * t;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (qrow0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out_b + (size_t)qrow0 * C + n * 8) =
-          __floats2bfloat162_rn(o[n][0] / l0, o[n][1] / l0);
-    if (qrow1 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out_b + (size_t)qrow1 * C + n * 8) =
-          __floats2bfloat162_rn(o[n][2] / l1, o[n][3] / l1);
-  }
+  store_ctx_rows(o, l0, l1, out + (size_t)b * N * C + h * D + 2 * t, C, qrow0, N);
 }
 
 template <bool I8QK>

@@ -8,8 +8,10 @@
 // the LN2 output and the gelu output are rounded to bf16 exactly where the
 // split pipeline would store them; products accumulate in f32; biases,
 // LayerScale and the residual adds are f32.  The gelu is exact-erf with
-// CUDA's erff (max error 2 ulp); the TPU kernel used the
-// Abramowitz-Stegun erf (|err| <= 1.5e-7, ops/mlp.py:_erf_approx).
+// CUDA's erff (max error 2 ulp, common.cuh:ErffGelu); the TPU kernel used
+// the Abramowitz-Stegun erf (|err| <= 1.5e-7, ops/mlp.py:_erf_approx).
+// The body is block_tail.cuh's two halves, which K4 + K5 (the split pair)
+// and K7 (the whole block) run too.
 //
 // Bound on the H100: by its arithmetic, tensor-core throughput (196 GFLOP
 // against ~96 MB of activations and weights at B=32, N=577, C=768).  As
@@ -26,19 +28,13 @@
 // shared memory; x' is parked in the block's own rows of the output (an
 // L2-resident 48 KB per block) to leave shared memory for the weight
 // tiles.
-#include "common.cuh"
+#include "block_tail.cuh"
 
 using namespace vlm;
 
 namespace {
 
-constexpr int BM = kMlpRows, MF = kMlpMF;  // every warp covers all 32 rows
-
-struct ErffGelu {
-  __device__ __forceinline__ float operator()(float v) const {
-    return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-  }
-};
+constexpr int BM = kMlpRows;
 
 // NF: 16-column fragments per warp over the model width, C = 8 * NF * 16.
 template <int NF>
@@ -49,82 +45,13 @@ proj_mlp_tail_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ res,
                      const float* __restrict__ ln_b, const bf16* __restrict__ w1,
                      const float* __restrict__ b1, const bf16* __restrict__ w2,
                      const float* __restrict__ b2, const float* __restrict__ g2,
-                     bf16* __restrict__ out, int M, int Hd, float eps) {
-  constexpr int C = 8 * NF * 16;
-  constexpr int LDA = C + kPad, WARPS = kGemmThreads / 32;
+                     bf16* out, int M, int Hd, float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);         // BM x LDA: ctx, then LN2(x')
-  bf16* Hs = As + BM * LDA;                          // BM x (HC + kPad): gelu(fc1) chunk
-  bf16* Ws = Hs + BM * (kHiddenChunk + kPad);        // weight tile staging
-  float* scratch = reinterpret_cast<float*>(Ws + kMlpStaging);  // 8 x 16 x 16
-
+  const TailSmem sm(smem, 8 * NF * 16);
   const int row0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5;
-  float* sc = scratch + warp * 256;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  // proj + LayerScale + residual -> x' (bf16, shared memory); the first
-  // Wp tiles are in flight while the ctx rows load
-  gemm_prefetch<C, kBkWide, kStagesWide>(wp, C, C, Ws);
-  for (int v = threadIdx.x; v < BM * C / 8; v += kGemmThreads) {
-    const int r = v / (C / 8), c = (v % (C / 8)) * 8;
-    *reinterpret_cast<uint4*>(As + r * LDA + c) =
-        row0 + r < M ? __ldg(reinterpret_cast<const uint4*>(ctx + (size_t)(row0 + r) * C + c))
-                     : zero;
-  }
-  FragC acc[MF][NF];
-  zero_acc(acc);
-  gemm_main<MF, NF, 8, kBkWide, kStagesWide>(acc, As, LDA, wp, C, C, Ws);
-#pragma unroll
-  for (int i = 0; i < MF; ++i) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      int r, c0;
-      const float* v = frag_to_scratch(acc[i][j], sc, r, c0);
-      const int rr = i * 16 + r, col = (warp * NF + j) * 16 + c0;
-      if (row0 + rr < M) {
-        Pack8 rs, x1;
-        rs.u = __ldg(reinterpret_cast<const uint4*>(res + (size_t)(row0 + rr) * C + col));
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          x1.h()[e] = __float2bfloat16(rs.f(e) + (v[e] + bp[col + e]) * g1[col + e]);
-        *reinterpret_cast<uint4*>(out + (size_t)(row0 + rr) * C + col) = x1.u;
-      }
-      __syncwarp();
-    }
-  }
+  proj_residual_rows<NF>(ctx, res, wp, bp, g1, out, M, row0, sm);
   __syncthreads();  // x' complete (in out's rows); every warp is done reading ctx
-
-  {  // warp w normalises rows w, w + 8, w + 16, w + 24 of x'
-    const int left = M - (row0 + warp);
-    ln_rows_to_bf16<BM / WARPS, NF / 2>(out + (size_t)(row0 + warp) * C, (size_t)WARPS * C,
-                                        left > 0 ? (left + WARPS - 1) / WARPS : 0, ln_w,
-                                        ln_b, eps, As + warp * LDA, WARPS * LDA);
-  }
-
-  // MLP over 128-wide hidden chunks; fc2 partials accumulate in acc
-  zero_acc(acc);
-  mlp_hidden_chunks<NF>(acc, As, LDA, w1, b1, w2, Hd, Hs, Ws, sc, ErffGelu());
-
-  // fc2 bias + LayerScale + residual -> out
-#pragma unroll
-  for (int i = 0; i < MF; ++i) {
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      int r, c0;
-      const float* v = frag_to_scratch(acc[i][j], sc, r, c0);
-      const int rr = i * 16 + r, col = (warp * NF + j) * 16 + c0;
-      if (row0 + rr < M) {
-        Pack8 x1, o;  // this lane stored exactly these x' values itself
-        x1.u = *reinterpret_cast<const uint4*>(out + (size_t)(row0 + rr) * C + col);
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o.h()[e] = __float2bfloat16(x1.f(e) + (v[e] + b2[col + e]) * g2[col + e]);
-        *reinterpret_cast<uint4*>(out + (size_t)(row0 + rr) * C + col) = o.u;
-      }
-      __syncwarp();
-    }
-  }
+  ln_mlp_residual_rows<NF>(out, ln_w, ln_b, w1, b1, w2, b2, g2, out, M, Hd, eps, row0, sm);
 }
 
 template <int NF>

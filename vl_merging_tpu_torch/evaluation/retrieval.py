@@ -22,12 +22,15 @@ from ..models.spec import ModelSpec, Params
 def extract_features(params: Params, spec: ModelSpec, batches: Iterable[Dict],
                      kind: str, *, kernels: bool = True,
                      int8_gelu: str = "poly",
-                     qk_int8: bool = False) -> torch.Tensor:
+                     qk_int8: bool = False,
+                     fusion: str = "tail") -> torch.Tensor:
     """Run one single-modality tower over ``batches``; returns the stacked
     ``cls_feats`` (N, hs).  The rel-pos bias is gathered once per call.
-    ``int8_gelu`` and ``qk_int8`` reach the int8 eval blocks
-    (``mome._block_fast``); the JAX package reads them from
-    ``VLM_TPU_I8_GELU`` and ``VLM_TPU_I8_QK``."""
+    ``int8_gelu`` and ``qk_int8`` reach the int8 eval blocks, ``fusion``
+    the eval blocks' route (``mome._block_fast``); the JAX package reads
+    them from ``VLM_TPU_I8_GELU``, ``VLM_TPU_I8_QK`` and its fusion gates
+    (``VLM_TPU_FUSE_PROJ_MLP``, ``VLM_TPU_FUSE_LN_QKV_ATTN``,
+    ``VLM_TPU_FUSE_EVAL_BLOCK``)."""
     if kind == "text":
         run, bias_kind = model.infer_text_ft, "text"
     elif kind == "image":
@@ -42,7 +45,8 @@ def extract_features(params: Params, spec: ModelSpec, batches: Iterable[Dict],
                 kind == "text" and spec.max_vl_text_len is not None) else None
             bias = model.precompute_bias(params, spec, bias_kind, true_length)
         feats.append(run(params, spec, b, rel_bias=bias, kernels=kernels,
-                         int8_gelu=int8_gelu, qk_int8=qk_int8)["cls_feats"])
+                         int8_gelu=int8_gelu, qk_int8=qk_int8,
+                         fusion=fusion)["cls_feats"])
     return torch.cat(feats, dim=0)
 
 
@@ -93,7 +97,8 @@ def compute_irtr_recall(params: Params, spec: ModelSpec,
                         tiids: np.ndarray, iids: np.ndarray, *,
                         itm_rerank_topk: int = 0,
                         kernels: bool = True, int8_gelu: str = "poly",
-                        qk_int8: bool = False) -> Dict[str, float]:
+                        qk_int8: bool = False,
+                        fusion: str = "tail") -> Dict[str, float]:
     """Full recall pipeline over preloaded batches.
 
     Batches may be padded past the true counts; features are sliced back
@@ -104,8 +109,8 @@ def compute_irtr_recall(params: Params, spec: ModelSpec,
             "ROADMAP A4")
     txt = extract_features(params, spec, text_batches, "text",
                            kernels=kernels, int8_gelu=int8_gelu,
-                           qk_int8=qk_int8)[:len(tiids)]
+                           qk_int8=qk_int8, fusion=fusion)[:len(tiids)]
     img = extract_features(params, spec, image_batches, "image",
                            kernels=kernels, int8_gelu=int8_gelu,
-                           qk_int8=qk_int8)[:len(iids)]
+                           qk_int8=qk_int8, fusion=fusion)[:len(iids)]
     return retrieval_recall(img, txt, iids, tiids)

@@ -13,8 +13,10 @@ routing mode (plain, separate_plain, moe) reduces to one expert per
 module.  Routing follows the JAX package under its kernel flag
 (``kernels``):
   * eval: a block whose sequence is long enough goes through the fused
-    eval kernels (``_block_fast``: K1 → K2 → K3; in the W8A8 int8 eval,
-    when the params carry int8 companions, K14 → K2 or K12 → K15);
+    eval kernels (``_block_fast``: by the route ``fusion`` names, "pair"
+    K1 → K2 → K4 → K5, "tail" K1 → K2 → K3, "qkv" K8 → K3 or "mega" K7;
+    in the W8A8 int8 eval, when the params carry int8 companions, K14 →
+    K2 or K12 → K15, and ``fusion`` must be "tail");
   * otherwise (every training block, and the short text blocks of the
     eval) the block is composed of LN, the qkv projection, attention
     (``packed_fused_attention``, K2 forward + K9 backward, when the
@@ -33,7 +35,7 @@ from typing import Optional
 import torch
 
 from ..ops.attention import packed_fused_attention, reference_attention
-from ..ops.fused_block import fused_eval_block
+from ..ops.fused_block import check_fusion, fused_eval_block
 from ..ops.int8 import INT8_SUFFIX, SCALE_SUFFIX, fused_eval_block_i8
 from ..ops.mlp import fused_mlp, reference_mlp
 from .layers import layer_norm, linear
@@ -127,14 +129,18 @@ def _ln(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
 
 def _block_fast(params, spec, b, x, mask, rel_bias, type_id, *,
                 kernels: bool, int8_gelu: str = "poly",
-                qk_int8: bool = False):
+                qk_int8: bool = False, fusion: str = "tail"):
     """Whole eval block through the fused kernels (ops/fused_block.py):
     LN1+qkv → packed attention → proj+LayerScale+residual+LN2+MLP+
-    LayerScale+residual; with ``spec.eval_int8`` and the int8 companions
-    of ``quantize_eval_params`` in params, the int8 block of ops/int8.py
-    (mome.py:258-275), whose MLP activation is ``int8_gelu`` and whose
-    attention is K12 when ``qk_int8``.  Returns None when the attention
-    does not take the kernels (``_attention_kernel_ok``)."""
+    LayerScale+residual, by the route ``fusion`` names
+    (``fused_eval_block``; the JAX package reads it from its module
+    gates); with ``spec.eval_int8`` and the int8 companions of
+    ``quantize_eval_params`` in params, the int8 block of ops/int8.py
+    (mome.py:258-275, taken before any fusion gate is read), whose MLP
+    activation is ``int8_gelu`` and whose attention is K12 when
+    ``qk_int8``; it has one route, so ``fusion`` must be "tail" there.
+    Returns None when the attention does not take the kernels
+    (``_attention_kernel_ok``)."""
     if not _attention_kernel_ok(spec, x.shape[1], mask, rel_bias, kernels):
         return None
     p = f"transformer.blocks.{b.index}"
@@ -144,6 +150,10 @@ def _block_fast(params, spec, b, x, mask, rel_bias, type_id, *,
     n2 = f"{p}.norm2{_expert(b, type_id, 'norm2')}"
     scale = spec.head_dim ** -0.5
     if spec.eval_int8 and f"{ap}.qkv.weight{INT8_SUFFIX}" in params:
+        if fusion != "tail":
+            raise ValueError(f"fusion {fusion!r}: the int8 eval block has "
+                             f"one route, 'tail'")
+
         def qw(name):
             return (params[f"{name}.weight{INT8_SUFFIX}"],
                     params[f"{name}.weight{SCALE_SUFFIX}"])
@@ -164,7 +174,7 @@ def _block_fast(params, spec, b, x, mask, rel_bias, type_id, *,
         params[f"{n2}.weight"], params[f"{n2}.bias"],
         params[f"{mp}.fc1.weight"], params[f"{mp}.fc1.bias"],
         params[f"{mp}.fc2.weight"], params[f"{mp}.fc2.bias"],
-        params[f"{p}.gamma_2"])
+        params[f"{p}.gamma_2"], fusion=fusion)
 
 
 def _residual(x: torch.Tensor, branch: torch.Tensor, gamma: torch.Tensor,
@@ -183,14 +193,17 @@ def block_forward(params: Params, spec: ModelSpec, b: BlockSpec,
                   kernels: bool = True, train: bool = False,
                   dp_scale: Optional[torch.Tensor] = None,
                   int8_gelu: str = "poly",
-                  qk_int8: bool = False) -> torch.Tensor:
+                  qk_int8: bool = False,
+                  fusion: str = "tail") -> torch.Tensor:
     """One MoME block over a single-modality sequence, type V or L
     (vision_transformer.py:683-691 dispatch; plain :525-530,
     separate_plain and moe experts :560-654 reduce to one expert per
     module for one modality).  ``dp_scale``: the block's (2, B)
     stochastic-depth scales in training (``model._dp_scale_table``), or
-    None.  ``int8_gelu`` and ``qk_int8`` reach the int8 eval block
-    (``_block_fast``)."""
+    None.  ``int8_gelu`` and ``qk_int8`` reach the int8 eval block,
+    ``fusion`` (one of ``ops.fused_block.FUSIONS``) the eval block's
+    route (``_block_fast``)."""
+    check_fusion(fusion)
     if type_id not in _TASK_OF_TYPE:
         raise NotImplementedError(
             "type-VL blocks (the fused VL pass) are not ported yet: "
@@ -198,7 +211,7 @@ def block_forward(params: Params, spec: ModelSpec, b: BlockSpec,
     if not train:
         fast = _block_fast(params, spec, b, x, mask, rel_bias, type_id,
                            kernels=kernels, int8_gelu=int8_gelu,
-                           qk_int8=qk_int8)
+                           qk_int8=qk_int8, fusion=fusion)
         if fast is not None:
             return fast
         dp_scale = None

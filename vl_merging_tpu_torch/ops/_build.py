@@ -43,6 +43,11 @@ _SIGNATURES = {
     "vlm_ln_linear_i8": (_P,) * 7 + (_I, _I, _I, _F, _P),
     "vlm_proj_mlp_tail_i8": (_P,) * 16 + (_I, _I, _I, _I, _F, _P),
     "vlm_packed_attention_i8qk": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "vlm_linear_residual": (_P,) * 6 + (_I, _I, _I, _P),
+    "vlm_mlp_tail": (_P,) * 9 + (_I, _I, _I, _F, _P),
+    "vlm_ln_qkv_attention": (_P,) * 8 + (_I, _I, _I, _F, _F, _P),
+    "vlm_block_eval": (_P,) * 19 + (_I,) * 5 + (_F, _F, _P),
+    "vlm_block_eval_grid": (),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,19 +1,35 @@
-"""Fused eval-block kernels (port of ``vl_merging_tpu/ops/fused_block.py``,
-staged route).
+"""Fused eval-block kernels (port of ``vl_merging_tpu/ops/fused_block.py``
+and of ``ops/attention.py:ln_qkv_attention``).
 
-  * ``ln_linear``     — y = LN(x)·Wᵀ + b (pre-norm + qkv), kernel K1,
-                        ``csrc/ln_linear.cu``
-  * ``proj_mlp_tail`` — proj + LayerScale + residual + LN2 + MLP +
-                        LayerScale + residual, kernel K3,
-                        ``csrc/proj_mlp_tail.cu``
-  * ``fused_eval_block`` — a whole eval block as K1 → K2 → K3.
+  * ``ln_linear``        — y = LN(x)·Wᵀ + b (pre-norm + qkv), kernel K1,
+                           ``csrc/ln_linear.cu``
+  * ``linear_residual``  — y = res + γ ⊙ (x·Wᵀ + b) (proj + LayerScale +
+                           residual), kernel K4, ``csrc/linear_residual.cu``
+  * ``mlp_tail``         — y = x + γ ⊙ fc2(GELU(fc1(LN(x)))), kernel K5,
+                           ``csrc/mlp_tail.cu``
+  * ``proj_mlp_tail``    — proj + LayerScale + residual + LN2 + MLP +
+                           LayerScale + residual, kernel K3,
+                           ``csrc/proj_mlp_tail.cu`` (or K4 → K5)
+  * ``ln_qkv_attention`` — LN1 + qkv projection + attention with the packed
+                           qkv kept on chip, kernel K8,
+                           ``csrc/ln_qkv_attention.cu``
+  * ``block_eval``       — a whole eval block in one launch, kernel K7,
+                           ``csrc/block_eval.cu``
+  * ``fused_eval_block`` — a whole eval block by one of four routes,
+                           ``fusion`` (the JAX package's module gates
+                           ``_FUSE_WHOLE_TAIL``, ``_FUSE_EVAL_BLOCK`` and
+                           ``attention._FUSE_LN_QKV_ATTN``; ``bench.py``'s
+                           names): "pair" K1 → K2 → K4 → K5, "tail" (the
+                           default) K1 → K2 → K3, "qkv" K8 → K3, "mega" K7.
 
 Each wrapper launches its CUDA kernel on CUDA tensors, or raises for
 inputs the kernel does not take; on CPU tensors it runs its plain twin
 (``*_reference``), which computes with the kernel's rounding points: LN
 statistics in f32 with eps 1e-6, operands rounded to the activation dtype,
-f32 accumulation and f32 bias/LayerScale/residual arithmetic.  Weights use
-torch layout (out, in).  ``<wrapper>.launches`` counts kernel launches.
+f32 accumulation and f32 bias/LayerScale/residual arithmetic.  The four
+routes round at the same points, so their twins agree bit for bit.
+Weights use torch layout (out, in).  ``<wrapper>.launches`` counts kernel
+launches.
 
 Reference semantics: vision_transformer.py:489-530 (LayerScale residuals),
 :272-296 (Mlp), :831 (eps=1e-6).
@@ -26,12 +42,23 @@ import torch.nn.functional as F
 
 from ..models.layers import layer_norm
 from . import _build
-from .attention import packed_attention
+from .attention import HEAD_DIM, packed_attention, \
+    packed_attention_reference
 
 LN_EPS = 1e-6
 _HIDDEN_CHUNK = 128           # proj_mlp_tail walks the MLP hidden in chunks
 _QKV_TILE = 384               # ln_linear's output tile width
 _WIDTHS = (768,)              # model widths the kernels are instantiated for
+_MAX_KEYS = 640               # K7 and K8 keep a head's k and v for N <= 640
+# K7's context scratch: bb batch elements at a time, bb·N·C bf16 within
+# this many bytes (the H100's L2 holds 50 MB)
+_SCRATCH_BYTES = 32 << 20
+FUSIONS = ("pair", "tail", "qkv", "mega")
+
+
+def check_fusion(fusion: str) -> None:
+    if fusion not in FUSIONS:
+        raise ValueError(f"fusion {fusion!r}: one of {FUSIONS}")
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -74,25 +101,107 @@ def ln_linear(x: torch.Tensor, ln_w, ln_b, w, b) -> torch.Tensor:
 ln_linear.launches = 0
 
 
+def linear_residual_reference(x, w, b, gamma, res):
+    """Plain twin of K4: res + γ ⊙ (x·Wᵀ + b) in f32, rounded once."""
+    y = _mm(x, w) + b.float()
+    return (res.float() + y * gamma.float()).to(x.dtype)
+
+
+def linear_residual(x: torch.Tensor, w, b, gamma, res) -> torch.Tensor:
+    """y = res + γ ⊙ (x @ Wᵀ + b); x, res: (B, N, C), w: (O, C), O = C."""
+    if not x.is_cuda:
+        return linear_residual_reference(x, w, b, gamma, res)
+    B, N, C = x.shape
+    O = w.shape[0]
+    if C not in _WIDTHS or O % _QKV_TILE:
+        raise ValueError(f"linear_residual kernel takes C in {_WIDTHS} and "
+                         f"O % {_QKV_TILE} == 0; got C={C}, O={O}")
+    w = w.to(x.dtype)
+    b, gamma = b.float(), gamma.float()
+    dev = x.device
+    _build.expect(x, "x", torch.bfloat16, (B, N, C), dev)
+    _build.expect(w, "w", torch.bfloat16, (O, C), dev)
+    _build.expect(res, "res", torch.bfloat16, (B, N, O), dev)
+    _build.expect(b, "b", torch.float32, (O,), dev)
+    _build.expect(gamma, "gamma", torch.float32, (O,), dev)
+    y = torch.empty((B, N, O), dtype=x.dtype, device=dev)
+    lib = _build.library()
+    _build.check(lib.vlm_linear_residual(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+        res.data_ptr(), y.data_ptr(), B * N, C, O,
+        _build.stream_handle(dev)), "linear_residual")
+    linear_residual.launches += 1
+    return y
+
+
+linear_residual.launches = 0
+
+
+def mlp_tail_reference(x, ln_w, ln_b, w1, b1, w2, b2, gamma):
+    """Plain twin of K5: LN(x) and gelu(fc1) rounded to x's dtype (exact
+    erf, as K3's and K5's erff), everything else f32, rounded once."""
+    dt = x.dtype
+    xn = layer_norm(x, ln_w, ln_b, eps=LN_EPS)
+    h = F.gelu(_mm(xn, w1) + b1.float()).to(dt)
+    y = _mm(h, w2) + b2.float()
+    return (x.float() + y * gamma.float()).to(dt)
+
+
+def mlp_tail(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
+             gamma) -> torch.Tensor:
+    """y = x + γ ⊙ fc2(GELU(fc1(LN(x)))) with the MLP hidden kept on chip;
+    x: (B, N, C)."""
+    if not x.is_cuda:
+        return mlp_tail_reference(x, ln_w, ln_b, w1, b1, w2, b2, gamma)
+    B, N, C = x.shape
+    H = w1.shape[0]
+    if C not in _WIDTHS or H % _HIDDEN_CHUNK:
+        raise ValueError(f"mlp_tail kernel takes C in {_WIDTHS} and hidden "
+                         f"% {_HIDDEN_CHUNK} == 0; got C={C}, hidden={H}")
+    w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
+    vecs = [t.float() for t in (ln_w, ln_b, b1, b2, gamma)]
+    dev = x.device
+    _build.expect(x, "x", torch.bfloat16, (B, N, C), dev)
+    _build.expect(w1, "w1", torch.bfloat16, (H, C), dev)
+    _build.expect(w2, "w2", torch.bfloat16, (C, H), dev)
+    for name, t in zip(("ln_w", "ln_b", "b1", "b2", "gamma"), vecs):
+        _build.expect(t, name, torch.float32, (H if name == "b1" else C,),
+                      dev)
+    ln_w, ln_b, b1, b2, gamma = vecs
+    out = torch.empty_like(x)
+    lib = _build.library()
+    _build.check(lib.vlm_mlp_tail(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+        out.data_ptr(), B * N, C, H, LN_EPS, _build.stream_handle(dev)),
+        "mlp_tail")
+    mlp_tail.launches += 1
+    return out
+
+
+mlp_tail.launches = 0
+
+
 def proj_mlp_tail_reference(ctx, wp, bp, gamma1, res, ln_w, ln_b, w1, b1,
                             w2, b2, gamma2):
     """Plain twin of K3, with its rounding points: x', LN2(x') and
     gelu(fc1) are rounded to the activation dtype; everything else is
-    f32."""
-    dt = ctx.dtype
-    y = _mm(ctx, wp) + bp.float()
-    x1 = (res.float() + y * gamma1.float()).to(dt)
-    xn = layer_norm(x1, ln_w, ln_b, eps=LN_EPS)
-    h = F.gelu(_mm(xn, w1) + b1.float()).to(dt)
-    y2 = _mm(h, w2) + b2.float()
-    return (x1.float() + y2 * gamma2.float()).to(dt)
+    f32.  It is K4's twin followed by K5's, as K3 equals K4 → K5."""
+    x1 = linear_residual_reference(ctx, wp, bp, gamma1, res)
+    return mlp_tail_reference(x1, ln_w, ln_b, w1, b1, w2, b2, gamma2)
 
 
 def proj_mlp_tail(ctx: torch.Tensor, wp, bp, gamma1, res, ln_w, ln_b, w1, b1,
-                  w2, b2, gamma2) -> torch.Tensor:
+                  w2, b2, gamma2, *, fusion: str = "tail") -> torch.Tensor:
     """y = x' + γ2 ⊙ fc2(GELU(fc1(LN(x')))) with
     x' = res + γ1 ⊙ (ctx @ Wpᵀ + bp): the whole post-attention half of a
-    block, with x' and the MLP hidden kept on chip."""
+    block, with x' and the MLP hidden kept on chip (K3); under
+    ``fusion="pair"`` the split pair K4 → K5, which stores x' in bf16
+    where K3 rounds it on chip (the same numbers)."""
+    check_fusion(fusion)
+    if fusion == "pair":
+        x1 = linear_residual(ctx, wp, bp, gamma1, res)
+        return mlp_tail(x1, ln_w, ln_b, w1, b1, w2, b2, gamma2)
     if not ctx.is_cuda:
         return proj_mlp_tail_reference(ctx, wp, bp, gamma1, res, ln_w, ln_b,
                                        w1, b1, w2, b2, gamma2)
@@ -130,14 +239,140 @@ def proj_mlp_tail(ctx: torch.Tensor, wp, bp, gamma1, res, ln_w, ln_b, w1, b1,
 proj_mlp_tail.launches = 0
 
 
+def ln_qkv_attention_reference(x, ln_w, ln_b, w_qkv, qkv_bias, bias, mask,
+                               scale, num_heads):
+    """Plain twin of K8: K1's twin, then K2's (the qkv slices rounded to
+    x's dtype where K1 stores them, q scaled in that dtype, f32 logits,
+    bias, mask and softmax, the context rounded)."""
+    qkv = ln_linear_reference(x, ln_w, ln_b, w_qkv, qkv_bias)
+    return packed_attention_reference(qkv, bias, mask, scale, num_heads)
+
+
+def _block_attention_inputs(name, x, ln_w, ln_b, w_qkv, qkv_bias, bias, mask,
+                            num_heads):
+    """Checks and casts the inputs K7 and K8 share; raises for what their
+    kernels do not take."""
+    B, N, C = x.shape
+    if C not in _WIDTHS or C != num_heads * HEAD_DIM or N > _MAX_KEYS:
+        raise ValueError(f"{name} kernel takes C in {_WIDTHS}, head_dim "
+                         f"{HEAD_DIM} and N <= {_MAX_KEYS}; got C={C}, "
+                         f"heads={num_heads}, N={N}")
+    w_qkv = w_qkv.to(x.dtype)
+    ln_w, ln_b, qkv_bias, bias = (t.float() for t in (ln_w, ln_b, qkv_bias,
+                                                      bias))
+    mask = mask.to(torch.int32)
+    dev = x.device
+    _build.expect(x, "x", torch.bfloat16, (B, N, C), dev)
+    _build.expect(w_qkv, "w_qkv", torch.bfloat16, (3 * C, C), dev)
+    _build.expect(ln_w, "ln_w", torch.float32, (C,), dev)
+    _build.expect(ln_b, "ln_b", torch.float32, (C,), dev)
+    _build.expect(qkv_bias, "qkv_bias", torch.float32, (3 * C,), dev)
+    _build.expect(bias, "bias", torch.float32, (num_heads, N, N), dev)
+    _build.expect(mask, "mask", torch.int32, (B, N), dev)
+    return ln_w, ln_b, w_qkv, qkv_bias, bias, mask
+
+
+def ln_qkv_attention(x: torch.Tensor, ln_w, ln_b, w_qkv, qkv_bias, bias,
+                     mask, scale: float, num_heads: int) -> torch.Tensor:
+    """ctx = attention(LN(x)·W_qkvᵀ + b) over x (B, N, C), with an f32
+    (H, N, N) additive bias and a (B, N) key mask, the packed qkv never
+    stored (K8).  The kernel takes head_dim 64 and N <= 640."""
+    if not x.is_cuda:
+        return ln_qkv_attention_reference(x, ln_w, ln_b, w_qkv, qkv_bias,
+                                          bias, mask, scale, num_heads)
+    B, N, C = x.shape
+    ln_w, ln_b, w_qkv, qkv_bias, bias, mask = _block_attention_inputs(
+        "ln_qkv_attention", x, ln_w, ln_b, w_qkv, qkv_bias, bias, mask,
+        num_heads)
+    out = torch.empty_like(x)
+    lib = _build.library()
+    _build.check(lib.vlm_ln_qkv_attention(
+        x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w_qkv.data_ptr(),
+        qkv_bias.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), B, N, num_heads, float(scale), LN_EPS,
+        _build.stream_handle(x.device)), "ln_qkv_attention")
+    ln_qkv_attention.launches += 1
+    return out
+
+
+ln_qkv_attention.launches = 0
+
+
+def block_eval_reference(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask, scale,
+                         num_heads, wp, bp, gamma1, ln2_w, ln2_b, w1, b1, w2,
+                         b2, gamma2):
+    """Plain twin of K7: the staged twins in sequence (K1, K2, K3)."""
+    ctx = ln_qkv_attention_reference(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias,
+                                     mask, scale, num_heads)
+    return proj_mlp_tail_reference(ctx, wp, bp, gamma1, x, ln2_w, ln2_b, w1,
+                                   b1, w2, b2, gamma2)
+
+
+def block_eval(x: torch.Tensor, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
+               scale, num_heads, wp, bp, gamma1, ln2_w, ln2_b, w1, b1, w2,
+               b2, gamma2) -> torch.Tensor:
+    """One whole eval block in one launch (K7): K8's LN1 + qkv + attention
+    per (element, head), a grid-wide barrier, then K3's post-attention
+    half per 32-row block, over chunks of the batch whose context fits a
+    scratch of ``_SCRATCH_BYTES``."""
+    if not x.is_cuda:
+        return block_eval_reference(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias,
+                                    mask, scale, num_heads, wp, bp, gamma1,
+                                    ln2_w, ln2_b, w1, b1, w2, b2, gamma2)
+    B, N, C = x.shape
+    H = w1.shape[0]
+    if H % _HIDDEN_CHUNK:
+        raise ValueError(f"block_eval kernel takes hidden % {_HIDDEN_CHUNK} "
+                         f"== 0; got hidden={H}")
+    ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask = _block_attention_inputs(
+        "block_eval", x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
+        num_heads)
+    wp, w1, w2 = (w.to(x.dtype) for w in (wp, w1, w2))
+    vecs = [t.float() for t in (bp, gamma1, ln2_w, ln2_b, b1, b2, gamma2)]
+    dev = x.device
+    _build.expect(wp, "wp", torch.bfloat16, (C, C), dev)
+    _build.expect(w1, "w1", torch.bfloat16, (H, C), dev)
+    _build.expect(w2, "w2", torch.bfloat16, (C, H), dev)
+    for name, t in zip(("bp", "gamma1", "ln2_w", "ln2_b", "b1", "b2",
+                        "gamma2"), vecs):
+        _build.expect(t, name, torch.float32, (H if name == "b1" else C,),
+                      dev)
+    bp, gamma1, ln2_w, ln2_b, b1, b2, gamma2 = vecs
+    bb = max(1, min(B, _SCRATCH_BYTES // (N * C * x.element_size())))
+    scratch = torch.empty((bb, N, C), dtype=x.dtype, device=dev)
+    out = torch.empty_like(x)
+    lib = _build.library()
+    _build.check(lib.vlm_block_eval(
+        x.data_ptr(), ln1_w.data_ptr(), ln1_b.data_ptr(), w_qkv.data_ptr(),
+        qkv_bias.data_ptr(), bias.data_ptr(), mask.data_ptr(), wp.data_ptr(),
+        bp.data_ptr(), gamma1.data_ptr(), ln2_w.data_ptr(), ln2_b.data_ptr(),
+        w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        gamma2.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, N,
+        num_heads, H, bb, float(scale), LN_EPS, _build.stream_handle(dev)),
+        "block_eval")
+    block_eval.launches += 1
+    return out
+
+
+block_eval.launches = 0
+
+
 def fused_eval_block(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask, scale,
                      num_heads, wp, bp, gamma1, ln2_w, ln2_b, w1, b1, w2,
-                     b2, gamma2):
-    """One whole eval transformer block as the staged pipeline
-    ln_linear (K1) → packed_attention (K2) → proj_mlp_tail (K3).  The
-    JAX package's single-kernel megakernel and LN+qkv+attention routes are
-    not ported yet (ROADMAP B)."""
-    qkv = ln_linear(x, ln1_w, ln1_b, w_qkv, qkv_bias)
-    ctx = packed_attention(qkv, bias, mask, scale, num_heads)
-    return proj_mlp_tail(ctx, wp, bp, gamma1, x, ln2_w, ln2_b, w1, b1, w2,
-                         b2, gamma2)
+                     b2, gamma2, *, fusion: str = "tail"):
+    """One whole eval transformer block by the route ``fusion`` names
+    (``vl_merging_tpu/ops/fused_block.py:fused_eval_block`` with its
+    module gates): "pair" K1 → K2 → K4 → K5, "tail" K1 → K2 → K3, "qkv"
+    K8 → K3, "mega" K7.  All four round at the same points."""
+    check_fusion(fusion)
+    attn = (x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask, scale, num_heads)
+    if fusion == "mega":
+        return block_eval(*attn, wp, bp, gamma1, ln2_w, ln2_b, w1, b1, w2, b2,
+                          gamma2)
+    if fusion == "qkv":
+        ctx = ln_qkv_attention(*attn)
+    else:
+        qkv = ln_linear(x, ln1_w, ln1_b, w_qkv, qkv_bias)
+        ctx = packed_attention(qkv, bias, mask, scale, num_heads)
+    return proj_mlp_tail(ctx, wp, bp, gamma1, x, ln2_w, ln2_b, w1, b1, w2, b2,
+                         gamma2, fusion=fusion)
