@@ -9,13 +9,17 @@ of each window at ``chip_smoke.py``'s shapes and seeded inputs:
   * ``eval``: ``compute_irtr_recall`` over 64 images and 320 captions;
   * ``eval int8``: the same in the W8A8 int8 eval mode (``eval_int8``:
     K14 → K2 → K15 per image block);
+  * ``eval @224``: the Flickr30k @224 eval over 70 images (batches of 32,
+    32 and 6: K11, K11, K10 in every block) and 350 captions;
   * ``image tower, fusion <route>``: ``extract_features`` over the 64
     images under each eval-block route ("pair" K1 → K2 → K4 → K5, "tail"
     K1 → K2 → K3, "qkv" K8 → K3, "mega" K7);
-  * ``train (kernels)`` / ``train (plain)``: one optimizer step (2
-    micro-batches of 32 pairs) on the kernel path and on the plain path
-    (K9's three CUDA kernels, statistics + dq, dk/dv + dbias partials and
-    the partial sum, show separately).
+  * ``train (kernels)`` / ``train (kernels, train_fusion full)`` /
+    ``train (plain)``: one optimizer step (2 micro-batches of 32 pairs) on
+    the kernel path, on the kernel path under the training fusion "full"
+    (K1 and K6 in every block) and on the plain path (K9's three CUDA
+    kernels, statistics + dq, dk/dv + dbias partials and the partial sum,
+    show separately).
 For each window it prints the host wall time, the device busy time (the
 union of the device kernels' intervals), the idle share (1 − busy / wall)
 and the kernels with the most device time.
@@ -105,17 +109,30 @@ def main() -> None:
         params8, spec8, text_b, image_b, tiids, iids), card)
     del params8
 
+    cfg224 = build_config(*smoke.CONFIG_224)
+    spec224 = make_model_spec(cfg224)
+    params224 = eval_cast_params(smoke.seeded_params(spec224, dev), spec224,
+                                 cfg224)
+    sets224 = smoke.synthetic_eval_set(spec224, dev, gen, smoke.N_IMAGES_224)
+    trace("eval @224", lambda: compute_irtr_recall(params224, spec224,
+                                                   *sets224), card)
+    del params224, sets224
+
     train_cfg = smoke.train_config(kernels=True)
     batch = smoke.synthetic_train_batch(spec, accum_steps(train_cfg), dev,
                                         gen)
-    for kernels in (True, False):
+    for label, kernels, level in (
+            ("kernels", True, "0"),
+            ("kernels, train_fusion full", True, "full"),
+            ("plain", False, "0")):
         state, step = build_train_step(smoke.train_config(kernels), spec,
-                                       master_params(base), 10)
+                                       master_params(base), 10,
+                                       train_fusion=level)
         holder = [state]
 
         def one_step():
             holder[0] = step(holder[0], batch)[0]
-        trace(f"train ({'kernels' if kernels else 'plain'})", one_step, card)
+        trace(f"train ({label})", one_step, card)
         del state, step, holder
 
 

@@ -19,7 +19,15 @@ and captions are synthetic.
     opt-in int8-QK attention (``qk_int8=True``);
   * the image tower under each of the eval block's four routes
     (``fusion``: "pair" K1 → K2 → K4 → K5, "tail" K1 → K2 → K3, "qkv"
-    K8 → K3, "mega" K7), and the retrieval eval under "mega".
+    K8 → K3, "mega" K7), and the retrieval eval under "mega";
+  * the irtr fine-tune step under the training fusion (``train_fusion``
+    "tail": K6 for every block's post-attention half; "full": K1 for its
+    LN1 + qkv too).
+
+The Flickr30k @224 retrieval eval runs
+``task_finetune_irtr_f30k_square_randaug_base`` + ``ufo`` at the same
+width: ViT-B/16 @224, 197 image tokens, whose attention takes the split
+kernels (K11 for a batch of 4k, K10 otherwise).
 
 Phases, each fatal on failure:
   1. a CUDA device (printed as nvidia-smi names it, with its power limit);
@@ -27,7 +35,8 @@ Phases, each fatal on failure:
   3. each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail,
      K9 packed_attention_bwd, K13 mlp, K12 packed_attention_i8qk, K14
      ln_linear_i8, K15 proj_mlp_tail_i8, K4 linear_residual, K5 mlp_tail,
-     K8 ln_qkv_attention, K7 block_eval) at main-path shapes against its
+     K8 ln_qkv_attention, K7 block_eval, K10 split_attention, K11
+     split_attention_bb, K6 tail_train) at main-path shapes against its
      plain twin on the same inputs, with its tolerance and the share of
      elements that differ; kernel, twin and (where one PyTorch call
      computes the same function) library call timed with CUDA events,
@@ -35,6 +44,7 @@ Phases, each fatal on failure:
      K1, K3 and K2 at the same shapes; K4 + K5, K8 and K7 beside the
      staged kernels they replace (K3, K1 + K2, K1 + K2 + K3), in time and
      output (bit-equal or not, and the share of elements that differ);
+     K10 beside K11 at B=32 and K6 at uniform gammas beside K3, likewise;
   4. ``compute_irtr_recall`` over 64 images (batches of 32) and 320
      captions (batches of 64): K1-K3 launched 12 times per image batch,
      K13 12 times per text batch; finite features, image cls_feats within
@@ -57,7 +67,20 @@ Phases, each fatal on failure:
      micro-batch, finite loss and grad norm every step; kernel-path
      gradients within global cosine 0.999 of the plain path's at the same
      params, batch and random draws; step time, pairs/s and peak memory on
-     both paths.
+     both paths;
+  7. the Flickr30k @224 eval: ``compute_irtr_recall`` over 70 images
+     (batches of 32, 32 and 6) and 350 captions (batches of 64): K11 12
+     launches per full image batch, K10 12 for the batch of 6, K13 12 per
+     image batch and per text batch, no other kernel; finite features,
+     image cls_feats within cosine 0.999 of the plain path's; R@{1,5,10};
+     the @224 image tower's images/s, kernels and plain path in turns;
+  8. the training fusion: the irtr @384 step at ``train_fusion`` "tail"
+     and "full", a warm-up step and 2 steps each: per micro-batch K6 24
+     (12 image and 12 text blocks), K2 12, K9 12, no K13, and K1 24 under
+     "full" only; finite loss and grad norm; gradients within global
+     cosine 0.999 of level "0" (the kernel path) at the same params, batch
+     and random draws; step time, pairs/s and peak memory beside level
+     "0", in turns.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -98,6 +121,11 @@ IMAGE_BATCH, N_IMAGES = 32, 64
 CAPTIONS_PER_IMAGE, TEXT_BATCH = 5, 64
 MICRO_BATCH, TRAIN_STEPS = 32, 3
 N, C, HEADS, HIDDEN = 577, 768, 12, 3072
+# the Flickr30k @224 eval (ViT-B/16 @224: 197 image tokens): full image
+# batches of 32 take K11, the ragged last batch of 6 K10
+CONFIG_224 = ("task_finetune_irtr_f30k_square_randaug_base", "ufo")
+N_224, N_IMAGES_224, K10_BATCH = 197, 70, 6
+TRAIN_FUSION_STEPS = 2
 BF16_ULP = 2.0 ** -7
 # Kernel vs twin: K1, K3 and K13 round where their twins do, so they differ
 # by f32 summation order (and erf's last f32 ulp): 2 bf16 ulps.  K2 rounds
@@ -114,12 +142,15 @@ BF16_ULP = 2.0 ** -7
 # two halves): 2 ulps.  K8 rounds its softmax as K2 does: 4 ulps.  K7's
 # context carries K8's 4-ulp error into the proj, where γ1·Wp scales it
 # down (|γ1| ~ 0.1 at these inputs), so the output adds to K3's own 2
-# ulps a small fraction of 4: 4 ulps.
+# ulps a small fraction of 4: 4 ulps.  K10 and K11 round their softmax
+# as K2 does: 4 ulps.  K6 is K3 with per-element gammas, rounding where
+# its twin (K3's) does: 2 ulps.
 ULPS = {"ln_linear": 2, "packed_attention": 4, "proj_mlp_tail": 2,
         "packed_attention_bwd": 4, "mlp": 2, "ln_linear_i8": 2,
         "proj_mlp_tail_i8": 4, "packed_attention_i8qk": 4,
         "linear_residual": 2, "mlp_tail": 2, "ln_qkv_attention": 4,
-        "block_eval": 4}
+        "block_eval": 4, "split_attention": 4, "split_attention_bb": 4,
+        "tail_train": 2}
 DBIAS_REL = 1e-3
 MIN_COSINE = 0.999
 TIMED_ITERS = 20
@@ -184,7 +215,7 @@ def kernel_inputs(dev, gen):
 
     mask = torch.ones(B, N, dtype=torch.int32, device=dev)
     mask[-1, 500:] = 0   # exercise the key mask too
-    return {
+    inputs = {
         "ln_linear": (r(B, N, C, bf16=True), r(C, s=0.1, shift=1.0),
                       r(C, s=0.1), r(3 * C, C, s=0.02, bf16=True),
                       r(3 * C, s=0.1)),
@@ -213,6 +244,19 @@ def kernel_inputs(dev, gen):
                                   mask, 64 ** -0.5, HEADS),
     }
 
+    def split(b):
+        """An @224 image block's attention inputs: the (b, H, 197, 64)
+        views of a packed qkv, the f32 bias and a key mask."""
+        qkv = r(b, N_224, 3 * C, bf16=True)
+        q, k, v = qkv.view(b, N_224, 3, HEADS, 64).permute(2, 0, 3, 1, 4)
+        m = torch.ones(b, N_224, dtype=torch.int32, device=dev)
+        m[-1, N_224 - 40:] = 0
+        return q, k, v, r(HEADS, N_224, N_224), m, 64 ** -0.5
+
+    inputs["split_attention"] = split(K10_BATCH)
+    inputs["split_attention_bb"] = split(B)
+    return inputs
+
 
 def fusion_inputs(inputs):
     """The fusion kernels' inputs, made of K1-K3's (no new draws): K4 and
@@ -231,6 +275,22 @@ def fusion_inputs(inputs):
                                   g2)}
 
 
+def train_fusion_inputs(inputs, gen):
+    """K6's inputs: K3's, with per-element effective gammas (B, 1, C) bf16
+    of stochastic-depth scales drawn from {0, 1/keep} as
+    ``model._dp_scale_table`` draws them (keep 0.9, the last layer's at
+    drop rate 0.1)."""
+    ctx, wp, bp, g1, res, ln2_w, ln2_b, w1, b1, w2, b2, g2 = \
+        inputs["proj_mlp_tail"]
+    keep = 0.9
+    dp = (torch.rand(2, ctx.shape[0], device=ctx.device, generator=gen)
+          < keep).float() / keep
+    ge1, ge2 = (dp[i][:, None, None].bfloat16() * g.bfloat16()
+                for i, g in enumerate((g1, g2)))
+    return {"tail_train": (ctx, wp, bp, ge1, res, ln2_w, ln2_b, w1, b1, w2,
+                           b2, ge2)}
+
+
 def _valid_keys(mask) -> int:
     return int(mask.sum())
 
@@ -247,7 +307,12 @@ def work(name: str, args) -> tuple:
         qkv, bias, mask = args[:3]
         flops = 4 * 64 * N * HEADS * _valid_keys(mask)
         return flops, nbytes(qkv, bias, mask) + qkv.numel() // 3 * 2
-    if name == "proj_mlp_tail":
+    if name in ("split_attention", "split_attention_bb"):
+        q, k, v, bias, mask = args[:5]
+        n = q.shape[2]
+        flops = 4 * 64 * n * HEADS * _valid_keys(mask)
+        return flops, nbytes(q, k, v, bias, mask) + nbytes(q)
+    if name in ("proj_mlp_tail", "tail_train"):
         M = args[0].shape[0] * args[0].shape[1]
         return 2 * M * C * C + 4 * M * C * HIDDEN, \
             nbytes(*args) + M * C * 2
@@ -301,11 +366,20 @@ def _sdpa_args(qkv, bias, mask):
 def library_call(name: str, args):
     """One PyTorch call computing the same function, as a yardstick (the
     port never calls it), or None where there is none: LN+linear (K1), the
-    fused proj/MLP tail (K3) and fc1+gelu+fc2 (K13) take several calls."""
+    fused proj/MLP tail (K3, K6) and fc1+gelu+fc2 (K13) take several
+    calls.  For K2, K10 and K11: SDPA with the bias and the key mask as
+    one additive bf16 mask."""
     if name == "packed_attention":
         q, k, v, am = _sdpa_args(*args[:3])
         return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
                                                       scale=args[3])
+    if name in ("split_attention", "split_attention_bb"):
+        q, k, v, bias, mask, scale = args
+        am = (bias[None] + torch.zeros_like(mask, dtype=torch.float32)
+              .masked_fill(mask == 0, float("-inf"))[:, None, None, :])
+        am = am.to(q.dtype)
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                      scale=scale)
     if name == "packed_attention_bwd":
         qkv, bias, mask, g = args[:4]
         q, k, v, am = (t.detach().requires_grad_()
@@ -363,6 +437,17 @@ KERNELS = {
     "block_eval": (fb_ops.block_eval, fb_ops.block_eval_reference,
                    "vl_merging_tpu_torch/csrc/block_eval.cu",
                    "vl_merging_tpu/ops/fused_block.py:471"),
+    "split_attention": (attn_ops.split_attention,
+                        attn_ops.split_attention_reference,
+                        "vl_merging_tpu_torch/csrc/split_attention.cu",
+                        "vl_merging_tpu/ops/attention.py:89"),
+    "split_attention_bb": (attn_ops.split_attention_bb,
+                           attn_ops.split_attention_reference,
+                           "vl_merging_tpu_torch/csrc/split_attention.cu",
+                           "vl_merging_tpu/ops/attention.py:111"),
+    "tail_train": (fb_ops.tail_train, fb_ops.tail_train_reference,
+                   "vl_merging_tpu_torch/csrc/tail_train.cu",
+                   "vl_merging_tpu/ops/fused_block.py:327"),
 }
 # the int8 kernels' bf16 counterparts, timed at the same shapes
 BF16_TWIN = {"ln_linear_i8": "ln_linear", "proj_mlp_tail_i8": "proj_mlp_tail",
@@ -412,6 +497,19 @@ def staged_comparisons(inputs, card: str) -> None:
         ("K7 vs K1 -> K2 -> K3",
          lambda: fb_ops.block_eval(*inputs["block_eval"]), "K1 + K2 + K3",
          k1_k2_k3))
+    split = inputs["split_attention_bb"]
+    u1, u2 = (g.bfloat16().float() for g in (g1, g2))
+    B = ctx.shape[0]
+    cases += (
+        ("K10 vs K11 (B=32, N=197)",
+         lambda: attn_ops.split_attention(*split), "K11",
+         lambda: attn_ops.split_attention_bb(*split)),
+        ("K6 at uniform gammas vs K3",
+         lambda: fb_ops.tail_train(ctx, wp, bp, u1.expand(B, 1, C), res,
+                                   ln2_w, ln2_b, w1, b1, w2, b2,
+                                   u2.expand(B, 1, C)),
+         "K3", lambda: fb_ops.proj_mlp_tail(ctx, wp, bp, u1, res, ln2_w,
+                                            ln2_b, w1, b1, w2, b2, u2)))
     for label, fused, staged_name, staged in cases:
         got, want = fused(), staged()
         torch.cuda.synchronize()
@@ -425,6 +523,7 @@ def check_kernels(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     inputs = kernel_inputs(dev, gen)
     inputs.update(fusion_inputs(inputs))
+    inputs.update(train_fusion_inputs(inputs, gen))
     rows = {}
     for name, (kernel, twin, source, replaces) in KERNELS.items():
         args = inputs[name]
@@ -474,6 +573,18 @@ def check_kernels(dev, card: str) -> dict:
           f"{bound(*work('mlp', args))[0]:.4f} ms [{card}]")
     if worst > 1.0:
         fail("mlp disagrees with its plain twin at the text tower's rows")
+    # K6 also runs on the training text blocks: 32 captions x 40 tokens
+    args = [t.reshape(-1, C)[:MICRO_BATCH * 40].reshape(MICRO_BATCH, 40, C)
+            if t.dim() == 3 and t.shape[1] == N else t
+            for t in inputs["tail_train"]]
+    max_err, worst, _ = ulp_check("tail_train", fb_ops.tail_train(*args),
+                                  fb_ops.tail_train_reference(*args))
+    print(f"tail_train at 32x40 rows: max |kernel - twin| = {max_err:.6g}, "
+          f"worst err/bound = {worst:.3f}, kernel "
+          f"{time_ms(lambda: fb_ops.tail_train(*args)):.4f} ms, bound "
+          f"{bound(*work('tail_train', args))[0]:.4f} ms [{card}]")
+    if worst > 1.0:
+        fail("tail_train disagrees with its plain twin at the text rows")
     staged_comparisons(inputs, card)
     # a note, not a yardstick: torch's int8 GEMM alone at K14's GEMM shape
     x = inputs["ln_linear_i8"][0].reshape(-1, C)
@@ -529,18 +640,18 @@ def synthetic_captions(spec, n, dev, gen):
     return ids, masks
 
 
-def synthetic_eval_set(spec, dev, gen):
-    images = torch.randn(N_IMAGES, 3, spec.image_size, spec.image_size,
+def synthetic_eval_set(spec, dev, gen, n_images: int = N_IMAGES):
+    images = torch.randn(n_images, 3, spec.image_size, spec.image_size,
                          device=dev, generator=gen)
-    n_txt = N_IMAGES * CAPTIONS_PER_IMAGE
+    n_txt = n_images * CAPTIONS_PER_IMAGE
     ids, masks = synthetic_captions(spec, n_txt, dev, gen)
     image_batches = [{"image": images[i:i + IMAGE_BATCH]}
-                     for i in range(0, N_IMAGES, IMAGE_BATCH)]
+                     for i in range(0, n_images, IMAGE_BATCH)]
     text_batches = [{"text_ids": ids[i:i + TEXT_BATCH],
                      "text_masks": masks[i:i + TEXT_BATCH]}
                     for i in range(0, n_txt, TEXT_BATCH)]
-    tiids = np.repeat(np.arange(N_IMAGES), CAPTIONS_PER_IMAGE)
-    return text_batches, image_batches, tiids, np.arange(N_IMAGES)
+    tiids = np.repeat(np.arange(n_images), CAPTIONS_PER_IMAGE)
+    return text_batches, image_batches, tiids, np.arange(n_images)
 
 
 def images_per_sec(params, spec, image_batches, kernels: bool,
@@ -550,7 +661,8 @@ def images_per_sec(params, spec, image_batches, kernels: bool,
     extract_features(params, spec, image_batches, "image", kernels=kernels,
                      fusion=fusion)
     torch.cuda.synchronize()
-    return N_IMAGES / (time.perf_counter() - t0)
+    return sum(b["image"].shape[0] for b in image_batches) / (
+        time.perf_counter() - t0)
 
 
 def run_eval(dev, card: str) -> dict:
@@ -911,6 +1023,161 @@ def run_training(dev, card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 7: the Flickr30k @224 retrieval eval (the split attention kernels)
+# --------------------------------------------------------------------------
+
+def run_eval_224(dev, card: str) -> dict:
+    cfg = build_config(*CONFIG_224)
+    spec = make_model_spec(cfg)
+    if spec.image_len != N_224:
+        fail(f"@224 image tokens {spec.image_len}, expected {N_224}")
+    params = eval_cast_params(seeded_params(spec, dev), spec, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    text_batches, image_batches, tiids, iids = synthetic_eval_set(
+        spec, dev, gen, N_IMAGES_224)
+    L = spec.num_layers
+    full = sum(b["image"].shape[0] % attn_ops.SPLIT_BB == 0
+               for b in image_batches)
+    ragged = len(image_batches) - full
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recall = compute_irtr_recall(params, spec, text_batches, image_batches,
+                                 tiids, iids)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    want = want_launches(split_attention_bb=L * full,
+                         split_attention=L * ragged,
+                         mlp=L * (len(image_batches) + len(text_batches)))
+    print(f"@224 compute_irtr_recall: {seconds:.3f} s for {len(iids)} images "
+          f"(batches {[b['image'].shape[0] for b in image_batches]}) and "
+          f"{len(tiids)} captions; kernel launches "
+          f"{ {k: v for k, v in launches.items() if v} } (want K11 {L} per "
+          f"image batch of 32, K10 {L} for the batch of {K10_BATCH}, K13 "
+          f"{L} per image and per text batch, nothing else)")
+    if launches != want:
+        fail(f"@224 eval kernel launches {launches}, want {want}")
+    print("@224 recall: " + json.dumps(recall))
+    if not all(0.0 <= v <= 1.0 for v in recall.values()):
+        fail(f"@224 recall out of range: {recall}")
+
+    with torch.no_grad():
+        img_k = extract_features(params, spec, image_batches, "image")
+        img_p = extract_features(params, spec, image_batches, "image",
+                                 kernels=False)
+    for t in (img_k, img_p):
+        if t.shape != (len(iids), spec.hidden_size) or \
+                not bool(torch.isfinite(t).all()):
+            fail(f"@224 image features: shape {tuple(t.shape)} or not finite")
+    cos = min_cosine(img_k, img_p)
+    print(f"@224 image cls_feats, kernels vs plain path: min cosine "
+          f"{cos:.6f} (need >= {MIN_COSINE})")
+    if cos < MIN_COSINE:
+        fail("@224 kernel-path image features disagree with the plain path")
+
+    rates = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        rates[which].append(images_per_sec(params, spec, image_batches,
+                                           kernels=which == "kernels"))
+    print(f"image tower (ViT-B/16 @224, bf16, batches of {IMAGE_BATCH} and "
+          f"{K10_BATCH}): kernels {max(rates['kernels']):.1f} img/s, plain "
+          f"{max(rates['plain']):.1f} img/s (best of 2, {len(iids)} images "
+          f"each) [{card}]")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 8: the irtr fine-tune step under the training fusion
+# --------------------------------------------------------------------------
+
+def run_train_fusion(dev, card: str) -> dict:
+    cfg = train_config(kernels=True)
+    spec = make_model_spec(cfg)
+    accum = accum_steps(cfg)
+    L = spec.num_layers
+    base = seeded_params(spec, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    batch = synthetic_train_batch(spec, accum, dev, gen)
+    levels = ("0", "tail", "full")
+    launches = dict.fromkeys(KERNELS, 0)
+
+    runs = {}
+    for level in levels:
+        state, step = build_train_step(cfg, spec, master_params(base),
+                                       TRAIN_STEPS, train_fusion=level)
+        runs[level] = (step(state, batch)[0], step)   # warm-up step
+    for level in levels[1:]:
+        state, step = runs[level]
+        reset_launches()
+        for i in range(TRAIN_FUSION_STEPS):
+            state, metrics, ms = timed_step(step, state, batch)
+            loss = float(metrics["total_loss"])
+            gnorm = float(metrics["grad_norm"])
+            print(f"train_fusion {level!r} step {i + 1}: loss {loss:.6f}, "
+                  f"grad norm {gnorm:.6f}, {ms:.1f} ms")
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                fail(f"train_fusion {level!r}: loss or grad norm not finite")
+        runs[level] = (state, step)
+        got = read_launches()
+        micro = TRAIN_FUSION_STEPS * accum
+        want = want_launches(tail_train=2 * L * micro,
+                             packed_attention=L * micro,
+                             packed_attention_bwd=L * micro,
+                             ln_linear=2 * L * micro if level == "full"
+                             else 0)
+        print(f"train_fusion {level!r}: kernel launches "
+              f"{ {k: v for k, v in got.items() if v} } over {micro} "
+              f"micro-batches (want per micro-batch K6 {2 * L}, K2 {L}, "
+              f"K9 {L}" + (f", K1 {2 * L}" if level == "full" else "")
+              + ", nothing else)")
+        if got != want:
+            fail(f"train_fusion {level!r}: kernel launches {got}, want "
+                 f"{want}")
+        for k, v in got.items():
+            launches[k] += v
+
+    # each level's gradients against level "0": same params, micro-batch
+    # and random draws
+    params = master_params(base)
+    mb = {k: v[0] for k, v in batch.items()}
+    grads = {}
+    for level in levels:
+        g = torch.Generator(device=dev).manual_seed(SEED + 6)
+        loss, _, grads[level] = train_step.loss_and_grads(
+            params, spec, cfg, mb, g, kernels=True, train_fusion=level)
+        print(f"micro-batch loss, train_fusion {level!r}: {float(loss):.6f}")
+    for level in levels[1:]:
+        cos = global_cosine(grads[level], grads["0"])
+        print(f"gradients, train_fusion {level!r} vs '0': global cosine "
+              f"{cos:.6f} (need >= {MIN_COSINE})")
+        if cos < MIN_COSINE:
+            fail(f"train_fusion {level!r}: gradients disagree with level "
+                 f"'0'")
+    del grads, params
+
+    # step time, pairs/s and peak memory, in turns
+    times = {lv: [] for lv in levels}
+    peak = dict.fromkeys(levels, 0)
+    for level in levels + levels[::-1]:
+        state, step = runs[level]
+        torch.cuda.reset_peak_memory_stats()
+        state, _, ms = timed_step(step, state, batch)
+        peak[level] = max(peak[level], torch.cuda.max_memory_allocated())
+        runs[level] = (state, step)
+        times[level].append(ms)
+    pairs = accum * MICRO_BATCH
+    for level in levels:
+        ms = min(times[level])
+        print(f"train step, train_fusion {level!r} (kernel path, micro-batch "
+              f"{MICRO_BATCH} x {accum}): {ms:.1f} ms, "
+              f"{1e3 * pairs / ms:.1f} pairs/s, peak memory "
+              f"{peak[level] / 2**30:.2f} GiB (best of 2, in turns) [{card}]")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -926,15 +1193,15 @@ def main() -> int:
           + ("library already built" if prebuilt else "built by nvcc") + ")")
 
     rows = check_kernels(dev, card)
-    eval_launches = run_eval(dev, card)
-    int8_launches = run_eval_int8(dev, card)
-    train_launches = run_training(dev, card)
+    paths = {"eval": run_eval(dev, card),
+             "eval_int8": run_eval_int8(dev, card),
+             "train": run_training(dev, card),
+             "eval_224": run_eval_224(dev, card),
+             "train_fusion": run_train_fusion(dev, card)}
     for name, row in rows.items():
-        row["launches_eval"] = eval_launches[name]
-        row["launches_eval_int8"] = int8_launches[name]
-        row["launches_train"] = train_launches[name]
-        row["launches"] = (eval_launches[name] + int8_launches[name]
-                           + train_launches[name])
+        for path, launches in paths.items():
+            row[f"launches_{path}"] = launches[name]
+        row["launches"] = sum(launches[name] for launches in paths.values())
         if row["launches"] == 0:
             fail(f"{name} was launched no time on the main paths")
     print(json.dumps({"kernels": list(rows.values())}))

@@ -22,7 +22,13 @@ held to 2 ulps, K15 and K12 to 4.  The eval block's fusion kernels: K4
 linear_residual and K5 mlp_tail round where their twins do (K3's two
 halves), 2 ulps; K8 ln_qkv_attention rounds its softmax as K2 does, 4
 ulps; K7 block_eval carries K8's context error through the proj, 4 ulps.
-The image tower takes the launches of the route ``fusion`` names.
+The image tower takes the launches of the route ``fusion`` names.  The
+split-layout attention, K10 split_attention and K11 split_attention_bb,
+rounds its softmax as K2 does, 4 ulps, and the two give the same bits;
+K6 tail_train is K3 with per-element gammas, 2 ulps, and K3's bits when
+every element's gammas are K3's.  A @224 image tower layer takes K11 or
+K10; a training block under ``train_fusion`` takes K6 (and K1 under
+"full").
 
 This file imports no JAX (the machine with the card has none), so it runs
 without tests/conftest.py:
@@ -364,3 +370,143 @@ def test_image_tower_routes_launch_their_kernels_on_card(cuda_device):
         cos = torch.nn.functional.cosine_similarity(
             feats[fusion].float(), feats["pair"].float(), dim=-1)
         assert float(cos.min()) >= 0.9999, (fusion, float(cos.min()))
+
+
+def _split_args(dev, g, B, N, H=12):
+    """q, k, v as the (B, H, N, 64) views of a packed qkv (as the towers
+    hand them to the split kernels), an f32 bias and a ragged key mask."""
+    qkv = torch.randn(B, N, 3 * H * 64, device=dev, generator=g).bfloat16()
+    q, k, v = qkv.view(B, N, 3, H, 64).permute(2, 0, 3, 1, 4)
+    bias = torch.randn(H, N, N, device=dev, generator=g)
+    mask = torch.ones(B, N, dtype=torch.int32, device=dev)
+    mask[-1, N // 2:] = 0
+    return q, k, v, bias, mask, 0.125
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(8, 197), (4, 577), (4, 130)])
+def test_split_attention_kernels_match_twin_on_card(cuda_device, B, N):
+    """K10 and K11 on strided views of a packed qkv against their twin
+    (4 ulps: K2's softmax rounding), equal to each other bit for bit (the
+    same arithmetic per element); contiguous inputs give the same bits;
+    K11 refuses a batch that is not a multiple of 4."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    args = _split_args(cuda_device, g, B, N)
+    n = (TA.split_attention.launches, TA.split_attention_bb.launches)
+    k10 = TA.split_attention(*args)
+    k11 = TA.split_attention_bb(*args)
+    assert (TA.split_attention.launches, TA.split_attention_bb.launches) == \
+        (n[0] + 1, n[1] + 1)
+    assert k10.shape == args[0].shape
+    _bf16_close(k10, TA.split_attention_reference(*args), ulps=4)
+    assert torch.equal(k10, k11)
+    dense = [t.contiguous() for t in args[:3]]
+    assert torch.equal(TA.split_attention(*dense, *args[3:]), k10)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        TA.split_attention_bb(*(t[:3] for t in args[:3]), args[3],
+                              args[4][:3], args[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(3, 577), (5, 40)])
+def test_tail_train_kernel_matches_twin_on_card(cuda_device, B, N):
+    """K6 with per-element gammas against its twin (2 ulps, as K3), at
+    row counts whose 32-row blocks straddle elements; with every element's
+    gammas equal to K3's γ, K3's bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    args = list(_block_args(cuda_device, g, B, N)[9:])
+    wp, bp, g1, lnw, lnb, w1, b1, w2, b2, g2 = args
+    ctx, res = (torch.randn(B, N, 768, device=cuda_device,
+                            generator=g).bfloat16() for _ in range(2))
+    keep = 0.9
+    dp = (torch.rand(2, B, device=cuda_device, generator=g) < keep).float() \
+        / keep
+    ge1, ge2 = (dp[i][:, None, None].bfloat16() * gam.bfloat16()
+                for i, gam in enumerate((g1, g2)))
+    n = TF.tail_train.launches
+    got = TF.tail_train(ctx, wp, bp, ge1, res, lnw, lnb, w1, b1, w2, b2, ge2)
+    assert TF.tail_train.launches == n + 1
+    _bf16_close(got, TF.tail_train_reference(ctx, wp, bp, ge1, res, lnw, lnb,
+                                             w1, b1, w2, b2, ge2))
+    u1, u2 = (gam.bfloat16().float() for gam in (g1, g2))
+    uniform = TF.tail_train(ctx, wp, bp, u1.expand(B, 1, -1), res, lnw, lnb,
+                            w1, b1, w2, b2, u2.expand(B, 1, -1))
+    assert torch.equal(uniform, TF.proj_mlp_tail(ctx, wp, bp, u1, res, lnw,
+                                                 lnb, w1, b1, w2, b2, u2))
+
+
+@pytest.mark.cuda
+def test_train_fusion_launches_and_gradients_on_card(cuda_device):
+    """One block at 577 tokens, B = 2, in training: "tail" launches K6 (and
+    K2, K9), "full" K1 too; gradients within cosine 0.999 of level "0"."""
+    from vl_merging_tpu_torch.config import build_config
+    from vl_merging_tpu_torch.ckpt.convert import master_params, \
+        params_from_numpy
+    from vl_merging_tpu_torch.models import mome
+    from vl_merging_tpu_torch.models.spec import V, init_params, \
+        make_model_spec
+
+    cfg = build_config("task_finetune_irtr_coco_square_randaug_base_image384",
+                       "ufo", overrides=dict(num_layers=1))
+    spec = make_model_spec(cfg)
+    gen = torch.Generator().manual_seed(15)
+    params = master_params(params_from_numpy(init_params(spec, gen),
+                                             cuda_device))
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    x = torch.randn(2, 577, 768, device=cuda_device, generator=g).bfloat16()
+    bias = torch.randn(12, 577, 577, device=cuda_device, generator=g)
+    mask = torch.ones(2, 577, dtype=torch.int32, device=cuda_device)
+    dp = torch.tensor([[1.0, 0.0], [1 / 0.9, 1 / 0.9]], device=cuda_device)
+    cot = torch.randn(2, 577, 768, device=cuda_device, generator=g).bfloat16()
+    leaves = [k for k in params if k.startswith("transformer.blocks.0.")]
+    grads = {}
+    for level in ("0", "tail", "full"):
+        n = (TF.tail_train.launches, TF.ln_linear.launches)
+        out = mome.block_forward(params, spec, spec.blocks[0], x, mask, bias,
+                                 V, train=True, dp_scale=dp,
+                                 train_fusion=level)
+        gs = torch.autograd.grad((out.float() * cot.float()).sum(),
+                                 [params[k] for k in leaves],
+                                 allow_unused=True)
+        grads[level] = torch.cat([t.flatten() for t in gs if t is not None])
+        assert (TF.tail_train.launches - n[0],
+                TF.ln_linear.launches - n[1]) == \
+            {"0": (0, 0), "tail": (1, 0), "full": (1, 1)}[level]
+    for level in ("tail", "full"):
+        cos = torch.nn.functional.cosine_similarity(
+            grads[level].double(), grads["0"].double(), dim=0)
+        assert float(cos) >= 0.999, (level, float(cos))
+
+
+@pytest.mark.cuda
+def test_image_tower_at_224_takes_the_split_kernels_on_card(cuda_device):
+    """One ViT-B/16 @224 layer (197 tokens): a batch of 4 launches K11
+    once, a batch of 2 K10 once, and no packed kernel; features within
+    cosine 0.999 of the plain path's."""
+    from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, \
+        params_from_numpy
+    from vl_merging_tpu_torch.config import build_config
+    from vl_merging_tpu_torch.models import model
+    from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
+
+    cfg = build_config("task_finetune_irtr_f30k_square_randaug_base", "ufo",
+                       overrides=dict(num_layers=1))
+    spec = make_model_spec(cfg)
+    gen = torch.Generator().manual_seed(17)
+    params = eval_cast_params(params_from_numpy(init_params(spec, gen),
+                                                cuda_device), spec, cfg)
+    images = torch.randn(4, 3, 224, 224, generator=gen).to(cuda_device)
+    counters = (TA.split_attention, TA.split_attention_bb,
+                TA.packed_attention, TF.ln_linear)
+    for batch, want in ((4, (0, 1, 0, 0)), (2, (1, 0, 0, 0))):
+        before = [f.launches for f in counters]
+        with torch.no_grad():
+            got = model.infer_image_ft(params, spec,
+                                       {"image": images[:batch]})["cls_feats"]
+            plain = model.infer_image_ft(params, spec,
+                                         {"image": images[:batch]},
+                                         kernels=False)["cls_feats"]
+        assert tuple(f.launches - b for f, b in zip(counters, before)) == want
+        cos = torch.nn.functional.cosine_similarity(got.float(),
+                                                    plain.float(), dim=-1)
+        assert float(cos.min()) >= 0.999, float(cos.min())

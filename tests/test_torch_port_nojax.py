@@ -1,8 +1,9 @@
 """The port never imports JAX, nor the JAX package, nor reads its files.
 
 The machine with the GPU has no JAX, so importing and running the port
-(the retrieval eval, the image tower under each eval-block route, the
-int8 retrieval eval and one irtr train step)
+(the retrieval eval, the image tower under each eval-block route and
+through the split attention, the int8 retrieval eval, and one irtr train
+step without and one with the training fusion)
 must leave ``jax`` (and
 ``vl_merging_tpu``, whose subpackages import jax) out of
 ``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
@@ -47,6 +48,7 @@ SCRIPT = textwrap.dedent("""
         compute_irtr_recall, extract_features
     from vl_merging_tpu_torch.ops.fused_block import FUSIONS
     from vl_merging_tpu_torch.models import mome
+    from vl_merging_tpu_torch.ops import attention
     from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
     from vl_merging_tpu_torch.train.loop import build_train_step
 
@@ -88,6 +90,18 @@ SCRIPT = textwrap.dedent("""
                warmup_steps=0)
     state, step = build_train_step(
         cfg, spec, master_params(init_params(spec, g)), 10)
+    state, metrics = step(state, {"image": images, "text_ids": ids[:4],
+                                  "text_masks": masks[:4]})
+    assert state.step == 1 and bool(torch.isfinite(metrics["total_loss"]))
+
+    # the split attention's twins (the @224 route) and the training fusion
+    mome.KERNEL_MIN_N = 1 << 30
+    attention.SPLIT_MIN_N = 0
+    feats = extract_features(params, spec, [{"image": images}], "image")
+    assert feats.shape == (4, spec.hidden_size)
+    state, step = build_train_step(
+        cfg, spec, master_params(init_params(spec, g)), 10,
+        train_fusion="full")
     state, metrics = step(state, {"image": images, "text_ids": ids[:4],
                                   "text_masks": masks[:4]})
     assert state.step == 1 and bool(torch.isfinite(metrics["total_loss"]))

@@ -5,7 +5,10 @@
 //   ln_mlp_residual_rows: out = bf16(x' + γ2 ⊙ (bf16(gelu(bf16(LN2(x'))·W1ᵀ
 //                         + b1))·W2ᵀ + b2))
 // Every kernel that runs them rounds, sums and orders its products exactly
-// as K3 does, so K4 → K5 and K7 can equal K3 bit for bit.
+// as K3 does, so K4 → K5 and K7 can equal K3 bit for bit.  K6
+// (tail_train.cu) runs both halves with per-element gammas: g_rows = N
+// makes row r read γ row r / N of a (B, C) table; g_rows = 0 (every other
+// caller) reads one γ for every row.
 //
 // Block: 8 warps, each covering all kMlpRows rows and 1/8 of the columns
 // of the width C = 8 * NF * 16.  Dynamic shared memory: mlp_smem_bytes(C),
@@ -38,7 +41,8 @@ __device__ __forceinline__ void proj_residual_rows(const bf16* ctx, const bf16* 
                                                    const bf16* __restrict__ wp,
                                                    const float* __restrict__ bp,
                                                    const float* __restrict__ g1, bf16* xout,
-                                                   int M, int row0, const TailSmem& sm) {
+                                                   int M, int row0, const TailSmem& sm,
+                                                   int g_rows = 0) {
   constexpr int C = 8 * NF * 16, LDA = C + kPad, MF = kMlpMF;
   const int warp = threadIdx.x >> 5;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
@@ -61,11 +65,12 @@ __device__ __forceinline__ void proj_residual_rows(const bf16* ctx, const bf16* 
       const float* v = frag_to_scratch(acc[i][j], sm.sc, r, c0);
       const int rr = i * 16 + r, col = (warp * NF + j) * 16 + c0;
       if (row0 + rr < M) {
+        const float* g = g_rows ? g1 + (size_t)((row0 + rr) / g_rows) * C : g1;
         Pack8 rs, x1;
         rs.u = __ldg(reinterpret_cast<const uint4*>(res + (size_t)(row0 + rr) * C + col));
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          x1.h()[e] = __float2bfloat16(rs.f(e) + (v[e] + bp[col + e]) * g1[col + e]);
+          x1.h()[e] = __float2bfloat16(rs.f(e) + (v[e] + bp[col + e]) * g[col + e]);
         *reinterpret_cast<uint4*>(xout + (size_t)(row0 + rr) * C + col) = x1.u;
       }
       __syncwarp();
@@ -82,7 +87,7 @@ __device__ __forceinline__ void ln_mlp_residual_rows(
     const bf16* xin, const float* __restrict__ ln_w, const float* __restrict__ ln_b,
     const bf16* __restrict__ w1, const float* __restrict__ b1, const bf16* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ g2, bf16* out, int M, int Hd,
-    float eps, int row0, const TailSmem& sm) {
+    float eps, int row0, const TailSmem& sm, int g_rows = 0) {
   constexpr int C = 8 * NF * 16, LDA = C + kPad, MF = kMlpMF, WARPS = kGemmThreads / 32;
   const int warp = threadIdx.x >> 5;
   {  // warp w normalises rows w, w + 8, w + 16, w + 24 of x'
@@ -107,11 +112,12 @@ __device__ __forceinline__ void ln_mlp_residual_rows(
       const float* v = frag_to_scratch(acc[i][j], sm.sc, r, c0);
       const int rr = i * 16 + r, col = (warp * NF + j) * 16 + c0;
       if (row0 + rr < M) {
+        const float* g = g_rows ? g2 + (size_t)((row0 + rr) / g_rows) * C : g2;
         Pack8 x1, o;  // where xin is out, this lane stored exactly these x' values itself
         x1.u = *reinterpret_cast<const uint4*>(xin + (size_t)(row0 + rr) * C + col);
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          o.h()[e] = __float2bfloat16(x1.f(e) + (v[e] + b2[col + e]) * g2[col + e]);
+          o.h()[e] = __float2bfloat16(x1.f(e) + (v[e] + b2[col + e]) * g[col + e]);
         *reinterpret_cast<uint4*>(out + (size_t)(row0 + rr) * C + col) = o.u;
       }
       __syncwarp();

@@ -141,7 +141,8 @@ def _text_trunk(params: Params, spec: ModelSpec, batch: Dict, *,
                 generator: Optional[torch.Generator] = None,
                 int8_gelu: str = "poly",
                 qk_int8: bool = False,
-                fusion: str = "tail") -> torch.Tensor:
+                fusion: str = "tail",
+                train_fusion: str = "0") -> torch.Tensor:
     """Text tower body of infer_text_ft (vilt_module.py:1226-1285), without
     the vlffn re-run; returns the last hidden state.  In training the bias
     is gathered here, inside the autograd graph, so that its gradient
@@ -162,7 +163,7 @@ def _text_trunk(params: Params, spec: ModelSpec, batch: Dict, *,
                           kernels=kernels, train=train,
                           dp_scale=None if dp is None else dp[i],
                           int8_gelu=int8_gelu, qk_int8=qk_int8,
-                          fusion=fusion)
+                          fusion=fusion, train_fusion=train_fusion)
     return x
 
 
@@ -171,15 +172,17 @@ def infer_text_ft(params: Params, spec: ModelSpec, batch: Dict, *,
                   kernels: bool = True, train: bool = False,
                   generator: Optional[torch.Generator] = None,
                   int8_gelu: str = "poly", qk_int8: bool = False,
-                  fusion: str = "tail") -> Dict[str, Optional[torch.Tensor]]:
+                  fusion: str = "tail", train_fusion: str = "0"
+                  ) -> Dict[str, Optional[torch.Tensor]]:
     """Single-branch text pass (vilt_module.py:1226-1285).  ``int8_gelu``
     and ``qk_int8`` select the int8 eval block's activation and attention,
     ``fusion`` the eval block's route (``mome._block_fast``; the text
-    tower's 40 tokens never reach it)."""
+    tower's 40 tokens never reach it), ``train_fusion`` the training
+    block's (``mome._block_fast_train``)."""
     hidden = _text_trunk(params, spec, batch, rel_bias=rel_bias,
                          kernels=kernels, train=train, generator=generator,
                          int8_gelu=int8_gelu, qk_int8=qk_int8,
-                         fusion=fusion)
+                         fusion=fusion, train_fusion=train_fusion)
     lffn = _final_norm(params, hidden)
     cls_feats = None
     if "ifm_text_proj.fc.weight" in params:
@@ -195,7 +198,7 @@ def _image_trunk(params: Params, spec: ModelSpec, image: torch.Tensor, *,
                  kernels: bool = True, train: bool = False,
                  generator: Optional[torch.Generator] = None,
                  int8_gelu: str = "poly", qk_int8: bool = False,
-                 fusion: str = "tail"):
+                 fusion: str = "tail", train_fusion: str = "0"):
     """Image tower body of infer_image_ft, without the vlffn re-run;
     returns (last hidden state, image masks).  Token type 1 marks the
     (first) image; NLVR2's second image comes with the fused VL pass.  In
@@ -210,7 +213,7 @@ def _image_trunk(params: Params, spec: ModelSpec, image: torch.Tensor, *,
                           kernels=kernels, train=train,
                           dp_scale=None if dp is None else dp[i],
                           int8_gelu=int8_gelu, qk_int8=qk_int8,
-                          fusion=fusion)
+                          fusion=fusion, train_fusion=train_fusion)
     return x, image_masks
 
 
@@ -219,16 +222,19 @@ def infer_image_ft(params: Params, spec: ModelSpec, batch: Dict, *,
                    kernels: bool = True, train: bool = False,
                    generator: Optional[torch.Generator] = None,
                    int8_gelu: str = "poly", qk_int8: bool = False,
-                   fusion: str = "tail") -> Dict[str, Optional[torch.Tensor]]:
+                   fusion: str = "tail", train_fusion: str = "0"
+                   ) -> Dict[str, Optional[torch.Tensor]]:
     """Single-branch image pass (vilt_module.py:1378-1464).  ``int8_gelu``
     and ``qk_int8`` select the int8 eval block's activation and attention,
     ``fusion`` the eval block's route: "pair", "tail" (default), "qkv" or
-    "mega" (``mome._block_fast``)."""
+    "mega" (``mome._block_fast``); ``train_fusion`` the training block's:
+    "0" (default), "tail" or "full" (``mome._block_fast_train``)."""
     hidden, image_masks = _image_trunk(params, spec, batch["image"],
                                        rel_bias=rel_bias, kernels=kernels,
                                        train=train, generator=generator,
                                        int8_gelu=int8_gelu, qk_int8=qk_int8,
-                                       fusion=fusion)
+                                       fusion=fusion,
+                                       train_fusion=train_fusion)
     vffn = _final_norm(params, hidden)
     if "ifm_image_proj.fc.weight" in params:
         cls_feats = _l2norm(linear(vffn[:, 0],

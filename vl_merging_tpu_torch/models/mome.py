@@ -17,15 +17,23 @@ module.  Routing follows the JAX package under its kernel flag
     K1 → K2 → K4 → K5, "tail" K1 → K2 → K3, "qkv" K8 → K3 or "mega" K7;
     in the W8A8 int8 eval, when the params carry int8 companions, K14 →
     K2 or K12 → K15, and ``fusion`` must be "tail");
-  * otherwise (every training block, and the short text blocks of the
-    eval) the block is composed of LN, the qkv projection, attention
-    (``packed_fused_attention``, K2 forward + K9 backward, when the
-    sequence is long enough; the plain path otherwise), the proj
-    projection, LN and the MLP (``fused_mlp``, K13, when the block has
-    at least ``MLP_MIN_ROWS`` rows; the plain path otherwise).
+  * training under the training fusion (``train_fusion`` "tail" or
+    "full", ``_block_fast_train``, whatever ``kernels`` says, as in the
+    JAX package): LN1 + qkv (through K1 under "full"), the attention as
+    below, and the post-attention half through K6 with the
+    stochastic-depth scales folded into per-element gammas;
+  * otherwise (every other training block, and the blocks of the eval
+    too short for ``_block_fast``) the block is composed of LN, the qkv
+    projection, attention (``_attend``: ``packed_fused_attention``, K2
+    forward + K9 backward, at ``KERNEL_MIN_N`` tokens or more; else
+    ``fused_attention``, K11 or K10 forward, at ``SPLIT_MIN_N`` tokens or
+    more, as every block of a @224 image tower; the plain path below),
+    the proj projection, LN and the MLP (``fused_mlp``, K13, when the
+    block has at least ``MLP_MIN_ROWS`` rows; the plain path otherwise).
 ``kernels=False`` forces the plain composition everywhere (the JAX
-package's non-Pallas path).  Type VL (the fused VL pass, with its
-split-per-modality recursion and per-half experts) comes with ROADMAP A4.
+package's non-Pallas path) except under the training fusion.  Type VL
+(the fused VL pass, with its split-per-modality recursion and per-half
+experts) comes with ROADMAP A4.
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ from typing import Optional
 
 import torch
 
-from ..ops.attention import packed_fused_attention, reference_attention
-from ..ops.fused_block import check_fusion, fused_eval_block
+from ..ops.attention import HEAD_DIM, fused_attention, \
+    packed_fused_attention
+from ..ops.fused_block import check_fusion, check_train_fusion, \
+    fused_eval_block, ln_linear_train, proj_mlp_tail_train
 from ..ops.int8 import INT8_SUFFIX, SCALE_SUFFIX, fused_eval_block_i8
 from ..ops.mlp import fused_mlp, reference_mlp
 from .layers import layer_norm, linear
@@ -74,6 +84,29 @@ def _attention_kernel_ok(spec: ModelSpec, N: int, mask, rel_bias,
             and spec.hidden_size // spec.num_heads == 64)
 
 
+def _attend(spec: ModelSpec, qkv: torch.Tensor, mask: Optional[torch.Tensor],
+            rel_bias: Optional[torch.Tensor], *,
+            kernels: bool) -> torch.Tensor:
+    """The attention context (B, N, C) of a packed qkv (B, N, 3C),
+    differentiable (``vl_merging_tpu/models/mome.py:74-95``): the packed
+    kernels K2/K9 when ``_attention_kernel_ok``, else ``fused_attention``
+    over the split (B, H, N, d) views, which takes K11 or K10 under the
+    kernel flag for f32 logits, head_dim 64 and N >= SPLIT_MIN_N, and the
+    plain path otherwise."""
+    B, N, threeC = qkv.shape
+    H = spec.num_heads
+    scale = spec.head_dim ** -0.5
+    if _attention_kernel_ok(spec, N, mask, rel_bias, kernels):
+        return packed_fused_attention(qkv, rel_bias, mask, scale, H)
+    ldt = torch.bfloat16 if spec.attention_logits_dtype == "bf16" \
+        else torch.float32
+    q, k, v = qkv.reshape(B, N, 3, H, spec.head_dim).permute(2, 0, 3, 1, 4)
+    out = fused_attention(q, k, v, rel_bias, mask, scale,
+                          kernels=kernels and spec.head_dim == HEAD_DIM,
+                          logits_dtype=ldt)
+    return out.transpose(1, 2).reshape(B, N, threeC // 3)
+
+
 def attention(params: Params, spec: ModelSpec, prefix: str, x: torch.Tensor,
               mask: Optional[torch.Tensor], rel_bias: Optional[torch.Tensor],
               *, kernels: bool) -> torch.Tensor:
@@ -81,20 +114,9 @@ def attention(params: Params, spec: ModelSpec, prefix: str, x: torch.Tensor,
 
     x: (B, N, C); mask: (B, N) 1=valid; rel_bias: (heads, N, N) fp32.
     reference: vision_transformer.py:329-363."""
-    B, N, C = x.shape
-    H = spec.num_heads
-    scale = spec.head_dim ** -0.5
     qkv = linear(x, params[f"{prefix}.qkv.weight"], _qkv_bias(params, prefix),
                  dtype=x.dtype)
-    if _attention_kernel_ok(spec, N, mask, rel_bias, kernels):
-        out = packed_fused_attention(qkv, rel_bias, mask, scale, H)
-    else:
-        ldt = torch.bfloat16 if spec.attention_logits_dtype == "bf16" \
-            else torch.float32
-        qkv = qkv.reshape(B, N, 3, H, spec.head_dim).permute(2, 0, 3, 1, 4)
-        out = reference_attention(qkv[0], qkv[1], qkv[2], rel_bias, mask,
-                                  scale, logits_dtype=ldt)
-        out = out.transpose(1, 2).reshape(B, N, C)
+    out = _attend(spec, qkv, mask, rel_bias, kernels=kernels)
     return linear(out, params[f"{prefix}.proj.weight"],
                   params[f"{prefix}.proj.bias"], dtype=x.dtype)
 
@@ -177,6 +199,47 @@ def _block_fast(params, spec, b, x, mask, rel_bias, type_id, *,
         params[f"{p}.gamma_2"], fusion=fusion)
 
 
+def _block_fast_train(params, spec, b, x, mask, rel_bias, type_id, dp_scale,
+                      *, kernels: bool, train_fusion: str):
+    """A training block through the training fusion
+    (``vl_merging_tpu/models/mome.py:292-372``): LN1 + qkv through
+    ``ln_linear_train`` (K1 forward) under "full", the plain LN → linear
+    under "tail"; the attention as ``attention`` dispatches it
+    (``_attend``); the whole post-attention half through
+    ``proj_mlp_tail_train`` (K6 forward) with γ1, γ2 and the block's
+    stochastic-depth scales folded into per-element effective gammas
+    (B, 1, C), unit scales without a dp table (the JAX package's
+    mome.py:312-315).  The backwards recompute the unfused composition,
+    so the gradients are the unfused path's."""
+    p = f"transformer.blocks.{b.index}"
+    ap = f"{p}.attn{_expert(b, type_id, 'attn')}"
+    mp = f"{p}.mlp{_expert(b, type_id, 'mlp')}"
+    n1 = f"{p}.norm1{_expert(b, type_id, 'norm1')}"
+    n2 = f"{p}.norm2{_expert(b, type_id, 'norm2')}"
+    if dp_scale is None:
+        dp_scale = torch.ones((2, x.shape[0]), dtype=torch.float32,
+                              device=x.device)
+    if train_fusion == "full":
+        qkv = ln_linear_train(x, params[f"{n1}.weight"], params[f"{n1}.bias"],
+                              params[f"{ap}.qkv.weight"],
+                              _qkv_bias(params, ap))
+    else:
+        qkv = linear(_ln(params, n1, x), params[f"{ap}.qkv.weight"],
+                     _qkv_bias(params, ap), dtype=x.dtype)
+    ctx = _attend(spec, qkv, mask, rel_bias, kernels=kernels)
+
+    def g_eff(s: int, gamma: str) -> torch.Tensor:
+        return dp_scale[s][:, None, None].to(x.dtype) * \
+            params[gamma].to(x.dtype)
+
+    return proj_mlp_tail_train(
+        ctx, params[f"{ap}.proj.weight"], params[f"{ap}.proj.bias"],
+        g_eff(0, f"{p}.gamma_1"), x, params[f"{n2}.weight"],
+        params[f"{n2}.bias"], params[f"{mp}.fc1.weight"],
+        params[f"{mp}.fc1.bias"], params[f"{mp}.fc2.weight"],
+        params[f"{mp}.fc2.bias"], g_eff(1, f"{p}.gamma_2"))
+
+
 def _residual(x: torch.Tensor, branch: torch.Tensor, gamma: torch.Tensor,
               dp_scale: Optional[torch.Tensor]) -> torch.Tensor:
     """x + γ ⊙ branch; with a per-sample stochastic-depth scale (B,), the
@@ -194,7 +257,8 @@ def block_forward(params: Params, spec: ModelSpec, b: BlockSpec,
                   dp_scale: Optional[torch.Tensor] = None,
                   int8_gelu: str = "poly",
                   qk_int8: bool = False,
-                  fusion: str = "tail") -> torch.Tensor:
+                  fusion: str = "tail",
+                  train_fusion: str = "0") -> torch.Tensor:
     """One MoME block over a single-modality sequence, type V or L
     (vision_transformer.py:683-691 dispatch; plain :525-530,
     separate_plain and moe experts :560-654 reduce to one expert per
@@ -202,12 +266,20 @@ def block_forward(params: Params, spec: ModelSpec, b: BlockSpec,
     stochastic-depth scales in training (``model._dp_scale_table``), or
     None.  ``int8_gelu`` and ``qk_int8`` reach the int8 eval block,
     ``fusion`` (one of ``ops.fused_block.FUSIONS``) the eval block's
-    route (``_block_fast``)."""
+    route (``_block_fast``), ``train_fusion`` (one of
+    ``ops.fused_block.TRAIN_FUSIONS``) the training block's
+    (``_block_fast_train`` unless "0"; the JAX package reads it from
+    ``VLM_TPU_TRAIN_FUSION``)."""
     check_fusion(fusion)
+    check_train_fusion(train_fusion)
     if type_id not in _TASK_OF_TYPE:
         raise NotImplementedError(
             "type-VL blocks (the fused VL pass) are not ported yet: "
             "ROADMAP A4")
+    if train and train_fusion != "0":
+        return _block_fast_train(params, spec, b, x, mask, rel_bias, type_id,
+                                 dp_scale, kernels=kernels,
+                                 train_fusion=train_fusion)
     if not train:
         fast = _block_fast(params, spec, b, x, mask, rel_bias, type_id,
                            kernels=kernels, int8_gelu=int8_gelu,

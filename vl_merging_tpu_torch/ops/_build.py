@@ -48,6 +48,9 @@ _SIGNATURES = {
     "vlm_ln_qkv_attention": (_P,) * 8 + (_I, _I, _I, _F, _F, _P),
     "vlm_block_eval": (_P,) * 19 + (_I,) * 5 + (_F, _F, _P),
     "vlm_block_eval_grid": (),
+    "vlm_split_attention": (_P,) * 6 + (_I,) * 15 + (_F, _P),
+    "vlm_split_attention_bb": (_P,) * 6 + (_I,) * 15 + (_F, _P),
+    "vlm_tail_train": (_P,) * 13 + (_I,) * 4 + (_F, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -15,18 +15,50 @@ int8 kernel), for the int8 eval's opt-in int8-QK mode; eval only.  On
 CPU tensors each wrapper runs its plain twin (``packed_attention_reference``,
 the JAX package's ``_packed_reference``; ``packed_attention_bwd_reference``;
 ``packed_attention_i8qk_reference``, its ``_packed_reference_i8qk``).
+
+The split layout: ``split_attention`` is kernel K10 and
+``split_attention_bb`` kernel K11, ``csrc/split_attention.cu``: attention
+over q, k, v of shape (B, H, N, 64), read and written through strides, so
+the (B, H, N, 64) views of a packed qkv need no copy.  Their plain twin is
+``split_attention_reference`` (``reference_attention`` with f32 logits,
+the rounding points of the JAX package's ``_mha_kernel``).
+``fused_attention`` is the JAX package's dispatcher: the plain path below
+``SPLIT_MIN_N`` tokens, for bf16 logits or without the kernel flag, else
+K11 or K10 forward (``_pallas_dispatch``'s choice) and the autograd VJP of
+``reference_attention`` as the backward (``_pad_bwd``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-HEAD_DIM = 64  # the only head width packed_attention's kernel takes
+HEAD_DIM = 64  # the only head width the attention kernels take
+# Shortest sequence fused_attention sends to the split kernels, and the
+# longest K11 takes (else K10): the JAX package's routing
+# (ops/attention.py MIN_PALLAS_N and _pallas_dispatch, whose block_b = 4
+# fits the TPU's VMEM for N <= 640), kept for parity.  Neither is an H100
+# measurement.
+SPLIT_MIN_N = 128
+SPLIT_BB = 4
+SPLIT_BB_MAX_N = 640
+
+
+def recompute_vjp(fn: Callable, saved: Sequence[torch.Tensor],
+                  needs: Sequence[bool], g: torch.Tensor, *extra):
+    """The autograd VJP of ``fn(*saved, *extra)`` at the saved inputs, for
+    a backward that recomputes the plain composition: one gradient (or
+    None) per saved tensor, as ``needs`` asks."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+        out = fn(*inputs, *extra)
+        grads = iter(torch.autograd.grad(
+            out, [t for t in inputs if t.requires_grad], g))
+    return tuple(next(grads) if n else None for n in needs)
 
 
 def reference_attention(
@@ -278,3 +310,130 @@ def packed_fused_attention(qkv: torch.Tensor, bias: torch.Tensor,
     twins on CPU tensors).  Gradients reach qkv and the bias; the mask
     gets none."""
     return _PackedFusedAttention.apply(qkv, bias, mask, scale, num_heads)
+
+
+def split_attention_reference(q, k, v, bias, mask, scale: float):
+    """Plain twin of K10 and K11 (``vl_merging_tpu/ops/attention.py:
+    _mha_kernel``): q scaled in its dtype, f32 logits + the f32 bias, masked
+    keys at -inf, f32 softmax, probabilities cast to q's dtype and
+    contracted with v in f32, rounded; (B, H, N, d) in and out."""
+    return reference_attention(q, k, v, bias, mask, scale)
+
+
+def _split_launch(entry: str, q, k, v, bias, mask, scale: float):
+    """Check what K10 and K11 take, launch ``entry`` and return the
+    context (B, H, N, 64), a transposed view of a (B, N, H, 64) tensor, so
+    that ``.transpose(1, 2).reshape(B, N, C)`` needs no copy."""
+    B, H, N, d = q.shape
+    dev = q.device
+    if d != HEAD_DIM:
+        raise ValueError(f"{entry}: the kernel takes head_dim {HEAD_DIM}; "
+                         f"got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != dev or t.dtype != torch.bfloat16 or \
+                tuple(t.shape) != (B, H, N, d):
+            raise ValueError(f"{entry}: {name} is {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}; the kernel takes bf16 "
+                             f"{(B, H, N, d)} on {dev}")
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or \
+                t.data_ptr() % 16:
+            raise ValueError(f"{entry}: {name} needs a contiguous head dim, "
+                             f"strides that are multiples of 8 and a 16-byte "
+                             f"aligned start; got strides {t.stride()}")
+    bias = bias.float().contiguous()
+    mask = mask.to(torch.int32).contiguous()
+    _build.expect(bias, "bias", torch.float32, (H, N, N), dev)
+    _build.expect(mask, "mask", torch.int32, (B, N), dev)
+    out = torch.empty((B, N, H, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    lib = _build.library()
+    _build.check(getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        mask.data_ptr(), out.data_ptr(), B, N, H, *strides, float(scale),
+        _build.stream_handle(dev)), entry)
+    return out
+
+
+def split_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, mask: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """K10: attention over (B, H, N, 64) q, k, v (any strides with a
+    contiguous head dim) with an f32 (H, N, N) bias and a (B, N) key mask;
+    one block per (element, 64-query tile, head)."""
+    if not q.is_cuda:
+        return split_attention_reference(q, k, v, bias, mask, scale)
+    out = _split_launch("vlm_split_attention", q, k, v, bias, mask, scale)
+    split_attention.launches += 1
+    return out
+
+
+split_attention.launches = 0
+
+
+def split_attention_bb(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       bias: torch.Tensor, mask: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """K11: ``split_attention`` with one block per (group of SPLIT_BB = 4
+    elements, the JAX package's ``block_b``; 64-query tile; head), each
+    bias tile staged once in shared memory for the group; B must be a
+    multiple of 4.  The same arithmetic per element as K10, so the same
+    bits."""
+    if not q.is_cuda:
+        return split_attention_reference(q, k, v, bias, mask, scale)
+    if q.shape[0] % SPLIT_BB:
+        raise ValueError(f"split_attention_bb takes a batch that is a "
+                         f"multiple of {SPLIT_BB}; got {q.shape[0]}")
+    out = _split_launch("vlm_split_attention_bb", q, k, v, bias, mask, scale)
+    split_attention_bb.launches += 1
+    return out
+
+
+split_attention_bb.launches = 0
+
+
+def _split_dispatch(q, k, v, bias, mask, scale: float) -> torch.Tensor:
+    """K11 for a batch that is a multiple of SPLIT_BB with N <=
+    SPLIT_BB_MAX_N, else K10 (the JAX package's ``_pallas_dispatch``)."""
+    B, _, N, _ = q.shape
+    if B % SPLIT_BB == 0 and N <= SPLIT_BB_MAX_N:
+        return split_attention_bb(q, k, v, bias, mask, scale)
+    return split_attention(q, k, v, bias, mask, scale)
+
+
+class _SplitFusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, scale):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.scale = scale
+        return _split_dispatch(q, k, v, bias, mask, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, mask = ctx.saved_tensors
+        grads = recompute_vjp(reference_attention, (q, k, v, bias),
+                              ctx.needs_input_grad[:4], g, mask, ctx.scale)
+        return grads + (None, None)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor],
+                    mask: Optional[torch.Tensor], scale: float, *,
+                    kernels: bool,
+                    logits_dtype: torch.dtype = torch.float32
+                    ) -> torch.Tensor:
+    """Attention over split (B, H, N, d) q, k, v, differentiable
+    (``vl_merging_tpu/ops/attention.py:fused_attention``): the plain path
+    without the kernel flag, below SPLIT_MIN_N tokens or for bf16 logits;
+    else K11 or K10 (their twin on CPU tensors) forward, with a zero bias
+    and an all-ones mask where none is given, and the autograd VJP of
+    ``reference_attention`` at the saved inputs as the backward (the JAX
+    package's ``_pad_bwd``).  The mask gets no gradient."""
+    B, H, N, _ = q.shape
+    if not kernels or N < SPLIT_MIN_N or logits_dtype != torch.float32:
+        return reference_attention(q, k, v, bias, mask, scale,
+                                   logits_dtype=logits_dtype)
+    if bias is None:
+        bias = torch.zeros((H, N, N), dtype=torch.float32, device=q.device)
+    if mask is None:
+        mask = torch.ones((B, N), dtype=torch.float32, device=q.device)
+    return _SplitFusedAttention.apply(q, k, v, bias.float(), mask, scale)

@@ -15,6 +15,17 @@ and of ``ops/attention.py:ln_qkv_attention``).
                            ``csrc/ln_qkv_attention.cu``
   * ``block_eval``       — a whole eval block in one launch, kernel K7,
                            ``csrc/block_eval.cu``
+  * ``tail_train``       — ``proj_mlp_tail`` with per-element gammas
+                           (B, 1, C) (LayerScale times each element's
+                           stochastic-depth scale), kernel K6,
+                           ``csrc/tail_train.cu``; with
+                           ``proj_mlp_tail_train`` (K6 forward, the
+                           autograd VJP of ``tail_reference`` backward) and
+                           ``ln_linear_train`` (K1 forward, the VJP of the
+                           plain LN → linear backward) it is the training
+                           fusion, ``train_fusion`` "tail" or "full"
+                           (``TRAIN_FUSIONS``; the JAX package's
+                           ``VLM_TPU_TRAIN_FUSION``);
   * ``fused_eval_block`` — a whole eval block by one of four routes,
                            ``fusion`` (the JAX package's module gates
                            ``_FUSE_WHOLE_TAIL``, ``_FUSE_EVAL_BLOCK`` and
@@ -40,10 +51,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..models.layers import layer_norm
+from ..models.layers import layer_norm, linear
 from . import _build
 from .attention import HEAD_DIM, packed_attention, \
-    packed_attention_reference
+    packed_attention_reference, recompute_vjp
 
 LN_EPS = 1e-6
 _HIDDEN_CHUNK = 128           # proj_mlp_tail walks the MLP hidden in chunks
@@ -54,11 +65,20 @@ _MAX_KEYS = 640               # K7 and K8 keep a head's k and v for N <= 640
 # this many bytes (the H100's L2 holds 50 MB)
 _SCRATCH_BYTES = 32 << 20
 FUSIONS = ("pair", "tail", "qkv", "mega")
+# training-fusion levels: "0" off, "tail" the post-attention half through
+# K6, "full" also LN1 + qkv through K1
+TRAIN_FUSIONS = ("0", "tail", "full")
 
 
 def check_fusion(fusion: str) -> None:
     if fusion not in FUSIONS:
         raise ValueError(f"fusion {fusion!r}: one of {FUSIONS}")
+
+
+def check_train_fusion(train_fusion: str) -> None:
+    if train_fusion not in TRAIN_FUSIONS:
+        raise ValueError(f"train_fusion {train_fusion!r}: one of "
+                         f"{TRAIN_FUSIONS}")
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -376,3 +396,129 @@ def fused_eval_block(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask, scale,
         ctx = packed_attention(qkv, bias, mask, scale, num_heads)
     return proj_mlp_tail(ctx, wp, bp, gamma1, x, ln2_w, ln2_b, w1, b1, w2, b2,
                          gamma2, fusion=fusion)
+
+
+# --------------------------------------------------------------------------
+# The training fusion (vl_merging_tpu/ops/fused_block.py:275-425): kernel
+# forwards, backwards that recompute the unfused composition, so that
+# gradients are the unfused path's autograd at the same inputs.
+# --------------------------------------------------------------------------
+
+def ln_linear_train_reference(x, ln_w, ln_b, w, b):
+    """The unfused LN → linear of the training blocks (the JAX package's
+    ``_ln_linear_ref``): LN rounded to x's dtype, the product rounded,
+    the bias added in x's dtype."""
+    return linear(layer_norm(x, ln_w, ln_b, eps=LN_EPS), w, b, dtype=x.dtype)
+
+
+class _LnLinearTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w, b):
+        ctx.save_for_backward(x, ln_w, ln_b, w, b)
+        return ln_linear(x, ln_w, ln_b, w, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_vjp(ln_linear_train_reference, ctx.saved_tensors,
+                             ctx.needs_input_grad, g)
+
+
+def ln_linear_train(x, ln_w, ln_b, w, b) -> torch.Tensor:
+    """Differentiable LN1 + qkv for the training forward
+    (``vl_merging_tpu/ops/fused_block.py:ln_linear_train``): K1 (its twin
+    on CPU tensors) forward, the autograd VJP of
+    ``ln_linear_train_reference`` at the saved inputs backward."""
+    return _LnLinearTrain.apply(x, ln_w, ln_b, w, b)
+
+
+def tail_train_reference(ctx, wp, bp, g1, res, ln_w, ln_b, w1, b1, w2, b2,
+                         g2):
+    """Plain twin of K6: K3's twin (``proj_mlp_tail_reference``, the same
+    rounding points) with g1 and g2 the (B, 1, C) effective gammas, each
+    element's rows scaled by its own."""
+    return proj_mlp_tail_reference(ctx, wp, bp, g1, res, ln_w, ln_b, w1, b1,
+                                   w2, b2, g2)
+
+
+def tail_train(ctx: torch.Tensor, wp, bp, g1, res, ln_w, ln_b, w1, b1, w2,
+               b2, g2) -> torch.Tensor:
+    """K6: ``proj_mlp_tail`` over ctx, res (B, N, C) with per-element
+    gammas g1, g2 (B, 1, C); row r of the flattened rows reads the gammas
+    of element r // N."""
+    if not ctx.is_cuda:
+        return tail_train_reference(ctx, wp, bp, g1, res, ln_w, ln_b, w1, b1,
+                                    w2, b2, g2)
+    B, N, C = ctx.shape
+    H = w1.shape[0]
+    if C not in _WIDTHS or H % _HIDDEN_CHUNK:
+        raise ValueError(f"tail_train kernel takes C in {_WIDTHS} and hidden "
+                         f"% {_HIDDEN_CHUNK} == 0; got C={C}, hidden={H}")
+    for name, g in (("g1", g1), ("g2", g2)):
+        if tuple(g.shape) != (B, 1, C):
+            raise ValueError(f"tail_train: {name} of shape {tuple(g.shape)}, "
+                             f"expected {(B, 1, C)}")
+    g1, g2 = (g.reshape(B, C).float().contiguous() for g in (g1, g2))
+    wp, w1, w2 = (w.to(ctx.dtype) for w in (wp, w1, w2))
+    vecs = [t.float() for t in (bp, ln_w, ln_b, b1, b2)]
+    dev = ctx.device
+    _build.expect(ctx, "ctx", torch.bfloat16, (B, N, C), dev)
+    _build.expect(res, "res", torch.bfloat16, (B, N, C), dev)
+    _build.expect(wp, "wp", torch.bfloat16, (C, C), dev)
+    _build.expect(w1, "w1", torch.bfloat16, (H, C), dev)
+    _build.expect(w2, "w2", torch.bfloat16, (C, H), dev)
+    _build.expect(g1, "g1", torch.float32, (B, C), dev)
+    _build.expect(g2, "g2", torch.float32, (B, C), dev)
+    for name, t in zip(("bp", "ln_w", "ln_b", "b1", "b2"), vecs):
+        _build.expect(t, name, torch.float32, (H if name == "b1" else C,),
+                      dev)
+    bp, ln_w, ln_b, b1, b2 = vecs
+    out = torch.empty_like(ctx)
+    lib = _build.library()
+    _build.check(lib.vlm_tail_train(
+        ctx.data_ptr(), res.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+        g1.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), g2.data_ptr(),
+        out.data_ptr(), B * N, N, C, H, LN_EPS, _build.stream_handle(dev)),
+        "tail_train")
+    tail_train.launches += 1
+    return out
+
+
+tail_train.launches = 0
+
+
+def tail_reference(ctx, wp, bp, g1, res, ln_w, ln_b, w1, b1, w2, b2, g2):
+    """The unfused post-attention half of a training block, exactly as the
+    unfused train path computes it (the JAX package's ``_tail_reference``):
+    the proj output rounded to the block dtype before the multiply by the
+    (B, 1, C) effective γ1 in that dtype, the residual in that dtype, LN2,
+    ``reference_mlp`` (exact erf) and the γ2 residual likewise."""
+    from .mlp import reference_mlp
+
+    y = linear(ctx, wp, bp, dtype=ctx.dtype)
+    x1 = res + y * g1.to(y.dtype)
+    y2 = reference_mlp(layer_norm(x1, ln_w, ln_b, eps=LN_EPS), w1, b1, w2, b2)
+    return x1 + y2 * g2.to(y2.dtype)
+
+
+class _TailTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return tail_train(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        return recompute_vjp(tail_reference, ctx.saved_tensors,
+                             ctx.needs_input_grad, g)
+
+
+def proj_mlp_tail_train(ctx, wp, bp, g1, res, ln_w, ln_b, w1, b1, w2, b2,
+                        g2) -> torch.Tensor:
+    """Differentiable post-attention half of a training block
+    (``vl_merging_tpu/ops/fused_block.py:proj_mlp_tail_train``): K6 (its
+    twin on CPU tensors) forward, the autograd VJP of ``tail_reference`` at
+    the saved inputs backward.  As in the JAX package, forward and backward
+    are different compositions of the same function."""
+    return _TailTrain.apply(ctx, wp, bp, g1, res, ln_w, ln_b, w1, b1, w2, b2,
+                            g2)

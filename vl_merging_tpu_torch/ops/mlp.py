@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .attention import recompute_vjp
 from .fused_block import _HIDDEN_CHUNK, _WIDTHS  # K13 runs K3's MLP body
 
 
@@ -156,14 +157,8 @@ class _FusedMLP(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        needs = ctx.needs_input_grad
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(n)
-                      for t, n in zip(ctx.saved_tensors, needs)]
-            out = reference_mlp(*inputs)
-            grads = iter(torch.autograd.grad(
-                out, [t for t in inputs if t.requires_grad], g))
-        return tuple(next(grads) if n else None for n in needs)
+        return recompute_vjp(reference_mlp, ctx.saved_tensors,
+                             ctx.needs_input_grad, g)
 
 
 def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:

@@ -29,15 +29,19 @@ def accum_steps(cfg: Dict) -> int:
 
 
 def build_train_step(cfg: Dict, spec: ModelSpec, params: Params,
-                     max_steps: int) -> Tuple[ts.TrainState, Callable]:
+                     max_steps: int, *, train_fusion: str = "0"
+                     ) -> Tuple[ts.TrainState, Callable]:
     """(state, step_fn) for ``max_steps`` optimizer steps over ``params``,
     which must be f32 masters (``ckpt/convert.master_params``); step_fn
     updates them in place.  Each step takes a batch with a leading
-    ``accum_steps(cfg)`` micro-batch axis when that is above 1."""
+    ``accum_steps(cfg)`` micro-batch axis when that is above 1.
+    ``train_fusion`` ("0", "tail" or "full") is the training fusion level
+    (``train_step.make_train_step``)."""
     sched = make_schedule(cfg, max_steps)
     optimizer = make_optimizer(params, cfg, max_steps, sched)
     state = ts.init_train_state(params, optimizer, seed=cfg["seed"])
     step_fn = ts.make_train_step(cfg, spec, optimizer,
                                  dp_scale=1.0 / WORLD_SIZE,
-                                 accum_steps=accum_steps(cfg))
+                                 accum_steps=accum_steps(cfg),
+                                 train_fusion=train_fusion)
     return state, step_fn

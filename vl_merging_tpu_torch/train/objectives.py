@@ -43,13 +43,16 @@ def _info_nce(image_feats, text_feats,
 def compute_irtr(params: Params, spec: ModelSpec, batch: Dict, *,
                  train: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 kernels: bool = True) -> Dict:
+                 kernels: bool = True, train_fusion: str = "0") -> Dict:
     """irtr (objectives.py:372-443): ITC InfoNCE between the image and text
-    towers' cls features, with the learned logit scale."""
+    towers' cls features, with the learned logit scale.  ``train_fusion``
+    is the training fusion level of both towers' blocks."""
     infer_imag = model.infer_image_ft(params, spec, batch, train=train,
-                                      generator=generator, kernels=kernels)
+                                      generator=generator, kernels=kernels,
+                                      train_fusion=train_fusion)
     infer_text = model.infer_text_ft(params, spec, batch, train=train,
-                                     generator=generator, kernels=kernels)
+                                     generator=generator, kernels=kernels,
+                                     train_fusion=train_fusion)
     scale = params["logit_scale"].exp()
     loss, i2t, t2i, labels = _info_nce(
         infer_imag["cls_feats"], infer_text["cls_feats"], scale)

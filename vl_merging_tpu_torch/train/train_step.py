@@ -72,10 +72,11 @@ def active_tasks(cfg: Dict) -> Tuple[str, ...]:
 
 def compute_losses(params: Params, spec: ModelSpec, cfg: Dict, batch: Dict,
                    generator: torch.Generator, *,
-                   kernels: bool = True) -> Dict:
+                   kernels: bool = True, train_fusion: str = "0") -> Dict:
     """Training-mode task dispatch in reference order
     (vilt_module.py:1467-1523); the port runs irtr and raises for every
-    other task."""
+    other task.  ``train_fusion`` is the training fusion level of every
+    block ("0", "tail" or "full"; ``mome._block_fast_train``)."""
     if cfg["tasks"] is not None and any(k in batch for k in ("v", "l", "vl")):
         raise NotImplementedError(
             "mixed single/multi-modal batches are not ported yet: ROADMAP A6")
@@ -89,7 +90,8 @@ def compute_losses(params: Params, spec: ModelSpec, cfg: Dict, batch: Dict,
     if "irtr" in tasks:
         out.update(objectives.compute_irtr(params, spec, batch, train=True,
                                            generator=generator,
-                                           kernels=kernels))
+                                           kernels=kernels,
+                                           train_fusion=train_fusion))
     return out
 
 
@@ -116,11 +118,11 @@ def scalar_metrics(out: Dict) -> Dict[str, torch.Tensor]:
 
 def loss_and_grads(params: Params, spec: ModelSpec, cfg: Dict, batch: Dict,
                    generator: torch.Generator, *, kernels: bool,
-                   dp_scale: float = 1.0):
+                   dp_scale: float = 1.0, train_fusion: str = "0"):
     """(loss, scalar metrics, f32 grads) of one micro-batch.  A param that
     the loss does not reach gets a zero gradient, as under jax.grad."""
     out = compute_losses(params, spec, cfg, batch, generator,
-                         kernels=kernels)
+                         kernels=kernels, train_fusion=train_fusion)
     loss = total_loss(out, dp_scale)
     names = list(params)
     grads = torch.autograd.grad(loss, [params[k] for k in names],
@@ -137,20 +139,23 @@ def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def make_train_step(cfg: Dict, spec: ModelSpec, optimizer: AdamW, *,
-                    dp_scale: float = 1.0, accum_steps: int = 1
+                    dp_scale: float = 1.0, accum_steps: int = 1,
+                    train_fusion: str = "0"
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """Build the train step.
 
     With ``accum_steps > 1`` the batch must have a leading (accum, micro,
     …) layout; gradients are averaged over micro-steps before one
     optimizer update — semantics of Lightning's accumulate_grad_batches.
-    The kernel switch is ``_resolve_kernels(cfg, spec)``."""
+    The kernel switch is ``_resolve_kernels(cfg, spec)``; ``train_fusion``
+    ("0", "tail" or "full") is the training fusion level, the JAX
+    package's ``VLM_TPU_TRAIN_FUSION``."""
     kernels = _resolve_kernels(cfg, spec)
 
     def micro(state: TrainState, batch: Dict):
         return loss_and_grads(state.params, spec, cfg, batch,
                               state.generator, kernels=kernels,
-                              dp_scale=dp_scale)
+                              dp_scale=dp_scale, train_fusion=train_fusion)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         if accum_steps == 1:
