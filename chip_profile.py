@@ -18,17 +18,33 @@ of each window at ``chip_smoke.py``'s shapes and seeded inputs:
     ``train (plain)``: one optimizer step (2 micro-batches of 32 pairs) on
     the kernel path, on the kernel path under the training fusion "full"
     (K1 and K6 in every block) and on the plain path (K9's three CUDA
-    kernels, statistics + dq, dk/dv + dbias partials and the partial sum,
-    show separately).
+    kernels, D + dq, dk/dv + dbias partials and the partial sum, show
+    separately);
+  * ``eval ViT-L`` / ``train ViT-L (kernels)``: the ViT-L @384 width
+    (C=1024, 16 heads, MLP 4096, 24 layers): ``compute_irtr_recall`` over
+    32 images and 64 captions, and one optimizer step of one micro-batch of
+    8 pairs on the kernel path.
 For each window it prints the host wall time, the device busy time (the
 union of the device kernels' intervals), the idle share (1 − busy / wall)
 and the kernels with the most device time.
+
+First, K7's phase split (``python3 chip_profile.py --k7`` runs it alone):
+one traced launch of K7 (``block_eval(..., trace=...)``) at
+``chip_smoke.py``'s main-path shapes (B=32, N=577) gives, per CTA, the time
+in phase 1 (K8's body over (element, head) items), at the grid barrier,
+in phase 2 (K3's body over 64-row blocks) and at the second barrier, and
+the items and blocks each CTA took; beside it K7's grid against the SMs,
+K7 untraced and traced, and the staged K8 and K3 at the same shapes with
+their time per wave of resident blocks.
 """
 
 from __future__ import annotations
 
+import argparse
+import math
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -39,6 +55,7 @@ from vl_merging_tpu_torch.device import require_cuda
 from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall, \
     extract_features
 from vl_merging_tpu_torch.models.spec import make_model_spec
+from vl_merging_tpu_torch.ops import fused_block as fb_ops
 from vl_merging_tpu_torch.ops.fused_block import FUSIONS
 from vl_merging_tpu_torch.train.loop import accum_steps, build_train_step
 
@@ -86,10 +103,70 @@ def trace(name: str, fn, card: str) -> None:
               f"{kname[:100]}")
 
 
+def k7_phases(dev, card: str) -> None:
+    """K7's per-CTA phase trace at the main-path shapes, beside the staged
+    K8 and K3 (see the module's docstring)."""
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    inputs = smoke.kernel_inputs(dev, gen)
+    inputs.update(smoke.fusion_inputs(inputs))
+    args = inputs["block_eval"]
+    B, N = args[0].shape[:2]
+    heads = args[8]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = fb_ops.block_eval_grid()
+    clusters = grid // 4
+    k7_ms = smoke.time_ms(lambda: fb_ops.block_eval(*args))
+    counters = torch.zeros(grid, 8, dtype=torch.int64, device=dev)
+
+    def traced():
+        counters.zero_()
+        fb_ops.block_eval(*args, trace=counters)
+    traced_ms = smoke.time_ms(traced)
+    traced()
+    torch.cuda.synchronize()
+    t = counters.cpu().numpy().astype(np.float64)
+    ms = t[:, :4] / 1e6
+    items, blocks = t[:, 4], t[:, 5]
+    span = (t[:, 7].max() - t[:, 6].min()) / 1e6
+    print(f"== K7 phases (B={B}, N={N}): grid {grid} CTAs ({clusters} "
+          f"clusters of 4) on {sms} SMs, {sms - grid} SMs idle; K7 "
+          f"{k7_ms:.4f} ms, traced {traced_ms:.4f} ms, traced span "
+          f"{span:.4f} ms [{card}]")
+    for i, label in enumerate(("phase 1 (K8's body)", "barrier 1",
+                               "phase 2 (K3's body)", "barrier 2")):
+        print(f"   {label:22s} per CTA: mean {ms[:, i].mean():.4f} ms, "
+              f"min {ms[:, i].min():.4f}, max {ms[:, i].max():.4f}")
+    print(f"   phase 1: {int(items.sum())} (element, head) items, "
+          f"{int(items.min())}-{int(items.max())} per CTA, "
+          f"{(ms[:, 0] / items).mean():.4f} ms per item")
+    print(f"   phase 2: {math.ceil(B * N / 64)} 64-row blocks over "
+          f"{clusters} clusters, {int(blocks.min())}-{int(blocks.max())} "
+          f"per CTA, {(ms[:, 2] / np.maximum(blocks, 1)).mean():.4f} ms per "
+          f"block")
+    k8_ms = smoke.time_ms(
+        lambda: fb_ops.ln_qkv_attention(*inputs["ln_qkv_attention"]))
+    k3_ms = smoke.time_ms(
+        lambda: fb_ops.proj_mlp_tail(*inputs["proj_mlp_tail"]))
+    k8_waves = math.ceil(B * heads / sms)
+    k3_waves = math.ceil(math.ceil(B * N / 64) / clusters)
+    print(f"   staged: K8 {k8_ms:.4f} ms ({B * heads} blocks, one per SM "
+          f"at a time: {k8_waves} waves, {k8_ms / k8_waves:.4f} ms per "
+          f"wave); K3 {k3_ms:.4f} ms ({math.ceil(B * N / 64)} clusters, "
+          f"{clusters} resident: {k3_waves} waves, "
+          f"{k3_ms / k3_waves:.4f} ms per wave) [{card}]")
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--k7", action="store_true",
+                        help="run K7's phase split alone")
+    only_k7 = parser.parse_args().k7
     dev = require_cuda()
     card = smoke.card_line()
     print(card)
+    k7_phases(dev, card)
+    if only_k7:
+        return
 
     cfg = build_config(*smoke.CONFIG)
     spec = make_model_spec(cfg)
@@ -134,6 +211,33 @@ def main() -> None:
             holder[0] = step(holder[0], batch)[0]
         trace(f"train ({label})", one_step, card)
         del state, step, holder
+    del base, params
+
+    cfg_l = build_config(*smoke.CONFIG_L)
+    spec_l = make_model_spec(cfg_l)
+    base_l = smoke.seeded_params(spec_l, dev)
+    params_l = eval_cast_params(base_l, spec_l, cfg_l)
+    images = [{"image": torch.randn(smoke.L_IMAGES, 3, spec_l.image_size,
+                                    spec_l.image_size, device=dev,
+                                    generator=gen)}]
+    ids, masks = smoke.synthetic_captions(spec_l, smoke.L_CAPTIONS, dev, gen)
+    per = smoke.L_CAPTIONS // smoke.L_IMAGES
+    trace("eval ViT-L", lambda: compute_irtr_recall(
+        params_l, spec_l, [{"text_ids": ids, "text_masks": masks}], images,
+        np.repeat(np.arange(smoke.L_IMAGES), per),
+        np.arange(smoke.L_IMAGES)), card)
+    del params_l
+    tcfg = build_config(*smoke.CONFIG_L, overrides=dict(
+        per_device_batch_size=smoke.L_MICRO, batch_size=smoke.L_MICRO,
+        warmup_steps=0, pallas_attention=True))
+    mb = {k: v[0] for k, v in smoke.synthetic_train_batch(
+        spec_l, 1, dev, gen, micro=smoke.L_MICRO).items()}
+    state, step = build_train_step(tcfg, spec_l, master_params(base_l), 10)
+    holder = [state]
+
+    def one_step_l():
+        holder[0] = step(holder[0], mb)[0]
+    trace("train ViT-L (kernels)", one_step_l, card)
 
 
 if __name__ == "__main__":

@@ -27,11 +27,18 @@ and captions are synthetic.
 The Flickr30k @224 retrieval eval runs
 ``task_finetune_irtr_f30k_square_randaug_base`` + ``ufo`` at the same
 width: ViT-B/16 @224, 197 image tokens, whose attention takes the split
-kernels (K11 for a batch of 4k, K10 otherwise).
+kernels (K11 for a batch of 4k, K10 otherwise).  The ViT-L phase runs
+``task_finetune_irtr_f30k_square_randaug_large_image384`` + ``ufo`` at
+full width and depth (C=1024, 16 heads, MLP 4096, 577 image tokens, 24
+layers), and the routing check the vit-tiny width (C=192,
+``task_test_vit_tiny_mlm_itm_ifm_square_randaug_base_vl``).
 
 Phases, each fatal on failure:
   1. a CUDA device (printed as nvidia-smi names it, with its power limit);
-  2. the kernels built from ``vl_merging_tpu_torch/csrc`` (build time);
+  2. the kernels built from ``vl_merging_tpu_torch/csrc`` (build time),
+     and the wgmma (HGMMA) instructions of the redesigned kernels (K3, K4,
+     K5, K6, K7, K13 on the shared MLP body; K9's two kernels) counted in
+     the library's SASS with ``cuobjdump`` (none: fail);
   3. each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail,
      K9 packed_attention_bwd, K13 mlp, K12 packed_attention_i8qk, K14
      ln_linear_i8, K15 proj_mlp_tail_i8, K4 linear_residual, K5 mlp_tail,
@@ -44,7 +51,17 @@ Phases, each fatal on failure:
      K1, K3 and K2 at the same shapes; K4 + K5, K8 and K7 beside the
      staged kernels they replace (K3, K1 + K2, K1 + K2 + K3), in time and
      output (bit-equal or not, and the share of elements that differ);
-     K10 beside K11 at B=32 and K6 at uniform gammas beside K3, likewise;
+     K10 beside K11 at B=32 and K6 at uniform gammas beside K3, likewise
+     (K4 -> K5, K7 and K6 share K3's MLP body: not bit-equal fails); K9's
+     twin fed the plain forward's softmax statistics, not K2's (and, as a
+     printed figure, its context too); K2's
+     training launch (it also stores the softmax statistics K9 reads),
+     with and without a sample of no valid key: its context bit-equal to
+     the eval launch's, its statistics against the plain ones, and K9 on
+     the batch with that sample against its twin; timed beside its eval
+     launch; K1, K3, K13, K6, K4 and K5 also at the
+     ViT-L width (C=1024) against their twins, timed beside their bound,
+     and K4 -> K5 and K6 at uniform gammas bit-equal to K3 there;
   4. ``compute_irtr_recall`` over 64 images (batches of 32) and 320
      captions (batches of 64): K1-K3 launched 12 times per image batch,
      K13 12 times per text batch; finite features, image cls_feats within
@@ -80,7 +97,22 @@ Phases, each fatal on failure:
      "full" only; finite loss and grad norm; gradients within global
      cosine 0.999 of level "0" (the kernel path) at the same params, batch
      and random draws; step time, pairs/s and peak memory beside level
-     "0", in turns.
+     "0", in turns;
+  9. ViT-L @384 (C=1024): the image tower over 32 images (K1, K2, K3
+     launched 24 times, nothing else) and the text tower over 64 captions
+     (K13 24 times), finite features within cosine 0.999 of the plain
+     path's, the image tower's images/s in turns; two fine-tune steps at
+     micro-batch 8 at ``train_fusion`` "0" (per step K2 24, K9 24, K13 48)
+     and "full" (K2 24, K9 24, K6 48, K1 48), finite loss and grad norm;
+     kernel-path gradients within global cosine 0.999 of the plain path's;
+ 10. the vit-tiny width (C=192): its image and text towers and two irtr
+     steps at its width (``train_fusion`` "0" and "full") on the card
+     launch no K1, K3, K13 or K6 (no kernel of theirs is built for 192;
+     the routing takes the plain ops, as the JAX package takes XLA).
+
+Each row of the ``{"kernels": ...}`` line carries the widths it was held
+at (``widths``) and, for the kernels built for 1024, its figures there
+(``at_1024``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -94,6 +126,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -126,6 +159,19 @@ N, C, HEADS, HIDDEN = 577, 768, 12, 3072
 CONFIG_224 = ("task_finetune_irtr_f30k_square_randaug_base", "ufo")
 N_224, N_IMAGES_224, K10_BATCH = 197, 70, 6
 TRAIN_FUSION_STEPS = 2
+# ViT-L @384 (C=1024, 16 heads, MLP 4096, 577 image tokens, 24 layers):
+# the image tower over 32 images, the text tower over 64 captions, and
+# fine-tune steps at micro-batch 8, all at full depth
+CONFIG_L = ("task_finetune_irtr_f30k_square_randaug_large_image384", "ufo")
+L_IMAGES, L_CAPTIONS, L_MICRO, L_STEPS = 32, 64, 8, 2
+C_L, HEADS_L, HIDDEN_L = 1024, 16, 4096
+# the kernels built for both widths, held against their twins at C=1024 too
+WIDE = ("ln_linear", "proj_mlp_tail", "mlp", "tail_train", "linear_residual",
+        "mlp_tail")
+# the vit-tiny width (C=192): no K1/K3/K13/K6 is built for it
+CONFIG_TINY = ("task_test_vit_tiny_mlm_itm_ifm_square_randaug_base_vl",
+               "ufo")
+TINY_KERNELS = ("ln_linear", "proj_mlp_tail", "mlp", "tail_train")
 BF16_ULP = 2.0 ** -7
 # Kernel vs twin: K1, K3 and K13 round where their twins do, so they differ
 # by f32 summation order (and erf's last f32 ulp): 2 bf16 ulps.  K2 rounds
@@ -152,6 +198,10 @@ ULPS = {"ln_linear": 2, "packed_attention": 4, "proj_mlp_tail": 2,
         "block_eval": 4, "split_attention": 4, "split_attention_bb": 4,
         "tail_train": 2}
 DBIAS_REL = 1e-3
+# K2's training launch against packed_attention_stats_reference: m and l
+# are f32 sums of the same bf16 products in another order (and l of
+# exponentials taken in steps of the running max), relative error 1e-5
+STATS_REL = 1e-5
 MIN_COSINE = 0.999
 TIMED_ITERS = 20
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor cores,
@@ -228,8 +278,7 @@ def kernel_inputs(dev, gen):
                           r(C, HIDDEN, s=0.02, bf16=True), r(C, s=0.1),
                           r(C, s=0.1)),
         "packed_attention_bwd": (r(B, N, 3 * C, bf16=True), r(HEADS, N, N),
-                                 mask, r(B, N, C, bf16=True),
-                                 64 ** -0.5, HEADS),
+                                 mask, r(B, N, C, bf16=True)),
         "mlp": (r(B, N, C, bf16=True), r(HIDDEN, C, s=0.02, bf16=True),
                 r(HIDDEN, s=0.1), r(C, HIDDEN, s=0.02, bf16=True),
                 r(C, s=0.1)),
@@ -255,7 +304,106 @@ def kernel_inputs(dev, gen):
 
     inputs["split_attention"] = split(K10_BATCH)
     inputs["split_attention_bb"] = split(B)
+    # K9 reads the context and softmax statistics of K2's training launch
+    # (its twin the plain forward's: ``plain_args``)
+    qkv, bias, mask, g = inputs["packed_attention_bwd"]
+    o, stats = attn_ops.packed_attention(qkv, bias, mask, 64 ** -0.5, HEADS,
+                                         with_stats=True)
+    inputs["packed_attention_bwd"] = (qkv, bias, mask, g, o, stats,
+                                      64 ** -0.5, HEADS)
     return inputs
+
+
+def plain_args(name: str, args, plain_context: bool = False):
+    """A twin's arguments: the kernel's, except that K9's twin reads the
+    softmax statistics of the plain forward, not K2's, so that its p is
+    the plain softmax of qkv, bias and mask.  The context o it reads is the
+    forward's, as autograd hands it to the backward (K2's, which
+    ``check_training_attention`` holds bit-equal to the eval launch, held
+    to its twin in turn); with ``plain_context`` the plain forward's,
+    which moves D = Σ g ⊙ o by o's own rounding (K2 rounds exp(s - m) to
+    bf16 before it normalises, the twin after): printed, not gated."""
+    if name != "packed_attention_bwd":
+        return args
+    qkv, bias, mask, g, o, _, scale, heads = args
+    if plain_context:
+        o = attn_ops.packed_attention_reference(qkv, bias, mask, scale, heads)
+    return (qkv, bias, mask, g, o,
+            attn_ops.packed_attention_stats_reference(qkv, bias, mask, scale,
+                                                      heads),
+            scale, heads)
+
+
+def check_backward(args, want, label: str) -> float:
+    """K9's (dqkv, dbias) against its twin's: dqkv within its ulps, dbias
+    within DBIAS_REL; returns max |dqkv - twin|."""
+    (got, dbias), (want, dbias_want) = \
+        attn_ops.packed_attention_bwd(*args), want
+    torch.cuda.synchronize()
+    rel = float((dbias - dbias_want).norm() / dbias_want.norm())
+    max_err, worst, differ = ulp_check("packed_attention_bwd", got, want)
+    print(f"packed_attention_bwd{label}: dbias relative norm error "
+          f"{rel:.3e} (bound {DBIAS_REL}); max |kernel - twin| = "
+          f"{max_err:.6g}, worst err/bound = {worst:.3f} (bound "
+          f"{ULPS['packed_attention_bwd']} bf16 ulps), {differ:.3e} of the "
+          f"elements differ")
+    if not bool(torch.isfinite(dbias).all()) or rel > DBIAS_REL:
+        fail(f"packed_attention_bwd{label}: dbias disagrees with its twin")
+    if not bool(torch.isfinite(got).all()) or worst > 1.0:
+        fail(f"packed_attention_bwd{label} disagrees with its plain twin")
+    return max_err
+
+
+def check_training_attention(args, card: str) -> float:
+    """K2's training launch against its plain versions, on K9's inputs and
+    on them with sample 0 given no valid key: its context bit-equal to the
+    eval launch's, its statistics within STATS_REL of
+    ``packed_attention_stats_reference`` (l = 0 exactly on a row with no
+    valid key, where K9 keeps p = 0); and K9 on the batch with that sample
+    against its twin fed the plain forward (``plain_args``), its dead
+    sample's gradient zero."""
+    qkv, bias, mask, g, _, _, scale, heads = args
+    dead = mask.clone()
+    dead[0] = 0
+    for label, m in (("", mask), (" (sample 0 with no valid key)", dead)):
+        ctx, stats = attn_ops.packed_attention(qkv, bias, m, scale, heads,
+                                               with_stats=True)
+        ctx_eval = attn_ops.packed_attention(qkv, bias, m, scale, heads)
+        ref = attn_ops.packed_attention_stats_reference(qkv, bias, m, scale,
+                                                        heads)
+        torch.cuda.synchronize()
+        same = torch.equal(ctx.nan_to_num(), ctx_eval.nan_to_num())
+        live = ref[1] > 0
+        err = ((stats - ref).abs() / (1.0 + ref.abs()))[:, live]
+        worst = float(err.max()) / STATS_REL
+        dead_l = bool((stats[1][~live] == 0).all())
+        print(f"packed_attention training launch{label}: context bit-equal "
+              f"to the eval launch {same}; statistics (m, l) worst "
+              f"|kernel - plain| / (1 + |plain|) = {worst * STATS_REL:.3e} "
+              f"(bound {STATS_REL}) on {int(live.sum())} rows, l = 0 on the "
+              f"{int((~live).sum())} rows with no valid key {dead_l}")
+        if not same:
+            fail(f"packed_attention training launch{label}: its context "
+                 f"differs from the eval launch's")
+        if not bool(torch.isfinite(stats[:, live]).all()) or worst > 1.0 \
+                or not dead_l:
+            fail(f"packed_attention training launch{label}: its softmax "
+                 f"statistics disagree with the plain ones")
+    k9 = (qkv, bias, dead, g, ctx, stats, scale, heads)
+    check_backward(k9, attn_ops.packed_attention_bwd_reference(
+        *plain_args("packed_attention_bwd", k9)),
+        " (sample 0 with no valid key)")
+    if attn_ops.packed_attention_bwd(*k9)[0][0].float().any():
+        fail("packed_attention_bwd: a sample with no valid key has a "
+             "nonzero gradient")
+    train_ms = time_ms(lambda: attn_ops.packed_attention(
+        qkv, bias, mask, scale, heads, with_stats=True))
+    eval_ms = time_ms(lambda: attn_ops.packed_attention(
+        qkv, bias, mask, scale, heads))
+    print(f"packed_attention training launch (with the softmax statistics "
+          f"K9 reads): {train_ms:.4f} ms against the eval launch "
+          f"{eval_ms:.4f} ms at K9's inputs [{card}]")
+    return train_ms
 
 
 def fusion_inputs(inputs):
@@ -302,7 +450,7 @@ def work(name: str, args) -> tuple:
     if name == "ln_linear":
         x, lw, lb, w, b = args
         M, O = x.shape[0] * x.shape[1], w.shape[0]
-        return 2 * M * C * O, nbytes(x, lw, lb, w, b) + M * O * 2
+        return 2 * M * x.shape[-1] * O, nbytes(x, lw, lb, w, b) + M * O * 2
     if name == "packed_attention":
         qkv, bias, mask = args[:3]
         flops = 4 * 64 * N * HEADS * _valid_keys(mask)
@@ -313,16 +461,17 @@ def work(name: str, args) -> tuple:
         flops = 4 * 64 * n * HEADS * _valid_keys(mask)
         return flops, nbytes(q, k, v, bias, mask) + nbytes(q)
     if name in ("proj_mlp_tail", "tail_train"):
-        M = args[0].shape[0] * args[0].shape[1]
-        return 2 * M * C * C + 4 * M * C * HIDDEN, \
-            nbytes(*args) + M * C * 2
+        M, c, h = args[0].shape[0] * args[0].shape[1], args[0].shape[-1], \
+            args[7].shape[0]
+        return 2 * M * c * c + 4 * M * c * h, nbytes(*args) + M * c * 2
     if name == "packed_attention_bwd":
-        qkv, bias, mask, g = args[:4]
+        qkv, bias, mask, g, o, stats = args[:6]
         flops = 10 * 64 * N * HEADS * _valid_keys(mask)
-        return flops, 2 * nbytes(qkv, bias) + nbytes(mask, g)
+        return flops, 2 * nbytes(qkv, bias) + nbytes(mask, g, o, stats)
     if name == "mlp":
-        M = args[0].shape[0] * args[0].shape[1]
-        return 4 * M * C * HIDDEN, nbytes(*args) + M * C * 2
+        M, c, h = args[0].shape[0] * args[0].shape[1], args[0].shape[-1], \
+            args[1].shape[0]
+        return 4 * M * c * h, nbytes(*args) + M * c * 2
     if name == "ln_linear_i8":
         x, wq = args[0], args[3]
         M, O = x.shape[0] * x.shape[1], wq.shape[0]
@@ -334,10 +483,11 @@ def work(name: str, args) -> tuple:
     if name == "linear_residual":
         x, w = args[:2]
         M, O = x.shape[0] * x.shape[1], w.shape[0]
-        return 2 * M * C * O, nbytes(*args) + M * O * 2
+        return 2 * M * x.shape[-1] * O, nbytes(*args) + M * O * 2
     if name == "mlp_tail":
-        M = args[0].shape[0] * args[0].shape[1]
-        return 4 * M * C * HIDDEN, nbytes(*args) + M * C * 2
+        M, c, h = args[0].shape[0] * args[0].shape[1], args[0].shape[-1], \
+            args[3].shape[0]
+        return 4 * M * c * h, nbytes(*args) + M * c * 2
     if name in ("ln_qkv_attention", "block_eval"):
         x, mask = args[0], args[6]
         M = x.shape[0] * x.shape[1]
@@ -385,7 +535,7 @@ def library_call(name: str, args):
         q, k, v, am = (t.detach().requires_grad_()
                        for t in _sdpa_args(qkv, bias, mask))
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
-                                             scale=args[4])
+                                             scale=args[6])
         gh = g.view(g.shape[0], N, HEADS, 64).transpose(1, 2)
         return lambda: torch.autograd.grad(out, (q, k, v, am), gh,
                                            retain_graph=True)
@@ -513,6 +663,9 @@ def staged_comparisons(inputs, card: str) -> None:
     for label, fused, staged_name, staged in cases:
         got, want = fused(), staged()
         torch.cuda.synchronize()
+        if label.startswith(("K4", "K7", "K6")) and \
+                not torch.equal(got, want):   # the shared MLP body's
+            fail(f"{label}: not bit-equal")
         print(f"{label}: bit-equal {torch.equal(got, want)}, "
               f"{differ_share(got, want):.3e} of the elements differ; "
               f"{time_ms(fused):.4f} ms against {staged_name} "
@@ -527,23 +680,27 @@ def check_kernels(dev, card: str) -> dict:
     rows = {}
     for name, (kernel, twin, source, replaces) in KERNELS.items():
         args = inputs[name]
-        got, want = kernel(*args), twin(*args)
-        torch.cuda.synchronize()
+        twin_args = plain_args(name, args)
         if name == "packed_attention_bwd":
-            (got, dbias), (want, dbias_want) = got, want
-            rel = float((dbias - dbias_want).norm() / dbias_want.norm())
-            print(f"{name}: dbias relative norm error {rel:.3e} (bound "
-                  f"{DBIAS_REL})")
-            if not bool(torch.isfinite(dbias).all()) or rel > DBIAS_REL:
-                fail(f"{name}: dbias disagrees with its plain twin")
-        max_err, worst, differ = ulp_check(name, got, want)
-        print(f"{name}: max |kernel - twin| = {max_err:.6g}, worst "
-              f"err/bound = {worst:.3f} (bound {ULPS[name]} bf16 ulps), "
-              f"{differ:.3e} of the elements differ")
-        if not bool(torch.isfinite(got).all()) or worst > 1.0:
-            fail(f"{name} disagrees with its plain twin")
+            max_err = check_backward(args, twin(*twin_args), "")
+            got = kernel(*args)[0]
+            want = twin(*plain_args(name, args, plain_context=True))[0]
+            _, worst, differ = ulp_check(name, got, want)
+            print(f"{name} against its twin fed the plain forward's context "
+                  f"too (not a gate: D = Σ g ⊙ o takes the context's own "
+                  f"rounding): worst err/bound = {worst:.3f}, {differ:.3e} "
+                  f"of the elements differ")
+        else:
+            got, want = kernel(*args), twin(*twin_args)
+            torch.cuda.synchronize()
+            max_err, worst, differ = ulp_check(name, got, want)
+            print(f"{name}: max |kernel - twin| = {max_err:.6g}, worst "
+                  f"err/bound = {worst:.3f} (bound {ULPS[name]} bf16 ulps), "
+                  f"{differ:.3e} of the elements differ")
+            if not bool(torch.isfinite(got).all()) or worst > 1.0:
+                fail(f"{name} disagrees with its plain twin")
         ms = time_ms(lambda: kernel(*args))
-        plain_ms = time_ms(lambda: twin(*args), iters=TIMED_ITERS // 2)
+        plain_ms = time_ms(lambda: twin(*twin_args), iters=TIMED_ITERS // 2)
         lib = library_call(name, args)
         library_ms = None if lib is None else time_ms(lib)
         bound_ms, bound_by = bound(*work(name, args))
@@ -585,6 +742,12 @@ def check_kernels(dev, card: str) -> dict:
           f"{bound(*work('tail_train', args))[0]:.4f} ms [{card}]")
     if worst > 1.0:
         fail("tail_train disagrees with its plain twin at the text rows")
+    # K2's training launch stores each query row's softmax statistics for K9
+    rows["packed_attention"]["train_ms"] = check_training_attention(
+        inputs["packed_attention_bwd"], card)
+    for row in rows.values():
+        row["widths"] = [C]
+    check_wide_kernels(dev, gen, rows, card)
     staged_comparisons(inputs, card)
     # a note, not a yardstick: torch's int8 GEMM alone at K14's GEMM shape
     x = inputs["ln_linear_i8"][0].reshape(-1, C)
@@ -596,6 +759,80 @@ def check_kernels(dev, card: str) -> dict:
           f"{tuple(wt.shape)} -> s32, the GEMM of K14 without its LN, "
           f"quantizer and epilogue): {note} [{card}]")
     return rows
+
+
+def wide_inputs(dev, gen):
+    """The main-path shapes of the ViT-L width: one image block of the eval
+    at B=32 (577 tokens, C=1024, MLP 4096), and K6 at a training
+    micro-batch of 8 with drawn stochastic-depth gammas."""
+    B, c, h = IMAGE_BATCH, C_L, HIDDEN_L
+
+    def r(*shape, s=1.0, bf16=False, shift=0.0):
+        t = shift + s * torch.randn(*shape, device=dev, generator=gen)
+        return t.bfloat16() if bf16 else t
+
+    x, res = r(B, N, c, bf16=True), r(B, N, c, bf16=True)
+    wp, bp, g1 = r(c, c, s=0.02, bf16=True), r(c, s=0.1), r(c, s=0.1)
+    lw, lb = r(c, s=0.1, shift=1.0), r(c, s=0.1)
+    w1, b1 = r(h, c, s=0.02, bf16=True), r(h, s=0.1)
+    w2, b2, g2 = r(c, h, s=0.02, bf16=True), r(c, s=0.1), r(c, s=0.1)
+    dp = (torch.rand(2, L_MICRO, device=dev, generator=gen) < 0.9).float() \
+        / 0.9
+    ge1, ge2 = (dp[i][:, None, None].bfloat16() * g.bfloat16()
+                for i, g in enumerate((g1, g2)))
+    xt, rt = x[:L_MICRO], res[:L_MICRO]
+    return {
+        "ln_linear": (x, lw, lb, r(3 * c, c, s=0.02, bf16=True),
+                      r(3 * c, s=0.1)),
+        "proj_mlp_tail": (x, wp, bp, g1, res, lw, lb, w1, b1, w2, b2, g2),
+        "mlp": (x, w1, b1, w2, b2),
+        "tail_train": (xt, wp, bp, ge1, rt, lw, lb, w1, b1, w2, b2, ge2),
+        "linear_residual": (x, wp, bp, g1, res),
+        "mlp_tail": (res, lw, lb, w1, b1, w2, b2, g2)}
+
+
+def check_wide_kernels(dev, gen, rows, card: str) -> None:
+    """K1, K3, K13, K6, K4 and K5 against their twins at the ViT-L width,
+    with their tolerance at 768; their times beside the bound; the
+    bit-equalities of the shared MLP body at 1024 (K4 -> K5 and K6 at
+    uniform gammas against K3)."""
+    inputs = wide_inputs(dev, gen)
+    for name in WIDE:
+        kernel, twin = KERNELS[name][:2]
+        args = inputs[name]
+        got, want = kernel(*args), twin(*args)
+        torch.cuda.synchronize()
+        max_err, worst, differ = ulp_check(name, got, want)
+        ms = time_ms(lambda: kernel(*args))
+        bound_ms, bound_by = bound(*work(name, args))
+        shape = "x".join(map(str, args[0].shape))
+        print(f"{name} at C={C_L}: max |kernel - twin| = {max_err:.6g}, worst "
+              f"err/bound = {worst:.3f} (bound {ULPS[name]} bf16 ulps), "
+              f"{differ:.3e} of the elements differ; kernel {ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) at {shape} bf16 [{card}]")
+        if not bool(torch.isfinite(got).all()) or worst > 1.0:
+            fail(f"{name} disagrees with its plain twin at C={C_L}")
+        rows[name]["widths"].append(C_L)
+        rows[name][f"at_{C_L}"] = {"max_abs_err": max_err, "ms": ms,
+                                   "bound_ms": bound_ms,
+                                   "bound_by": bound_by}
+    ctx, wp, bp, g1, res, lw, lb, w1, b1, w2, b2, g2 = \
+        inputs["proj_mlp_tail"]
+    u1, u2 = (g.bfloat16().float() for g in (g1, g2))
+    k3 = fb_ops.proj_mlp_tail(ctx, wp, bp, u1, res, lw, lb, w1, b1, w2, b2,
+                              u2)
+    k45 = fb_ops.mlp_tail(fb_ops.linear_residual(ctx, wp, bp, u1, res), lw,
+                          lb, w1, b1, w2, b2, u2)
+    B = ctx.shape[0]
+    k6 = fb_ops.tail_train(ctx, wp, bp, u1.expand(B, 1, C_L), res, lw, lb,
+                           w1, b1, w2, b2, u2.expand(B, 1, C_L))
+    torch.cuda.synchronize()
+    print(f"at C={C_L}: K4 -> K5 vs K3 bit-equal {torch.equal(k45, k3)}, "
+          f"{differ_share(k45, k3):.3e} of the elements differ; K6 at "
+          f"uniform gammas vs K3 bit-equal {torch.equal(k6, k3)}, "
+          f"{differ_share(k6, k3):.3e} differ")
+    if not (torch.equal(k45, k3) and torch.equal(k6, k3)):
+        fail(f"the shared MLP body's bit-equalities fail at C={C_L}")
 
 
 def reset_launches() -> None:
@@ -922,13 +1159,14 @@ def train_config(kernels: bool):
         warmup_steps=0, pallas_attention=kernels))
 
 
-def synthetic_train_batch(spec, accum: int, dev, gen):
+def synthetic_train_batch(spec, accum: int, dev, gen,
+                          micro: int = MICRO_BATCH):
     """(accum, micro, ...) image/caption pairs."""
-    n = accum * MICRO_BATCH
+    n = accum * micro
     images = torch.randn(n, 3, spec.image_size, spec.image_size, device=dev,
                          generator=gen)
     ids, masks = synthetic_captions(spec, n, dev, gen)
-    return {k: v.reshape(accum, MICRO_BATCH, *v.shape[1:]) for k, v in
+    return {k: v.reshape(accum, micro, *v.shape[1:]) for k, v in
             (("image", images), ("text_ids", ids), ("text_masks", masks))}
 
 
@@ -1178,6 +1416,219 @@ def run_train_fusion(dev, card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# Phase 9: ViT-L @384 (C=1024), the width the kernels are built for beside
+# ViT-B's
+# --------------------------------------------------------------------------
+
+def run_large(dev, card: str) -> dict:
+    """The ViT-L towers and fine-tune step: launches per block, features and
+    gradients against the plain path."""
+    cfg = build_config(*CONFIG_L)
+    spec = make_model_spec(cfg)
+    if (spec.hidden_size, spec.num_heads, spec.image_len) != \
+            (C_L, HEADS_L, N):
+        fail(f"ViT-L spec {spec.hidden_size}/{spec.num_heads}/"
+             f"{spec.image_len}, expected {C_L}/{HEADS_L}/{N}")
+    L = spec.num_layers
+    base = seeded_params(spec, dev)
+    params = eval_cast_params(base, spec, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    images = [{"image": torch.randn(L_IMAGES, 3, spec.image_size,
+                                    spec.image_size, device=dev,
+                                    generator=gen)}]
+    ids, masks = synthetic_captions(spec, L_CAPTIONS, dev, gen)
+    texts = [{"text_ids": ids, "text_masks": masks}]
+    launches = dict.fromkeys(KERNELS, 0)
+    feats = {}
+    for tower, batches, want in (
+            ("image", images, want_launches(ln_linear=L, packed_attention=L,
+                                            proj_mlp_tail=L)),
+            ("text", texts, want_launches(mlp=L))):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = extract_features(params, spec, batches, tower)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_launches()
+        print(f"ViT-L {tower} tower ({len(got)} "
+              f"{'images' if tower == 'image' else 'captions'}, {L} layers, "
+              f"C={C_L}): {seconds:.3f} s; kernel launches "
+              f"{ {k: v for k, v in counts.items() if v} } (want "
+              f"{ {k: v for k, v in want.items() if v} })")
+        if counts != want:
+            fail(f"ViT-L {tower} tower launches {counts}, want {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        with torch.no_grad():
+            plain = extract_features(params, spec, batches, tower,
+                                     kernels=False)
+        if got.shape != plain.shape or got.shape[1] != C_L or \
+                not bool(torch.isfinite(got).all()):
+            fail(f"ViT-L {tower} features: shape {tuple(got.shape)} or not "
+                 f"finite")
+        cos = min_cosine(got, plain)
+        print(f"ViT-L {tower} cls_feats, kernels vs plain path: min cosine "
+              f"{cos:.6f} (need >= {MIN_COSINE})")
+        if cos < MIN_COSINE:
+            fail(f"ViT-L {tower} features disagree with the plain path")
+        feats[tower] = got
+    rates = {"plain": [], "kernels": []}
+    for which in ("plain", "kernels", "kernels", "plain"):
+        rates[which].append(images_per_sec(params, spec, images,
+                                           kernels=which == "kernels"))
+    print(f"image tower (ViT-L/16 @384, bf16, batch {L_IMAGES}): kernels "
+          f"{max(rates['kernels']):.1f} img/s, plain "
+          f"{max(rates['plain']):.1f} img/s (best of 2) [{card}]")
+    del params
+
+    # the fine-tune step at micro-batch L_MICRO, one micro-batch a step
+    tcfg = build_config(*CONFIG_L, overrides=dict(
+        per_device_batch_size=L_MICRO, batch_size=L_MICRO, warmup_steps=0,
+        pallas_attention=True))
+    accum = accum_steps(tcfg)
+    batch = synthetic_train_batch(spec, accum, dev, gen, micro=L_MICRO)
+    mb = {k: v[0] for k, v in batch.items()}
+    step_batch = batch if accum > 1 else mb   # one micro-batch: no accum axis
+    for level in ("0", "full"):
+        state, step = build_train_step(tcfg, spec, master_params(base),
+                                       L_STEPS, train_fusion=level)
+        reset_launches()
+        ms = []
+        for i in range(L_STEPS):
+            state, metrics, t = timed_step(step, state, step_batch)
+            ms.append(t)
+            loss, gnorm = float(metrics["total_loss"]), \
+                float(metrics["grad_norm"])
+            if not (np.isfinite(loss) and np.isfinite(gnorm)):
+                fail(f"ViT-L train step (train_fusion {level!r}): loss or "
+                     f"grad norm not finite")
+        counts = read_launches()
+        micro = L_STEPS * accum
+        want = want_launches(packed_attention=L * micro,
+                             packed_attention_bwd=L * micro,
+                             mlp=2 * L * micro) if level == "0" else \
+            want_launches(packed_attention=L * micro,
+                          packed_attention_bwd=L * micro,
+                          tail_train=2 * L * micro, ln_linear=2 * L * micro)
+        print(f"ViT-L train step (train_fusion {level!r}, micro-batch "
+              f"{L_MICRO}, {L} layers): loss {loss:.6f}, grad norm "
+              f"{gnorm:.6f}, {min(ms):.1f} ms (best of {L_STEPS}, the first "
+              f"warms up); kernel launches "
+              f"{ {k: v for k, v in counts.items() if v} } (want "
+              f"{ {k: v for k, v in want.items() if v} }) [{card}]")
+        if counts != want:
+            fail(f"ViT-L train launches {counts}, want {want}")
+        for k, v in counts.items():
+            launches[k] += v
+        del state, step
+
+    params = master_params(base)
+    grads = {}
+    for kernels in (True, False):
+        g = torch.Generator(device=dev).manual_seed(SEED + 8)
+        loss, _, grads[kernels] = train_step.loss_and_grads(
+            params, spec, tcfg, mb, g, kernels=kernels)
+        if not bool(torch.isfinite(loss)):
+            fail("ViT-L micro-batch loss not finite")
+        print(f"ViT-L micro-batch loss, {'kernel' if kernels else 'plain'} "
+              f"path: {float(loss):.6f}")
+    cos = global_cosine(grads[True], grads[False])
+    finite = all(bool(torch.isfinite(t).all()) for t in grads[True].values())
+    print(f"ViT-L gradients, kernel vs plain path: global cosine {cos:.6f} "
+          f"(need >= {MIN_COSINE}), all finite {finite}")
+    if cos < MIN_COSINE or not finite:
+        fail("ViT-L kernel-path gradients disagree with the plain path")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 10: the vit-tiny width (C=192), which no K1/K3/K13/K6 is built for
+# --------------------------------------------------------------------------
+
+def run_tiny(dev, card: str) -> dict:
+    """The vit-tiny spec's towers in the eval and an irtr step at its width
+    on the card: the routing takes the plain ops for K1/K3/K13/K6 (their
+    twins' work runs as PyTorch ops, no kernel of theirs launches), and
+    the attention keeps its kernels."""
+    cfg = build_config(*CONFIG_TINY)
+    spec = make_model_spec(cfg)
+    if spec.hidden_size != 192:
+        fail(f"vit-tiny width {spec.hidden_size}, expected 192")
+    params = eval_cast_params(seeded_params(spec, dev), spec, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    images = [{"image": torch.randn(IMAGE_BATCH, 3, spec.image_size,
+                                    spec.image_size, device=dev,
+                                    generator=gen)}]
+    ids, masks = synthetic_captions(spec, 4 * TEXT_BATCH, dev, gen)
+    reset_launches()
+    with torch.no_grad():
+        for tower, batches in (("image", images), ("text", [
+                {"text_ids": ids, "text_masks": masks}])):
+            f = extract_features(params, spec, batches, tower)
+            if not bool(torch.isfinite(f).all()):
+                fail(f"vit-tiny {tower} features not finite")
+    eval_counts = read_launches()
+    # an irtr step at the vit-tiny width (the config's own tasks are
+    # pretraining), under the training fusion that would take K1 and K6
+    tcfg = build_config(CONFIG[0], CONFIG[1], overrides=dict(
+        hidden_size=192, num_heads=3, vit="vit_tiny_patch16_224",
+        image_size=224, per_device_batch_size=MICRO_BATCH,
+        batch_size=MICRO_BATCH, warmup_steps=0, pallas_attention=True))
+    tspec = make_model_spec(tcfg)
+    batch = {k: v[0] for k, v in synthetic_train_batch(
+        tspec, 1, dev, gen).items()}
+    reset_launches()
+    for level in ("0", "full"):
+        state, step = build_train_step(tcfg, tspec,
+                                       master_params(seeded_params(tspec,
+                                                                   dev)),
+                                       2, train_fusion=level)
+        state, metrics = step(state, batch)
+        if not bool(torch.isfinite(metrics["total_loss"])):
+            fail(f"vit-tiny train step ({level!r}): loss not finite")
+    train_counts = read_launches()
+    print(f"vit-tiny (C=192): eval launches "
+          f"{ {k: v for k, v in eval_counts.items() if v} }, irtr steps "
+          f"(train_fusion '0' and 'full') launches "
+          f"{ {k: v for k, v in train_counts.items() if v} } (want no "
+          f"{', '.join(TINY_KERNELS)})")
+    for counts in (eval_counts, train_counts):
+        if any(counts[k] for k in TINY_KERNELS):
+            fail(f"vit-tiny launched a kernel not built for C=192: {counts}")
+    return {k: eval_counts[k] + train_counts[k] for k in KERNELS}
+
+
+# The kernels redesigned on wgmma, by the length-prefixed (mangled) names
+# of their entry functions in the library's SASS.
+WGMMA_KERNELS = {"K3": "20proj_mlp_tail_kernel", "K4": "22linear_residual_kernel",
+                 "K5": "15mlp_tail_kernel", "K6": "17tail_train_kernel",
+                 "K7": "17block_eval_kernel", "K13": "10mlp_kernel",
+                 "K9 dq": "9dq_kernel", "K9 dk/dv": "10dkv_kernel"}
+
+
+def check_wgmma(lib) -> None:
+    """The redesigned kernels run wgmma: count the HGMMA instructions of
+    each in the built library's SASS (``cuobjdump``, from the toolkit that
+    built it); fail where one has none."""
+    out = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
+                          "-sass", str(lib)], capture_output=True, text=True,
+                         check=True).stdout
+    counts, fn = dict.fromkeys(WGMMA_KERNELS, 0), None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = next((k for k, m in WGMMA_KERNELS.items() if m in line),
+                      None)
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    print("wgmma (HGMMA) instructions in the SASS: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    if not all(counts.values()):
+        fail(f"a redesigned kernel has no wgmma in its SASS: {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1192,12 +1643,15 @@ def main() -> int:
     print(f"kernels ready in {time.perf_counter() - t0:.1f} s ("
           + ("library already built" if prebuilt else "built by nvcc") + ")")
 
+    check_wgmma(_build.library_path())
     rows = check_kernels(dev, card)
     paths = {"eval": run_eval(dev, card),
              "eval_int8": run_eval_int8(dev, card),
              "train": run_training(dev, card),
              "eval_224": run_eval_224(dev, card),
-             "train_fusion": run_train_fusion(dev, card)}
+             "train_fusion": run_train_fusion(dev, card),
+             "large": run_large(dev, card),
+             "tiny": run_tiny(dev, card)}
     for name, row in rows.items():
         for path, launches in paths.items():
             row[f"launches_{path}"] = launches[name]

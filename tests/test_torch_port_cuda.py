@@ -112,9 +112,12 @@ def test_proj_mlp_tail_kernel_matches_twin_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N", [(2, 577), (5, 577), (5, 40)])
 def test_packed_attention_bwd_kernel_matches_twin_on_card(cuda_device, B, N):
-    """B = 5 splits the batch into 3 dbias groups (2 + 2 + 1); N = 40 is a
-    single query tile; sample 0 has no valid key and the last one a
-    ragged mask."""
+    """K9 fed K2's training launch (its context and softmax statistics),
+    against its twin fed the plain forward's statistics and the same
+    context (held bit-equal to the eval launch's): B = 5 splits the batch
+    into 3 dbias groups (2 + 2 + 1); N = 40 is a single query tile; sample
+    0 has no valid key (l = 0: p = 0, zero gradients, a finite dbias) and
+    the last one a ragged mask."""
     g = torch.Generator(device=cuda_device).manual_seed(3)
     H = 12
     C = 64 * H
@@ -124,16 +127,30 @@ def test_packed_attention_bwd_kernel_matches_twin_on_card(cuda_device, B, N):
     mask = torch.ones(B, N, dtype=torch.int32, device=cuda_device)
     mask[0] = 0
     mask[-1, N - 30:] = 0
+    # K2's training launch: the context and the softmax statistics K9 reads
+    o, stats = TA.packed_attention(qkv, bias, mask, 0.125, H,
+                                   with_stats=True)
+    assert torch.equal(o.nan_to_num(), TA.packed_attention(
+        qkv, bias, mask, 0.125, H).nan_to_num())  # the eval launch's bits
+    ref = TA.packed_attention_stats_reference(qkv, bias, mask, 0.125, H)
+    assert bool((stats[1, 0] == 0).all()) and bool((stats[1, 1:] > 0).all())
+    torch.testing.assert_close(stats[:, 1:], ref[:, 1:], rtol=1e-5,
+                               atol=1e-5)
     n = TA.packed_attention_bwd.launches
-    dqkv, dbias = TA.packed_attention_bwd(qkv, bias, mask, gout, 0.125, H)
+    dqkv, dbias = TA.packed_attention_bwd(qkv, bias, mask, gout, o, stats,
+                                          0.125, H)
     assert TA.packed_attention_bwd.launches == n + 1
+    # the twin reads the plain forward's statistics, so that its p is the
+    # plain softmax; the context is the forward's, as autograd hands it on
     want_dqkv, want_dbias = TA.packed_attention_bwd_reference(
-        qkv, bias, mask, gout, 0.125, H)
+        qkv, bias, mask, gout, o, ref, 0.125, H)
     assert not dqkv[0].float().any()
     _bf16_close(dqkv, want_dqkv, ulps=4)
     rel = float((dbias - want_dbias).norm() / want_dbias.norm())
     assert rel < 1e-3, rel
-    again = TA.packed_attention_bwd(qkv, bias, mask, gout, 0.125, H)
+    assert bool(torch.isfinite(dbias).all())
+    again = TA.packed_attention_bwd(qkv, bias, mask, gout, o, stats, 0.125,
+                                    H)
     assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
 
 
@@ -319,7 +336,9 @@ def test_ln_qkv_attention_kernel_matches_twin_on_card(cuda_device, B, N):
 @pytest.mark.parametrize("B,N", [(3, 577), (2, 300)])
 def test_block_eval_kernel_matches_twin_on_card(cuda_device, B, N):
     """K7 against its twin and within 4 ulps of the K1 → K2 → K3 kernels;
-    two launches agree bit for bit."""
+    two launches agree bit for bit, and so does a traced one, whose
+    per-CTA trace counts every (element, head) item once and every 64-row
+    block once per CTA of its cluster."""
     g = torch.Generator(device=cuda_device).manual_seed(11)
     args = _block_args(cuda_device, g, B, N)
     n = TF.block_eval.launches
@@ -328,6 +347,13 @@ def test_block_eval_kernel_matches_twin_on_card(cuda_device, B, N):
     _bf16_close(got, TF.block_eval_reference(*args), ulps=4)
     _bf16_close(got, TF.fused_eval_block(*args), ulps=4)
     assert torch.equal(TF.block_eval(*args), got)
+    trace = torch.zeros(TF.block_eval_grid(), 8, dtype=torch.int64,
+                        device=cuda_device)
+    assert torch.equal(TF.block_eval(*args, trace=trace), got)
+    t = trace.cpu()
+    assert int(t[:, 4].sum()) == B * 12
+    assert int(t[:, 5].sum()) == 4 * -(-B * N // 64)
+    assert bool((t[:, :4] >= 0).all()) and bool((t[:, 7] >= t[:, 6]).all())
 
 
 @pytest.mark.cuda
@@ -510,3 +536,134 @@ def test_image_tower_at_224_takes_the_split_kernels_on_card(cuda_device):
         cos = torch.nn.functional.cosine_similarity(got.float(),
                                                     plain.float(), dim=-1)
         assert float(cos.min()) >= 0.999, float(cos.min())
+
+
+def _tail_args(dev, g, B, N, C, Hd):
+    """K3's inputs at width C: ctx, Wp, bp, γ1, res, LN2, W1, b1, W2, b2,
+    γ2."""
+    def r(*shape, s=1.0, bf16=False):
+        t = s * torch.randn(*shape, device=dev, generator=g)
+        return t.bfloat16() if bf16 else t
+
+    return (r(B, N, C, bf16=True), r(C, C, s=0.02, bf16=True), r(C, s=0.1),
+            r(C, s=0.1), r(B, N, C, bf16=True), 1 + r(C, s=0.1), r(C, s=0.1),
+            r(Hd, C, s=0.02, bf16=True), r(Hd, s=0.1),
+            r(C, Hd, s=0.02, bf16=True), r(C, s=0.1), r(C, s=0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["ln_linear", "proj_mlp_tail", "mlp",
+                                    "tail_train", "linear_residual",
+                                    "mlp_tail"])
+def test_width_1024_kernels_match_twins_on_card(cuda_device, kernel):
+    """ViT-L width (C = 1024, MLP 4096, 16 heads): K1, K3, K13, K6, K4 and
+    K5 against their twins at 3·577 rows (not a multiple of 64), within the
+    tolerance they keep at 768 (2 ulps)."""
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    B, N, C, Hd = 3, 577, 1024, 4096
+    ctx, wp, bp, g1, res, lnw, lnb, w1, b1, w2, b2, g2 = _tail_args(
+        cuda_device, g, B, N, C, Hd)
+    if kernel == "ln_linear":
+        w = (0.02 * torch.randn(3 * C, C, device=cuda_device,
+                                generator=g)).bfloat16()
+        b = 0.1 * torch.randn(3 * C, device=cuda_device, generator=g)
+        args, fn, twin = (ctx, lnw, lnb, w, b), TF.ln_linear, \
+            TF.ln_linear_reference
+    elif kernel == "proj_mlp_tail":
+        args = (ctx, wp, bp, g1, res, lnw, lnb, w1, b1, w2, b2, g2)
+        fn, twin = TF.proj_mlp_tail, TF.proj_mlp_tail_reference
+    elif kernel == "mlp":
+        args, fn, twin = (ctx, w1, b1, w2, b2), TM.mlp_kernel, \
+            TM.mlp_kernel_reference
+    elif kernel == "tail_train":
+        dp = torch.tensor([1 / 0.9, 0.0, 1 / 0.9], device=cuda_device)
+        ge1, ge2 = (dp[:, None, None].bfloat16() * gam.bfloat16()
+                    for gam in (g1, g2))
+        args = (ctx, wp, bp, ge1, res, lnw, lnb, w1, b1, w2, b2, ge2)
+        fn, twin = TF.tail_train, TF.tail_train_reference
+    elif kernel == "linear_residual":
+        args, fn, twin = (ctx, wp, bp, g1, res), TF.linear_residual, \
+            TF.linear_residual_reference
+    else:
+        args = (res, lnw, lnb, w1, b1, w2, b2, g2)
+        fn, twin = TF.mlp_tail, TF.mlp_tail_reference
+    n = fn.launches
+    got = fn(*args)
+    assert fn.launches == n + 1
+    _bf16_close(got, twin(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [768, 1024])
+def test_mlp_body_bit_equalities_on_card(cuda_device, C):
+    """Every kernel on the shared MLP body computes each element with the
+    same instructions in the same order: K4 → K5 equals K3, and K6 with
+    every element's gammas equal to K3's γ equals K3, bit for bit (K7 at
+    768: test_block_eval_kernel_matches_twin_on_card)."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    B, N = 3, 577
+    ctx, wp, bp, g1, res, lnw, lnb, w1, b1, w2, b2, g2 = _tail_args(
+        cuda_device, g, B, N, C, 4 * C)
+    u1, u2 = (gam.bfloat16().float() for gam in (g1, g2))
+    k3 = TF.proj_mlp_tail(ctx, wp, bp, u1, res, lnw, lnb, w1, b1, w2, b2, u2)
+    k45 = TF.mlp_tail(TF.linear_residual(ctx, wp, bp, u1, res), lnw, lnb, w1,
+                      b1, w2, b2, u2)
+    k6 = TF.tail_train(ctx, wp, bp, u1.expand(B, 1, C), res, lnw, lnb, w1,
+                       b1, w2, b2, u2.expand(B, 1, C))
+    assert torch.equal(k45, k3)
+    assert torch.equal(k6, k3)
+
+
+@pytest.mark.cuda
+def test_block_eval_equals_the_staged_kernels_on_card(cuda_device):
+    """K7 (K8's body, then K3's on the shared MLP body, in one cooperative
+    launch of clusters) equals K1 → K2 → K3 bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    args = _block_args(cuda_device, g, 3, 577)
+    assert torch.equal(TF.block_eval(*args),
+                       TF.fused_eval_block(*args, fusion="tail"))
+
+
+@pytest.mark.cuda
+def test_vit_large_block_takes_k1_k2_k3_on_card(cuda_device):
+    """One ViT-L @384 layer (C = 1024, 16 heads, MLP 4096, 577 tokens), two
+    images, through ``_block_fast``: K1, K2 and K3 once each and nothing
+    else; the features within cosine 0.999 of the plain path; the opt-in
+    "mega" route raises before any launch."""
+    from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, \
+        params_from_numpy
+    from vl_merging_tpu_torch.config import build_config
+    from vl_merging_tpu_torch.models import model
+    from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
+
+    cfg = build_config("task_finetune_irtr_f30k_square_randaug_large_image384",
+                       "ufo", overrides=dict(num_layers=1))
+    spec = make_model_spec(cfg)
+    assert (spec.hidden_size, spec.num_heads, spec.image_len) == \
+        (1024, 16, 577)
+    gen = torch.Generator().manual_seed(23)
+    params = eval_cast_params(params_from_numpy(init_params(spec, gen),
+                                                cuda_device), spec, cfg)
+    image = {"image": torch.randn(2, 3, 384, 384, generator=gen).to(
+        cuda_device)}
+    kernels = {"ln_linear": TF.ln_linear, "packed_attention":
+               TA.packed_attention, "proj_mlp_tail": TF.proj_mlp_tail,
+               "mlp": TM.mlp_kernel, "tail_train": TF.tail_train,
+               "block_eval": TF.block_eval}
+    before = {k: f.launches for k, f in kernels.items()}
+    with torch.no_grad():
+        got = model.infer_image_ft(params, spec, image)["cls_feats"]
+        plain = model.infer_image_ft(params, spec, image,
+                                     kernels=False)["cls_feats"]
+    launched = {k: f.launches - before[k] for k, f in kernels.items()}
+    assert launched == {"ln_linear": 1, "packed_attention": 1,
+                        "proj_mlp_tail": 1, "mlp": 0, "tail_train": 0,
+                        "block_eval": 0}
+    cos = torch.nn.functional.cosine_similarity(got.float(), plain.float(),
+                                                dim=-1)
+    assert float(cos.min()) >= 0.999, float(cos.min())
+    with pytest.raises(ValueError, match="block_eval is not built for "
+                                         "C=1024"):
+        with torch.no_grad():
+            model.infer_image_ft(params, spec, image, fusion="mega")
+    assert TF.block_eval.launches == before["block_eval"]

@@ -49,6 +49,15 @@ TOWER_TOL = dict(atol=1e-5, rtol=1e-4)
 BF16_ULP = 2.0 ** -7
 
 
+@pytest.fixture(autouse=True)
+def _tiny_width_is_built(monkeypatch):
+    """The tiny specs' width (128) stands in for a width the kernels are
+    built for (``fused_block.KERNEL_WIDTHS``): on CPU tensors every wrapper
+    runs its twin, which takes any width, so the kernel routes run here."""
+    monkeypatch.setattr(TF, "KERNEL_WIDTHS", {
+        k: v + (128,) for k, v in TF.KERNEL_WIDTHS.items()})
+
+
 @pytest.fixture()
 def interpret_kernels(monkeypatch):
     """The JAX package's Pallas kernels in interpret mode on the CPU."""

@@ -59,6 +59,15 @@ JAX_GELUS = {"poly": JM._poly_gelu, "poly11": JM._poly11_gelu,
              "poly13": JM._poly13_gelu, "erf": JM._erf_gelu}
 
 
+@pytest.fixture(autouse=True)
+def _tiny_width_is_built(monkeypatch):
+    """The tiny specs' width (128) stands in for a width the kernels are
+    built for (``fused_block.KERNEL_WIDTHS``): on CPU tensors every wrapper
+    runs its twin, which takes any width, so the kernel routes run here."""
+    monkeypatch.setattr(TF, "KERNEL_WIDTHS", {
+        k: v + (128,) for k, v in TF.KERNEL_WIDTHS.items()})
+
+
 @pytest.fixture()
 def interpret_kernels(monkeypatch):
     monkeypatch.setattr(JI, "_INTERPRET", True)

@@ -29,9 +29,19 @@ from vl_merging_tpu_torch.evaluation import retrieval
 from vl_merging_tpu_torch.models import mome, model, relpos
 from vl_merging_tpu_torch.models.spec import init_params, make_model_spec, \
     param_shapes
+from vl_merging_tpu_torch.ops import fused_block as TF
 
 TOWER_TOL = dict(atol=2e-5, rtol=1e-4)
 N_IMG, CAPS = 8, 5
+
+
+@pytest.fixture(autouse=True)
+def _tiny_width_is_built(monkeypatch):
+    """The tiny specs' width (128) stands in for a width the kernels are
+    built for (``fused_block.KERNEL_WIDTHS``): on CPU tensors every wrapper
+    runs its twin, which takes any width, so the kernel routes run here."""
+    monkeypatch.setattr(TF, "KERNEL_WIDTHS", {
+        k: v + (128,) for k, v in TF.KERNEL_WIDTHS.items()})
 
 
 def tiny_cfg(*modes, precision="f32"):

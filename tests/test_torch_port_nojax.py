@@ -48,7 +48,7 @@ SCRIPT = textwrap.dedent("""
         compute_irtr_recall, extract_features
     from vl_merging_tpu_torch.ops.fused_block import FUSIONS
     from vl_merging_tpu_torch.models import mome
-    from vl_merging_tpu_torch.ops import attention
+    from vl_merging_tpu_torch.ops import attention, fused_block
     from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
     from vl_merging_tpu_torch.train.loop import build_train_step
 
@@ -66,6 +66,8 @@ SCRIPT = textwrap.dedent("""
     masks = torch.ones(8, 8, dtype=torch.int32)
     mome.KERNEL_MIN_N = 0   # every block through the kernels' twins
     mome.MLP_MIN_ROWS = 0
+    fused_block.KERNEL_WIDTHS = {   # the twins take the tiny width too
+        k: v + (128,) for k, v in fused_block.KERNEL_WIDTHS.items()}
     out = compute_irtr_recall(
         params, spec, [{"text_ids": ids, "text_masks": masks}],
         [{"image": images}], np.repeat(np.arange(4), 2), np.arange(4))

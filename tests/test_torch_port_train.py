@@ -48,9 +48,19 @@ from vl_merging_tpu_torch.ops import attention as TA
 from vl_merging_tpu_torch.ops import mlp as TM
 from vl_merging_tpu_torch.train import optimizer, schedule, train_step
 from vl_merging_tpu_torch.train.loop import build_train_step
+from vl_merging_tpu_torch.ops import fused_block as TF
 
 F32_TOL = dict(atol=1e-5, rtol=1e-4)
 BF16_TOL = 2.0 ** -6
+
+
+@pytest.fixture(autouse=True)
+def _tiny_width_is_built(monkeypatch):
+    """The tiny specs' width (128) stands in for a width the kernels are
+    built for (``fused_block.KERNEL_WIDTHS``): on CPU tensors every wrapper
+    runs its twin, which takes any width, so the kernel routes run here."""
+    monkeypatch.setattr(TF, "KERNEL_WIDTHS", {
+        k: v + (128,) for k, v in TF.KERNEL_WIDTHS.items()})
 
 
 def _close(got, want, dtype="f32", err_msg=""):
@@ -96,8 +106,11 @@ def test_packed_attention_bwd_twin_matches_jax_kernel(monkeypatch, dtype, B):
     (qkv, g), (tqkv, tg) = _pair([qkv_a, g_a], dtype)
     dqkv, dbias = A._pallas_packed_attention_bwd(
         qkv, jnp.asarray(bias_a), jnp.asarray(mask), g, scale, H)
+    tbias, tmask = torch.from_numpy(bias_a), torch.from_numpy(mask)
+    o, stats = TA.packed_attention(tqkv, tbias, tmask, scale, H,
+                                   with_stats=True)
     got_dqkv, got_dbias = TA.packed_attention_bwd(
-        tqkv, torch.from_numpy(bias_a), torch.from_numpy(mask), tg, scale, H)
+        tqkv, tbias, tmask, tg, o, stats, scale, H)
     assert got_dqkv.dtype == tqkv.dtype and got_dbias.dtype == torch.float32
     assert bool(torch.isfinite(got_dbias).all())
     assert not got_dqkv[0].float().any()

@@ -55,6 +55,15 @@ F32_TOL = dict(atol=2e-5, rtol=2e-5)
 BF16_ULP = 2.0 ** -7
 
 
+@pytest.fixture(autouse=True)
+def _tiny_width_is_built(monkeypatch):
+    """The tiny specs' width (128) stands in for a width the kernels are
+    built for (``fused_block.KERNEL_WIDTHS``): on CPU tensors every wrapper
+    runs its twin, which takes any width, so the kernel routes run here."""
+    monkeypatch.setattr(TF, "KERNEL_WIDTHS", {
+        k: v + (128,) for k, v in TF.KERNEL_WIDTHS.items()})
+
+
 def _tail_arrays(seed, B=2, N=10, C=128, H=512):
     """ctx, wp, bp, g1, res, ln_w, ln_b, w1, b1, w2, b2, g2 with (B, 1, C)
     gammas, at tests/test_train_fusion.py's shapes (N = 10: the JAX kernel

@@ -8,10 +8,11 @@
 //   * shared-memory rows carry kPad bf16 of padding: a 16-row fragment
 //     then starts on a 32-byte boundary (WMMA's alignment rule) and
 //     consecutive rows start in different banks;
-//   * the GEMM kernels (K1, K3, K4, K5, K13) use WMMA fragments; the
-//     attention kernels (K2, K9, and K8 and K7, whose q/k/v projections
-//     feed the attention from registers) use mma.sync directly, for its
-//     documented register layout.
+//   * K1 uses WMMA fragments; the attention kernels (K2, K9, and K8 and K7,
+//     whose q/k/v projections feed the attention from registers) use
+//     mma.sync directly, for its documented register layout; the MLP body
+//     of K3, K4, K5, K6, K7 and K13 (mlp_body.cuh) and K9's q·kᵀ-type
+//     products use wgmma (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,26 +49,36 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // One warp normalises R rows of C = NV * 256 bf16 values at once (global
-// or shared memory, 16-byte aligned): row i is src + i*src_step, written
-// to dst + i*dst_step; rows i >= nvalid are written as zeros.  All R rows'
-// loads are in flight before the first reduction.  Mean and variance are
-// f32 (two passes over the registers, as the reference's LN), and
-// (x - mean) * rsqrt(var + eps) * w + b is rounded to bf16.
-template <int R, int NV>
-__device__ __forceinline__ void ln_rows_to_bf16(const bf16* src, size_t src_step, int nvalid,
-                                                const float* __restrict__ w,
-                                                const float* __restrict__ b, float eps,
-                                                bf16* dst, int dst_step) {
+// or shared memory, 16-byte aligned): row i is src + i*src_step, and the 8
+// values at column col of it go to dst(i, col) (a bf16*, 16-byte aligned);
+// rows i >= nvalid are written as zeros.  All R rows' loads are in flight
+// before the first reduction (kL2: through L2 only, for rows other CTAs
+// wrote in this launch).  Mean and variance are f32 (two passes over the
+// registers, as the reference's LN), and (x - mean) * rsqrt(var + eps) * w
+// + b is rounded to bf16.
+template <int R, int NV, bool kL2 = false, class Dst>
+__device__ __forceinline__ void ln_rows_to_bf16_at(const bf16* src, size_t src_step, int nvalid,
+                                                   const float* __restrict__ w,
+                                                   const float* __restrict__ b, float eps,
+                                                   Dst dst) {
   constexpr int C = NV * 256;
   const int lane = threadIdx.x & 31;
   uint4 raw[R][NV];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < NV; ++j)
-      raw[i][j] = i < nvalid ? *reinterpret_cast<const uint4*>(src + i * src_step +
-                                                                (j * 32 + lane) * 8)
-                             : make_uint4(0u, 0u, 0u, 0u);
+    for (int j = 0; j < NV; ++j) {
+      const uint4* p = reinterpret_cast<const uint4*>(src + i * src_step + (j * 32 + lane) * 8);
+      raw[i][j] = i < nvalid ? (kL2 ? __ldcg(p) : *p) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  float wv[NV][8], bv[NV][8];  // this lane's columns of w and b, the same for every row
+#pragma unroll
+  for (int j = 0; j < NV; ++j)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      wv[j][e] = __ldg(w + (j * 32 + lane) * 8 + e);
+      bv[j][e] = __ldg(b + (j * 32 + lane) * 8 + e);
+    }
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     float s = 0.f;
@@ -98,12 +109,22 @@ __device__ __forceinline__ void ln_rows_to_bf16(const bf16* src, size_t src_step
       if (i < nvalid) {
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          o.h()[e] = __float2bfloat16((__bfloat162float(h[e]) - mean) * rstd * w[col + e] +
-                                      b[col + e]);
+          o.h()[e] = __float2bfloat16((__bfloat162float(h[e]) - mean) * rstd * wv[j][e] +
+                                      bv[j][e]);
       }
-      *reinterpret_cast<uint4*>(dst + i * dst_step + col) = o.u;
+      *reinterpret_cast<uint4*>(dst(i, col)) = o.u;
     }
   }
+}
+
+// ln_rows_to_bf16_at into rows dst + i*dst_step of a row-major buffer.
+template <int R, int NV>
+__device__ __forceinline__ void ln_rows_to_bf16(const bf16* src, size_t src_step, int nvalid,
+                                                const float* __restrict__ w,
+                                                const float* __restrict__ b, float eps,
+                                                bf16* dst, int dst_step) {
+  ln_rows_to_bf16_at<R, NV>(src, src_step, nvalid, w, b, eps,
+                            [=](int i, int col) { return dst + i * dst_step + col; });
 }
 
 // The LN statistics of R rows of C = NV * 256 bf16 values (global memory,
@@ -420,7 +441,7 @@ __device__ __forceinline__ void store_ctx_rows(const float (&o)[kAttnDim / 8][4]
 }
 
 // gelu with exact erf through CUDA's erff (max error 2 ulp): K3's, and so
-// K5's and K7's, activation.
+// K5's, K6's and K7's, activation.
 struct ErffGelu {
   __device__ __forceinline__ float operator()(float v) const {
     return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
@@ -443,66 +464,6 @@ struct ErfApproxGelu {
     return 0.5f * v * (1.f + erf_x);
   }
 };
-
-// The MLP body of K3 and K13 for one block of kMlpRows rows: 8 warps, each
-// covering all kMlpRows rows.  The (rows, Hd) f32 hidden never exists: the
-// block walks the hidden dimension in kHiddenChunk-wide chunks, rounds each
-// chunk's gelu(fc1 + b1) to bf16 into Hs, and contracts it at once with the
-// matching kHiddenChunk columns of W2 into acc (f32, registers, kept over the
-// whole MLP).  Weight tiles stream through cp.async rings in Ws (fc1: 6-deep
-// 128 x 64 tiles; fc2: double-buffered C x 32 tiles).  Only the f32
-// summation order of fc2 differs from a product over the whole hidden.
-constexpr int kMlpRows = 32, kHiddenChunk = 128;
-constexpr int kBkWide = 32, kStagesWide = 2;  // GEMMs over the model width
-constexpr int kBkHid = 64, kStagesHid = 6;    // fc1 into one hidden chunk
-constexpr int kMlpMF = kMlpRows / 16;
-// staging area for weight tiles, in bf16 elements, for model widths <= 768
-constexpr int kMlpStaging =
-    kStagesWide * 768 * (kBkWide + kPad) > kStagesHid * kHiddenChunk * (kBkHid + kPad)
-        ? kStagesWide * 768 * (kBkWide + kPad)
-        : kStagesHid * kHiddenChunk * (kBkHid + kPad);
-
-// Dynamic shared memory of a kernel built on mlp_hidden_chunks, for width C:
-// the A rows, the hidden chunk, the weight staging and 8 warps' scratch.
-__host__ __device__ constexpr size_t mlp_smem_bytes(int C) {
-  return (size_t)(kMlpRows * (C + kPad) + kMlpRows * (kHiddenChunk + kPad) + kMlpStaging) *
-             sizeof(bf16) +
-         (kGemmThreads / 32) * 256 * sizeof(float);
-}
-
-// acc += gelu(As·W1ᵀ + b1)·W2ᵀ.  As holds the block's rows (bf16, stride
-// lda); the first call's leading barrier publishes what the block wrote to
-// As.  gelu maps an f32 pre-activation to the f32 value rounded into Hs.
-template <int NF, class Gelu>
-__device__ __forceinline__ void mlp_hidden_chunks(FragC (&acc)[kMlpMF][NF], const bf16* As,
-                                                  int lda, const bf16* __restrict__ w1,
-                                                  const float* __restrict__ b1,
-                                                  const bf16* __restrict__ w2, int Hd, bf16* Hs,
-                                                  bf16* Ws, float* sc, Gelu gelu) {
-  constexpr int C = 8 * NF * 16, LDH = kHiddenChunk + kPad;
-  static_assert(C <= 768, "the staging area is sized for C <= 768");
-  const int warp = threadIdx.x >> 5;
-  for (int j0 = 0; j0 < Hd; j0 += kHiddenChunk) {
-    FragC hacc[kMlpMF][1];
-    zero_acc(hacc);
-    gemm_smem_a<kMlpMF, 1, 8, kBkHid, kStagesHid>(hacc, As, lda, w1 + (size_t)j0 * C, C, C, Ws);
-    __syncthreads();  // every warp is done with the last W1 tile: W2's tiles may land
-    gemm_prefetch<C, kBkWide, kStagesWide>(w2 + j0, Hd, kHiddenChunk, Ws);
-#pragma unroll
-    for (int i = 0; i < kMlpMF; ++i) {
-      int r, c0;
-      const float* v = frag_to_scratch(hacc[i][0], sc, r, c0);
-      const int rr = i * 16 + r, col = warp * 16 + c0;
-      Pack8 hv;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) hv.h()[e] = __float2bfloat16(gelu(v[e] + b1[j0 + col + e]));
-      *reinterpret_cast<uint4*>(Hs + rr * LDH + col) = hv.u;
-      __syncwarp();
-    }
-    gemm_main<kMlpMF, NF, 8, kBkWide, kStagesWide>(acc, Hs, LDH, w2 + j0, Hd, kHiddenChunk, Ws);
-  }
-}
-
 
 }  // namespace vlm
 

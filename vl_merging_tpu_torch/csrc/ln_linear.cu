@@ -15,26 +15,33 @@
 // W is already in flight, then streams 384 x 64 tiles of W through a
 // double-buffered cp.async ring into WMMA bf16 products.  The LN is
 // recomputed by each of the O/384 column blocks of a row block: an L2
-// read of 64·C values per tile.  Shared memory (the resident rows plus
-// two W tiles) limits C to 768.  No TMA or wgmma yet.
+// read of 64·C values per tile.  Shared memory holds the resident rows
+// plus two W tiles: at C = 1024 the 64 rows take 132 KB, so the tile is
+// 64 x 256 there (two 256 x 64 W tiles, 74 KB; 214 KB in all), the same
+// instructions per output element as at C = 768 (64 x 384 tiles, 208 KB).
+// Built for C = 768 and 1024.  No TMA or wgmma yet.
 #include "common.cuh"
 
 using namespace vlm;
 
 namespace {
 
-constexpr int BM = 64, BN = 384, BK = 64, STAGES = 2;
-constexpr int WARPS_N = 4, MF = 2, NF = 6;  // 2 x 4 warps, 32 x 96 outputs each
-constexpr int LN_ROWS = 4;                   // rows a warp normalises at once
+constexpr int BM = 64, BK = 64, STAGES = 2;
+constexpr int WARPS_N = 4, MF = 2;  // 2 x 4 warps, 32 x BN/4 outputs each
+constexpr int LN_ROWS = 4;          // rows a warp normalises at once
 
-// NV: C / 256 (the LN's 16-byte vectors per lane and row)
-template <int NV>
+// The output tile's width at model width C.
+constexpr int tile_n(int C) { return C > 768 ? 256 : 384; }
+
+// NV: C / 256 (the LN's 16-byte vectors per lane and row); BN: the tile width
+template <int NV, int BN>
 __global__ void __launch_bounds__(kGemmThreads)
 ln_linear_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
                  const float* __restrict__ ln_b, const bf16* __restrict__ w,
                  const float* __restrict__ bias, bf16* __restrict__ y, int M, int O,
                  float eps) {
   constexpr int C = NV * 256, lda = C + kPad, WARPS = kGemmThreads / 32;
+  constexpr int NF = BN / (WARPS_N * 16);
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* As = reinterpret_cast<bf16*>(smem);                         // BM x lda
   bf16* Ws = As + BM * lda;                              // STAGES x BN x (BK + kPad)
@@ -81,14 +88,15 @@ ln_linear_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
 template <int NV>
 int launch(const void* x, const void* ln_w, const void* ln_b, const void* w, const void* b,
            void* y, int M, int O, float eps, void* stream) {
-  constexpr int C = NV * 256;
+  constexpr int C = NV * 256, BN = tile_n(C);
+  if (O % BN != 0) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(BM * (C + kPad) + STAGES * BN * (BK + kPad)) * sizeof(bf16) +
                       (kGemmThreads / 32) * 256 * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ln_linear_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ln_linear_kernel<NV, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((M + BM - 1) / BM, O / BN);
-  ln_linear_kernel<NV><<<grid, kGemmThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  ln_linear_kernel<NV, BN><<<grid, kGemmThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
       static_cast<const float*>(ln_b), static_cast<const bf16*>(w),
       static_cast<const float*>(b), static_cast<bf16*>(y), M, O, eps);
@@ -100,8 +108,15 @@ int launch(const void* x, const void* ln_w, const void* ln_b, const void* w, con
 extern "C" int vlm_ln_linear(const void* x, const void* ln_w, const void* ln_b,
                              const void* w, const void* b, void* y, int M, int C, int O,
                              float eps, void* stream) {
-  if (M <= 0 || O % BN != 0 || C != 768) return (int)cudaErrorInvalidValue;
-  return launch<3>(x, ln_w, ln_b, w, b, y, M, O, eps, stream);
+  if (M <= 0) return (int)cudaErrorInvalidValue;
+  switch (C) {
+    case 768:
+      return launch<3>(x, ln_w, ln_b, w, b, y, M, O, eps, stream);
+    case 1024:
+      return launch<4>(x, ln_w, ln_b, w, b, y, M, O, eps, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* vlm_error_string(int code) {

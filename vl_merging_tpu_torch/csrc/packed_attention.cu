@@ -30,7 +30,10 @@
 // fragment layouts are documented, so the softmax works on the
 // accumulators in place and P feeds the P·V product without a trip
 // through shared memory.  K and V tiles are double-buffered with
-// cp.async.
+// cp.async.  The training launch also stores each query row's softmax
+// statistics (running max m and sum l, f32, (2, B, H, N): 0.9 MB per layer
+// at B = 32, N = 577, 12 heads) for the backward K9; the eval launch stores
+// none and its arithmetic is the same.
 //
 // K12 (``I8QK``): the same kernel with QKᵀ as s8·s8→s32.  Replaces
 // vl_merging_tpu/ops/attention.py:_packed_kernel_i8qk (via
@@ -116,8 +119,8 @@ __device__ __forceinline__ void load_kv_tile(bf16* Kt, bf16* Vt, int* kvalid,
 template <bool I8QK>
 __global__ void __launch_bounds__(THREADS)
 packed_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                        const int* __restrict__ mask, bf16* __restrict__ out, int N,
-                        int H, float scale) {
+                        const int* __restrict__ mask, bf16* __restrict__ out,
+                        float* __restrict__ stats, int B, int N, int H, float scale) {
   __shared__ __align__(128) bf16 Qs[I8QK ? 8 : BQ * LDT];
   __shared__ __align__(128) bf16 Ks[2][BKV * LDT];
   __shared__ __align__(128) bf16 Vs[2][BKV * LDT];
@@ -234,29 +237,44 @@ packed_attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ 
   }
 
   store_ctx_rows(o, l0, l1, out + (size_t)b * N * C + h * D + 2 * t, C, qrow0, N);
+  if (stats != nullptr && t == 0) {  // the training launch: each row's softmax max and sum
+    const size_t row = ((size_t)b * H + h) * N, plane = (size_t)B * H * N;
+    if (qrow0 < N) {
+      stats[row + qrow0] = m0;
+      stats[plane + row + qrow0] = l0;
+    }
+    if (qrow1 < N) {
+      stats[row + qrow1] = m1;
+      stats[plane + row + qrow1] = l1;
+    }
+  }
 }
 
 template <bool I8QK>
-int launch(const void* qkv, const void* bias, const void* mask, void* out, int B, int N, int H,
-           float scale, void* stream) {
+int launch(const void* qkv, const void* bias, const void* mask, void* out, void* stats, int B,
+           int N, int H, float scale, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(B, (N + BQ - 1) / BQ, H);
   packed_attention_kernel<I8QK><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(bias),
-      static_cast<const int*>(mask), static_cast<bf16*>(out), N, H, scale);
+      static_cast<const int*>(mask), static_cast<bf16*>(out), static_cast<float*>(stats), B, N,
+      H, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// stats: null (the eval), or a (2, B, H, N) f32 buffer that receives each
+// query row's running max m and sum l = Σ exp(s - m) over its valid keys
+// (m = -inf and l = 0 on a row with no valid key): the statistics K9 reads.
 extern "C" int vlm_packed_attention(const void* qkv, const void* bias, const void* mask,
-                                    void* out, int B, int N, int H, float scale,
+                                    void* out, void* stats, int B, int N, int H, float scale,
                                     void* stream) {
-  return launch<false>(qkv, bias, mask, out, B, N, H, scale, stream);
+  return launch<false>(qkv, bias, mask, out, stats, B, N, H, scale, stream);
 }
 
 extern "C" int vlm_packed_attention_i8qk(const void* qkv, const void* bias, const void* mask,
                                          void* out, int B, int N, int H, float scale,
                                          void* stream) {
-  return launch<true>(qkv, bias, mask, out, B, N, H, scale, stream);
+  return launch<true>(qkv, bias, mask, out, nullptr, B, N, H, scale, stream);
 }

@@ -1,100 +1,121 @@
 // K9: the backward of K2's attention over packed qkv.  From qkv (B, N, 3C),
-// the f32 bias (H, N, N), the key mask (B, N) and the context gradient
-// g (B, N, C) it computes dqkv (B, N, 3C) and dbias (H, N, N) f32 summed
-// over the batch, without any (N, N) tensor of p, dp or ds in device memory.
+// the f32 bias (H, N, N), the key mask (B, N), the context o (B, N, C) and
+// its gradient g, and the softmax statistics K2's training launch stored
+// (each query row's max m and sum l), it computes dqkv (B, N, 3C) and
+// dbias (H, N, N) f32 summed over the batch, without any (N, N) tensor of
+// p, dp or ds in device memory.
 //
 // Replaces vl_merging_tpu/ops/attention.py:_packed_bwd_kernel (via
 // _pallas_packed_attention_bwd / _packed_bwd).  Same rounding points: q is
 // pre-scaled in bf16; s = q·kᵀ in f32 + bias, masked keys at -inf (as in K2
-// the bias is the initial value of the f32 accumulator); p is the
-// f32 softmax, 0 on a row with no valid key; dv = bf16(p)ᵀ·g; dp = g·vᵀ;
-// ds = p ⊙ (dp − Σ_k dp ⊙ p) in f32; dq = bf16(ds)·k · scale and
-// dk = bf16(ds)ᵀ·q (q pre-scaled), both accumulated in f32; dq, dk, dv are
-// stored in bf16 and dbias = Σ_b ds stays f32.
+// the bias is the initial value of the f32 accumulator); p = exp(s - m)/l
+// in f32, 0 on a row with no valid key (l = 0); dv = bf16(p)ᵀ·g;
+// dp = g·vᵀ; ds = p ⊙ (dp − D) in f32 with D = Σ_c g ⊙ o, the row sum
+// Σ_k dp ⊙ p of the reference taken from the context instead (equal up to
+// the rounding of o); dq = bf16(ds)·k · scale and dk = bf16(ds)ᵀ·q (q
+// pre-scaled), both accumulated in f32; dq, dk, dv are stored in bf16 and
+// dbias = Σ_b ds stays f32.
 //
 // The TPU kernel holds whole (N, N) tiles of a batch block in VMEM and sums
 // dbias over a sequential grid.  Here three launches share the work:
-//   1. dq_kernel, one block per (batch, 64-query tile, head), 4 warps of 16
-//      query rows: a first pass over 64-key tiles takes each row's max m,
-//      sum l = Σ exp(s − m) and D = Σ exp(s − m)·dp / l (the softmax
-//      statistics K2 does not keep, and the row sum of dp ⊙ p), and writes
-//      them to a (3, B, H, N) f32 scratch; a second pass recomputes s and
-//      dp, forms p = exp(s − m) · (1/l) and ds, and accumulates dq.
-//   2. dkv_kernel, one block per (64-key tile, head, batch group), 4 warps
-//      of 16 keys: for each batch of its group it walks the query tiles,
-//      recomputes sᵀ and dpᵀ with the key rows as the A operand, forms p
-//      and ds from the row statistics, accumulates dk and dv in registers
-//      and adds ds into its own (N, 64) column slab of the group's dbias
-//      partial, one 64 x 64 tile at a time: the tile comes in by cp.async
-//      with the query tiles and goes back in one coalesced store.  The
-//      block owns that slab for its group, so the batch sum needs no
-//      atomics and repeats bit for bit.
+//   1. dq_kernel, one block per (batch, 64-query tile, head), one
+//      warpgroup (4 warps of 16 query rows): D of its rows from g and o,
+//      then one pass over 64-key tiles that recomputes s and dp, forms p
+//      from the stored m and l, ds, and accumulates dq; it stores D for
+//      the second launch.
+//   2. dkv_kernel, one block per (64-key tile, head, batch group), one
+//      warpgroup of 16 keys per warp: for each batch of its group it walks
+//      the query tiles, recomputes sᵀ and dpᵀ with the key rows as the A
+//      operand, forms p and ds from the row statistics, accumulates dk and
+//      dv in registers and adds ds into its own (N, 64) column slab of the
+//      group's dbias partial, one 64 x 64 tile at a time: the tile comes in
+//      by cp.async with the query tiles and goes back in one coalesced
+//      store.  The block owns that slab for its group, so the batch sum
+//      needs no atomics and repeats bit for bit.
 //   3. reduce_kernel sums the G group partials (G ≤ 4) into dbias, in a
-//      fixed order.  With one group, dkv_kernel writes dbias directly.
+//      fixed order (the partials' rows are padded to a multiple of 4 floats,
+//      so a partial tile moves 16 bytes a copy).
 // Rows past N are neither read nor stored; keys past N are masked.
 //
 // Bound on the H100: by its arithmetic, 10·B·H·N²·d flops for the five
 // products (82 GFLOP at B = 32, N = 577, 12 heads) against ~100 MB of qkv,
-// g, dqkv, bias and dbias.  As built it recomputes s and dp twice more
-// (18·B·H·N²·d over whole 64-wide tiles), on mma.sync m16n8k16 (bf16 in,
-// f32 accumulate) with the fragments of K2 and K/V, Q/g tiles
-// double-buffered through cp.async, and it is held back by latency more
-// than by either bound: the per-element bias loads (issued before the dp
-// product so that it hides them, and read as aligned pairs from a copy of
-// the bias whose rows the wrapper pads to whole 64-key tiles), two exps
-// per element in dq_kernel, and two blocks of 4 warps per SM in
-// dkv_kernel (253 registers a thread).
+// g, o, dqkv, bias and dbias.  As built it recomputes s and dp once more
+// (14·B·H·N²·d over whole 64-wide tiles; the design before this one also
+// recomputed them in a statistics pass, 18).  The q·kᵀ-type products
+// (s = q·kᵀ, dp = g·vᵀ and their transposes in dkv_kernel) are wgmma
+// m64n64k16 with A from registers (the mma.sync A fragments of each warp's
+// 16 rows) and B a 64 x 64 tile in 128B-swizzled shared memory
+// (hopper.cuh); the products against a tile along its rows (ds·k, pᵀ·g,
+// dsᵀ·q) stay mma.sync m16n8k16 with ldmatrix.trans fragments, read from
+// the same swizzled tiles.  K/V and Q/g tiles are double-buffered through
+// cp.async; the per-element bias loads are issued before the products so
+// that they hide behind them (read as aligned pairs from a copy of the bias
+// whose rows the wrapper pads to whole 64-key tiles).
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace vlm;
 
 namespace {
 
 constexpr int D = 64, TQ = 64, TK = 64, WARPS = 4, THREADS = WARPS * 32;
-constexpr int LDT = D + kPad;     // bf16 tile stride (as in K2)
-constexpr int TILE = TQ * LDT;    // one 64 x 64 bf16 tile with padding
-constexpr int kMaxGroups = 4;     // dbias partials (batch groups)
+constexpr int TILE = TQ * D;   // one 64 x 64 bf16 tile, 128B-swizzled (8 KB)
+constexpr int kMaxGroups = 4;  // dbias partials (batch groups)
+
+// Offset (in bf16) of element (r, c) of a swizzled 64 x 64 tile; c % 8 is
+// kept, so 2 or 8 consecutive values from an even / 8-aligned c stay
+// contiguous.
+__device__ __forceinline__ int sw(int r, int c) {
+  return r * D + ((((c >> 3) ^ r) & 7) << 3) + (c & 7);
+}
 
 // Copy rows [r0, r0 + 64) of a (rows, ld) bf16 operand (columns [0, 64) of
-// base) into a tile with cp.async; rows at or past n are zero-filled.
+// base) into a swizzled tile with cp.async; rows at or past n are
+// zero-filled.
 __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* base, size_t ld, int r0,
                                            int n) {
   for (int v = threadIdx.x; v < TQ * D / 8; v += THREADS) {
     const int r = v / (D / 8), c = (v % (D / 8)) * 8;
     if (r0 + r < n)
-      cp_async16(dst + r * LDT + c, base + (size_t)(r0 + r) * ld + c);
+      cp_async16(dst + sw(r, c), base + (size_t)(r0 + r) * ld + c);
     else
-      *reinterpret_cast<uint4*>(dst + r * LDT + c) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dst + sw(r, c)) = make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-// The warp's 16 rows of a tile as A fragments of m16n8k16, for all of d.
-__device__ __forceinline__ void a_frags(uint32_t (&a)[D / 16][4], const bf16* rows, int g,
-                                        int t) {
+// The warp's 16 rows of a swizzled tile as A fragments of m16n8k16 (and of
+// wgmma's register-A form), for all of d.
+__device__ __forceinline__ void a_frags(uint32_t (&a)[D / 16][4], const bf16* tile, int row0,
+                                        int g, int t) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    a[kk][0] = ld32(rows + g * LDT + kk * 16 + 2 * t);
-    a[kk][1] = ld32(rows + (g + 8) * LDT + kk * 16 + 2 * t);
-    a[kk][2] = ld32(rows + g * LDT + kk * 16 + 2 * t + 8);
-    a[kk][3] = ld32(rows + (g + 8) * LDT + kk * 16 + 2 * t + 8);
+    a[kk][0] = ld32(tile + sw(row0 + g, kk * 16 + 2 * t));
+    a[kk][1] = ld32(tile + sw(row0 + g + 8, kk * 16 + 2 * t));
+    a[kk][2] = ld32(tile + sw(row0 + g, kk * 16 + 2 * t + 8));
+    a[kk][3] = ld32(tile + sw(row0 + g + 8, kk * 16 + 2 * t + 8));
   }
 }
 
-// acc[j] += A · Bᵀ for the 8 column blocks j of a 64-row tile B (rows are
-// the n index, d is contracted): the products q·kᵀ, g·vᵀ, k·qᵀ and v·gᵀ.
+// acc += A · Bᵀ for the warpgroup's 64 rows (A: each warp's fragments a of
+// its 16 rows) against a swizzled 64 x 64 tile B (rows are the n index, d
+// is contracted): the products q·kᵀ, g·vᵀ, k·qᵀ and v·gᵀ as four wgmma
+// m64n64k16.  acc is the m16n8 accumulator layout of the warp's rows,
+// which is wgmma's.  Returns with the products complete.
 __device__ __forceinline__ void rows_dot(float (&acc)[8][4], const uint32_t (&a)[D / 16][4],
-                                         const bf16* tile, int g, int t) {
+                                         const bf16* tile) {
+  float(&d)[32] = reinterpret_cast<float(&)[32]>(acc);
+  hop::fence_regs(d);
+  hop::wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const bf16* row = tile + (j * 8 + g) * LDT + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      mma16816(acc[j], a[kk], ld32(row + kk * 16), ld32(row + kk * 16 + 8));
-  }
+  for (int kk = 0; kk < D / 16; ++kk)
+    hop::wgmma_m64n64_rs(d, a[kk], hop::sw128_desc(tile + kk * 16));
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+  hop::fence_regs(d);
 }
 
 // out[n] += bf16(w) · tile, w being a 16 x 64 accumulator block (rows of the
-// warp, the 64 tile rows as columns) and tile a row-major 64 x 64 tile: the
+// warp, the 64 tile rows as columns) and tile a swizzled 64 x 64 tile: the
 // products p·v, ds·k, pᵀ·g and dsᵀ·q.
 __device__ __forceinline__ void acc_times_tile(float (&out)[D / 8][4], const float (&w)[8][4],
                                                const bf16* tile, int lane) {
@@ -107,7 +128,7 @@ __device__ __forceinline__ void acc_times_tile(float (&out)[D / 8][4], const flo
 #pragma unroll
     for (int np = 0; np < D / 16; ++np) {
       uint32_t vb[4];
-      ldsm_x4_trans(vb, tile + (kc * 16 + (lane & 15)) * LDT + np * 16 + (lane >> 4) * 8);
+      ldsm_x4_trans(vb, tile + sw(kc * 16 + (lane & 15), np * 16 + (lane >> 4) * 8));
       mma16816(out[2 * np], pa, vb[0], vb[1]);
       mma16816(out[2 * np + 1], pa, vb[2], vb[3]);
     }
@@ -118,22 +139,17 @@ __device__ __forceinline__ void acc_times_tile(float (&out)[D / 8][4], const flo
 // product to bf16 (the reference's q * scale in q's dtype).
 __device__ __forceinline__ void scale_tile(bf16* tile, float qscale) {
   for (int v = threadIdx.x; v < TQ * D / 8; v += THREADS) {
-    const int r = v / (D / 8), c = (v % (D / 8)) * 8;
     Pack8 p;
-    p.u = *reinterpret_cast<const uint4*>(tile + r * LDT + c);
+    p.u = *reinterpret_cast<const uint4*>(tile + v * 8);
 #pragma unroll
     for (int e = 0; e < 8; ++e) p.h()[e] = __float2bfloat16(p.f(e) * qscale);
-    *reinterpret_cast<uint4*>(tile + r * LDT + c) = p.u;
+    *reinterpret_cast<uint4*>(tile + v * 8) = p.u;
   }
 }
 
 __device__ __forceinline__ float group_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-__device__ __forceinline__ float group_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 __device__ __forceinline__ void zero8x4(float (&acc)[8][4]) {
@@ -145,16 +161,24 @@ __device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
+__device__ __forceinline__ float dot_bf16x2(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(&b);
+  return __low2float(x) * __low2float(y) + __high2float(x) * __high2float(y);
+}
+
 // ---------------------------------------------------------------------------
-// 1. softmax statistics and dq
+// 1. D and dq
 // ---------------------------------------------------------------------------
+// stats: (3, B, H, N) f32: m and l (from K2), and D (written here).
 __global__ void __launch_bounds__(THREADS)
 dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-          const int* __restrict__ mask, const bf16* __restrict__ gout, bf16* __restrict__ dqkv,
-          float* __restrict__ stats, int B, int N, int H, int ldb, float scale) {
-  __shared__ __align__(128) bf16 St[TILE];  // the Q tile, then the g tile
-  __shared__ __align__(128) bf16 Ks[2][TILE];
-  __shared__ __align__(128) bf16 Vs[2][TILE];
+          const int* __restrict__ mask, const bf16* __restrict__ gout,
+          const bf16* __restrict__ o, bf16* __restrict__ dqkv, float* __restrict__ stats, int B,
+          int N, int H, int ldb, float scale) {
+  __shared__ __align__(1024) bf16 St[TILE];  // the Q tile, then the g tile
+  __shared__ __align__(1024) bf16 Ks[2][TILE];
+  __shared__ __align__(1024) bf16 Vs[2][TILE];
   __shared__ int kvalid[2][TK];
 
   const int b = blockIdx.x, q0 = blockIdx.y * TQ, h = blockIdx.z;
@@ -183,36 +207,69 @@ dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   __syncthreads();
   scale_tile(St, __bfloat162float(__float2bfloat16(scale)));
   __syncthreads();
-  a_frags(qa, St + warp * 16 * LDT, g, t);
+  a_frags(qa, St, warp * 16, g, t);
   __syncthreads();
   stage_rows(St, gout + (size_t)b * N * C + h * D, C, q0, N);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  a_frags(ga, St + warp * 16 * LDT, g, t);
+  a_frags(ga, St, warp * 16, g, t);
 
   const int qrow0 = q0 + warp * 16 + g, qrow1 = qrow0 + 8;
+  const size_t srow = ((size_t)b * H + h) * N, plane = (size_t)B * H * N;
+  // m, 1/l (0 on a row with no valid key: p = 0) and D of the two rows
+  float m0 = 0.f, m1 = 0.f, inv0 = 0.f, inv1 = 0.f;
+  if (qrow0 < N && stats[plane + srow + qrow0] > 0.f) {
+    m0 = stats[srow + qrow0];
+    inv0 = 1.f / stats[plane + srow + qrow0];
+  }
+  if (qrow1 < N && stats[plane + srow + qrow1] > 0.f) {
+    m1 = stats[srow + qrow1];
+    inv1 = 1.f / stats[plane + srow + qrow1];
+  }
+  float d0 = 0.f, d1 = 0.f;  // D = Σ_c g ⊙ o: the thread's 16 columns, then its group's
+  {
+    const bf16* ob = o + (size_t)b * N * C + h * D + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if (qrow0 < N) {
+        d0 += dot_bf16x2(ga[kk][0], ld32(ob + (size_t)qrow0 * C + kk * 16));
+        d0 += dot_bf16x2(ga[kk][2], ld32(ob + (size_t)qrow0 * C + kk * 16 + 8));
+      }
+      if (qrow1 < N) {
+        d1 += dot_bf16x2(ga[kk][1], ld32(ob + (size_t)qrow1 * C + kk * 16));
+        d1 += dot_bf16x2(ga[kk][3], ld32(ob + (size_t)qrow1 * C + kk * 16 + 8));
+      }
+    }
+    d0 = group_sum(d0);  // every lane shuffles; a row with p = 0 keeps D = 0
+    d1 = group_sum(d1);  // (its context is not finite)
+    if (inv0 == 0.f) d0 = 0.f;
+    if (inv1 == 0.f) d1 = 0.f;
+    if (t == 0) {
+      if (qrow0 < N) stats[2 * plane + srow + qrow0] = d0;
+      if (qrow1 < N) stats[2 * plane + srow + qrow1] = d1;
+    }
+  }
+
   const float* brow0 = bias + ((size_t)h * N + min(qrow0, N - 1)) * ldb;  // rows past N
   const float* brow1 = bias + ((size_t)h * N + min(qrow1, N - 1)) * ldb;  // are not stored
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, dn0 = 0.f, dn1 = 0.f;
-  float inv0 = 0.f, inv1 = 0.f;  // 1 / l, or 0 on a row with no valid key (p = 0)
-  float d0 = 0.f, d1 = 0.f;      // D = Σ_k dp ⊙ p of the row
   float dq[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
-  // pass 1 over the key tiles (it < ntiles), then pass 2 over them again
-  for (int it = 0; it < 2 * ntiles; ++it) {
-    const int tile = it % ntiles, k0 = tile * TK, st = it & 1;
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * TK, st = it & 1;
     cp_async_wait<0>();
     __syncthreads();  // tile it is visible; every warp is done with tile it - 1
-    if (it + 1 < 2 * ntiles) load_kv((it + 1) % ntiles, st ^ 1);
+    if (it + 1 < ntiles) load_kv(it + 1, st ^ 1);
     cp_async_commit();
     const bf16* Kt = Ks[st];
     const int* kv = kvalid[st];
+    hop::fence_proxy_async();  // the landed tiles, before wgmma reads them
+    __syncthreads();
 
     // s starts as the bias (-inf for an invalid key), then += q·kᵀ, as in
-    // K2; the bias loads are in flight during the dp product
+    // K2; dp = g·vᵀ
     float s[8][4], dp[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -225,64 +282,10 @@ dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
       s[j][3] = kv[c + 1] ? b1.y : -INFINITY;
     }
     zero8x4(dp);
-    rows_dot(dp, ga, Vs[st], g, t);
-    rows_dot(s, qa, Kt, g, t);
+    rows_dot(dp, ga, Vs[st]);
+    rows_dot(s, qa, Kt);
 
-    if (it < ntiles) {  // online max, sum and Σ exp(s - m)·dp
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-      }
-      const float mn0 = fmaxf(m0, group_max(mx0)), mn1 = fmaxf(m1, group_max(mx1));
-      const float u0 = mn0 == -INFINITY ? 0.f : mn0;  // no valid key yet
-      const float u1 = mn1 == -INFINITY ? 0.f : mn1;
-      const float a0 = expf(m0 - u0), a1 = expf(m1 - u1);
-      l0 *= a0;
-      dn0 *= a0;
-      l1 *= a1;
-      dn1 *= a1;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p0 = expf(s[j][e] - u0), p1 = expf(s[j][2 + e] - u1);
-          l0 += p0;
-          dn0 += p0 * dp[j][e];
-          l1 += p1;
-          dn1 += p1 * dp[j][2 + e];
-        }
-      }
-      m0 = mn0;
-      m1 = mn1;
-      if (it == ntiles - 1) {  // statistics of the whole row
-        l0 = group_sum(l0);
-        l1 = group_sum(l1);
-        dn0 = group_sum(dn0);
-        dn1 = group_sum(dn1);
-        inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
-        inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-        d0 = dn0 * inv0;
-        d1 = dn1 * inv1;
-        if (t == 0) {
-          const size_t row = ((size_t)b * H + h) * N, plane = (size_t)B * H * N;
-          if (qrow0 < N) {
-            stats[row + qrow0] = m0;
-            stats[plane + row + qrow0] = l0;
-            stats[2 * plane + row + qrow0] = d0;
-          }
-          if (qrow1 < N) {
-            stats[row + qrow1] = m1;
-            stats[plane + row + qrow1] = l1;
-            stats[2 * plane + row + qrow1] = d1;
-          }
-        }
-      }
-      continue;
-    }
-
-    // pass 2: p, ds = p (dp - D), dq += bf16(ds) · k
+    // p, ds = p (dp - D), dq += bf16(ds) · k
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -312,24 +315,23 @@ dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
 constexpr int LDP = TK + 4;  // f32 stride of a dbias tile: conflict-free fragment access
 
 struct DkvSmem {
-  bf16 kv[2][TILE];        // staging of the block's K and V rows for one batch
-  bf16 qg[2][2][TILE];     // [stage][q | g] query tiles, double-buffered
+  bf16 kv[2][TILE];         // the block's K and V rows for one batch (swizzled)
+  bf16 qg[2][2][TILE];      // [stage][q | g] query tiles, double-buffered (swizzled)
   float part[2][TQ * LDP];  // [stage] the group's dbias partial for the tile
-  float qst[2][3][TQ];     // [stage][m | 1/l | D] of the query rows (1/l = 0: p = 0)
+  float qst[2][3][TQ];      // [stage][m | 1/l | D] of the query rows (1/l = 0: p = 0)
   int kvalid[TK];
 };
+constexpr int kDkvSmem = (int)sizeof(DkvSmem) + 1024;  // + alignment slack
 
 // Start copying the (TQ x TK) dbias partial tile at rows q0.., columns k0..
-// of a row-major (N, N) f32 matrix into shared memory (inside N only).
+// of a row-major (N, ldp) f32 matrix (ldp: N rounded up to 4, so every row
+// starts 16-byte aligned) into shared memory, 4 floats a copy (rows inside
+// N; a vector may reach into the row's padding, which no one reads).
 __device__ __forceinline__ void stage_part(float* dst, const float* src, int q0, int k0,
-                                           int N) {
-  for (int v = threadIdx.x; v < TQ * TK; v += THREADS) {
-    const int r = v / TK, c = v % TK;
-    if (q0 + r < N && k0 + c < N) {
-      const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * LDP + c));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(sa),
-                   "l"(src + (size_t)(q0 + r) * N + k0 + c));
-    }
+                                           int N, int ldp) {
+  for (int v = threadIdx.x; v < TQ * TK / 4; v += THREADS) {
+    const int r = v / (TK / 4), c = (v % (TK / 4)) * 4;
+    if (q0 + r < N && k0 + c < N) cp_async16(dst + r * LDP + c, src + (size_t)(q0 + r) * ldp + k0 + c);
   }
 }
 
@@ -337,10 +339,11 @@ __global__ void __launch_bounds__(THREADS)
 dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
            const int* __restrict__ mask, const bf16* __restrict__ gout,
            const float* __restrict__ stats, bf16* __restrict__ dqkv,
-           float* __restrict__ dbias_part, int B, int N, int H, int ldb, int per_group,
-           float scale) {
+           float* __restrict__ dbias_part, int B, int N, int H, int ldb, int ldp,
+           int per_group, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(smem_raw);
+  DkvSmem& sm = *reinterpret_cast<DkvSmem*>(
+      smem_raw + ((1024u - (hop::smem_u32(smem_raw) & 1023u)) & 1023u));
 
   const int k0 = blockIdx.x * TK, h = blockIdx.y, grp = blockIdx.z;
   const int b_begin = grp * per_group, b_end = min(B, b_begin + per_group);
@@ -351,7 +354,7 @@ dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   const int nq = (N + TQ - 1) / TQ;
   const int niter = (b_end - b_begin) * nq;
   const float qscale = __bfloat162float(__float2bfloat16(scale));
-  float* part = dbias_part + ((size_t)grp * H + h) * N * N;
+  float* part = dbias_part + ((size_t)grp * H + h) * N * ldp;
   // With one query tile, iteration i + 1 reads the partial tile that
   // iteration i stores: it is loaded only after that store (below).
   const bool prefetch_part = nq > 1;
@@ -371,7 +374,7 @@ dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
     }
     stage_rows(sm.qg[st][0], base, ld, q0, N);
     stage_rows(sm.qg[st][1], gout + (size_t)b * N * C + h * D, C, q0, N);
-    if (prefetch_part && b != b_begin) stage_part(sm.part[st], part, q0, k0, N);
+    if (prefetch_part && b != b_begin) stage_part(sm.part[st], part, q0, k0, N, ldp);
     for (int r = tid; r < TQ; r += THREADS) {
       const size_t at = ((size_t)b * H + h) * N + q0 + r;
       const float l = q0 + r < N ? stats[plane + at] : 0.f;
@@ -392,14 +395,14 @@ dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
     const bool first_q = i % nq == 0, first_b = b == b_begin;
     if (!prefetch_part && !first_b) {
       __syncthreads();  // iteration i - 1 stored this very tile
-      stage_part(sm.part[st], part, q0, k0, N);
+      stage_part(sm.part[st], part, q0, k0, N, ldp);
     }
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();  // iteration i's tiles are visible; i - 1 is consumed
     if (first_q) {    // a new batch: its K/V rows into registers
-      a_frags(ka, sm.kv[0] + warp * 16 * LDT, g, t);
-      a_frags(va, sm.kv[1] + warp * 16 * LDT, g, t);
+      a_frags(ka, sm.kv[0], warp * 16, g, t);
+      a_frags(va, sm.kv[1], warp * 16, g, t);
       kv0 = sm.kvalid[kl0];
       kv1 = sm.kvalid[kl1];
 #pragma unroll
@@ -408,7 +411,8 @@ dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
         for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
     }
     scale_tile(sm.qg[st][0], qscale);
-    __syncthreads();  // q scaled; the K/V staging is free again
+    hop::fence_proxy_async();  // the scaled q and the landed g, before wgmma reads them
+    __syncthreads();           // q scaled; the K/V staging is free again
     if (i + 1 < niter) load(i + 1, st ^ 1);
     cp_async_commit();
     const bf16* Qt = sm.qg[st][0];
@@ -433,8 +437,8 @@ dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
       }
     }
     zero8x4(dp);
-    rows_dot(dp, va, Gt, g, t);
-    rows_dot(s, ka, Qt, g, t);
+    rows_dot(dp, va, Gt);
+    rows_dot(s, ka, Qt);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -473,10 +477,12 @@ dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
       }
     }
 
-    __syncthreads();  // the tile's partial is complete: store it, coalesced
-    for (int v = tid; v < TQ * TK; v += THREADS) {
-      const int r = v / TK, c = v % TK;
-      if (q0 + r < N && k0 + c < N) part[(size_t)(q0 + r) * N + k0 + c] = ps[r * LDP + c];
+    __syncthreads();  // the tile's partial is complete: store it, 4 floats a store
+    for (int v = tid; v < TQ * TK / 4; v += THREADS) {
+      const int r = v / (TK / 4), c = (v % (TK / 4)) * 4;
+      if (q0 + r < N && k0 + c < N)
+        *reinterpret_cast<float4*>(part + (size_t)(q0 + r) * ldp + k0 + c) =
+            *reinterpret_cast<const float4*>(ps + r * LDP + c);
     }
   }
 }
@@ -484,12 +490,16 @@ dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
 // ---------------------------------------------------------------------------
 // 3. dbias = Σ over the group partials, in group order
 // ---------------------------------------------------------------------------
+// dbias (rows of N) from the partials (rows of ldp), each element the sum
+// over groups in group order.
 __global__ void reduce_kernel(const float* __restrict__ part, float* __restrict__ dbias,
-                              size_t n, int groups) {
+                              size_t rows, int N, int ldp, int groups) {
+  const size_t n = rows * N, plane = rows * ldp;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
-    float acc = part[i];
-    for (int k = 1; k < groups; ++k) acc += part[(size_t)k * n + i];
+    const size_t at = (i / N) * ldp + i % N;
+    float acc = part[at];
+    for (int k = 1; k < groups; ++k) acc += part[(size_t)k * plane + at];
     dbias[i] = acc;
   }
 }
@@ -507,17 +517,18 @@ extern "C" int vlm_packed_attention_bwd_groups(int B) {
 
 // bias: (H, N, ldb) f32, the (H, N, N) bias with each row padded to ldb
 // columns (ldb even and at least N rounded up to 64: the kernels read
-// whole 64-key tiles, bias pairs as float2).  stats: (3, B, H, N) f32
-// scratch.  dbias_part: (groups, H, N, N) f32 scratch, or dbias itself
-// when groups == 1.
+// whole 64-key tiles, bias pairs as float2).  o: K2's context (B, N, C).
+// stats: (3, B, H, N) f32, planes 0 and 1 the m and l of K2's training
+// launch; plane 2 receives D.  dbias_part: (groups, H, N, ldp) f32 scratch,
+// ldp = N rounded up to 4.
 extern "C" int vlm_packed_attention_bwd(const void* qkv, const void* bias, const void* mask,
-                                        const void* g, void* dqkv, void* dbias, void* stats,
-                                        void* dbias_part, int B, int N, int H, int ldb,
-                                        int groups, float scale, void* stream) {
+                                        const void* g, const void* o, void* dqkv, void* dbias,
+                                        void* stats, void* dbias_part, int B, int N, int H,
+                                        int ldb, int groups, float scale, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || groups != vlm_packed_attention_bwd_groups(B) ||
       ldb % 2 != 0 || ldb < (N + TK - 1) / TK * TK)
     return (int)cudaErrorInvalidValue;
-  if (groups == 1 && dbias_part != dbias) return (int)cudaErrorInvalidValue;
+
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* q = static_cast<const bf16*>(qkv);
   const float* bi = static_cast<const float*>(bias);
@@ -527,21 +538,21 @@ extern "C" int vlm_packed_attention_bwd(const void* qkv, const void* bias, const
   float* st = static_cast<float*>(stats);
   float* part = static_cast<float*>(dbias_part);
 
-  dq_kernel<<<dim3(B, (N + TQ - 1) / TQ, H), THREADS, 0, s>>>(q, bi, m, go, dq, st, B, N, H,
-                                                             ldb, scale);
+  dq_kernel<<<dim3(B, (N + TQ - 1) / TQ, H), THREADS, 0, s>>>(
+      q, bi, m, go, static_cast<const bf16*>(o), dq, st, B, N, H, ldb, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int smem = (int)sizeof(DkvSmem);
-  err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
   if (err != cudaSuccess) return (int)err;
   const int per_group = (B + groups - 1) / groups;
-  dkv_kernel<<<dim3((N + TK - 1) / TK, H, groups), THREADS, smem, s>>>(
-      q, bi, m, go, st, dq, part, B, N, H, ldb, per_group, scale);
+  const int ldp = (N + 3) / 4 * 4;
+  dkv_kernel<<<dim3((N + TK - 1) / TK, H, groups), THREADS, kDkvSmem, s>>>(
+      q, bi, m, go, st, dq, part, B, N, H, ldb, ldp, per_group, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess || groups == 1) return (int)err;
+  if (err != cudaSuccess) return (int)err;
 
-  const size_t n = (size_t)H * N * N;
-  reduce_kernel<<<264, 256, 0, s>>>(part, static_cast<float*>(dbias), n, groups);
+  reduce_kernel<<<264, 256, 0, s>>>(part, static_cast<float*>(dbias), (size_t)H * N, N, ldp,
+                                    groups);
   return (int)cudaGetLastError();
 }

@@ -10,69 +10,50 @@
 // LayerScale and the residual adds are f32.  The gelu is exact-erf with
 // CUDA's erff (max error 2 ulp, common.cuh:ErffGelu); the TPU kernel used
 // the Abramowitz-Stegun erf (|err| <= 1.5e-7, ops/mlp.py:_erf_approx).
-// The body is block_tail.cuh's two halves, which K4 + K5 (the split pair)
-// and K7 (the whole block) run too.
 //
 // Bound on the H100: by its arithmetic, tensor-core throughput (196 GFLOP
-// against ~96 MB of activations and weights at B=32, N=577, C=768).  As
-// built it is not: every 32-row block streams all 10.6 MB of bf16 weights
-// from L2 (6.1 GB per call), and the f32 output accumulators (96 per
-// thread) hold it to one block of 8 warps per SM, too few to hide the
-// L2 latency of the weight tiles.  Larger row blocks need wgmma's
-// register-resident 64-row accumulators or a multicast of the weight
-// tiles across a cluster: later work.  The TPU kernel keeps
-// a (512, 3072) f32 hidden in VMEM; a block here gets at most 227 KB of
-// shared memory, so it owns 32 rows and runs the MLP as
-// common.cuh:mlp_hidden_chunks (128-wide hidden chunks, the f32 output
-// accumulators in registers for the whole MLP).  The LN2 output stays in
-// shared memory; x' is parked in the block's own rows of the output (an
-// L2-resident 48 KB per block) to leave shared memory for the weight
-// tiles.
-#include "block_tail.cuh"
+// against ~96 MB of activations and weights at B=32, N=577, C=768; 0.198
+// ms at the bf16 peak).  The TPU kernel keeps a (512, 3072) f32 hidden in
+// VMEM.  Here it is mlp_body.cuh in mode kProjMlp, built for C = 768 and
+// 1024: a cluster of four CTAs per 64-row block, each owning a quarter of
+// the output columns; wgmma in two warpgroups, each with its own mbarrier
+// ring of TMA weight tiles: one for the output columns (its f32
+// accumulators in registers for the whole MLP), one for the CTA's quarter
+// of each 128-wide hidden chunk, which it sends to the other CTAs by bulk
+// copies into their shared memory; x' parked in the block's own rows of
+// the output.  Each weight tile is read from L2 once per 64 rows (the
+// 32-row WMMA body before read every weight once per 32 rows: 6.1 GB per
+// launch at C = 768).  K4 → K5, K6 and K7 run the same body and give the
+// same bits.
+#include "mlp_body.cuh"
 
 using namespace vlm;
 
 namespace {
 
-constexpr int BM = kMlpRows;
-
-// NF: 16-column fragments per warp over the model width, C = 8 * NF * 16.
-template <int NF>
-__global__ void __launch_bounds__(kGemmThreads, 1)
-proj_mlp_tail_kernel(const bf16* __restrict__ ctx, const bf16* __restrict__ res,
-                     const bf16* __restrict__ wp, const float* __restrict__ bp,
-                     const float* __restrict__ g1, const float* __restrict__ ln_w,
-                     const float* __restrict__ ln_b, const bf16* __restrict__ w1,
-                     const float* __restrict__ b1, const bf16* __restrict__ w2,
-                     const float* __restrict__ b2, const float* __restrict__ g2,
-                     bf16* out, int M, int Hd, float eps) {
+template <int C>
+__global__ void __cluster_dims__(body::kCluster, 1, 1) __launch_bounds__(body::kThreads, 1)
+    proj_mlp_tail_kernel(const __grid_constant__ body::Maps m, const body::Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const TailSmem sm(smem, 8 * NF * 16);
-  const int row0 = blockIdx.x * BM;
-  proj_residual_rows<NF>(ctx, res, wp, bp, g1, out, M, row0, sm);
-  __syncthreads();  // x' complete (in out's rows); every warp is done reading ctx
-  ln_mlp_residual_rows<NF>(out, ln_w, ln_b, w1, b1, w2, b2, g2, out, M, Hd, eps, row0, sm);
+  body::run<C, body::kProjMlp, ErffGelu>(m, a, smem, (blockIdx.x / body::kCluster) * body::kRows);
 }
 
-template <int NF>
-int launch(const void* ctx, const void* res, const void* wp, const void* bp,
-           const void* g1, const void* ln_w, const void* ln_b, const void* w1,
-           const void* b1, const void* w2, const void* b2, const void* g2, void* out,
-           int M, int Hd, float eps, cudaStream_t stream) {
-  constexpr int C = 8 * NF * 16;
-  constexpr size_t smem = mlp_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      proj_mlp_tail_kernel<NF>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  proj_mlp_tail_kernel<NF><<<(M + BM - 1) / BM, kGemmThreads, smem, stream>>>(
-      static_cast<const bf16*>(ctx), static_cast<const bf16*>(res),
-      static_cast<const bf16*>(wp), static_cast<const float*>(bp),
-      static_cast<const float*>(g1), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(g2),
-      static_cast<bf16*>(out), M, Hd, eps);
-  return (int)cudaGetLastError();
+template <int C>
+int launch(const void* ctx, const void* res, const void* wp, const void* bp, const void* g1,
+           const void* ln_w, const void* ln_b, const void* w1, const void* b1, const void* w2,
+           const void* b2, const void* g2, void* out, int M, int Hd, float eps,
+           cudaStream_t stream) {
+  body::Maps m;
+  if (!body::make_maps<C>(&m, body::kProjMlp, ctx, M, wp, w1, w2, Hd))
+    return (int)cudaErrorNotSupported;
+  const body::Args a{static_cast<const bf16*>(res),  nullptr,
+                     static_cast<const float*>(bp),  static_cast<const float*>(g1),
+                     static_cast<const float*>(ln_w), static_cast<const float*>(ln_b),
+                     static_cast<const float*>(b1),  static_cast<const float*>(b2),
+                     static_cast<const float*>(g2),  static_cast<bf16*>(out),
+                     M,                              Hd,
+                     0,                              eps};
+  return body::launch<C>(proj_mlp_tail_kernel<C>, m, a, stream);
 }
 
 }  // namespace
@@ -82,12 +63,14 @@ extern "C" int vlm_proj_mlp_tail(const void* ctx, const void* res, const void* w
                                  const void* ln_b, const void* w1, const void* b1,
                                  const void* w2, const void* b2, const void* g2, void* out,
                                  int M, int C, int Hd, float eps, void* stream) {
-  if (M <= 0 || Hd <= 0 || Hd % kHiddenChunk != 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || Hd <= 0 || Hd % body::kHC != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 768:
-      return launch<6>(ctx, res, wp, bp, g1, ln_w, ln_b, w1, b1, w2, b2, g2, out, M, Hd,
-                       eps, s);
+      return launch<768>(ctx, res, wp, bp, g1, ln_w, ln_b, w1, b1, w2, b2, g2, out, M, Hd, eps, s);
+    case 1024:
+      return launch<1024>(ctx, res, wp, bp, g1, ln_w, ln_b, w1, b1, w2, b2, g2, out, M, Hd, eps,
+                          s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -31,7 +31,11 @@ module.  Routing follows the JAX package under its kernel flag
     the proj projection, LN and the MLP (``fused_mlp``, K13, when the
     block has at least ``MLP_MIN_ROWS`` rows; the plain path otherwise).
 ``kernels=False`` forces the plain composition everywhere (the JAX
-package's non-Pallas path) except under the training fusion.  Type VL
+package's non-Pallas path) except under the training fusion.  A
+width-specific kernel (K1, K3–K8, K13–K15) is taken only at a width it is
+built for (``ops.fused_block.kernel_takes``): the default route and the
+training fusion fall back to the plain ops elsewhere, an opt-in route
+raises (``eval_route_built``), as a pure function of shapes.  Type VL
 (the fused VL pass, with its split-per-modality recursion and per-half
 experts) comes with ROADMAP A4.
 """
@@ -45,7 +49,8 @@ import torch
 from ..ops.attention import HEAD_DIM, fused_attention, \
     packed_fused_attention
 from ..ops.fused_block import check_fusion, check_train_fusion, \
-    fused_eval_block, ln_linear_train, proj_mlp_tail_train
+    fused_eval_block, kernel_takes, ln_linear_train, proj_mlp_tail_train, \
+    require_kernel, tail_reference
 from ..ops.int8 import INT8_SUFFIX, SCALE_SUFFIX, fused_eval_block_i8
 from ..ops.mlp import fused_mlp, reference_mlp
 from .layers import layer_norm, linear
@@ -63,6 +68,43 @@ KERNEL_MIN_N = 256
 # a TPU limit and does not carry over.  The text blocks of the eval (64
 # captions x 40 tokens) and of training (32 x 40) pass it.
 MLP_MIN_ROWS = 256
+
+
+# The width-specific kernels of each eval-block route (beside its attention
+# kernel, K2 or, inside K8 and K7, their own), and of the int8 eval block.
+ROUTE_KERNELS = {"pair": ("ln_linear", "linear_residual", "mlp_tail"),
+                 "tail": ("ln_linear", "proj_mlp_tail"),
+                 "qkv": ("ln_qkv_attention", "proj_mlp_tail"),
+                 "mega": ("block_eval",)}
+INT8_KERNELS = ("ln_linear_i8", "proj_mlp_tail_i8")
+
+
+def eval_route_built(C: int, hidden: int, fusion: str,
+                     int8: bool = False) -> bool:
+    """Whether an eval block of width C and MLP hidden ``hidden`` whose
+    attention takes the kernels goes through them by the route ``fusion``
+    (or the int8 block): True when every width-specific kernel of the
+    route is built for the width (``ops.fused_block.kernel_takes``).  The
+    default route "tail" is False otherwise, and the block takes the
+    plain composition, as the JAX package takes XLA where its kernels'
+    shape gates fail (C=192 of the vit-tiny configs).  An opt-in route
+    (another ``fusion``, or the int8 eval) whose kernel is not built for
+    the width raises ``ValueError`` naming the kernel and the width, before
+    any launch: the port never switches a chosen route silently."""
+    names = INT8_KERNELS if int8 else ROUTE_KERNELS[fusion]
+    missing = [k for k in names if not kernel_takes(k, C, hidden)]
+    if not missing:
+        return True
+    if fusion == "tail" and not int8:
+        return False
+    require_kernel(missing[0], C, hidden)
+    return False  # unreachable: require_kernel raised
+
+
+def _mlp_kernel_ok(C: int, hidden: int, rows: int, kernels: bool) -> bool:
+    """Whether an MLP takes K13: under the kernel flag, at MLP_MIN_ROWS
+    rows or more, at a width and hidden K13 is built for."""
+    return kernels and rows >= MLP_MIN_ROWS and kernel_takes("mlp", C, hidden)
 
 
 def _qkv_bias(params: Params, prefix: str) -> torch.Tensor:
@@ -125,10 +167,12 @@ def mlp(params: Params, prefix: str, x: torch.Tensor, *,
         kernels: bool) -> torch.Tensor:
     """fc1 → GELU → fc2 (dropout rate is 0 in every reference config):
     through K13 under the kernel flag when the block has at least
-    MLP_MIN_ROWS rows (mome.py:103-116 with ops/mlp.py:209-225)."""
+    MLP_MIN_ROWS rows and K13 is built for its width and hidden
+    (mome.py:103-116 with ops/mlp.py:209-225, ``_mlp_kernel_ok``)."""
     args = (x, params[f"{prefix}.fc1.weight"], params[f"{prefix}.fc1.bias"],
             params[f"{prefix}.fc2.weight"], params[f"{prefix}.fc2.bias"])
-    if kernels and x.shape[0] * x.shape[1] >= MLP_MIN_ROWS:
+    if _mlp_kernel_ok(x.shape[-1], args[1].shape[0], x.shape[0] * x.shape[1],
+                      kernels):
         return fused_mlp(*args)
     return reference_mlp(*args)
 
@@ -162,7 +206,9 @@ def _block_fast(params, spec, b, x, mask, rel_bias, type_id, *,
     activation is ``int8_gelu`` and whose attention is K12 when
     ``qk_int8``; it has one route, so ``fusion`` must be "tail" there.
     Returns None when the attention does not take the kernels
-    (``_attention_kernel_ok``)."""
+    (``_attention_kernel_ok``), or when the default route's kernels are not
+    built for the block's width (``eval_route_built``, which raises for an
+    opt-in route)."""
     if not _attention_kernel_ok(spec, x.shape[1], mask, rel_bias, kernels):
         return None
     p = f"transformer.blocks.{b.index}"
@@ -171,10 +217,14 @@ def _block_fast(params, spec, b, x, mask, rel_bias, type_id, *,
     n1 = f"{p}.norm1{_expert(b, type_id, 'norm1')}"
     n2 = f"{p}.norm2{_expert(b, type_id, 'norm2')}"
     scale = spec.head_dim ** -0.5
-    if spec.eval_int8 and f"{ap}.qkv.weight{INT8_SUFFIX}" in params:
-        if fusion != "tail":
-            raise ValueError(f"fusion {fusion!r}: the int8 eval block has "
-                             f"one route, 'tail'")
+    int8 = spec.eval_int8 and f"{ap}.qkv.weight{INT8_SUFFIX}" in params
+    if int8 and fusion != "tail":
+        raise ValueError(f"fusion {fusion!r}: the int8 eval block has one "
+                         f"route, 'tail'")
+    if not eval_route_built(x.shape[-1], params[f"{mp}.fc1.weight"].shape[0],
+                            fusion, int8):
+        return None
+    if int8:
 
         def qw(name):
             return (params[f"{name}.weight{INT8_SUFFIX}"],
@@ -210,7 +260,11 @@ def _block_fast_train(params, spec, b, x, mask, rel_bias, type_id, dp_scale,
     stochastic-depth scales folded into per-element effective gammas
     (B, 1, C), unit scales without a dp table (the JAX package's
     mome.py:312-315).  The backwards recompute the unfused composition,
-    so the gradients are the unfused path's."""
+    so the gradients are the unfused path's.  At a width K1 or K6 is not
+    built for (``kernel_takes``), that step is its plain composition
+    (``tail_reference``: the function K6's backward differentiates), as
+    the JAX package's ``proj_mlp_tail_train`` takes ``_tail_reference``
+    where its shape gate fails."""
     p = f"transformer.blocks.{b.index}"
     ap = f"{p}.attn{_expert(b, type_id, 'attn')}"
     mp = f"{p}.mlp{_expert(b, type_id, 'mlp')}"
@@ -219,7 +273,8 @@ def _block_fast_train(params, spec, b, x, mask, rel_bias, type_id, dp_scale,
     if dp_scale is None:
         dp_scale = torch.ones((2, x.shape[0]), dtype=torch.float32,
                               device=x.device)
-    if train_fusion == "full":
+    C, H = x.shape[-1], params[f"{mp}.fc1.weight"].shape[0]
+    if train_fusion == "full" and kernel_takes("ln_linear", C):
         qkv = ln_linear_train(x, params[f"{n1}.weight"], params[f"{n1}.bias"],
                               params[f"{ap}.qkv.weight"],
                               _qkv_bias(params, ap))
@@ -232,7 +287,9 @@ def _block_fast_train(params, spec, b, x, mask, rel_bias, type_id, dp_scale,
         return dp_scale[s][:, None, None].to(x.dtype) * \
             params[gamma].to(x.dtype)
 
-    return proj_mlp_tail_train(
+    tail = proj_mlp_tail_train if kernel_takes("tail_train", C, H) \
+        else tail_reference
+    return tail(
         ctx, params[f"{ap}.proj.weight"], params[f"{ap}.proj.bias"],
         g_eff(0, f"{p}.gamma_1"), x, params[f"{n2}.weight"],
         params[f"{n2}.bias"], params[f"{mp}.fc1.weight"],

@@ -35,10 +35,10 @@ _F = ctypes.c_float
 # exported C functions: name -> argument types (each returns a cudaError_t)
 _SIGNATURES = {
     "vlm_ln_linear": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    "vlm_packed_attention": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    "vlm_packed_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "vlm_proj_mlp_tail": (_P,) * 13 + (_I, _I, _I, _F, _P),
     "vlm_mlp": (_P,) * 6 + (_I, _I, _I, _P),
-    "vlm_packed_attention_bwd": (_P,) * 8 + (_I,) * 5 + (_F, _P),
+    "vlm_packed_attention_bwd": (_P,) * 9 + (_I,) * 5 + (_F, _P),
     "vlm_packed_attention_bwd_groups": (_I,),
     "vlm_ln_linear_i8": (_P,) * 7 + (_I, _I, _I, _F, _P),
     "vlm_proj_mlp_tail_i8": (_P,) * 16 + (_I, _I, _I, _I, _F, _P),
@@ -46,7 +46,7 @@ _SIGNATURES = {
     "vlm_linear_residual": (_P,) * 6 + (_I, _I, _I, _P),
     "vlm_mlp_tail": (_P,) * 9 + (_I, _I, _I, _F, _P),
     "vlm_ln_qkv_attention": (_P,) * 8 + (_I, _I, _I, _F, _F, _P),
-    "vlm_block_eval": (_P,) * 19 + (_I,) * 5 + (_F, _F, _P),
+    "vlm_block_eval": (_P,) * 20 + (_I,) * 5 + (_F, _F, _P),
     "vlm_block_eval_grid": (),
     "vlm_split_attention": (_P,) * 6 + (_I,) * 15 + (_F, _P),
     "vlm_split_attention_bb": (_P,) * 6 + (_I,) * 15 + (_F, _P),
@@ -102,7 +102,7 @@ def build() -> Path:
              for f, p in zip(cu, procs)]
     if not any(rc for _, _, rc in steps):
         link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
-                               str(tmp), *map(str, objs)],
+                               str(tmp), *map(str, objs), "-ldl"],
                               capture_output=True, text=True)
         steps.append(("link", link.stdout + link.stderr, link.returncode))
     for o in objs:

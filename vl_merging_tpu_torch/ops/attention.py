@@ -48,6 +48,15 @@ SPLIT_BB = 4
 SPLIT_BB_MAX_N = 640
 
 
+def _f32_aligned(bias: torch.Tensor) -> torch.Tensor:
+    """The f32 bias as the kernels read it: contiguous and 16-byte aligned.
+    A layer's slice of the (L, H, N, N) table is aligned only when H·N·N is
+    a multiple of 4 (not at H = 3, N = 197 or 577: the vit-tiny towers),
+    and is copied then."""
+    bias = bias.float().contiguous()
+    return bias if bias.data_ptr() % 16 == 0 else bias.clone()
+
+
 def recompute_vjp(fn: Callable, saved: Sequence[torch.Tensor],
                   needs: Sequence[bool], g: torch.Tensor, *extra):
     """The autograd VJP of ``fn(*saved, *extra)`` at the saved inputs, for
@@ -99,33 +108,60 @@ def packed_attention_reference(qkv, bias, mask, scale: float,
     return out.transpose(1, 2).reshape(B, N, threeC // 3)
 
 
+def packed_attention_stats_reference(qkv, bias, mask, scale: float,
+                                     num_heads: int) -> torch.Tensor:
+    """The softmax statistics of K2's training launch, plainly: each query
+    row's max m of the biased, masked f32 logits and its sum
+    l = Σ exp(s - m) over the valid keys, as a (2, B, H, N) f32 tensor
+    (m = -inf and l = 0 on a row with no valid key)."""
+    B, N, threeC = qkv.shape
+    C = threeC // 3
+    q, k, _ = (_heads(t, num_heads) for t in qkv.split(C, dim=-1))
+    s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2)) + \
+        bias[None].float()
+    s = s.masked_fill(mask[:, None, None, :] <= 0, float("-inf"))
+    m = s.amax(-1)
+    l = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None]) \
+        .sum(-1)
+    return torch.stack([m, l])
+
+
 def packed_attention(qkv: torch.Tensor, bias: torch.Tensor,
-                     mask: torch.Tensor, scale: float,
-                     num_heads: int) -> torch.Tensor:
+                     mask: torch.Tensor, scale: float, num_heads: int, *,
+                     with_stats: bool = False):
     """Fused attention over packed qkv (B, N, 3C) → context (B, N, C), with
     an f32 (H, N, N) additive bias and a (B, N) key mask.  The kernel
-    takes any N (it masks the ragged edge itself) and head_dim 64."""
+    takes any N (it masks the ragged edge itself) and head_dim 64.  With
+    ``with_stats`` (the training launch) it returns (context, stats), stats
+    the (2, B, H, N) f32 softmax max and sum of every query row that K9
+    reads (``packed_attention_stats_reference`` on CPU tensors)."""
     if not qkv.is_cuda:
-        return packed_attention_reference(qkv, bias, mask, scale, num_heads)
+        out = packed_attention_reference(qkv, bias, mask, scale, num_heads)
+        if with_stats:
+            return out, packed_attention_stats_reference(qkv, bias, mask,
+                                                         scale, num_heads)
+        return out
     B, N, threeC = qkv.shape
     C = threeC // 3
     if C != num_heads * HEAD_DIM:
         raise ValueError(f"packed_attention kernel takes head_dim "
                          f"{HEAD_DIM}; got C={C}, heads={num_heads}")
-    bias = bias.float()
+    bias = _f32_aligned(bias)
     mask = mask.to(torch.int32)
     dev = qkv.device
     _build.expect(qkv, "qkv", torch.bfloat16, (B, N, 3 * C), dev)
     _build.expect(bias, "bias", torch.float32, (num_heads, N, N), dev)
     _build.expect(mask, "mask", torch.int32, (B, N), dev)
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=dev)
+    stats = torch.empty((2, B, num_heads, N), dtype=torch.float32,
+                        device=dev) if with_stats else None
     lib = _build.library()
     _build.check(lib.vlm_packed_attention(
         qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        B, N, num_heads, float(scale), _build.stream_handle(dev)),
-        "packed_attention")
+        0 if stats is None else stats.data_ptr(), B, N, num_heads,
+        float(scale), _build.stream_handle(dev)), "packed_attention")
     packed_attention.launches += 1
-    return out
+    return (out, stats) if with_stats else out
 
 
 packed_attention.launches = 0
@@ -190,7 +226,7 @@ def packed_attention_i8qk(qkv: torch.Tensor, bias: torch.Tensor,
     if C != num_heads * HEAD_DIM:
         raise ValueError(f"packed_attention_i8qk kernel takes head_dim "
                          f"{HEAD_DIM}; got C={C}, heads={num_heads}")
-    bias = bias.float()
+    bias = _f32_aligned(bias)
     mask = mask.to(torch.int32)
     dev = qkv.device
     _build.expect(qkv, "qkv", torch.bfloat16, (B, N, 3 * C), dev)
@@ -209,15 +245,18 @@ def packed_attention_i8qk(qkv: torch.Tensor, bias: torch.Tensor,
 packed_attention_i8qk.launches = 0
 
 
-def packed_attention_bwd_reference(qkv, bias, mask, g, scale: float,
-                                   num_heads: int):
+def packed_attention_bwd_reference(qkv, bias, mask, g, o, stats,
+                                   scale: float, num_heads: int):
     """Plain twin of K9 with its rounding points
     (``vl_merging_tpu/ops/attention.py:_packed_bwd_kernel``): q pre-scaled
-    in its dtype, f32 softmax of the biased and masked logits (0 on a row
-    with no valid key), dv = cast(p)ᵀ·g, ds = p ⊙ (dp − Σ dp ⊙ p) in f32,
-    dq = cast(ds)·k · scale, dk = cast(ds)ᵀ·q, all products accumulated
-    in f32.  Returns (dqkv (B, N, 3C) in qkv's dtype, dbias (H, N, N) f32
-    summed over the batch)."""
+    in its dtype, the biased and masked f32 logits s, p = exp(s - m)/l from
+    the forward's softmax statistics ``stats`` (m, l: (2, B, H, N) f32;
+    p = 0 on a row with l = 0, no valid key), dv = cast(p)ᵀ·g,
+    ds = p ⊙ (dp − D) in f32 with D = Σ g ⊙ o over the head's columns of
+    the context o (the reference's Σ_k dp ⊙ p, equal up to o's rounding;
+    0 where p = 0), dq = cast(ds)·k · scale, dk = cast(ds)ᵀ·q, all products
+    accumulated in f32.  Returns (dqkv (B, N, 3C) in qkv's dtype, dbias
+    (H, N, N) f32 summed over the batch)."""
     B, N, threeC = qkv.shape
     C = threeC // 3
     dt = qkv.dtype
@@ -225,14 +264,17 @@ def packed_attention_bwd_reference(qkv, bias, mask, g, scale: float,
     qs = q * torch.tensor(scale, dtype=dt)
     s = torch.matmul(qs.float(), k.float().transpose(-1, -2)) + \
         bias[None].float()
-    valid = mask > 0
-    s = s.masked_fill(~valid[:, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    p = torch.where(valid.any(-1)[:, None, None, None], p, 0.0)
+    s = s.masked_fill(mask[:, None, None, :] <= 0, float("-inf"))
+    m, l = stats[0].float(), stats[1].float()
+    live = (l > 0)[..., None]
+    p = torch.where(live, torch.exp(s - torch.where(live, m[..., None], 0.0))
+                    / torch.where(live, l[..., None], 1.0), 0.0)
     gh = _heads(g, num_heads).float()
+    d = torch.where(live, (gh * _heads(o, num_heads).float()).sum(
+        -1, keepdim=True), 0.0)
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gh)
     dp = torch.matmul(gh, v.float().transpose(-1, -2))
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = p * (dp - d)
     ds16 = ds.to(dt).float()
     dq = torch.matmul(ds16, k.float()) * scale
     dk = torch.matmul(ds16.transpose(-1, -2), qs.float())
@@ -242,45 +284,49 @@ def packed_attention_bwd_reference(qkv, bias, mask, g, scale: float,
 
 
 def packed_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
-                         mask: torch.Tensor, g: torch.Tensor, scale: float,
-                         num_heads: int):
+                         mask: torch.Tensor, g: torch.Tensor, o: torch.Tensor,
+                         stats: torch.Tensor, scale: float, num_heads: int):
     """K9: the backward of ``packed_attention`` → (dqkv (B, N, 3C),
     dbias (H, N, N) f32 summed over the batch).  ``g`` is the context
-    gradient (B, N, C), contiguous; the kernel takes any N and head_dim
-    64, reads a copy of the bias whose rows are padded to whole 64-key
-    tiles (aligned pairs: a 16 MB copy at N = 577, 12 heads), and sums
-    dbias over at most four batch groups whose partials it adds in a
-    fixed order (no atomics)."""
+    gradient (B, N, C), contiguous, ``o`` the forward's context and
+    ``stats`` the (2, B, H, N) softmax statistics of its training launch.
+    The kernel takes any N and head_dim 64, reads a copy of the bias whose
+    rows are padded to whole 64-key tiles (aligned pairs: a 16 MB copy at
+    N = 577, 12 heads), and sums dbias over at most four batch groups whose
+    partials (rows padded to 4 floats) it adds in a fixed order (no
+    atomics)."""
     if not qkv.is_cuda:
-        return packed_attention_bwd_reference(qkv, bias, mask, g, scale,
-                                              num_heads)
+        return packed_attention_bwd_reference(qkv, bias, mask, g, o, stats,
+                                              scale, num_heads)
     B, N, threeC = qkv.shape
     C = threeC // 3
     if C != num_heads * HEAD_DIM:
         raise ValueError(f"packed_attention_bwd kernel takes head_dim "
                          f"{HEAD_DIM}; got C={C}, heads={num_heads}")
-    bias = bias.float()
+    bias = _f32_aligned(bias)
     mask = mask.to(torch.int32)
     dev = qkv.device
     _build.expect(qkv, "qkv", torch.bfloat16, (B, N, 3 * C), dev)
     _build.expect(bias, "bias", torch.float32, (num_heads, N, N), dev)
     _build.expect(mask, "mask", torch.int32, (B, N), dev)
     _build.expect(g, "g", torch.bfloat16, (B, N, C), dev)
+    _build.expect(o, "o", torch.bfloat16, (B, N, C), dev)
+    _build.expect(stats, "stats", torch.float32, (2, B, num_heads, N), dev)
     ldb = -(-N // 64) * 64
     bias_rows = F.pad(bias, (0, ldb - N))
     lib = _build.library()
     groups = lib.vlm_packed_attention_bwd_groups(B)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((num_heads, N, N), dtype=torch.float32, device=dev)
-    stats = torch.empty((3, B, num_heads, N), dtype=torch.float32,
-                        device=dev)
-    part = dbias if groups == 1 else torch.empty(
-        (groups, num_heads, N, N), dtype=torch.float32, device=dev)
+    # m and l from the forward, and a plane for the kernel's D
+    st = torch.cat([stats, torch.empty_like(stats[:1])])
+    part = torch.empty((groups, num_heads, N, -(-N // 4) * 4),
+                       dtype=torch.float32, device=dev)
     _build.check(lib.vlm_packed_attention_bwd(
         qkv.data_ptr(), bias_rows.data_ptr(), mask.data_ptr(), g.data_ptr(),
-        dqkv.data_ptr(), dbias.data_ptr(), stats.data_ptr(), part.data_ptr(),
-        B, N, num_heads, ldb, groups, float(scale), _build.stream_handle(dev)),
-        "packed_attention_bwd")
+        o.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), st.data_ptr(),
+        part.data_ptr(), B, N, num_heads, ldb, groups, float(scale),
+        _build.stream_handle(dev)), "packed_attention_bwd")
     packed_attention_bwd.launches += 1
     return dqkv, dbias
 
@@ -291,24 +337,29 @@ packed_attention_bwd.launches = 0
 class _PackedFusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, bias, mask, scale, num_heads):
-        ctx.save_for_backward(qkv, bias, mask)
+        out, stats = packed_attention(qkv, bias, mask, scale, num_heads,
+                                      with_stats=True)
+        # the proj's weight gradient keeps out alive anyway
+        ctx.save_for_backward(qkv, bias, mask, out, stats)
         ctx.scale, ctx.num_heads = scale, num_heads
-        return packed_attention(qkv, bias, mask, scale, num_heads)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv, bias, mask = ctx.saved_tensors
+        qkv, bias, mask, out, stats = ctx.saved_tensors
         dqkv, dbias = packed_attention_bwd(qkv, bias, mask, g.contiguous(),
-                                           ctx.scale, ctx.num_heads)
+                                           out, stats, ctx.scale,
+                                           ctx.num_heads)
         return dqkv, dbias.to(bias.dtype), None, None, None
 
 
 def packed_fused_attention(qkv: torch.Tensor, bias: torch.Tensor,
                            mask: torch.Tensor, scale: float,
                            num_heads: int) -> torch.Tensor:
-    """Differentiable packed attention: K2 forward, K9 backward (their
-    twins on CPU tensors).  Gradients reach qkv and the bias; the mask
-    gets none."""
+    """Differentiable packed attention: K2 forward (its training launch,
+    which also keeps each query row's softmax statistics), K9 backward
+    (their twins on CPU tensors).  Gradients reach qkv and the bias; the
+    mask gets none."""
     return _PackedFusedAttention.apply(qkv, bias, mask, scale, num_heads)
 
 
@@ -340,7 +391,7 @@ def _split_launch(entry: str, q, k, v, bias, mask, scale: float):
             raise ValueError(f"{entry}: {name} needs a contiguous head dim, "
                              f"strides that are multiples of 8 and a 16-byte "
                              f"aligned start; got strides {t.stride()}")
-    bias = bias.float().contiguous()
+    bias = _f32_aligned(bias)
     mask = mask.to(torch.int32).contiguous()
     _build.expect(bias, "bias", torch.float32, (H, N, N), dev)
     _build.expect(mask, "mask", torch.int32, (B, N), dev)

@@ -48,6 +48,8 @@ Reference semantics: vision_transformer.py:489-530 (LayerScale residuals),
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -57,9 +59,25 @@ from .attention import HEAD_DIM, packed_attention, \
     packed_attention_reference, recompute_vjp
 
 LN_EPS = 1e-6
-_HIDDEN_CHUNK = 128           # proj_mlp_tail walks the MLP hidden in chunks
-_QKV_TILE = 384               # ln_linear's output tile width
-_WIDTHS = (768,)              # model widths the kernels are instantiated for
+_HIDDEN_CHUNK = 128           # the MLP body walks the hidden in chunks
+# ln_linear's output tile width at each model width it is built for
+_QKV_TILE = {768: 384, 1024: 256}
+# The model widths each width-specific kernel is built for (the CUDA
+# entries' ``switch (C)``): K1, K3, K4, K5, K6 and K13 at the ViT-B and
+# ViT-L widths; K7, K8 (their attention phase keeps a head's k and v for
+# N <= 640 in shared memory sized for 768) and the int8 K14/K15 at 768.
+# The attention kernels (K2, K9, K10, K11, K12) take any head count at
+# head_dim 64 and are gated by ``models/mome._attention_kernel_ok``.
+KERNEL_WIDTHS = {
+    "ln_linear": (768, 1024), "proj_mlp_tail": (768, 1024),
+    "linear_residual": (768, 1024), "mlp_tail": (768, 1024),
+    "tail_train": (768, 1024), "mlp": (768, 1024),
+    "ln_qkv_attention": (768,), "block_eval": (768,),
+    "ln_linear_i8": (768,), "proj_mlp_tail_i8": (768,),
+}
+# the kernels that run an MLP, whose gate also reads the MLP hidden
+_MLP_KERNELS = frozenset({"proj_mlp_tail", "mlp_tail", "block_eval",
+                          "tail_train", "mlp", "proj_mlp_tail_i8"})
 _MAX_KEYS = 640               # K7 and K8 keep a head's k and v for N <= 640
 # K7's context scratch: bb batch elements at a time, bb·N·C bf16 within
 # this many bytes (the H100's L2 holds 50 MB)
@@ -68,6 +86,31 @@ FUSIONS = ("pair", "tail", "qkv", "mega")
 # training-fusion levels: "0" off, "tail" the post-attention half through
 # K6, "full" also LN1 + qkv through K1
 TRAIN_FUSIONS = ("0", "tail", "full")
+
+
+def kernel_takes(name: str, C: int, hidden: int = 0) -> bool:
+    """Whether the width-specific kernel ``name`` (a key of
+    ``KERNEL_WIDTHS``) takes model width C and, if it runs an MLP, MLP
+    hidden ``hidden``: the JAX package's own shape gate (``_shapes_ok``,
+    ``mlp._kernel_ok`` and ``proj_mlp_tail_train``'s check: C and the
+    hidden multiples of 128; their VMEM terms are TPU limits and do not
+    carry over) intersected with the widths the kernel is built for.  A
+    pure function of shapes: the port's routing asks it before any
+    launch."""
+    return (C % 128 == 0 and C in KERNEL_WIDTHS[name]
+            and (name not in _MLP_KERNELS or hidden % _HIDDEN_CHUNK == 0))
+
+
+def require_kernel(name: str, C: int, hidden: int = 0) -> None:
+    """Raise ``ValueError`` naming the kernel and the width unless
+    ``kernel_takes(name, C, hidden)``."""
+    if not kernel_takes(name, C, hidden):
+        raise ValueError(
+            f"kernel {name} is not built for C={C}"
+            + (f", hidden={hidden}: it takes C in {KERNEL_WIDTHS[name]} and "
+               f"a hidden that is a multiple of {_HIDDEN_CHUNK}"
+               if name in _MLP_KERNELS else
+               f": it takes C in {KERNEL_WIDTHS[name]}"))
 
 
 def check_fusion(fusion: str) -> None:
@@ -98,9 +141,10 @@ def ln_linear(x: torch.Tensor, ln_w, ln_b, w, b) -> torch.Tensor:
         return ln_linear_reference(x, ln_w, ln_b, w, b)
     B, N, C = x.shape
     O = w.shape[0]
-    if C not in _WIDTHS or O % _QKV_TILE:
-        raise ValueError(f"ln_linear kernel takes C in {_WIDTHS} and "
-                         f"O % {_QKV_TILE} == 0; got C={C}, O={O}")
+    require_kernel("ln_linear", C)
+    if O % _QKV_TILE[C]:
+        raise ValueError(f"ln_linear kernel takes O % {_QKV_TILE[C]} == 0 "
+                         f"at C={C}; got O={O}")
     w = w.to(x.dtype)
     ln_w, ln_b, b = ln_w.float(), ln_b.float(), b.float()
     dev = x.device
@@ -133,9 +177,10 @@ def linear_residual(x: torch.Tensor, w, b, gamma, res) -> torch.Tensor:
         return linear_residual_reference(x, w, b, gamma, res)
     B, N, C = x.shape
     O = w.shape[0]
-    if C not in _WIDTHS or O % _QKV_TILE:
-        raise ValueError(f"linear_residual kernel takes C in {_WIDTHS} and "
-                         f"O % {_QKV_TILE} == 0; got C={C}, O={O}")
+    require_kernel("linear_residual", C)
+    if O != C:
+        raise ValueError(f"linear_residual kernel takes O == C; got C={C}, "
+                         f"O={O}")
     w = w.to(x.dtype)
     b, gamma = b.float(), gamma.float()
     dev = x.device
@@ -175,9 +220,7 @@ def mlp_tail(x: torch.Tensor, ln_w, ln_b, w1, b1, w2, b2,
         return mlp_tail_reference(x, ln_w, ln_b, w1, b1, w2, b2, gamma)
     B, N, C = x.shape
     H = w1.shape[0]
-    if C not in _WIDTHS or H % _HIDDEN_CHUNK:
-        raise ValueError(f"mlp_tail kernel takes C in {_WIDTHS} and hidden "
-                         f"% {_HIDDEN_CHUNK} == 0; got C={C}, hidden={H}")
+    require_kernel("mlp_tail", C, H)
     w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     vecs = [t.float() for t in (ln_w, ln_b, b1, b2, gamma)]
     dev = x.device
@@ -227,10 +270,7 @@ def proj_mlp_tail(ctx: torch.Tensor, wp, bp, gamma1, res, ln_w, ln_b, w1, b1,
                                        w1, b1, w2, b2, gamma2)
     B, N, C = ctx.shape
     H = w1.shape[0]
-    if C not in _WIDTHS or H % _HIDDEN_CHUNK:
-        raise ValueError(f"proj_mlp_tail kernel takes C in {_WIDTHS} and "
-                         f"hidden % {_HIDDEN_CHUNK} == 0; got C={C}, "
-                         f"hidden={H}")
+    require_kernel("proj_mlp_tail", C, H)
     wp, w1, w2 = (w.to(ctx.dtype) for w in (wp, w1, w2))
     vecs = [t.float() for t in (bp, gamma1, ln_w, ln_b, b1, b2, gamma2)]
     dev = ctx.device
@@ -273,10 +313,11 @@ def _block_attention_inputs(name, x, ln_w, ln_b, w_qkv, qkv_bias, bias, mask,
     """Checks and casts the inputs K7 and K8 share; raises for what their
     kernels do not take."""
     B, N, C = x.shape
-    if C not in _WIDTHS or C != num_heads * HEAD_DIM or N > _MAX_KEYS:
-        raise ValueError(f"{name} kernel takes C in {_WIDTHS}, head_dim "
-                         f"{HEAD_DIM} and N <= {_MAX_KEYS}; got C={C}, "
-                         f"heads={num_heads}, N={N}")
+    require_kernel(name, C)
+    if C != num_heads * HEAD_DIM or N > _MAX_KEYS:
+        raise ValueError(f"{name} kernel takes head_dim {HEAD_DIM} and "
+                         f"N <= {_MAX_KEYS}; got C={C}, heads={num_heads}, "
+                         f"N={N}")
     w_qkv = w_qkv.to(x.dtype)
     ln_w, ln_b, qkv_bias, bias = (t.float() for t in (ln_w, ln_b, qkv_bias,
                                                       bias))
@@ -330,20 +371,23 @@ def block_eval_reference(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask, scale,
 
 def block_eval(x: torch.Tensor, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
                scale, num_heads, wp, bp, gamma1, ln2_w, ln2_b, w1, b1, w2,
-               b2, gamma2) -> torch.Tensor:
+               b2, gamma2, *, trace: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
     """One whole eval block in one launch (K7): K8's LN1 + qkv + attention
     per (element, head), a grid-wide barrier, then K3's post-attention
-    half per 32-row block, over chunks of the batch whose context fits a
-    scratch of ``_SCRATCH_BYTES``."""
+    half per 64-row block, over chunks of the batch whose context fits a
+    scratch of ``_SCRATCH_BYTES``.  ``trace`` (a profiler's): a zeroed
+    int64 (``block_eval_grid()``, 8) tensor on the device that receives
+    each CTA's phase trace (``csrc/block_eval.cu``: ns in phase 1, at
+    the first barrier, in phase 2, at the second; items, blocks; first
+    and last stamp)."""
     if not x.is_cuda:
         return block_eval_reference(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias,
                                     mask, scale, num_heads, wp, bp, gamma1,
                                     ln2_w, ln2_b, w1, b1, w2, b2, gamma2)
     B, N, C = x.shape
     H = w1.shape[0]
-    if H % _HIDDEN_CHUNK:
-        raise ValueError(f"block_eval kernel takes hidden % {_HIDDEN_CHUNK} "
-                         f"== 0; got hidden={H}")
+    require_kernel("block_eval", C, H)
     ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask = _block_attention_inputs(
         "block_eval", x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
         num_heads)
@@ -367,14 +411,20 @@ def block_eval(x: torch.Tensor, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
         qkv_bias.data_ptr(), bias.data_ptr(), mask.data_ptr(), wp.data_ptr(),
         bp.data_ptr(), gamma1.data_ptr(), ln2_w.data_ptr(), ln2_b.data_ptr(),
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        gamma2.data_ptr(), scratch.data_ptr(), out.data_ptr(), B, N,
-        num_heads, H, bb, float(scale), LN_EPS, _build.stream_handle(dev)),
-        "block_eval")
+        gamma2.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        0 if trace is None else trace.data_ptr(), B, N, num_heads, H, bb,
+        float(scale), LN_EPS, _build.stream_handle(dev)), "block_eval")
     block_eval.launches += 1
     return out
 
 
 block_eval.launches = 0
+
+
+def block_eval_grid() -> int:
+    """The CTAs K7 launches: as many whole clusters of four as the card
+    holds at once (its grid-wide barriers need every CTA resident)."""
+    return _build.library().vlm_block_eval_grid()
 
 
 def fused_eval_block(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask, scale,
@@ -450,9 +500,7 @@ def tail_train(ctx: torch.Tensor, wp, bp, g1, res, ln_w, ln_b, w1, b1, w2,
                                     w2, b2, g2)
     B, N, C = ctx.shape
     H = w1.shape[0]
-    if C not in _WIDTHS or H % _HIDDEN_CHUNK:
-        raise ValueError(f"tail_train kernel takes C in {_WIDTHS} and hidden "
-                         f"% {_HIDDEN_CHUNK} == 0; got C={C}, hidden={H}")
+    require_kernel("tail_train", C, H)
     for name, g in (("g1", g1), ("g2", g2)):
         if tuple(g.shape) != (B, 1, C):
             raise ValueError(f"tail_train: {name} of shape {tuple(g.shape)}, "

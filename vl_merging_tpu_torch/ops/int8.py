@@ -38,12 +38,11 @@ from . import _build
 from .attention import int8_matmul, packed_attention, \
     packed_attention_i8qk, packed_attention_reference, \
     packed_attention_i8qk_reference, quant_rows
+from .fused_block import require_kernel
 from .mlp import GELUS
 
 LN_EPS = 1e-6
-_WIDTHS = (768,)       # model widths the kernels are instantiated for
 _QKV_TILE = 384        # ln_linear_i8's output tile width
-_HIDDEN_CHUNK = 128    # proj_mlp_tail_i8 walks the MLP hidden in chunks
 
 # params-dict key suffixes of the quantized companions of a ".weight" key
 INT8_SUFFIX = "::int8"
@@ -122,9 +121,10 @@ def ln_linear_i8(x: torch.Tensor, ln_w, ln_b, wq, wscale, b) -> torch.Tensor:
         return ref_ln_linear_i8(x, ln_w, ln_b, wq, wscale, b)
     B, N, C = x.shape
     O = wq.shape[0]
-    if C not in _WIDTHS or O % _QKV_TILE:
-        raise ValueError(f"ln_linear_i8 kernel takes C in {_WIDTHS} and "
-                         f"O % {_QKV_TILE} == 0; got C={C}, O={O}")
+    require_kernel("ln_linear_i8", C)
+    if O % _QKV_TILE:
+        raise ValueError(f"ln_linear_i8 kernel takes O % {_QKV_TILE} == 0; "
+                         f"got O={O}")
     ln_w, ln_b, wscale, b = (t.float() for t in (ln_w, ln_b, wscale, b))
     dev = x.device
     _build.expect(x, "x", torch.bfloat16, (B, N, C), dev)
@@ -158,10 +158,7 @@ def proj_mlp_tail_i8(ctx: torch.Tensor, pq, ps, bp, gamma1, res, ln_w, ln_b,
                                     gelu=gelu)
     B, N, C = ctx.shape
     H = w1q.shape[0]
-    if C not in _WIDTHS or H % _HIDDEN_CHUNK:
-        raise ValueError(f"proj_mlp_tail_i8 kernel takes C in {_WIDTHS} and "
-                         f"hidden % {_HIDDEN_CHUNK} == 0; got C={C}, "
-                         f"hidden={H}")
+    require_kernel("proj_mlp_tail_i8", C, H)
     names = ("ps", "bp", "gamma1", "ln_w", "ln_b", "w1s", "b1", "w2s", "b2",
              "gamma2")
     vecs = [t.float() for t in (ps, bp, gamma1, ln_w, ln_b, w1s, b1, w2s, b2,

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .attention import recompute_vjp
-from .fused_block import _HIDDEN_CHUNK, _WIDTHS  # K13 runs K3's MLP body
+from .fused_block import require_kernel  # K13 runs K3's MLP body
 
 
 def reference_mlp(x, w1, b1, w2, b2):
@@ -125,9 +125,7 @@ def mlp_kernel(x: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
         return mlp_kernel_reference(x, w1, b1, w2, b2)
     B, N, C = x.shape
     H = w1.shape[0]
-    if C not in _WIDTHS or H % _HIDDEN_CHUNK:
-        raise ValueError(f"mlp kernel takes C in {_WIDTHS} and hidden % "
-                         f"{_HIDDEN_CHUNK} == 0; got C={C}, hidden={H}")
+    require_kernel("mlp", C, H)
     w1, w2 = w1.to(x.dtype), w2.to(x.dtype)
     b1, b2 = b1.float(), b2.float()
     dev = x.device
