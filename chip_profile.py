@@ -28,6 +28,16 @@ For each window it prints the host wall time, the device busy time (the
 union of the device kernels' intervals), the idle share (1 − busy / wall)
 and the kernels with the most device time.
 
+``python3 chip_profile.py --variants`` runs only this: K1 and K2 beside
+design variants that their sources rejected, each built from a patched
+copy of ``vl_merging_tpu_torch/csrc`` into ``build/variants/`` (one nvcc
+per variant, all at once) and timed in turns with the built kernel at
+``chip_smoke.py``'s main-path shapes (B=32, N=577; C=768 and 1024, 12 and
+16 heads): K1 without its cluster of two CTAs sharing each W tile by TMA
+multicast, K1 releasing its ring stages at cluster scope, K2 without the
+ping-pong of its two consumer warpgroups, and K2 with a whole 64-key last
+key tile.
+
 First, K7's phase split (``python3 chip_profile.py --k7`` runs it alone):
 one traced launch of K7 (``block_eval(..., trace=...)``) at
 ``chip_smoke.py``'s main-path shapes (B=32, N=577) gives, per CTA, the time
@@ -41,7 +51,10 @@ their time per wave of resident blocks.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import math
+import shutil
+import subprocess
 import time
 
 import numpy as np
@@ -55,6 +68,7 @@ from vl_merging_tpu_torch.device import require_cuda
 from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall, \
     extract_features
 from vl_merging_tpu_torch.models.spec import make_model_spec
+from vl_merging_tpu_torch.ops import _build
 from vl_merging_tpu_torch.ops import fused_block as fb_ops
 from vl_merging_tpu_torch.ops.fused_block import FUSIONS
 from vl_merging_tpu_torch.train.loop import accum_steps, build_train_step
@@ -156,16 +170,126 @@ def k7_phases(dev, card: str) -> None:
           f"{k3_ms / k3_waves:.4f} ms per wave) [{card}]")
 
 
+# name: (source, the C function it exports, [(text, replacement)])
+VARIANTS = {
+    "K1 without the cluster (CL = 1: W read once per 128 rows)": (
+        "ln_linear.cu", "vlm_ln_linear",
+        [("constexpr int CL = 2;", "constexpr int CL = 1;")]),
+    "K1 releasing its stages with cluster-scope semantics": (
+        "ln_linear.cu", "vlm_ln_linear",
+        [("hop::mbar_arrive_remote(&empty[s], r)",
+          "hop::mbar_arrive_cluster(&empty[s], r)")]),
+    "K2 without the warpgroups' ping-pong": (
+        "packed_attention_fwd.cu", "vlm_packed_attention",
+        [("  hop::named_sync(1 + (threadIdx.x >> 7), 256);\n}", "}"),
+         ("  hop::named_arrive(2 - (threadIdx.x >> 7), 256);\n}", "}"),
+         ("  if (wg == 1) hop::named_arrive(1, 256);", ""),
+         ("  if (wg == 0) hop::named_sync(1, 256);", "")]),
+    "K2 with a whole 64-key last tile": (
+        "packed_attention_fwd.cu", "vlm_packed_attention",
+        [("  const int w_last = N - (nkt - 1) * BKV > 32 ? 64 : "
+          "N - (nkt - 1) * BKV > 16 ? 32 : 16;", "  const int w_last = 64;")]),
+}
+
+
+def build_variants() -> dict:
+    """Each variant's C function, from a patched copy of csrc/ built with
+    nvcc (all at once) into build/variants/<i>/."""
+    root = _build.BUILD_DIR / "variants"
+    shutil.rmtree(root, ignore_errors=True)
+    procs = {}
+    for i, (name, (source, _, patches)) in enumerate(VARIANTS.items()):
+        d = root / str(i)
+        shutil.copytree(_build.CSRC, d)
+        text = (d / source).read_text()
+        for old, new in patches:
+            if old not in text:
+                raise RuntimeError(f"variant {name!r}: {old!r} is not in "
+                                   f"{source}")
+            text = text.replace(old, new)
+        (d / source).write_text(text)
+        procs[name] = (d, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+             str(d / "lib.so"), str(d / source), str(d / "tensor_map.cu"),
+             "-ldl"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    fns = {}
+    for name, (d, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"variant {name!r} failed to build:\n{log}")
+        export = VARIANTS[name][1]
+        fn = getattr(ctypes.CDLL(str(d / "lib.so")), export)
+        fn.argtypes = list(_build._SIGNATURES[export])
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def variants(dev, card: str) -> None:
+    """K1 and K2 against their rejected variants, in turns (built,
+    variant, variant, built), through the same C entry."""
+    fns = build_variants()
+    lib = _build.library()
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    calls = {}
+    for c in (smoke.C, smoke.C_L):
+        x = torch.randn(smoke.IMAGE_BATCH * smoke.N, c, device=dev,
+                        generator=gen).bfloat16()
+        lw, lb = torch.ones(c, device=dev), torch.zeros(c, device=dev)
+        w = (0.02 * torch.randn(3 * c, c, device=dev, generator=gen)).bfloat16()
+        b = torch.zeros(3 * c, device=dev)
+        y = torch.empty(x.shape[0], 3 * c, device=dev, dtype=torch.bfloat16)
+        calls[f"K1 at C={c}"] = ("vlm_ln_linear", (
+            x.data_ptr(), lw.data_ptr(), lb.data_ptr(), w.data_ptr(),
+            b.data_ptr(), y.data_ptr(), x.shape[0], c, 3 * c, fb_ops.LN_EPS,
+            stream), (x, lw, lb, w, b, y))
+    for heads in (smoke.HEADS, smoke.HEADS_L):
+        qkv = torch.randn(smoke.IMAGE_BATCH, smoke.N, 3 * 64 * heads,
+                          device=dev, generator=gen).bfloat16()
+        bias = torch.randn(heads, smoke.N, smoke.N, device=dev, generator=gen)
+        mask = torch.ones(smoke.IMAGE_BATCH, smoke.N, dtype=torch.int32,
+                          device=dev)
+        mask[-1, 500:] = 0
+        out = torch.empty(smoke.IMAGE_BATCH, smoke.N, 64 * heads, device=dev,
+                          dtype=torch.bfloat16)
+        calls[f"K2 at {heads} heads"] = ("vlm_packed_attention", (
+            qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            None, smoke.IMAGE_BATCH, smoke.N, heads, 64 ** -0.5, stream),
+            (qkv, bias, mask, out))
+    for name, fn in fns.items():
+        export = VARIANTS[name][1]
+        for shape, (entry, args, _) in calls.items():
+            if entry != export:
+                continue
+            built = getattr(lib, entry)
+
+            def run(f):
+                _build.check(f(*args), entry)
+            times = [smoke.time_ms(lambda: run(f))
+                     for f in (built, fn, fn, built)]
+            print(f"variants: {shape}: built {times[0]:.4f} / "
+                  f"{times[3]:.4f} ms, {name} {times[1]:.4f} / "
+                  f"{times[2]:.4f} ms [{card}]")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k7", action="store_true",
                         help="run K7's phase split alone")
-    only_k7 = parser.parse_args().k7
+    parser.add_argument("--variants", action="store_true",
+                        help="run K1 and K2 beside their rejected variants "
+                             "alone")
+    opts = parser.parse_args()
     dev = require_cuda()
     card = smoke.card_line()
     print(card)
+    if opts.variants:
+        variants(dev, card)
+        return
     k7_phases(dev, card)
-    if only_k7:
+    if opts.k7:
         return
 
     cfg = build_config(*smoke.CONFIG)

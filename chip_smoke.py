@@ -37,8 +37,10 @@ Phases, each fatal on failure:
   1. a CUDA device (printed as nvidia-smi names it, with its power limit);
   2. the kernels built from ``vl_merging_tpu_torch/csrc`` (build time),
      and the wgmma (HGMMA) instructions of the redesigned kernels (K3, K4,
-     K5, K6, K7, K13 on the shared MLP body; K9's two kernels) counted in
-     the library's SASS with ``cuobjdump`` (none: fail);
+     K5, K6, K7, K13 on the shared MLP body; K9's two kernels; K1 and K2)
+     counted in the library's SASS with ``cuobjdump`` (none: fail); the
+     registers and spill bytes ptxas gave K1 and K2 (``build/nvcc.log``;
+     a spill fails);
   3. each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail,
      K9 packed_attention_bwd, K13 mlp, K12 packed_attention_i8qk, K14
      ln_linear_i8, K15 proj_mlp_tail_i8, K4 linear_residual, K5 mlp_tail,
@@ -49,10 +51,17 @@ Phases, each fatal on failure:
      computes the same function) library call timed with CUDA events,
      beside the least time the card could take; K14, K15 and K12 beside
      K1, K3 and K2 at the same shapes; K4 + K5, K8 and K7 beside the
-     staged kernels they replace (K3, K1 + K2, K1 + K2 + K3), in time and
+     staged kernels they replace (K3, K1 + K2, K8 + K3), in time and
      output (bit-equal or not, and the share of elements that differ);
      K10 beside K11 at B=32 and K6 at uniform gammas beside K3, likewise
-     (K4 -> K5, K7 and K6 share K3's MLP body: not bit-equal fails); K9's
+     (K4 -> K5, K7 and K6 share K3's MLP body, and K7 runs K8's body:
+     K4 -> K5, K6 and K7 not bit-equal to K3, K3 and K8 -> K3 fails; K8
+     more than its 4 ulps from K1 -> K2 fails, the Hopper K1 and K2
+     summing their products in another order than K8); K1 at the text
+     rows (32·40) and, as a yardstick the port never calls, one cuBLAS
+     ``F.linear`` on the pre-normalised rows at each K1 shape; K2 at the
+     ViT-L shape (B=32, 16 heads) against its twin, timed beside SDPA, its
+     training launch too; K9's
      twin fed the plain forward's softmax statistics, not K2's (and, as a
      printed figure, its context too); K2's
      training launch (it also stores the softmax statistics K9 reads),
@@ -123,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +149,7 @@ from vl_merging_tpu_torch.device import require_cuda
 from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall, \
     extract_features
 from vl_merging_tpu_torch.models import mome
+from vl_merging_tpu_torch.models.layers import layer_norm
 from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
 from vl_merging_tpu_torch.ops import _build
 from vl_merging_tpu_torch.ops import attention as attn_ops
@@ -452,8 +463,8 @@ def work(name: str, args) -> tuple:
         M, O = x.shape[0] * x.shape[1], w.shape[0]
         return 2 * M * x.shape[-1] * O, nbytes(x, lw, lb, w, b) + M * O * 2
     if name == "packed_attention":
-        qkv, bias, mask = args[:3]
-        flops = 4 * 64 * N * HEADS * _valid_keys(mask)
+        qkv, bias, mask, _, heads = args
+        flops = 4 * 64 * N * heads * _valid_keys(mask)
         return flops, nbytes(qkv, bias, mask) + qkv.numel() // 3 * 2
     if name in ("split_attention", "split_attention_bb"):
         q, k, v, bias, mask = args[:5]
@@ -506,8 +517,8 @@ def work(name: str, args) -> tuple:
 def _sdpa_args(qkv, bias, mask):
     """q, k, v (B, H, N, d) views of the packed qkv and the additive mask
     (B, H, N, N) bf16: the bias with masked keys at -inf."""
-    B = qkv.shape[0]
-    q, k, v = qkv.view(B, N, 3, HEADS, 64).permute(2, 0, 3, 1, 4)
+    B, heads = qkv.shape[0], bias.shape[0]
+    q, k, v = qkv.view(B, N, 3, heads, 64).permute(2, 0, 3, 1, 4)
     am = bias[None] + torch.zeros_like(mask, dtype=torch.float32).masked_fill(
         mask == 0, float("-inf"))[:, None, None, :]
     return q, k, v, am.to(qkv.dtype)
@@ -536,7 +547,7 @@ def library_call(name: str, args):
                        for t in _sdpa_args(qkv, bias, mask))
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
                                              scale=args[6])
-        gh = g.view(g.shape[0], N, HEADS, 64).transpose(1, 2)
+        gh = g.view(g.shape[0], N, bias.shape[0], 64).transpose(1, 2)
         return lambda: torch.autograd.grad(out, (q, k, v, am), gh,
                                            retain_graph=True)
     return None
@@ -634,9 +645,17 @@ def staged_comparisons(inputs, card: str) -> None:
         return fb_ops.proj_mlp_tail(k1_k2(), wp, bp, g1, x, ln2_w, ln2_b, w1,
                                     b1, w2, b2, g2)
 
+    def k8_k3():
+        return fb_ops.proj_mlp_tail(
+            fb_ops.ln_qkv_attention(*inputs["ln_qkv_attention"]), wp, bp, g1,
+            x, ln2_w, ln2_b, w1, b1, w2, b2, g2)
+
     def k4_k5():
         return fb_ops.mlp_tail(fb_ops.linear_residual(ctx, wp, bp, g1, res),
                                ln2_w, ln2_b, w1, b1, w2, b2, g2)
+
+    def k7():
+        return fb_ops.block_eval(*inputs["block_eval"])
 
     cases = (
         ("K4 -> K5 vs K3", k4_k5, "K3", lambda: fb_ops.proj_mlp_tail(
@@ -644,9 +663,8 @@ def staged_comparisons(inputs, card: str) -> None:
         ("K8 vs K1 -> K2",
          lambda: fb_ops.ln_qkv_attention(*inputs["ln_qkv_attention"]),
          "K1 + K2", k1_k2),
-        ("K7 vs K1 -> K2 -> K3",
-         lambda: fb_ops.block_eval(*inputs["block_eval"]), "K1 + K2 + K3",
-         k1_k2_k3))
+        ("K7 vs K8 -> K3", k7, "K8 + K3", k8_k3),
+        ("K7 vs K1 -> K2 -> K3", k7, "K1 + K2 + K3", k1_k2_k3))
     split = inputs["split_attention_bb"]
     u1, u2 = (g.bfloat16().float() for g in (g1, g2))
     B = ctx.shape[0]
@@ -660,19 +678,39 @@ def staged_comparisons(inputs, card: str) -> None:
                                    u2.expand(B, 1, C)),
          "K3", lambda: fb_ops.proj_mlp_tail(ctx, wp, bp, u1, res, ln2_w,
                                             ln2_b, w1, b1, w2, b2, u2)))
+    # bit-equal by construction: the shared MLP body (K4 -> K5, K6) and K7,
+    # which runs K8's body and then the MLP body's
+    bit_equal = ("K4 -> K5 vs K3", "K6 at uniform gammas vs K3",
+                 "K7 vs K8 -> K3")
     for label, fused, staged_name, staged in cases:
         got, want = fused(), staged()
         torch.cuda.synchronize()
-        if label.startswith(("K4", "K7", "K6")) and \
-                not torch.equal(got, want):   # the shared MLP body's
+        if label in bit_equal and not torch.equal(got, want):
             fail(f"{label}: not bit-equal")
+        within = ""
+        if label == "K8 vs K1 -> K2":   # the Hopper K1 and K2 sum in
+            _, worst, _ = ulp_check("ln_qkv_attention", got, want)  # another order
+            within = (f" (worst err/bound {worst:.3f} of "
+                      f"{ULPS['ln_qkv_attention']} bf16 ulps)")
+            if worst > 1.0:
+                fail(f"{label}: more than {ULPS['ln_qkv_attention']} bf16 "
+                     f"ulps apart")
         print(f"{label}: bit-equal {torch.equal(got, want)}, "
-              f"{differ_share(got, want):.3e} of the elements differ; "
+              f"{differ_share(got, want):.3e} of the elements differ{within}; "
               f"{time_ms(fused):.4f} ms against {staged_name} "
               f"{time_ms(staged):.4f} ms at the same shapes [{card}]")
 
 
-def check_kernels(dev, card: str) -> dict:
+def linear_yardstick_ms(args) -> float:
+    """One cuBLAS ``F.linear`` on K1's rows already normalised to bf16:
+    what K1's product alone costs on this card (the port never calls
+    it)."""
+    x, lw, lb, w, _ = args
+    xn = layer_norm(x, lw, lb, eps=fb_ops.LN_EPS)
+    return time_ms(lambda: F.linear(xn, w))
+
+
+def check_kernels(dev, card: str, usage: dict) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     inputs = kernel_inputs(dev, gen)
     inputs.update(fusion_inputs(inputs))
@@ -712,8 +750,12 @@ def check_kernels(dev, card: str) -> dict:
         print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               + ("none (no single PyTorch call computes it)"
                  if library_ms is None else f"{library_ms:.4f} ms")
-              + f", bound {bound_ms:.4f} ms ({bound_by}) at {shape} bf16 "
-              f"[{card}]")
+              + f", bound {bound_ms:.4f} ms ({bound_by}) at {shape} bf16"
+              + (f"; {usage[name]}" if name in usage else "") + f" [{card}]")
+        if name == "ln_linear":
+            print(f"ln_linear: yardstick F.linear (cuBLAS) on the "
+                  f"pre-normalised bf16 rows {linear_yardstick_ms(args):.4f} "
+                  f"ms at {shape} [{card}]")
         rows[name] = {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, "launches": 0,
                       "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
@@ -730,6 +772,18 @@ def check_kernels(dev, card: str) -> dict:
           f"{bound(*work('mlp', args))[0]:.4f} ms [{card}]")
     if worst > 1.0:
         fail("mlp disagrees with its plain twin at the text tower's rows")
+    # K1 also runs on the training text blocks under "full": 32 x 40 rows
+    args = (inputs["ln_linear"][0].reshape(-1, C)[:MICRO_BATCH * 40].reshape(
+        MICRO_BATCH, 40, C), *inputs["ln_linear"][1:])
+    max_err, worst, _ = ulp_check("ln_linear", fb_ops.ln_linear(*args),
+                                  fb_ops.ln_linear_reference(*args))
+    print(f"ln_linear at 32x40 rows: max |kernel - twin| = {max_err:.6g}, "
+          f"worst err/bound = {worst:.3f}, kernel "
+          f"{time_ms(lambda: fb_ops.ln_linear(*args)):.4f} ms, yardstick "
+          f"F.linear {linear_yardstick_ms(args):.4f} ms, bound "
+          f"{bound(*work('ln_linear', args))[0]:.4f} ms [{card}]")
+    if worst > 1.0:
+        fail("ln_linear disagrees with its plain twin at the text rows")
     # K6 also runs on the training text blocks: 32 captions x 40 tokens
     args = [t.reshape(-1, C)[:MICRO_BATCH * 40].reshape(MICRO_BATCH, 40, C)
             if t.dim() == 3 and t.shape[1] == N else t
@@ -810,6 +864,10 @@ def check_wide_kernels(dev, gen, rows, card: str) -> None:
               f"err/bound = {worst:.3f} (bound {ULPS[name]} bf16 ulps), "
               f"{differ:.3e} of the elements differ; kernel {ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}) at {shape} bf16 [{card}]")
+        if name == "ln_linear":
+            print(f"ln_linear at C={C_L}: yardstick F.linear (cuBLAS) on the "
+                  f"pre-normalised bf16 rows {linear_yardstick_ms(args):.4f} "
+                  f"ms [{card}]")
         if not bool(torch.isfinite(got).all()) or worst > 1.0:
             fail(f"{name} disagrees with its plain twin at C={C_L}")
         rows[name]["widths"].append(C_L)
@@ -833,6 +891,41 @@ def check_wide_kernels(dev, gen, rows, card: str) -> None:
           f"{differ_share(k6, k3):.3e} differ")
     if not (torch.equal(k45, k3) and torch.equal(k6, k3)):
         fail(f"the shared MLP body's bit-equalities fail at C={C_L}")
+    check_wide_attention(dev, gen, rows, card)
+
+
+def check_wide_attention(dev, gen, rows, card: str) -> None:
+    """K2 at the ViT-L eval shape (B=32, N=577, 16 heads) against its
+    twin, with its 4 ulps; eval and training launch timed beside SDPA and
+    the bound."""
+    qkv = torch.randn(IMAGE_BATCH, N, 3 * C_L, device=dev,
+                      generator=gen).bfloat16()
+    bias = torch.randn(HEADS_L, N, N, device=dev, generator=gen)
+    mask = torch.ones(IMAGE_BATCH, N, dtype=torch.int32, device=dev)
+    mask[-1, 500:] = 0
+    args = (qkv, bias, mask, 64 ** -0.5, HEADS_L)
+    got = attn_ops.packed_attention(*args)
+    want = attn_ops.packed_attention_reference(*args)
+    torch.cuda.synchronize()
+    max_err, worst, differ = ulp_check("packed_attention", got, want)
+    ms = time_ms(lambda: attn_ops.packed_attention(*args))
+    train_ms = time_ms(lambda: attn_ops.packed_attention(*args,
+                                                         with_stats=True))
+    library_ms = time_ms(library_call("packed_attention", args))
+    bound_ms, bound_by = bound(*work("packed_attention", args))
+    print(f"packed_attention at {HEADS_L} heads (C={C_L}): max |kernel - "
+          f"twin| = {max_err:.6g}, worst err/bound = {worst:.3f} (bound "
+          f"{ULPS['packed_attention']} bf16 ulps), {differ:.3e} of the "
+          f"elements differ; kernel {ms:.4f} ms, training launch "
+          f"{train_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by}) [{card}]")
+    if not bool(torch.isfinite(got).all()) or worst > 1.0:
+        fail(f"packed_attention disagrees with its plain twin at "
+             f"{HEADS_L} heads")
+    rows["packed_attention"]["widths"].append(C_L)
+    rows["packed_attention"][f"at_{C_L}"] = {
+        "max_abs_err": max_err, "ms": ms, "train_ms": train_ms,
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def reset_launches() -> None:
@@ -1603,10 +1696,14 @@ def run_tiny(dev, card: str) -> dict:
 
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
 # of their entry functions in the library's SASS.
-WGMMA_KERNELS = {"K3": "20proj_mlp_tail_kernel", "K4": "22linear_residual_kernel",
+WGMMA_KERNELS = {"K1": "16ln_linear_kernel", "K2": "27packed_attention_fwd_kernel",
+                 "K3": "20proj_mlp_tail_kernel", "K4": "22linear_residual_kernel",
                  "K5": "15mlp_tail_kernel", "K6": "17tail_train_kernel",
                  "K7": "17block_eval_kernel", "K13": "10mlp_kernel",
                  "K9 dq": "9dq_kernel", "K9 dk/dv": "10dkv_kernel"}
+# The Hopper K1 and K2, whose ptxas report is printed and must show no spill
+SPILL_FREE = {"ln_linear": "16ln_linear_kernel",
+              "packed_attention": "27packed_attention_fwd_kernel"}
 
 
 def check_wgmma(lib) -> None:
@@ -1629,6 +1726,37 @@ def check_wgmma(lib) -> None:
         fail(f"a redesigned kernel has no wgmma in its SASS: {counts}")
 
 
+def check_spills() -> dict:
+    """The registers and spill bytes ptxas reported for each instantiation
+    of K1 and K2 (``build/nvcc.log``, written by the build); fail on a
+    spill.  Returns a printable summary per kernel."""
+    log = (_build.BUILD_DIR / "nvcc.log").read_text()
+    found = {name: [] for name in SPILL_FREE}
+    name, spills = None, (0, 0)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = next((n for n, m in SPILL_FREE.items() if m in line), None)
+            tmpl = re.search(r"ILi(\d+)E", line)
+            width = f"C={tmpl[1]} " if tmpl else ""
+        elif name and "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            spills = (int(m[1]), int(m[2]))
+        elif name and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line)[1])
+            found[name].append((width, regs, *spills))
+            name = None
+    usage = {n: ", ".join(f"{w}{r} registers, {s} / {l} bytes spill "
+                          f"stores / loads" for w, r, s, l in entries)
+             for n, entries in found.items()}
+    for n, text in usage.items():
+        print(f"ptxas: {n} {text}")
+    if not all(found.values()) or any(s or l for entries in found.values()
+                                      for _, _, s, l in entries):
+        fail(f"K1 or K2 spills, or ptxas reported neither: {found}")
+    return usage
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1644,7 +1772,8 @@ def main() -> int:
           + ("library already built" if prebuilt else "built by nvcc") + ")")
 
     check_wgmma(_build.library_path())
-    rows = check_kernels(dev, card)
+    usage = check_spills()
+    rows = check_kernels(dev, card, usage)
     paths = {"eval": run_eval(dev, card),
              "eval_int8": run_eval_int8(dev, card),
              "train": run_training(dev, card),

@@ -66,7 +66,18 @@ def _assert_close(got: torch.Tensor, want, dtype: str):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_ln_linear_twin_matches_jax_kernel(interpret_kernels, dtype):
-    B, N, C, O = 2, 9, 128, 384  # N odd => the JAX kernel's row padding
+    _check_ln_linear(dtype, 9)  # N odd => the JAX kernel's row padding
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ln_linear_twin_matches_jax_kernel_ragged_rows(interpret_kernels,
+                                                       dtype):
+    """130 rows: past a whole number of K1's 128-row blocks."""
+    _check_ln_linear(dtype, 65)
+
+
+def _check_ln_linear(dtype, N):
+    B, C, O = 2, 128, 384
     arrs = _arrays(0, [((B, N, C), 0.5), ((C,), 1.0), ((C,), 0.5),
                        ((O, C), 0.05), ((O,), 0.5)])
     (x, lnw, lnb, w, b), (tx, tlnw, tlnb, tw, tb) = _pair(
@@ -95,7 +106,19 @@ def test_proj_mlp_tail_twin_matches_jax_kernel(interpret_kernels, dtype):
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_packed_attention_twin_matches_jax_kernel(interpret_kernels, dtype):
-    B, N, H, d = 2, 32, 2, 64
+    _check_packed_attention(dtype, 32)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_packed_attention_twin_matches_jax_kernel_ragged_keys(
+        interpret_kernels, dtype):
+    """129 tokens: one query row past K2's 128-row item and one key past
+    its two 64-key tiles."""
+    _check_packed_attention(dtype, 129)
+
+
+def _check_packed_attention(dtype, N):
+    B, H, d = 2, 2, 64
     C = H * d
     qkv_a, bias_a = _arrays(2, [((B, N, 3 * C), 1.0), ((H, N, N), 1.0)])
     mask_a = np.ones((B, N), np.int32)

@@ -5,33 +5,24 @@
 //     LayerScale gammas are f32; every product accumulates in f32;
 //   * weights stay in torch layout W (out, in), row-major, so a tile of W
 //     rows is the column-major B operand of x·Wᵀ;
-//   * shared-memory rows carry kPad bf16 of padding: a 16-row fragment
-//     then starts on a 32-byte boundary (WMMA's alignment rule) and
-//     consecutive rows start in different banks;
-//   * K1 uses WMMA fragments; the attention kernels (K2, K9, and K8 and K7,
-//     whose q/k/v projections feed the attention from registers) use
-//     mma.sync directly, for its documented register layout; the MLP body
-//     of K3, K4, K5, K6, K7 and K13 (mlp_body.cuh) and K9's q·kᵀ-type
-//     products use wgmma (hopper.cuh).
+//   * shared-memory rows of the mma.sync kernels carry kPad bf16 of
+//     padding, so that consecutive rows start in different banks;
+//   * the attention helpers (K8, K7, K10, K11, K12, and K9's products
+//     along a tile) use mma.sync directly, for its documented register
+//     layout; K1, K2, the MLP body of K3, K4, K5, K6, K7 and K13
+//     (mlp_body.cuh) and K9's q·kᵀ-type products use wgmma (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace vlm {
 
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-// B operand read from the rows of a torch-layout weight: B(k, n) = W(n, k).
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr int kPad = 8;          // bf16 elements of padding per smem row
-constexpr int kGemmThreads = 256;  // 8 warps in the GEMM kernels
+constexpr int kGemmThreads = 256;  // 8 warps in the mma.sync GEMM kernels
 
 // Eight bf16 values packed for one 16-byte load or store.
 struct Pack8 {
@@ -117,20 +108,10 @@ __device__ __forceinline__ void ln_rows_to_bf16_at(const bf16* src, size_t src_s
   }
 }
 
-// ln_rows_to_bf16_at into rows dst + i*dst_step of a row-major buffer.
-template <int R, int NV>
-__device__ __forceinline__ void ln_rows_to_bf16(const bf16* src, size_t src_step, int nvalid,
-                                                const float* __restrict__ w,
-                                                const float* __restrict__ b, float eps,
-                                                bf16* dst, int dst_step) {
-  ln_rows_to_bf16_at<R, NV>(src, src_step, nvalid, w, b, eps,
-                            [=](int i, int col) { return dst + i * dst_step + col; });
-}
-
 // The LN statistics of R rows of C = NV * 256 bf16 values (global memory,
 // 16-byte aligned; row i at src + i*src_step, rows i >= nvalid skipped),
 // computed by one warp with all R rows' loads in flight and, per row,
-// exactly the arithmetic of ln_rows_to_bf16, so a kernel that normalises
+// exactly the arithmetic of ln_rows_to_bf16_at, so a kernel that normalises
 // on the fly rounds as K1.
 template <int R, int NV>
 __device__ __forceinline__ void ln_rows_stats(const bf16* src, size_t src_step, int nvalid,
@@ -180,107 +161,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying one NT x BK tile of W (columns [k0, k0 + BK)) into a stage.
-template <int NT, int BK>
-__device__ __forceinline__ void stage_w_tile(bf16* dst, const bf16* __restrict__ W, int ldw,
-                                             int k0) {
-  constexpr int LDB = BK + kPad, VPR = BK / 8;  // VPR: 16-byte vectors per row
-  for (int v = threadIdx.x; v < NT * VPR; v += blockDim.x) {
-    const int r = v / VPR, c = (v % VPR) * 8;
-    cp_async16(dst + r * LDB + c, W + (size_t)r * ldw + k0 + c);
-  }
-}
-
-// acc[MF][NF] += A · Wᵀ for one block of 8 warps, W streamed through a
-// STAGES-deep ring of shared-memory tiles filled by cp.async.
-//   A: the block's rows, bf16 in shared memory, row-major with stride lda,
-//      holding the whole depth K (rows [wm*MF*16, (wm+1)*MF*16) per warp);
-//   W: torch-layout weight rows [0, NT) of the block's output tile, in
-//      global memory with row stride ldw (NT = WARPS_N*NF*16);
-//   Ws: STAGES tiles of NT x (BK + kPad).
-// The warp grid is (8 / WARPS_N) x WARPS_N.  Requires K % BK == 0 and
-// 16-byte aligned W rows.
-//
-// gemm_prefetch starts the first STAGES-1 tiles; call it only when no warp
-// still reads Ws.  gemm_main runs the product; its first barrier also
-// publishes whatever the block wrote to A between the two calls.
-// gemm_smem_a does both behind a leading __syncthreads().
-template <int NT, int BK, int STAGES>
-__device__ __forceinline__ void gemm_prefetch(const bf16* __restrict__ W, int ldw, int K,
-                                              bf16* Ws) {
-  constexpr int TILE = NT * (BK + kPad);
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s * BK < K) stage_w_tile<NT, BK>(Ws + s * TILE, W, ldw, s * BK);
-    cp_async_commit();
-  }
-}
-
-template <int MF, int NF, int WARPS_N, int BK, int STAGES>
-__device__ __forceinline__ void gemm_main(FragC (&acc)[MF][NF], const bf16* As, int lda,
-                                          const bf16* __restrict__ W, int ldw, int K,
-                                          bf16* Ws) {
-  constexpr int NT = WARPS_N * NF * 16;
-  constexpr int LDB = BK + kPad, TILE = NT * LDB;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int kt = K / BK;
-  for (int t = 0; t < kt; ++t) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t landed
-    __syncthreads();              // everyone's did; tile t-1 is consumed
-    const int tn = t + STAGES - 1;
-    if (tn < kt) stage_w_tile<NT, BK>(Ws + (tn % STAGES) * TILE, W, ldw, tn * BK);
-    cp_async_commit();
-    const bf16* Wt = Ws + (t % STAGES) * TILE;
-    const int k0 = t * BK;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA a[MF];
-#pragma unroll
-      for (int i = 0; i < MF; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * MF + i) * 16 * lda + k0 + kk, lda);
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        FragBt b;
-        wmma::load_matrix_sync(b, Wt + (wn * NF + j) * 16 * LDB + kk, LDB);
-#pragma unroll
-        for (int i = 0; i < MF; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
-
-template <int MF, int NF, int WARPS_N, int BK, int STAGES>
-__device__ __forceinline__ void gemm_smem_a(FragC (&acc)[MF][NF], const bf16* As, int lda,
-                                            const bf16* __restrict__ W, int ldw, int K,
-                                            bf16* Ws) {
-  __syncthreads();
-  gemm_prefetch<WARPS_N * NF * 16, BK, STAGES>(W, ldw, K, Ws);
-  gemm_main<MF, NF, WARPS_N, BK, STAGES>(acc, As, lda, W, ldw, K, Ws);
-}
-
-template <int MF, int NF>
-__device__ __forceinline__ void zero_acc(FragC (&acc)[MF][NF]) {
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-}
-
-// Epilogue access to an accumulator fragment: the warp stores it to its
-// own 16x16 f32 scratch tile; lane l then owns row l/2, columns
-// (l%2)*8 .. +8 of it (returned through row/col0).
-__device__ __forceinline__ const float* frag_to_scratch(const FragC& f, float* scratch,
-                                                        int& row, int& col0) {
-  wmma::store_matrix_sync(scratch, f, 16, wmma::mem_row_major);
-  __syncwarp();
-  const int lane = threadIdx.x & 31;
-  row = lane >> 1;
-  col0 = (lane & 1) * 8;
-  return scratch + row * 16 + col0;
 }
 
 // mma.sync helpers of the attention kernels (K2, K9).

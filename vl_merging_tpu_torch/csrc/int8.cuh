@@ -190,8 +190,8 @@ __device__ __forceinline__ void stage_w8_tile(int8_t* dst, const int8_t* __restr
 }
 
 // acc[MF][NF] += A · Wᵀ in s32 for one block of 8 warps, W streamed through
-// a STAGES-deep ring of int8 tiles filled by cp.async (the int8 twin of
-// common.cuh's gemm_prefetch / gemm_main):
+// a STAGES-deep ring of int8 tiles filled by cp.async (the int8 twin of the
+// WMMA ring of the first K1 design):
 //   A: the block's rows, int8 in shared memory, stride lda bytes, holding
 //      the whole depth K; warp (wm, wn) covers rows [wm*MF*16, +MF*16);
 //   W: torch-layout int8 weight rows [0, NT) of the block's output tile

@@ -1,5 +1,7 @@
-// K2: attention over packed qkv with an f32 relative-position bias and a
-// key mask, writing the context in (B, N, C).
+// K12, and the first-slice design of K2 it was built from: attention over
+// packed qkv with an f32 relative-position bias and a key mask, writing the
+// context in (B, N, C).  K2 itself is now packed_attention_fwd.cu (the
+// Hopper design); this file keeps only the I8QK instantiation below.
 //
 // Replaces vl_merging_tpu/ops/attention.py:_packed_kernel (via
 // _pallas_packed_attention / packed_fused_attention).  Per head:
@@ -263,15 +265,6 @@ int launch(const void* qkv, const void* bias, const void* mask, void* out, void*
 }
 
 }  // namespace
-
-// stats: null (the eval), or a (2, B, H, N) f32 buffer that receives each
-// query row's running max m and sum l = Σ exp(s - m) over its valid keys
-// (m = -inf and l = 0 on a row with no valid key): the statistics K9 reads.
-extern "C" int vlm_packed_attention(const void* qkv, const void* bias, const void* mask,
-                                    void* out, void* stats, int B, int N, int H, float scale,
-                                    void* stream) {
-  return launch<false>(qkv, bias, mask, out, stats, B, N, H, scale, stream);
-}
 
 extern "C" int vlm_packed_attention_i8qk(const void* qkv, const void* bias, const void* mask,
                                          void* out, int B, int N, int H, float scale,

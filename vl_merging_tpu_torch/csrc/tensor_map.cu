@@ -1,6 +1,7 @@
-// Host side of hopper.cuh: TMA tensor maps.  cuTensorMapEncodeTiled is a
-// driver function; it is looked up in the driver library the CUDA runtime
-// already loaded, so the kernels' library links against nothing new.
+// Host side of hopper.cuh: TMA tensor maps (2-D and 3-D bf16).
+// cuTensorMapEncodeTiled is a driver function; it is looked up in the
+// driver library the CUDA runtime already loaded, so the kernels' library
+// links against nothing new.
 #include <dlfcn.h>
 
 #include "hopper.cuh"
@@ -36,6 +37,19 @@ bool make_tensor_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t
             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
+}
+
+bool make_tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t (&dims)[3],
+                        uint64_t row_bytes, uint64_t plane_bytes, const uint32_t (&box)[3]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t d[3] = {dims[0], dims[1], dims[2]};
+  const cuuint64_t strides[2] = {row_bytes, plane_bytes};
+  const cuuint32_t b[3] = {box[0], box[1], box[2]};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), d, strides, b,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hop

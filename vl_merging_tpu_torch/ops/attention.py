@@ -3,13 +3,14 @@
 
 ``reference_attention`` is the plain path (the text tower and every block
 off the kernel route use it).  ``packed_attention`` is kernel K2,
-``csrc/packed_attention.cu``: attention read straight from the packed
+``csrc/packed_attention_fwd.cu``: attention read straight from the packed
 (B, N, 3C) qkv projection, writing the context as (B, N, C).
 ``packed_attention_bwd`` is kernel K9, ``csrc/packed_attention_bwd.cu``:
 its backward, (dqkv, dbias summed over the batch).
 ``packed_fused_attention`` joins them into one differentiable function
 (the JAX package's ``_packed_attention_diff``).  ``packed_attention_i8qk``
-is kernel K12, a variant of K2's source: QKᵀ as s8·s8→s32 on
+is kernel K12, ``csrc/packed_attention.cu`` (the first-slice design of
+K2, in its int8 variant): QKᵀ as s8·s8→s32 on
 per-(token, head) int8 q and k (``quant_rows``, the quantizer of every
 int8 kernel), for the int8 eval's opt-in int8-QK mode; eval only.  On
 CPU tensors each wrapper runs its plain twin (``packed_attention_reference``,

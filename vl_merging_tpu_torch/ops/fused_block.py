@@ -60,8 +60,9 @@ from .attention import HEAD_DIM, packed_attention, \
 
 LN_EPS = 1e-6
 _HIDDEN_CHUNK = 128           # the MLP body walks the hidden in chunks
-# ln_linear's output tile width at each model width it is built for
-_QKV_TILE = {768: 384, 1024: 256}
+# ln_linear's output tile width at each model width it is built for: O
+# must be a multiple of it (K1's 128 x 256 tiles; qkv: O = 3C = 2304, 3072)
+_QKV_TILE = {768: 256, 1024: 256}
 # The model widths each width-specific kernel is built for (the CUDA
 # entries' ``switch (C)``): K1, K3, K4, K5, K6 and K13 at the ViT-B and
 # ViT-L widths; K7, K8 (their attention phase keeps a head's k and v for
@@ -135,16 +136,22 @@ def ln_linear_reference(x, ln_w, ln_b, w, b):
     return (_mm(xn, w) + b.float()).to(x.dtype)
 
 
+def require_qkv_tile(C: int, O: int) -> None:
+    """Raise ``ValueError`` unless K1 takes model width C and O output
+    columns: C a width it is built for, O a whole number of its tiles."""
+    require_kernel("ln_linear", C)
+    if O % _QKV_TILE[C]:
+        raise ValueError(f"ln_linear kernel takes O % {_QKV_TILE[C]} == 0 "
+                         f"at C={C}; got O={O}")
+
+
 def ln_linear(x: torch.Tensor, ln_w, ln_b, w, b) -> torch.Tensor:
     """y = LN(x) @ Wᵀ + b; x: (B, N, C), w: (O, C) torch layout."""
     if not x.is_cuda:
         return ln_linear_reference(x, ln_w, ln_b, w, b)
     B, N, C = x.shape
     O = w.shape[0]
-    require_kernel("ln_linear", C)
-    if O % _QKV_TILE[C]:
-        raise ValueError(f"ln_linear kernel takes O % {_QKV_TILE[C]} == 0 "
-                         f"at C={C}; got O={O}")
+    require_qkv_tile(C, O)
     w = w.to(x.dtype)
     ln_w, ln_b, b = ln_w.float(), ln_b.float(), b.float()
     dev = x.device
