@@ -28,31 +28,38 @@ For each window it prints the host wall time, the device busy time (the
 union of the device kernels' intervals), the idle share (1 − busy / wall)
 and the kernels with the most device time.
 
-``python3 chip_profile.py --variants`` runs only this: K1 and K2 beside
-design variants that their sources rejected, each built from a patched
-copy of ``vl_merging_tpu_torch/csrc`` into ``build/variants/`` (one nvcc
-per variant, all at once) and timed in turns with the built kernel at
-``chip_smoke.py``'s main-path shapes (B=32, N=577; C=768 and 1024, 12 and
-16 heads): K1 without its cluster of two CTAs sharing each W tile by TMA
-multicast, K1 releasing its ring stages at cluster scope, K2 without the
-ping-pong of its two consumer warpgroups, and K2 with a whole 64-key last
-key tile.
+``python3 chip_profile.py --variants`` runs only this: K1, K2, K7 and K15
+beside design variants that their sources rejected, each built from a
+patched copy of ``vl_merging_tpu_torch/csrc`` into ``build/variants/``
+(one nvcc per variant, all at once; its ptxas spill bytes printed) and
+timed in turns with the built kernel through the same wrapper, at
+``chip_smoke.py``'s main-path shapes (B=32, N=577; K1 at C=768 and 1024,
+K2 at 12 and 16 heads): K1 without its cluster of two CTAs sharing each W
+tile by TMA multicast, K1 releasing its ring stages at cluster scope, K2
+without the ping-pong of its two consumer warpgroups, K2 with a whole
+64-key last key tile, K7 with K1's and K2's own CTA of three warpgroups (a
+``setmaxnreg`` budget per phase, or one budget of 168 registers; their
+phase split too), K15 with its pass 1 on the hidden
+warpgroup alone or with every fourth chunk on the output warpgroup, K15
+with weight rings of two stages each.  ``--variants K7`` (any of K1, K2,
+K7, K15) runs those kernels' variants alone.
 
 First, K7's phase split (``python3 chip_profile.py --k7`` runs it alone):
 one traced launch of K7 (``block_eval(..., trace=...)``) at
 ``chip_smoke.py``'s main-path shapes (B=32, N=577) gives, per CTA, the time
-in phase 1 (K8's body over (element, head) items), at the grid barrier,
-in phase 2 (K3's body over 64-row blocks) and at the second barrier, and
-the items and blocks each CTA took; beside it K7's grid against the SMs,
-K7 untraced and traced, and the staged K8 and K3 at the same shapes with
-their time per wave of resident blocks.
+in phase A (K1's tiles), at its grid barrier, in phase B (K2's items), at
+its barrier, in phase C (the MLP body's 64-row blocks) and at its barrier,
+and the units each CTA took; beside it K7's grid against the SMs, its chunk
+size, K7 untraced and traced, and the staged K1, K2 and K3 at the same
+shapes.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
-import math
+import re
 import shutil
 import subprocess
 import time
@@ -69,7 +76,9 @@ from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall, \
     extract_features
 from vl_merging_tpu_torch.models.spec import make_model_spec
 from vl_merging_tpu_torch.ops import _build
+from vl_merging_tpu_torch.ops import attention as attn_ops
 from vl_merging_tpu_torch.ops import fused_block as fb_ops
+from vl_merging_tpu_torch.ops import int8 as i8_ops
 from vl_merging_tpu_torch.ops.fused_block import FUSIONS
 from vl_merging_tpu_torch.train.loop import accum_steps, build_train_step
 
@@ -119,18 +128,18 @@ def trace(name: str, fn, card: str) -> None:
 
 def k7_phases(dev, card: str) -> None:
     """K7's per-CTA phase trace at the main-path shapes, beside the staged
-    K8 and K3 (see the module's docstring)."""
+    K1, K2 and K3 (see the module's docstring)."""
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
     inputs = smoke.kernel_inputs(dev, gen)
     inputs.update(smoke.fusion_inputs(inputs))
     args = inputs["block_eval"]
     B, N = args[0].shape[:2]
-    heads = args[8]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     grid = fb_ops.block_eval_grid()
     clusters = grid // 4
+    bb = fb_ops.block_eval_chunk(B, N, smoke.C, clusters)
     k7_ms = smoke.time_ms(lambda: fb_ops.block_eval(*args))
-    counters = torch.zeros(grid, 8, dtype=torch.int64, device=dev)
+    counters = torch.zeros(grid, 12, dtype=torch.int64, device=dev)
 
     def traced():
         counters.zero_()
@@ -139,112 +148,153 @@ def k7_phases(dev, card: str) -> None:
     traced()
     torch.cuda.synchronize()
     t = counters.cpu().numpy().astype(np.float64)
-    ms = t[:, :4] / 1e6
-    items, blocks = t[:, 4], t[:, 5]
-    span = (t[:, 7].max() - t[:, 6].min()) / 1e6
+    ms = t[:, :6] / 1e6
+    tiles, items, blocks = t[:, 6], t[:, 7], t[:, 8]
+    span = (t[:, 10].max() - t[:, 9].min()) / 1e6
     print(f"== K7 phases (B={B}, N={N}): grid {grid} CTAs ({clusters} "
-          f"clusters of 4) on {sms} SMs, {sms - grid} SMs idle; K7 "
-          f"{k7_ms:.4f} ms, traced {traced_ms:.4f} ms, traced span "
-          f"{span:.4f} ms [{card}]")
-    for i, label in enumerate(("phase 1 (K8's body)", "barrier 1",
-                               "phase 2 (K3's body)", "barrier 2")):
-        print(f"   {label:22s} per CTA: mean {ms[:, i].mean():.4f} ms, "
+          f"clusters of 4) on {sms} SMs, {sms - grid} SMs idle; chunks of "
+          f"{bb} elements ({int(t[0, 11])} chunks); K7 {k7_ms:.4f} ms, traced "
+          f"{traced_ms:.4f} ms, traced span {span:.4f} ms [{card}]")
+    for i, label in enumerate(("phase A (K1's tiles)", "barrier A",
+                               "phase B (K2's items)", "barrier B",
+                               "phase C (the body's blocks)", "barrier C")):
+        print(f"   {label:28s} per CTA: mean {ms[:, i].mean():.4f} ms, "
               f"min {ms[:, i].min():.4f}, max {ms[:, i].max():.4f}")
-    print(f"   phase 1: {int(items.sum())} (element, head) items, "
-          f"{int(items.min())}-{int(items.max())} per CTA, "
-          f"{(ms[:, 0] / items).mean():.4f} ms per item")
-    print(f"   phase 2: {math.ceil(B * N / 64)} 64-row blocks over "
-          f"{clusters} clusters, {int(blocks.min())}-{int(blocks.max())} "
-          f"per CTA, {(ms[:, 2] / np.maximum(blocks, 1)).mean():.4f} ms per "
-          f"block")
-    k8_ms = smoke.time_ms(
-        lambda: fb_ops.ln_qkv_attention(*inputs["ln_qkv_attention"]))
-    k3_ms = smoke.time_ms(
-        lambda: fb_ops.proj_mlp_tail(*inputs["proj_mlp_tail"]))
-    k8_waves = math.ceil(B * heads / sms)
-    k3_waves = math.ceil(math.ceil(B * N / 64) / clusters)
-    print(f"   staged: K8 {k8_ms:.4f} ms ({B * heads} blocks, one per SM "
-          f"at a time: {k8_waves} waves, {k8_ms / k8_waves:.4f} ms per "
-          f"wave); K3 {k3_ms:.4f} ms ({math.ceil(B * N / 64)} clusters, "
-          f"{clusters} resident: {k3_waves} waves, "
-          f"{k3_ms / k3_waves:.4f} ms per wave) [{card}]")
+    for label, col, n in (("A", 0, tiles), ("B", 2, items), ("C", 4, blocks)):
+        print(f"   phase {label}: {int(n.min())}-{int(n.max())} units per CTA, "
+              f"{(ms[:, col] / np.maximum(n, 1)).mean():.4f} ms per unit")
+    x, l1w, l1b, wqkv, bqkv, bias, mask, scale, heads = args[:9]
+    qkv = fb_ops.ln_linear(x, l1w, l1b, wqkv, bqkv)
+    ctx = attn_ops.packed_attention(qkv, bias, mask, scale, heads)
+    k1_ms = smoke.time_ms(lambda: fb_ops.ln_linear(x, l1w, l1b, wqkv, bqkv))
+    k2_ms = smoke.time_ms(
+        lambda: attn_ops.packed_attention(qkv, bias, mask, scale, heads))
+    k3_ms = smoke.time_ms(lambda: fb_ops.proj_mlp_tail(ctx, *args[9:12], x,
+                                                       *args[12:]))
+    print(f"   staged: K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms, K3 {k3_ms:.4f} "
+          f"ms, sum {k1_ms + k2_ms + k3_ms:.4f}; K7 / sum "
+          f"{k7_ms / (k1_ms + k2_ms + k3_ms):.3f} [{card}]")
 
 
-# name: (source, the C function it exports, [(text, replacement)])
+# name: (kernel, [(file, text, replacement)]): the design variants each
+# kernel's source rejected, each a patch of csrc/
 VARIANTS = {
     "K1 without the cluster (CL = 1: W read once per 128 rows)": (
-        "ln_linear.cu", "vlm_ln_linear",
-        [("constexpr int CL = 2;", "constexpr int CL = 1;")]),
+        "K1", [("ln_linear.cuh", "constexpr int CL = 2;", "constexpr int CL = 1;")]),
     "K1 releasing its stages with cluster-scope semantics": (
-        "ln_linear.cu", "vlm_ln_linear",
-        [("hop::mbar_arrive_remote(&empty[s], r)",
-          "hop::mbar_arrive_cluster(&empty[s], r)")]),
+        "K1", [("ln_linear.cuh", "hop::mbar_arrive_remote(&empty[s], peer0 + r)",
+                "hop::mbar_arrive_cluster(&empty[s], peer0 + r)")]),
     "K2 without the warpgroups' ping-pong": (
-        "packed_attention_fwd.cu", "vlm_packed_attention",
-        [("  hop::named_sync(1 + (threadIdx.x >> 7), 256);\n}", "}"),
-         ("  hop::named_arrive(2 - (threadIdx.x >> 7), 256);\n}", "}"),
-         ("  if (wg == 1) hop::named_arrive(1, 256);", ""),
-         ("  if (wg == 0) hop::named_sync(1, 256);", "")]),
+        "K2", [("packed_attention_fwd.cuh",
+                "  if constexpr (NC == 2) hop::named_sync(1 + (threadIdx.x >> 7), 256);\n", ""),
+               ("packed_attention_fwd.cuh",
+                "  if constexpr (NC == 2) hop::named_arrive(2 - (threadIdx.x >> 7), 256);\n", ""),
+               ("packed_attention_fwd.cuh", "  if (NC == 2 && wg == 1) hop::named_arrive(1, 256);",
+                ""),
+               ("packed_attention_fwd.cuh", "  if (NC == 2 && wg == 0) hop::named_sync(1, 256);",
+                "")]),
     "K2 with a whole 64-key last tile": (
-        "packed_attention_fwd.cu", "vlm_packed_attention",
-        [("  const int w_last = N - (nkt - 1) * BKV > 32 ? 64 : "
-          "N - (nkt - 1) * BKV > 16 ? 32 : 16;", "  const int w_last = 64;")]),
+        "K2", [("packed_attention_fwd.cuh",
+                "  const int w_last = N - (nkt - 1) * BKV > 32 ? 64 : "
+                "N - (nkt - 1) * BKV > 16 ? 32 : 16;", "  const int w_last = 64;")]),
+    "K7 with K1's and K2's CTA (three warpgroups, a setmaxnreg budget per phase: "
+    "A 232/40, B 168, C 240/24)": (
+        "K7", [("block_eval.cu", "constexpr int NC = 1, kTN = 128 * NC;",
+                "constexpr int NC = 2, kTN = 128 * NC;")]),
+    "K7 with K1's and K2's CTA at one budget (three warpgroups, 168 registers)": (
+        "K7", [("block_eval.cu", "constexpr int NC = 1, kTN = 128 * NC;",
+                "constexpr int NC = 2, kTN = 128 * NC;"),
+               ("block_eval.cu", "NC == 2 && R", "NC == 0 && R")]),
+    "K15 with pass 1 on the hidden warpgroup alone": (
+        "K15", [("proj_mlp_tail_i8.cu", "constexpr int kOutEvery = 2;",
+                 "constexpr int kOutEvery = 1 << 20;")]),
+    "K15 with pass 1's every fourth chunk on the output warpgroup": (
+        "K15", [("proj_mlp_tail_i8.cu", "constexpr int kOutEvery = 2;",
+                 "constexpr int kOutEvery = 4;")]),
+    "K15 with weight rings of two stages each": (
+        "K15", [("proj_mlp_tail_i8.cu", "SLOTS0 = 3, SLOTS1 = 3;",
+                 "SLOTS0 = 2, SLOTS1 = 2;")]),
 }
+# the sources a kernel's variant library is built from (with tensor_map.cu;
+# ln_linear.cu also exports vlm_error_string)
+SOURCES = {"K1": ("ln_linear.cu",), "K2": ("packed_attention_fwd.cu", "ln_linear.cu"),
+           "K7": ("block_eval.cu", "ln_linear.cu"),
+           "K15": ("proj_mlp_tail_i8.cu", "ln_linear.cu")}
 
 
-def build_variants() -> dict:
-    """Each variant's C function, from a patched copy of csrc/ built with
-    nvcc (all at once) into build/variants/<i>/."""
+def spills(log: str) -> str:
+    """The spill bytes ptxas reported in an nvcc log, summed."""
+    st = sum(int(m) for m in re.findall(r"(\d+) bytes spill stores", log))
+    ld = sum(int(m) for m in re.findall(r"(\d+) bytes spill loads", log))
+    warned = [line.strip() for line in log.splitlines() if "setmaxnreg" in line]
+    return f"{st} / {ld} bytes spill stores / loads" + "".join(
+        f"; {w}" for w in warned)
+
+
+def build_variants(kernels) -> dict:
+    """Each variant of the kernels named, its library from a patched copy of
+    csrc/ built with nvcc (all at once) into build/variants/<i>/, loaded
+    with ctypes, with the ptxas spill summary of its build."""
     root = _build.BUILD_DIR / "variants"
     shutil.rmtree(root, ignore_errors=True)
     procs = {}
-    for i, (name, (source, _, patches)) in enumerate(VARIANTS.items()):
+    for i, (name, (kernel, patches)) in enumerate(VARIANTS.items()):
+        if kernel not in kernels:
+            continue
         d = root / str(i)
         shutil.copytree(_build.CSRC, d)
-        text = (d / source).read_text()
-        for old, new in patches:
+        for file, old, new in patches:
+            text = (d / file).read_text()
             if old not in text:
-                raise RuntimeError(f"variant {name!r}: {old!r} is not in "
-                                   f"{source}")
-            text = text.replace(old, new)
-        (d / source).write_text(text)
+                raise RuntimeError(f"variant {name!r}: {old!r} is not in {file}")
+            (d / file).write_text(text.replace(old, new))
         procs[name] = (d, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-             str(d / "lib.so"), str(d / source), str(d / "tensor_map.cu"),
-             "-ldl"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    fns = {}
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+             *(str(d / f) for f in SOURCES[kernel]), str(d / "tensor_map.cu"), "-ldl"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
     for name, (d, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"variant {name!r} failed to build:\n{log}")
-        export = VARIANTS[name][1]
-        fn = getattr(ctypes.CDLL(str(d / "lib.so")), export)
-        fn.argtypes = list(_build._SIGNATURES[export])
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
+        lib = ctypes.CDLL(str(d / "lib.so"))
+        for fn, argtypes in _build._SIGNATURES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+        lib.vlm_error_string.argtypes = [ctypes.c_int]
+        lib.vlm_error_string.restype = ctypes.c_char_p
+        libs[name] = (lib, spills(log))
+    return libs
 
 
-def variants(dev, card: str) -> None:
-    """K1 and K2 against their rejected variants, in turns (built,
-    variant, variant, built), through the same C entry."""
-    fns = build_variants()
-    lib = _build.library()
+@contextlib.contextmanager
+def using(lib):
+    """The wrappers launch from ``lib`` (a variant's library) meanwhile."""
+    built = _build.library()
+    _build._lib = lib
+    try:
+        yield
+    finally:
+        _build._lib = built
+
+
+def variants(dev, card: str, kernels) -> None:
+    """The kernels named against their rejected variants, in turns (built,
+    variant, variant, built), through the same wrappers and inputs."""
+    libs = build_variants(kernels)
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    calls = {}
+    inputs = smoke.kernel_inputs(dev, gen)
+    inputs.update(smoke.fusion_inputs(inputs))
+    calls = {"K1": {}, "K2": {}, "K7": {}, "K15": {}}
     for c in (smoke.C, smoke.C_L):
-        x = torch.randn(smoke.IMAGE_BATCH * smoke.N, c, device=dev,
+        x = torch.randn(smoke.IMAGE_BATCH, smoke.N, c, device=dev,
                         generator=gen).bfloat16()
         lw, lb = torch.ones(c, device=dev), torch.zeros(c, device=dev)
         w = (0.02 * torch.randn(3 * c, c, device=dev, generator=gen)).bfloat16()
         b = torch.zeros(3 * c, device=dev)
-        y = torch.empty(x.shape[0], 3 * c, device=dev, dtype=torch.bfloat16)
-        calls[f"K1 at C={c}"] = ("vlm_ln_linear", (
-            x.data_ptr(), lw.data_ptr(), lb.data_ptr(), w.data_ptr(),
-            b.data_ptr(), y.data_ptr(), x.shape[0], c, 3 * c, fb_ops.LN_EPS,
-            stream), (x, lw, lb, w, b, y))
+        calls["K1"][f"C={c}"] = lambda x=x, lw=lw, lb=lb, w=w, b=b: \
+            fb_ops.ln_linear(x, lw, lb, w, b)
     for heads in (smoke.HEADS, smoke.HEADS_L):
         qkv = torch.randn(smoke.IMAGE_BATCH, smoke.N, 3 * 64 * heads,
                           device=dev, generator=gen).bfloat16()
@@ -252,41 +302,55 @@ def variants(dev, card: str) -> None:
         mask = torch.ones(smoke.IMAGE_BATCH, smoke.N, dtype=torch.int32,
                           device=dev)
         mask[-1, 500:] = 0
-        out = torch.empty(smoke.IMAGE_BATCH, smoke.N, 64 * heads, device=dev,
-                          dtype=torch.bfloat16)
-        calls[f"K2 at {heads} heads"] = ("vlm_packed_attention", (
-            qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            None, smoke.IMAGE_BATCH, smoke.N, heads, 64 ** -0.5, stream),
-            (qkv, bias, mask, out))
-    for name, fn in fns.items():
-        export = VARIANTS[name][1]
-        for shape, (entry, args, _) in calls.items():
-            if entry != export:
-                continue
-            built = getattr(lib, entry)
+        calls["K2"][f"{heads} heads"] = \
+            lambda qkv=qkv, bias=bias, mask=mask, heads=heads: \
+            attn_ops.packed_attention(qkv, bias, mask, 64 ** -0.5, heads)
+    calls["K7"]["B=32"] = lambda: fb_ops.block_eval(*inputs["block_eval"])
+    calls["K15"]["B=32"] = lambda: i8_ops.proj_mlp_tail_i8(
+        *inputs["proj_mlp_tail_i8"])
+    built = _build.library()
 
-            def run(f):
-                _build.check(f(*args), entry)
-            times = [smoke.time_ms(lambda: run(f))
-                     for f in (built, fn, fn, built)]
-            print(f"variants: {shape}: built {times[0]:.4f} / "
-                  f"{times[3]:.4f} ms, {name} {times[1]:.4f} / "
-                  f"{times[2]:.4f} ms [{card}]")
+    def k7_split(lib) -> str:
+        """A traced K7 launch from ``lib``: its phase split."""
+        with using(lib):
+            trace = torch.zeros(fb_ops.block_eval_grid(), 12, dtype=torch.int64,
+                                device=dev)
+            fb_ops.block_eval(*inputs["block_eval"], trace=trace)
+        t = trace.double().cpu()[:, :6].mean(0) / 1e6
+        return " / ".join(f"{v:.4f}" for v in t.tolist())
+    for name, (lib, spill) in libs.items():
+        for shape, call in calls[VARIANTS[name][0]].items():
+            with using(lib):
+                got = call()
+            same = torch.equal(got, call())
+            times = []
+            for which in (built, lib, lib, built):
+                with using(which):
+                    times.append(smoke.time_ms(call))
+            print(f"variants: {VARIANTS[name][0]} at {shape}: built "
+                  f"{times[0]:.4f} / {times[3]:.4f} ms, {name} {times[1]:.4f} / "
+                  f"{times[2]:.4f} ms (ptxas: {spill}; output bit-equal to the "
+                  f"built kernel's: {same}) [{card}]")
+            if VARIANTS[name][0] == "K7":
+                print(f"variants: K7 phases A, barrier, B, barrier, C, barrier "
+                      f"(ms, mean per CTA): built {k7_split(built)}, variant "
+                      f"{k7_split(lib)}")
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k7", action="store_true",
                         help="run K7's phase split alone")
-    parser.add_argument("--variants", action="store_true",
-                        help="run K1 and K2 beside their rejected variants "
+    parser.add_argument("--variants", nargs="*", metavar="KERNEL",
+                        help="run K1, K2, K7 and K15 (or the kernels named: "
+                             "K1, K2, K7, K15) beside their rejected variants "
                              "alone")
     opts = parser.parse_args()
     dev = require_cuda()
     card = smoke.card_line()
     print(card)
-    if opts.variants:
-        variants(dev, card)
+    if opts.variants is not None:
+        variants(dev, card, opts.variants or list(SOURCES))
         return
     k7_phases(dev, card)
     if opts.k7:

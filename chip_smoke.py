@@ -36,11 +36,11 @@ layers), and the routing check the vit-tiny width (C=192,
 Phases, each fatal on failure:
   1. a CUDA device (printed as nvidia-smi names it, with its power limit);
   2. the kernels built from ``vl_merging_tpu_torch/csrc`` (build time),
-     and the wgmma (HGMMA) instructions of the redesigned kernels (K3, K4,
-     K5, K6, K7, K13 on the shared MLP body; K9's two kernels; K1 and K2)
-     counted in the library's SASS with ``cuobjdump`` (none: fail); the
-     registers and spill bytes ptxas gave K1 and K2 (``build/nvcc.log``;
-     a spill fails);
+     and the wgmma instructions of the redesigned kernels (HGMMA: K3, K4,
+     K5, K6, K13 on the shared MLP body; K9's two kernels; K1, K2 and K7;
+     IGMMA: K15) counted in the library's SASS with ``cuobjdump`` (none:
+     fail); the registers and spill bytes ptxas gave K1, K2, K7 (and every
+     function it calls) and K15 (``build/nvcc.log``; a spill fails);
   3. each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail,
      K9 packed_attention_bwd, K13 mlp, K12 packed_attention_i8qk, K14
      ln_linear_i8, K15 proj_mlp_tail_i8, K4 linear_residual, K5 mlp_tail,
@@ -54,10 +54,13 @@ Phases, each fatal on failure:
      staged kernels they replace (K3, K1 + K2, K8 + K3), in time and
      output (bit-equal or not, and the share of elements that differ);
      K10 beside K11 at B=32 and K6 at uniform gammas beside K3, likewise
-     (K4 -> K5, K7 and K6 share K3's MLP body, and K7 runs K8's body:
-     K4 -> K5, K6 and K7 not bit-equal to K3, K3 and K8 -> K3 fails; K8
-     more than its 4 ulps from K1 -> K2 fails, the Hopper K1 and K2
-     summing their products in another order than K8); K1 at the text
+     (K4 -> K5, K7 and K6 share K3's MLP body, and K7 runs K1's and K2's
+     code too: K4 -> K5, K6 and K7 not bit-equal to K3, K3 and K1 -> K2 ->
+     K3 fails; K8 more than its 4 ulps from K1 -> K2, and K7 from K8 -> K3,
+     fails, the Hopper K1 and K2 summing their products in another order
+     than K8); K7's time against K1 + K2 + K3 and K15's against K3 beside
+     their bars (1.25x, 0.85x; printed, met or missed); K15 with every
+     gelu and a row of zero context against its twin; K1 at the text
      rows (32·40) and, as a yardstick the port never calls, one cuBLAS
      ``F.linear`` on the pre-normalised rows at each K1 shape; K2 at the
      ViT-L shape (B=32, 16 heads) against its twin, timed beside SDPA, its
@@ -88,7 +91,7 @@ Phases, each fatal on failure:
      int8 plain path's (``ops/int8.ref_fused_eval_block_i8``) in both
      modes, and their cosine to the bf16 kernel path's (printed, no
      gate); the image tower's images/s with int8 kernels, int8 plain and
-     bf16 kernels, in turns;
+     the bf16 kernels by "tail" and by "mega", in turns;
   6. three train steps: K2 and K9 launched 12 times and K13 24 times per
      micro-batch, finite loss and grad norm every step; kernel-path
      gradients within global cosine 0.999 of the plain path's at the same
@@ -197,8 +200,8 @@ BF16_ULP = 2.0 ** -7
 # rounding tie: K14 2 ulps, K15 (three chained quantizers) 4; K12 rounds
 # its softmax as K2 does: 4.  K4 and K5 round where their twins do (K3's
 # two halves): 2 ulps.  K8 rounds its softmax as K2 does: 4 ulps.  K7's
-# context carries K8's 4-ulp error into the proj, where γ1·Wp scales it
-# down (|γ1| ~ 0.1 at these inputs), so the output adds to K3's own 2
+# context is K2's, whose 4-ulp error the proj carries, scaled down by
+# γ1·Wp (|γ1| ~ 0.1 at these inputs), so the output adds to K3's own 2
 # ulps a small fraction of 4: 4 ulps.  K10 and K11 round their softmax
 # as K2 does: 4 ulps.  K6 is K3 with per-element gammas, rounding where
 # its twin (K3's) does: 2 ulps.
@@ -215,6 +218,10 @@ DBIAS_REL = 1e-3
 STATS_REL = 1e-5
 MIN_COSINE = 0.999
 TIMED_ITERS = 20
+# the time bars of the Hopper K7 and K15 (printed, met or missed): K7 at
+# most 1.25 x the staged K1 -> K2 -> K3, K15 at most 0.85 x K3 at the same
+# shapes, in the same run
+K7_BAR, K15_BAR = 1.25, 0.85
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor cores,
 # HBM3
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -679,26 +686,37 @@ def staged_comparisons(inputs, card: str) -> None:
          "K3", lambda: fb_ops.proj_mlp_tail(ctx, wp, bp, u1, res, ln2_w,
                                             ln2_b, w1, b1, w2, b2, u2)))
     # bit-equal by construction: the shared MLP body (K4 -> K5, K6) and K7,
-    # which runs K8's body and then the MLP body's
+    # which runs K1's, K2's and the MLP body's device code
     bit_equal = ("K4 -> K5 vs K3", "K6 at uniform gammas vs K3",
-                 "K7 vs K8 -> K3")
+                 "K7 vs K1 -> K2 -> K3")
+    # within 4 ulps: K8 against the Hopper K1 and K2, which sum in another
+    # order, and so K7 against K8 -> K3
+    within_ulps = {"K8 vs K1 -> K2": "ln_qkv_attention",
+                   "K7 vs K8 -> K3": "block_eval"}
+    # the bars of the fused kernels' time against the staged kernels'
+    bars = {"K7 vs K1 -> K2 -> K3": K7_BAR}
     for label, fused, staged_name, staged in cases:
         got, want = fused(), staged()
         torch.cuda.synchronize()
         if label in bit_equal and not torch.equal(got, want):
             fail(f"{label}: not bit-equal")
         within = ""
-        if label == "K8 vs K1 -> K2":   # the Hopper K1 and K2 sum in
-            _, worst, _ = ulp_check("ln_qkv_attention", got, want)  # another order
-            within = (f" (worst err/bound {worst:.3f} of "
-                      f"{ULPS['ln_qkv_attention']} bf16 ulps)")
+        if label in within_ulps:
+            name = within_ulps[label]
+            _, worst, _ = ulp_check(name, got, want)
+            within = (f" (worst err/bound {worst:.3f} of {ULPS[name]} bf16 "
+                      f"ulps)")
             if worst > 1.0:
-                fail(f"{label}: more than {ULPS['ln_qkv_attention']} bf16 "
-                     f"ulps apart")
+                fail(f"{label}: more than {ULPS[name]} bf16 ulps apart")
+        fused_ms, staged_ms = time_ms(fused), time_ms(staged)
+        bar = ""
+        if label in bars:
+            bar = (f"; {fused_ms / staged_ms:.3f} x (bar {bars[label]}: "
+                   f"{'met' if fused_ms <= bars[label] * staged_ms else 'missed'})")
         print(f"{label}: bit-equal {torch.equal(got, want)}, "
               f"{differ_share(got, want):.3e} of the elements differ{within}; "
-              f"{time_ms(fused):.4f} ms against {staged_name} "
-              f"{time_ms(staged):.4f} ms at the same shapes [{card}]")
+              f"{fused_ms:.4f} ms against {staged_name} "
+              f"{staged_ms:.4f} ms at the same shapes{bar} [{card}]")
 
 
 def linear_yardstick_ms(args) -> float:
@@ -708,6 +726,25 @@ def linear_yardstick_ms(args) -> float:
     x, lw, lb, w, _ = args
     xn = layer_norm(x, lw, lb, eps=fb_ops.LN_EPS)
     return time_ms(lambda: F.linear(xn, w))
+
+
+def check_i8_gelus(args) -> None:
+    """K15 with each gelu of ``ops/mlp.GELUS`` other than the default
+    against its twin, within its 4 ulps; a row of context all zero (its
+    quantizer's amax floor) among them."""
+    args = list(args)
+    args[0] = args[0].clone()
+    args[0][0, 0] = 0
+    for gelu in mlp_ops.GELUS:
+        got = i8_ops.proj_mlp_tail_i8(*args, gelu=gelu)
+        want = i8_ops.ref_proj_mlp_tail_i8(*args, gelu=gelu)
+        torch.cuda.synchronize()
+        max_err, worst, differ = ulp_check("proj_mlp_tail_i8", got, want)
+        print(f"proj_mlp_tail_i8, gelu {gelu!r}, a zero context row: max "
+              f"|kernel - twin| = {max_err:.6g}, worst err/bound = "
+              f"{worst:.3f}, {differ:.3e} of the elements differ")
+        if not bool(torch.isfinite(got).all()) or worst > 1.0:
+            fail(f"proj_mlp_tail_i8 with gelu {gelu!r} disagrees with its twin")
 
 
 def check_kernels(dev, card: str, usage: dict) -> dict:
@@ -744,9 +781,15 @@ def check_kernels(dev, card: str, usage: dict) -> dict:
         bound_ms, bound_by = bound(*work(name, args))
         shape = "x".join(map(str, args[0].shape))
         if name in BF16_TWIN:
+            twin_ms = rows[BF16_TWIN[name]]['ms']
+            bar = ""
+            if name == "proj_mlp_tail_i8":
+                bar = (f"; {ms / twin_ms:.3f} x (bar {K15_BAR}: "
+                       f"{'met' if ms <= K15_BAR * twin_ms else 'missed'})")
             print(f"{name}: {ms:.4f} ms against {BF16_TWIN[name]} "
-                  f"{rows[BF16_TWIN[name]]['ms']:.4f} ms at the same shapes "
-                  f"[{card}]")
+                  f"{twin_ms:.4f} ms at the same shapes{bar} [{card}]")
+        if name == "proj_mlp_tail_i8":
+            check_i8_gelus(args)
         print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
               + ("none (no single PyTorch call computes it)"
                  if library_ms is None else f"{library_ms:.4f} ms")
@@ -1226,16 +1269,19 @@ def run_eval_int8(dev, card: str) -> dict:
           f"min cosine {min_cosine(img_k, img_bf16):.6f}; int8-QK "
           f"{min_cosine(img_qk, img_bf16):.6f}")
 
-    # int8 plain, int8 kernels, bf16 kernels, and back: compare only here
-    paths = {"int8 kernels": (params, False), "int8 plain": (params, True),
-             "bf16 kernels": (params_bf16, False)}
+    # int8 kernels, int8 plain, the bf16 kernels by "tail" and by "mega",
+    # and back: compare only here
+    paths = {"int8 kernels": (params, False, "tail"),
+             "int8 plain": (params, True, "tail"),
+             "bf16 kernels 'tail'": (params_bf16, False, "tail"),
+             "bf16 kernels 'mega'": (params_bf16, False, "mega")}
     rates = {k: [] for k in paths}
     order = list(paths) + list(paths)[::-1]
     for which in order:
-        p, plain = paths[which]
+        p, plain, fusion = paths[which]
         with int8_plain_path() if plain else contextlib.nullcontext():
             rates[which].append(images_per_sec(p, spec, image_batches,
-                                               kernels=True))
+                                               kernels=True, fusion=fusion))
     print(f"image tower (ViT-B/16 @384, batch {IMAGE_BATCH}): "
           + ", ".join(f"{k} {max(v):.1f} img/s" for k, v in rates.items())
           + f" (best of 2, {N_IMAGES} images each) [{card}]")
@@ -1696,14 +1742,20 @@ def run_tiny(dev, card: str) -> dict:
 
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
 # of their entry functions in the library's SASS.
+# The wgmma instruction each counts: HGMMA (bf16), IGMMA (K15's s8).
 WGMMA_KERNELS = {"K1": "16ln_linear_kernel", "K2": "27packed_attention_fwd_kernel",
                  "K3": "20proj_mlp_tail_kernel", "K4": "22linear_residual_kernel",
                  "K5": "15mlp_tail_kernel", "K6": "17tail_train_kernel",
                  "K7": "17block_eval_kernel", "K13": "10mlp_kernel",
-                 "K9 dq": "9dq_kernel", "K9 dk/dv": "10dkv_kernel"}
-# The Hopper K1 and K2, whose ptxas report is printed and must show no spill
+                 "K9 dq": "9dq_kernel", "K9 dk/dv": "10dkv_kernel",
+                 "K15": "23proj_mlp_tail_i8_kernel"}
+WGMMA_OP = {"K15": "IGMMA"}
+# The Hopper K1, K2, K7 and K15, whose ptxas report is printed and must
+# show no spill (K7: its kernel and every function it calls)
 SPILL_FREE = {"ln_linear": "16ln_linear_kernel",
-              "packed_attention": "27packed_attention_fwd_kernel"}
+              "packed_attention": "27packed_attention_fwd_kernel",
+              "block_eval": "_13_block_eval_cu_",
+              "proj_mlp_tail_i8": "23proj_mlp_tail_i8_kernel"}
 
 
 def check_wgmma(lib) -> None:
@@ -1718,9 +1770,9 @@ def check_wgmma(lib) -> None:
         if "Function :" in line:
             fn = next((k for k, m in WGMMA_KERNELS.items() if m in line),
                       None)
-        elif fn is not None and "HGMMA" in line:
+        elif fn is not None and WGMMA_OP.get(fn, "HGMMA") in line:
             counts[fn] += 1
-    print("wgmma (HGMMA) instructions in the SASS: "
+    print("wgmma (HGMMA; K15: IGMMA) instructions in the SASS: "
           + ", ".join(f"{k} {v}" for k, v in counts.items()))
     if not all(counts.values()):
         fail(f"a redesigned kernel has no wgmma in its SASS: {counts}")
@@ -1728,32 +1780,50 @@ def check_wgmma(lib) -> None:
 
 def check_spills() -> dict:
     """The registers and spill bytes ptxas reported for each instantiation
-    of K1 and K2 (``build/nvcc.log``, written by the build); fail on a
-    spill.  Returns a printable summary per kernel."""
+    of K1, K2, K7 and K15 and for every function they call
+    (``build/nvcc.log``, written by the build); fail on a spill.  Returns
+    a printable summary per kernel."""
     log = (_build.BUILD_DIR / "nvcc.log").read_text()
-    found = {name: [] for name in SPILL_FREE}
-    name, spills = None, (0, 0)
+    found = {name: {} for name in SPILL_FREE}   # name -> function -> [regs, st, ld]
+    entry = props = None
+
+    def key(fn):
+        return next((n for n, m in SPILL_FREE.items() if m in fn), None)
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            name = next((n for n, m in SPILL_FREE.items() if m in line), None)
-            tmpl = re.search(r"ILi(\d+)E", line)
-            width = f"C={tmpl[1]} " if tmpl else ""
-        elif name and "spill stores" in line:
+            entry = re.search(r"'([^']+)'", line)[1]
+        elif "Function properties for" in line:
+            props = line.split("Function properties for", 1)[1].strip()
+        elif props and "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
-            spills = (int(m[1]), int(m[2]))
-        elif name and "Used" in line and "registers" in line:
-            regs = int(re.search(r"Used (\d+) registers", line)[1])
-            found[name].append((width, regs, *spills))
-            name = None
-    usage = {n: ", ".join(f"{w}{r} registers, {s} / {l} bytes spill "
-                          f"stores / loads" for w, r, s, l in entries)
-             for n, entries in found.items()}
-    for n, text in usage.items():
-        print(f"ptxas: {n} {text}")
-    if not all(found.values()) or any(s or l for entries in found.values()
-                                      for _, _, s, l in entries):
-        fail(f"K1 or K2 spills, or ptxas reported neither: {found}")
+            if key(props):
+                found[key(props)].setdefault(props, [None, 0, 0])[1:] = \
+                    [int(m[1]), int(m[2])]
+            props = None
+        elif entry and "Used" in line and "registers" in line:
+            if key(entry):
+                found[key(entry)].setdefault(entry, [None, 0, 0])[0] = \
+                    int(re.search(r"Used (\d+) registers", line)[1])
+            entry = None
+
+    def label(fn, name):
+        tmpl = re.search(r"ILi(\d+)E", fn)
+        if name == "proj_mlp_tail_i8":
+            return f"gelu {tmpl[1]} " if tmpl else ""
+        return f"C={tmpl[1]} " if tmpl else ""
+    usage = {}
+    for n, fns in found.items():
+        usage[n] = ", ".join(
+            f"{label(fn, n)}{'a called function' if r is None else f'{r} registers'}"
+            f", {st} / {ld} bytes spill stores / loads"
+            for fn, (r, st, ld) in fns.items())
+        print(f"ptxas: {n} {usage[n]}")
+    if not all(any(r is not None for r, _, _ in fns.values())
+               for fns in found.values()) or \
+            any(st or ld for fns in found.values() for _, st, ld in fns.values()):
+        fail(f"K1, K2, K7 or K15 spills, or ptxas reported none of them: "
+             f"{found}")
     return usage
 
 

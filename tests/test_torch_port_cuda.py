@@ -21,7 +21,8 @@ a quantized value across a rounding tie, and K2's softmax (K12): K14 is
 held to 2 ulps, K15 and K12 to 4.  The eval block's fusion kernels: K4
 linear_residual and K5 mlp_tail round where their twins do (K3's two
 halves), 2 ulps; K8 ln_qkv_attention rounds its softmax as K2 does, 4
-ulps; K7 block_eval carries K8's context error through the proj, 4 ulps.
+ulps; K7 block_eval runs K1's, K2's and K3's code and equals K1 → K2 → K3
+bit for bit, within 4 ulps of its twin (K2's softmax).
 The image tower takes the launches of the route ``fusion`` names.  The
 split-layout attention, K10 split_attention and K11 split_attention_bb,
 rounds its softmax as K2 does, 4 ulps, and the two give the same bits;
@@ -309,7 +310,7 @@ def test_ln_linear_i8_kernel_matches_twin_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("gelu", ["poly", "poly11", "poly13", "erf"])
 def test_proj_mlp_tail_i8_kernel_matches_twin_on_card(cuda_device, gelu):
-    """M = 3·577 rows, not a multiple of the 32-row block; every gelu;
+    """M = 3·577 rows, not a multiple of the 64-row block; every gelu;
     two launches agree bit for bit."""
     g = torch.Generator(device=cuda_device).manual_seed(7)
     args = _int8_tail_args(cuda_device, g, 3, 577)
@@ -318,6 +319,23 @@ def test_proj_mlp_tail_i8_kernel_matches_twin_on_card(cuda_device, gelu):
     assert TI.proj_mlp_tail_i8.launches == n + 1
     _bf16_close(got, TI.ref_proj_mlp_tail_i8(*args, gelu=gelu), ulps=4)
     assert torch.equal(TI.proj_mlp_tail_i8(*args, gelu=gelu), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(3, 577), (1, 40)])
+def test_proj_mlp_tail_i8_at_the_amax_floors_on_card(cuda_device, B, N):
+    """K15 with rows of context all zero (the quantizer's amax floor: a
+    scale of 1e-8/127 and int8 zeros), in the first and the last, ragged
+    64-row block, against its twin within 4 ulps."""
+    g = torch.Generator(device=cuda_device).manual_seed(24)
+    args = list(_int8_tail_args(cuda_device, g, B, N))
+    ctx = args[0].clone()
+    ctx[0, :3] = 0
+    ctx[-1, -1] = 0
+    args[0] = ctx
+    got = TI.proj_mlp_tail_i8(*args)
+    assert bool(torch.isfinite(got).all())
+    _bf16_close(got, TI.ref_proj_mlp_tail_i8(*args), ulps=4)
 
 
 @pytest.mark.cuda
@@ -405,25 +423,32 @@ def test_ln_qkv_attention_kernel_matches_twin_on_card(cuda_device, B, N):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N", [(3, 577), (2, 300)])
 def test_block_eval_kernel_matches_twin_on_card(cuda_device, B, N):
-    """K7 against its twin and within 4 ulps of the K1 → K2 → K3 kernels;
-    two launches agree bit for bit, and so does a traced one, whose
-    per-CTA trace counts every (element, head) item once and every 64-row
-    block once per CTA of its cluster."""
+    """K7 against its twin and bit-equal to the K1 → K2 → K3 kernels; two
+    launches agree bit for bit, and so does a traced one, whose per-CTA
+    trace counts each of K1's pair tiles (128 rows x 128 of the 2304 qkv
+    columns) once per CTA of its pair, every K2 (element, 64 query rows,
+    head) item once and every 64-row body block once per CTA of its
+    cluster, over the chunks of ``block_eval_chunk``."""
     g = torch.Generator(device=cuda_device).manual_seed(11)
     args = _block_args(cuda_device, g, B, N)
     n = TF.block_eval.launches
     got = TF.block_eval(*args)
     assert TF.block_eval.launches == n + 1
     _bf16_close(got, TF.block_eval_reference(*args), ulps=4)
-    _bf16_close(got, TF.fused_eval_block(*args), ulps=4)
+    assert torch.equal(got, TF.fused_eval_block(*args))
     assert torch.equal(TF.block_eval(*args), got)
-    trace = torch.zeros(TF.block_eval_grid(), 8, dtype=torch.int64,
-                        device=cuda_device)
+    grid = TF.block_eval_grid()
+    trace = torch.zeros(grid, 12, dtype=torch.int64, device=cuda_device)
     assert torch.equal(TF.block_eval(*args, trace=trace), got)
     t = trace.cpu()
-    assert int(t[:, 4].sum()) == B * 12
-    assert int(t[:, 5].sum()) == 4 * -(-B * N // 64)
-    assert bool((t[:, :4] >= 0).all()) and bool((t[:, 7] >= t[:, 6]).all())
+    bb = TF.block_eval_chunk(B, N, 768, grid // 4)
+    chunks = [min(bb, B - c0) * N for c0 in range(0, B, bb)]
+    pairs = sum(-(-m // 128) for m in chunks)   # K1's 128-row tiles of a pair
+    assert int(t[:, 6].sum()) == 2 * pairs * (3 * 768 // 128)
+    assert int(t[:, 7].sum()) == B * 12 * -(-N // 64)
+    assert int(t[:, 8].sum()) == 4 * sum(-(-m // 64) for m in chunks)
+    assert bool((t[:, 11] == len(chunks)).all())
+    assert bool((t[:, :6] >= 0).all()) and bool((t[:, 10] >= t[:, 9]).all())
 
 
 @pytest.mark.cuda
@@ -686,15 +711,15 @@ def test_mlp_body_bit_equalities_on_card(cuda_device, C):
 
 @pytest.mark.cuda
 def test_block_eval_equals_the_staged_kernels_on_card(cuda_device):
-    """K7 (K8's body, then K3's on the shared MLP body, in one cooperative
-    launch of clusters) equals K8 → K3, the kernels whose bodies it runs,
-    bit for bit, and K1 → K2 → K3 within K8's 4 ulps (K1 and K2 are the
-    Hopper designs, whose products sum in another order than K8's)."""
+    """K7 (K1's, K2's and the MLP body's device code, in one cooperative
+    launch of clusters) equals K1 → K2 → K3, the kernels whose code it runs,
+    bit for bit, and K8 → K3 within K8's 4 ulps (K8's products sum in
+    another order than the Hopper K1's and K2's)."""
     g = torch.Generator(device=cuda_device).manual_seed(22)
     args = _block_args(cuda_device, g, 3, 577)
     got = TF.block_eval(*args)
-    assert torch.equal(got, TF.fused_eval_block(*args, fusion="qkv"))
-    _bf16_close(got, TF.fused_eval_block(*args, fusion="tail"), ulps=4)
+    assert torch.equal(got, TF.fused_eval_block(*args, fusion="tail"))
+    _bf16_close(got, TF.fused_eval_block(*args, fusion="qkv"), ulps=4)
 
 
 @pytest.mark.cuda

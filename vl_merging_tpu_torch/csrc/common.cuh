@@ -39,6 +39,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// p, as a value the compiler cannot see through (an empty asm): a load
+// from it stays where it is written.  The loads of a block's weights, whose
+// addresses do not change from block to block, would otherwise be hoisted
+// out of a persistent kernel's loop over blocks (K7's) and held in
+// registers across it; they are what spilled the MLP body in a loop.
+template <class T>
+__device__ __forceinline__ const T* opaque(const T* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
 // One warp normalises R rows of C = NV * 256 bf16 values at once (global
 // or shared memory, 16-byte aligned): row i is src + i*src_step, and the 8
 // values at column col of it go to dst(i, col) (a bf16*, 16-byte aligned);
@@ -63,6 +74,8 @@ __device__ __forceinline__ void ln_rows_to_bf16_at(const bf16* src, size_t src_s
       raw[i][j] = i < nvalid ? (kL2 ? __ldcg(p) : *p) : make_uint4(0u, 0u, 0u, 0u);
     }
   float wv[NV][8], bv[NV][8];  // this lane's columns of w and b, the same for every row
+  w = opaque(w);
+  b = opaque(b);
 #pragma unroll
   for (int j = 0; j < NV; ++j)
 #pragma unroll

@@ -1,4 +1,6 @@
-// Shared pieces of the port's W8A8 int8 kernels (K12, K14, K15; sm_90a).
+// Shared pieces of the port's W8A8 int8 kernels (K12, K14, K15; sm_90a):
+// the quantizers (all three) and the mma.sync pipeline of K14 and K12 (K15
+// runs its products on wgmma, proj_mlp_tail_i8.cu).
 //
 // Quantization follows vl_merging_tpu/ops/int8.py exactly, with one
 // rounding per operation (the __f*_rn intrinsics keep nvcc from
@@ -8,7 +10,8 @@
 //     (IEEE division) and q = round-half-even(x · (1/scale)) with the
 //     reciprocal correctly rounded; no clip, |x/scale| ≤ 127 by
 //     construction (int8.py:100-109);
-//   * s8·s8 products accumulate exactly in s32 (mma.sync m16n8k32), and
+//   * s8·s8 products accumulate exactly in s32 (mma.sync m16n8k32, or
+//     wgmma m64nNk32 in K15), and
 //     dequantise as ((float(acc) · s) · ws) + b (int8.py:128-129).
 //
 // Shared-memory int8 rows carry kPad8 bytes of padding: a row stride of
@@ -75,12 +78,14 @@ __device__ __forceinline__ float dequant(int acc, float s, float ws, float b) {
 // deviations, (x - mean) · rsqrt(var + eps) · w + b, one rounding per
 // operation), and quantizes each f32 row per token into int8 dst + i*dst_step,
 // its scale into scale[i * scale_step].  Rows i >= nvalid become zeros.
-template <int R, int NV>
-__device__ __forceinline__ void ln_quant_rows(const bf16* src, size_t src_step, int nvalid,
-                                              const float* __restrict__ w,
-                                              const float* __restrict__ b, float eps,
-                                              int8_t* dst, int dst_step, float* scale,
-                                              int scale_step) {
+// dst(i, col) is where the 8 bytes of row i at columns col.. go (col a
+// multiple of 8): a plain row-major block (ln_quant_rows) or a swizzled
+// wgmma operand (K15).
+template <int R, int NV, class Dst>
+__device__ __forceinline__ void ln_quant_rows_at(const bf16* src, size_t src_step, int nvalid,
+                                                 const float* __restrict__ w,
+                                                 const float* __restrict__ b, float eps, Dst dst,
+                                                 float* scale, int scale_step) {
   constexpr int C = NV * 256;
   const int lane = threadIdx.x & 31;
   uint4 raw[R][NV];
@@ -136,17 +141,27 @@ __device__ __forceinline__ void ln_quant_rows(const bf16* src, size_t src_step, 
         q.y = pack_s8x4(quantize(v[j][4], inv), quantize(v[j][5], inv),
                         quantize(v[j][6], inv), quantize(v[j][7], inv));
       }
-      *reinterpret_cast<uint2*>(dst + i * dst_step + (j * 32 + lane) * 8) = q;
+      *reinterpret_cast<uint2*>(dst(i, (j * 32 + lane) * 8)) = q;
     }
     if (lane == 0) scale[i * scale_step] = sc;
   }
 }
 
-// The same without the LayerNorm: quantize R bf16 rows as they are.
 template <int R, int NV>
-__device__ __forceinline__ void quant_rows(const bf16* src, size_t src_step, int nvalid,
-                                           int8_t* dst, int dst_step, float* scale,
-                                           int scale_step) {
+__device__ __forceinline__ void ln_quant_rows(const bf16* src, size_t src_step, int nvalid,
+                                              const float* __restrict__ w,
+                                              const float* __restrict__ b, float eps,
+                                              int8_t* dst, int dst_step, float* scale,
+                                              int scale_step) {
+  ln_quant_rows_at<R, NV>(src, src_step, nvalid, w, b, eps,
+                          [&](int i, int col) { return dst + i * dst_step + col; }, scale,
+                          scale_step);
+}
+
+// The same without the LayerNorm: quantize R bf16 rows as they are.
+template <int R, int NV, class Dst>
+__device__ __forceinline__ void quant_rows_at(const bf16* src, size_t src_step, int nvalid,
+                                              Dst dst, float* scale, int scale_step) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -172,7 +187,7 @@ __device__ __forceinline__ void quant_rows(const bf16* src, size_t src_step, int
                       quantize(v[j][3], inv));
       q.y = pack_s8x4(quantize(v[j][4], inv), quantize(v[j][5], inv), quantize(v[j][6], inv),
                       quantize(v[j][7], inv));
-      *reinterpret_cast<uint2*>(dst + i * dst_step + (j * 32 + lane) * 8) = q;
+      *reinterpret_cast<uint2*>(dst(i, (j * 32 + lane) * 8)) = q;
     }
     if (lane == 0) scale[i * scale_step] = sc;
   }

@@ -66,6 +66,8 @@
 // = 230,528 bytes at both widths, under the H100's 232,448 per block.
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -120,26 +122,30 @@ struct Args {
   float eps;
 };
 
+// The body's shared memory.  The rings' bases are computed from the ring's
+// index, not kept in arrays indexed by it: an array indexed at run time
+// lives in local memory.
 template <int C>
 struct Smem {
-  uint8_t *a, *h, *ring[2];  // ring[0]: warpgroup 1's, ring[1]: warpgroup 0's
-  uint64_t *full[2];         // per ring, SLOTS barriers: a stage has landed
+  using F = Cfg<C>;
+  uint8_t *a, *h;
+  uint8_t* ring0;    // ring 0 (warpgroup 1's), then ring 1 (warpgroup 0's)
+  uint64_t* full0;   // per ring, SLOTS barriers: a stage has landed
   uint64_t *hfull, *hempty, *afull, *xready;
   __device__ __forceinline__ explicit Smem(uint8_t* raw) {
-    using F = Cfg<C>;
     uint8_t* base = raw + ((1024u - (hop::smem_u32(raw) & 1023u)) & 1023u);
     a = base;
     h = base + F::H_OFF;
-    ring[0] = base + F::RING_OFF;
-    ring[1] = ring[0] + F::SLOTS * F::STAGE;
-    full[0] = reinterpret_cast<uint64_t*>(base + F::BAR_OFF);
-    full[1] = full[0] + F::SLOTS;
-    hfull = full[1] + F::SLOTS;
+    ring0 = base + F::RING_OFF;
+    full0 = reinterpret_cast<uint64_t*>(base + F::BAR_OFF);
+    hfull = full0 + 2 * F::SLOTS;
     hempty = hfull + 2;
     afull = hempty + 2;
     xready = afull + 1;
   }
-  static constexpr int kBarriers = 2 * Cfg<C>::SLOTS + 6;
+  __device__ __forceinline__ uint8_t* ring(int r) const { return ring0 + r * F::SLOTS * F::STAGE; }
+  __device__ __forceinline__ uint64_t* full(int r) const { return full0 + r * F::SLOTS; }
+  static constexpr int kBarriers = 2 * F::SLOTS + 6;
 };
 
 // The byte offset, in a hidden buffer, of the 16 bytes of row r (0..63),
@@ -169,13 +175,15 @@ struct Ring {
   using F = Cfg<C>;
   static constexpr bool kHasProj = MODE == kProjMlp || MODE == kProj;
   static constexpr int NH = F::CQ / F::NB, SW1 = C / F::KW1;
-  const Smem<C>& s;
+  uint8_t* const base;  // the ring's stages and their barriers
+  uint64_t* const full;
   const Maps& m;
   const int r, q, nproj, total;
   int n = 0, filled = 0;
   bool pend = false;  // a stage before the newest still holds its slot
   __device__ __forceinline__ Ring(const Smem<C>& sm, const Maps& mp, int ring, int q_, int Hd)
-      : s(sm), m(mp), r(ring), q(q_), nproj(kHasProj ? F::KA : 0),
+      : base(sm.ring(ring)), full(sm.full(ring)), m(mp), r(ring), q(q_),
+        nproj(kHasProj ? F::KA : 0),
         total(nproj + (MODE == kProj ? 0 : Hd / kHC * (ring == 0 ? 2 * NH : SW1))) {
     while (filled < F::SLOTS && filled < total) fill();
   }
@@ -184,8 +192,8 @@ struct Ring {
   __device__ __forceinline__ void fill() {
     const int k = filled++;
     if (!leader()) return;
-    uint64_t* bar = &s.full[r][k % F::SLOTS];
-    uint8_t* dst = s.ring[r] + (k % F::SLOTS) * F::STAGE;
+    uint64_t* bar = &full[k % F::SLOTS];
+    uint8_t* dst = base + (k % F::SLOTS) * F::STAGE;
     if (k < nproj) {
       hop::mbar_arrive_expect_tx(bar, F::CQ / 2 * 128);
       hop::tma_load_2d(dst, &m.wp, 64 * k, q * F::CQ + (1 - r) * F::CQ / 2, bar);
@@ -205,7 +213,7 @@ struct Ring {
   // the next stage's byte offset in the ring, once its tiles have landed
   __device__ __forceinline__ int acquire() {
     const int st = n % F::SLOTS;
-    hop::mbar_wait(&s.full[r][st], (n / F::SLOTS) & 1);
+    hop::mbar_wait(&full[st], (n / F::SLOTS) & 1);
     hop::wgmma_fence();
     return st * F::STAGE;
   }
@@ -255,12 +263,18 @@ struct Epi {
                                        const float* gam, int M, int g_rows, int row, int col,
                                        int C) {
     has_x = xr != nullptr;
+    b = opaque(b);
+    gam = opaque(gam);
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       bias[j] = __ldg(reinterpret_cast<const float2*>(b + col + 8 * j));
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int rr = row + 8 * hh;
+        // (zero where not read: a value left unset would be taken for the
+        // previous block's and kept live across a persistent kernel's loop)
+        x[j][hh] = __floats2bfloat162_rn(0.f, 0.f);
+        g[j][hh] = make_float2(0.f, 0.f);
         if (xr != nullptr && rr < M) {
           x[j][hh] = *reinterpret_cast<const __nv_bfloat162*>(xr + (size_t)rr * C + col + 8 * j);
           g[j][hh] = __ldg(reinterpret_cast<const float2*>(gamma_row(gam, rr, g_rows, C) + col +
@@ -324,18 +338,21 @@ __device__ __forceinline__ void consume(const Maps& m, const Args& a, const Smem
   constexpr bool kHasProj = MODE == kProjMlp || MODE == kProj;
   const int nch = a.Hd / kHC;
   Ring<C, MODE> ring(s, m, out_wg ? 0 : 1, q, a.Hd);
-  const uint64_t dW = hop::sw128_desc(s.ring[out_wg ? 0 : 1]);
+  const uint64_t dW = hop::sw128_desc(s.ring(out_wg ? 0 : 1));
 
   if (kHasProj) {  // x' = bf16(res + γ1 ⊙ (ctx·Wpᵀ + bp)): a half of the CTA's
     float acc[CQ / 4];  // columns per warpgroup, from its ring, into out's rows
     hop::mbar_wait(s.afull, 0);
-    for (int kt = 0; kt < F::KA; ++kt) {
+    auto step = [&](auto first, int kt) {  // first: kt = 0, which starts the product
       const int w = ring.acquire();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        hop::wgmma_ss<CQ / 2>(acc, at(dA, kt * kAtom + kk * 32), at(dW, w + kk * 32), kt | kk);
+        hop::wgmma_ss<CQ / 2>(acc, at(dA, kt * kAtom + kk * 32), at(dW, w + kk * 32),
+                              decltype(first)::value && kk == 0);
       ring.retire();
-    }
+    };
+    step(std::true_type{}, 0);
+    for (int kt = 1; kt < F::KA; ++kt) step(std::false_type{}, kt);
     ring.drain();
     hop::fence_regs(acc);
     epilogue<CQ / 2>(acc, a.res, a.bp, a.g1, a.out, a.M, a.g_rows, row0 + r0,
@@ -369,24 +386,27 @@ __device__ __forceinline__ void consume(const Maps& m, const Args& a, const Smem
     // CTA's output warpgroup released it (hempty).
     Gelu gelu{};
     float hacc[kHq / 2];
-    const float* b1w = a.b1 + kHq * q + 2 * t;
+    const float* b1w = opaque(a.b1) + kHq * q + 2 * t;
     float2 b1n[kHq / 8];  // b1 of the next chunk, loaded a chunk ahead
 #pragma unroll
     for (int j = 0; j < kHq / 8; ++j)
       b1n[j] = __ldg(reinterpret_cast<const float2*>(b1w + 8 * j));
 #pragma unroll 1
     for (int c = 0; c < nch; ++c) {
-#pragma unroll 1
-      for (int k0 = 0; k0 < C; k0 += F::KW1) {
+      auto step = [&](auto first, int k0) {  // first: k0 = 0, which starts the product
         const int w = ring.acquire();
 #pragma unroll
         for (int i = 0; i < F::KW1 / 64; ++i)
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
             hop::wgmma_ss<kHq>(hacc, at(dA, (k0 / 64 + i) * kAtom + kk * 32),
-                               at(dW, w + i * kW1Box + kk * 32), k0 | i | kk);
+                               at(dW, w + i * kW1Box + kk * 32),
+                               decltype(first)::value && (i | kk) == 0);
         ring.retire();
-      }
+      };
+      step(std::true_type{}, 0);
+#pragma unroll 1
+      for (int k0 = F::KW1; k0 < C; k0 += F::KW1) step(std::false_type{}, k0);
       ring.drain();
       hop::fence_regs(hacc);
       // A thread holds 2 columns of each of 8 (row, 8-column) chunks; the 4
@@ -443,25 +463,32 @@ __device__ __forceinline__ void consume(const Maps& m, const Args& a, const Smem
   // warpgroup stored its columns (hfull); a buffer is released to all CTAs
   // (hempty) once the products reading it retired.
   float acc[NH][NB / 2];
+  // the products of hidden columns 64hs.. of chunk c; first: c = 0, hs = 0,
+  // which starts each product
+  auto step = [&](auto first, int c, int hs) {
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const int w = ring.acquire();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // hidden columns 64hs + 16kk: slice 2hs + kk/2
+        hop::wgmma_ss<NB>(acc[h],
+                          at(dH, (c & 1) * kHBuf + (2 * hs + (kk >> 1)) * kSlice +
+                                     (kk & 1) * 32),
+                          at(dW, w + kk * 32), decltype(first)::value && kk == 0);
+      ring.retire();
+      if (hs == 0 && h == 0 && c > 0 && lane == 0)  // chunk c - 1's products retired
+        for (int rk = 0; rk < kCluster; ++rk)
+          hop::mbar_arrive_cluster(&s.hempty[(c - 1) & 1], rk);
+    }
+  };
+  hop::mbar_wait<true>(&s.hfull[0], 0);  // chunk 0 apart: no branch around a wgmma
+  step(std::true_type{}, 0, 0);
+  step(std::false_type{}, 0, 1);
 #pragma unroll 1
-  for (int c = 0; c < nch; ++c) {
+  for (int c = 1; c < nch; ++c) {
     hop::mbar_wait<true>(&s.hfull[c & 1], (c >> 1) & 1);
 #pragma unroll 1
-    for (int hs = 0; hs < 2; ++hs)
-#pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        const int w = ring.acquire();
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)  // hidden columns 64hs + 16kk: slice 2hs + kk/2
-          hop::wgmma_ss<NB>(acc[h],
-                            at(dH, (c & 1) * kHBuf + (2 * hs + (kk >> 1)) * kSlice +
-                                       (kk & 1) * 32),
-                            at(dW, w + kk * 32), c | hs | kk);
-        ring.retire();
-        if (hs == 0 && h == 0 && c > 0 && lane == 0)  // chunk c - 1's products retired
-          for (int rk = 0; rk < kCluster; ++rk)
-            hop::mbar_arrive_cluster(&s.hempty[(c - 1) & 1], rk);
-      }
+    for (int hs = 0; hs < 2; ++hs) step(std::false_type{}, c, hs);
   }
   ring.drain();
   // fc2 bias (+ γ2 and the residual) -> out, the CTA's columns
@@ -474,18 +501,19 @@ __device__ __forceinline__ void consume(const Maps& m, const Args& a, const Smem
   }
 }
 
-// One cluster's 64-row block [row0, row0 + 64) in mode MODE, run by every
-// thread of the CTA (kThreads).  The barriers are initialised on entry and
-// invalidated on exit, so a persistent kernel (K7) may use the shared
-// memory for something else between calls.
-template <int C, int MODE, class Gelu>
-__device__ __forceinline__ void run(const Maps& m, const Args& a, uint8_t* raw, int row0) {
+// The start of one cluster's 64-row block [row0, row0 + 64) in mode MODE,
+// run by every thread of the CTA: the barriers, a cluster barrier, the A
+// rows by TMA.  Then the first kThreads threads consume the block, and
+// every thread ends it (end()).  The barriers are initialised here and
+// invalidated at the end, so a persistent kernel (K7, whose CTAs have a
+// third warpgroup, idle in the body) may use the shared memory for
+// something else between blocks.
+template <int C, int MODE>
+__device__ __forceinline__ void begin(const Maps& m, const Smem<C>& s, int row0) {
   using F = Cfg<C>;
-  const Smem<C> s(raw);
-  const int q = (int)hop::cluster_rank();
   if (threadIdx.x == 0) {
     for (int r = 0; r < 2; ++r)
-      for (int i = 0; i < F::SLOTS; ++i) hop::mbar_init(&s.full[r][i], 1);
+      for (int i = 0; i < F::SLOTS; ++i) hop::mbar_init(&s.full(r)[i], 1);
     for (int i = 0; i < 2; ++i) {
       hop::mbar_init(&s.hfull[i], 1);  // this CTA's arrival, with the others' bytes
       hop::mbar_init(&s.hempty[i], kCluster * kWarps / 2);
@@ -500,11 +528,23 @@ __device__ __forceinline__ void run(const Maps& m, const Args& a, uint8_t* raw, 
     hop::mbar_arrive_expect_tx(s.afull, F::KA * kAtom);
     for (int i = 0; i < F::KA; ++i) hop::tma_load_2d(s.a + i * kAtom, &m.a, 64 * i, row0, s.afull);
   }
-  consume<C, MODE, Gelu>(m, a, s, row0, q);
+}
+
+template <int C>
+__device__ __forceinline__ void end(const Smem<C>& s) {
   hop::cluster_sync();  // no CTA leaves while another may still write into it
   if (threadIdx.x == 0) {
-    for (int i = 0; i < Smem<C>::kBarriers; ++i) hop::mbar_inval(&s.full[0][i]);
+    for (int i = 0; i < Smem<C>::kBarriers; ++i) hop::mbar_inval(&s.full0[i]);
   }
+}
+
+// One cluster's 64-row block, run by every thread of a CTA of kThreads.
+template <int C, int MODE, class Gelu>
+__device__ __forceinline__ void run(const Maps& m, const Args& a, uint8_t* raw, int row0) {
+  const Smem<C> s(raw);
+  begin<C, MODE>(m, s, row0);
+  consume<C, MODE, Gelu>(m, a, s, row0, (int)hop::cluster_rank());
+  end<C>(s);
 }
 
 // ---------------------------------------------------------------------------

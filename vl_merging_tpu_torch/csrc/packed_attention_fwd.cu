@@ -63,439 +63,22 @@
 //
 // Shared memory: the Q tile (16 KB) and STAGES x (8 KB K + 8 KB V + 36 KB
 // bias) = 208 KB, barriers, 1 KB alignment slack: 225 KB.
-#include <type_traits>
-
-#include "common.cuh"
-#include "hopper.cuh"
+#include "packed_attention_fwd.cuh"
 
 using namespace vlm;
+using namespace vlm::k2;
 
 namespace {
-
-constexpr int D = 64, BQ = 128, BKV = 64, STAGES = 4;
-constexpr int CONSUMERS = 256, PRODUCERS = 128, THREADS = CONSUMERS + PRODUCERS;
-constexpr int CONSUMER_WARPS = CONSUMERS / 32;
-constexpr int Q_BYTES = BQ * D * 2;
-constexpr int KV_BYTES = BKV * D * 2;
-// The f32 bias tile of a stage: for each of 128 query rows, the 16-byte
-// chunks of the bias row that hold its 64 keys (17 at a row offset of 1 to
-// 3 floats), rows BIAS_LD floats apart; a row's key k0 + c sits at float
-// off + c, off = the row's key k0 modulo 4 floats.
-constexpr int BIAS_CHUNKS = BKV / 4 + 1, BIAS_LD = 72;
-constexpr int CHUNKS_PER_THREAD = (BQ * BIAS_CHUNKS + PRODUCERS - 1) / PRODUCERS;
-constexpr int BIAS_BYTES = BQ * BIAS_LD * 4;
-constexpr int STAGE = 2 * KV_BYTES + BIAS_BYTES;
-constexpr int RING = Q_BYTES, BAR = RING + STAGES * STAGE;
-constexpr int SMEM = 1024 + BAR + (2 * STAGES + 2) * 8;
-static_assert(SMEM <= 232448, "over the H100's shared memory per block");
-
-struct Maps {
-  CUtensorMap q, kv;  // qkv (B, N, 3C) in 64 x 128 and 64 x 64 boxes
-};
-
-struct Args {
-  const float* bias;
-  const int* mask;
-  bf16* out;
-  float* stats;
-  int B, N, H, nqt, items;
-  float scale;
-};
-
-// An arrival on `bar` once this thread's earlier cp.async copies have
-// landed (counted in the barrier's arrivals).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(hop::smem_u32(bar))
-               : "memory");
-}
-
-// 2^x on the SFU (ex2.approx, relative error ~2^-22; 0 for -inf).  The
-// softmax takes exp(s - u) as 2^(s·log2 e - u·log2 e), one FFMA and one
-// MUFU op a logit.
-constexpr float kLog2e = 1.4426950408889634f;
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The consumer state of one warp: its 16 query rows' output, running max
-// and sum (rows g and g + 8 of the warp's 16, the m64nN accumulator
-// layout: o[4n + e] is column 8n + 2t + (e & 1) of row g + 8(e >> 1)).
-struct Rows {
-  float o[32];
-  float m0, m1, l0, l1;
-};
-
-// The two consumer warpgroups take turns at issuing their products (named
-// barriers 1 and 2, FlashAttention-3's ping-pong), so that one's softmax
-// runs while the other's products do, not both at once.  Warpgroup 1
-// grants warpgroup 0 the first turn; warpgroup 0 takes the last grant after
-// its last turn.
-__device__ __forceinline__ void tensor_turn_begin() {
-  hop::named_sync(1 + (threadIdx.x >> 7), 256);
-}
-__device__ __forceinline__ void tensor_turn_end() {
-  hop::named_arrive(2 - (threadIdx.x >> 7), 256);
-}
-
-// The phases of one key tile of W keys (16, 32 or 64) for the warp's rows.
-// The logits start as the bias tile's values (in shared memory) or -inf for
-// a key that is masked or past N (bits lo: even keys 2i, hi: odd keys
-// 2i + 1).
-// b0, b1: the bias tile's rows of this thread's two query rows, at their
-// offsets, plus 2t.
-template <int W>
-__device__ __forceinline__ void init_logits(float (&s)[32], const float* b0, const float* b1,
-                                            uint32_t lo, uint32_t hi) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < W / 8; ++j) {
-    const bool v0 = (lo >> (4 * j + t)) & 1, v1 = (hi >> (4 * j + t)) & 1;
-    s[4 * j] = v0 ? b0[8 * j] : -INFINITY;
-    s[4 * j + 1] = v1 ? b0[8 * j + 1] : -INFINITY;
-    s[4 * j + 2] = v0 ? b1[8 * j] : -INFINITY;
-    s[4 * j + 3] = v1 ? b1[8 * j + 1] : -INFINITY;
-  }
-}
-
-// s += q·kᵀ (wgmma, A from registers, K a K-major 64 x 64 tile), issued.
-template <int W>
-__device__ __forceinline__ void issue_qk(float (&s)[32], const uint32_t (&qa)[4][4],
-                                         const uint8_t* kt) {
-  float(&d)[W / 2] = reinterpret_cast<float(&)[W / 2]>(s);
-  const uint64_t dk = hop::sw128_desc(kt);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (W == 16)
-      hop::wgmma_m64n16_rs(d, qa[kk], hop::desc_add(dk, kk * 32));
-    else if constexpr (W == 32)
-      hop::wgmma_m64n32_rs(d, qa[kk], hop::desc_add(dk, kk * 32));
-    else
-      hop::wgmma_m64n64_rs(d, qa[kk], hop::desc_add(dk, kk * 32));
-  }
-}
-
-// o += bf16(p)·v (wgmma, P from registers, V an MN-major tile), issued.
-template <int W>
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[4][4],
-                                         const uint8_t* vt) {
-  const uint64_t dv = hop::sw128_desc(vt);
-#pragma unroll
-  for (int kc = 0; kc < W / 16; ++kc)
-    hop::wgmma_m64n64_rs_tb(o, pa[kc], hop::desc_add(dv, kc * 16 * 128));
-}
-
-// The online softmax of a tile's landed logits: the new running max and
-// sum, p = exp(s - max) in s, and the factors a0, a1 by which the output
-// accumulated so far is to be rescaled.  A row's keys are spread over the
-// 4 threads of a group.
-template <int W>
-__device__ __forceinline__ void softmax(float (&s)[32], Rows& r, float& a0, float& a1) {
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < W / 8; ++j) {
-    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
-    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
-  }
-#pragma unroll
-  for (int sh = 1; sh <= 2; sh <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
-  }
-  const float mn0 = fmaxf(r.m0, mx0), mn1 = fmaxf(r.m1, mx1);
-  // u·log2 e, u the running max (0 while a row has no valid key)
-  const float ul0 = (mn0 == -INFINITY ? 0.f : mn0) * kLog2e;
-  const float ul1 = (mn1 == -INFINITY ? 0.f : mn1) * kLog2e;
-  a0 = ex2(r.m0 * kLog2e - ul0);
-  a1 = ex2(r.m1 * kLog2e - ul1);
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < W / 8; ++j) {
-    s[4 * j] = ex2(fmaf(s[4 * j], kLog2e, -ul0));
-    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], kLog2e, -ul0));
-    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], kLog2e, -ul1));
-    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], kLog2e, -ul1));
-    sum0 += s[4 * j] + s[4 * j + 1];
-    sum1 += s[4 * j + 2] + s[4 * j + 3];
-  }
-#pragma unroll
-  for (int sh = 1; sh <= 2; sh <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, sh);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, sh);
-  }
-  r.l0 = r.l0 * a0 + sum0;
-  r.l1 = r.l1 * a1 + sum1;
-  r.m0 = mn0;
-  r.m1 = mn1;
-}
-
-// p as bf16 P·V A fragments: the accumulator layout of s is the A layout.
-template <int W>
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4], const float (&s)[32]) {
-#pragma unroll
-  for (int kc = 0; kc < W / 16; ++kc) {
-    pa[kc][0] = pack_bf16(s[8 * kc], s[8 * kc + 1]);
-    pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
-    pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
-    pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
-  }
-}
-
-// One key tile: its logits and q·kᵀ, issued ahead of the previous tile's
-// P·V (when there is one, a whole 64-key tile: only the last tile is
-// narrower), so that this tile's softmax runs while that P·V does; then,
-// once the P·V is done, the rescale of the output and this tile's P.
-// `retire` releases the previous tile's stage.
-template <int W, bool kPrev, class Retire>
-__device__ __forceinline__ void key_tile(Rows& r, uint32_t (&pa)[4][4], const uint32_t (&qa)[4][4],
-                                         const uint8_t* st, const uint8_t* v_prev, uint32_t lo,
-                                         uint32_t hi, int b0, int b1, Retire retire) {
-  float s[32];
-  const float* bt = reinterpret_cast<const float*>(st + 2 * KV_BYTES);
-  init_logits<W>(s, bt + b0, bt + b1, lo, hi);
-  hop::fence_regs(s);
-  tensor_turn_begin();
-  hop::wgmma_fence();
-  issue_qk<W>(s, qa, st);
-  hop::wgmma_commit();
-  if constexpr (kPrev) {
-    issue_pv<64>(r.o, pa, v_prev);
-    hop::wgmma_commit();
-  }
-  tensor_turn_end();
-  if constexpr (kPrev)
-    hop::wgmma_wait<1>();  // q·kᵀ done; the P·V may still run
-  else
-    hop::wgmma_wait<0>();
-  hop::fence_regs(s);
-  float a0, a1;
-  softmax<W>(s, r, a0, a1);
-  hop::wgmma_wait<0>();
-  hop::fence_regs(r.o);
-  retire();
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    r.o[4 * n] *= a0;
-    r.o[4 * n + 1] *= a0;
-    r.o[4 * n + 2] *= a1;
-    r.o[4 * n + 3] *= a1;
-  }
-  pack_p<W>(pa, s);
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
     packed_attention_fwd_kernel(const __grid_constant__ Maps maps, const Args a) {
   extern __shared__ __align__(1024) unsigned char raw[];
-  uint8_t* base = raw + ((1024u - (hop::smem_u32(raw) & 1023u)) & 1023u);
-  uint8_t* qs = base;
-  uint8_t* ring = base + RING;
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + BAR);
-  uint64_t* empty = full + STAGES;
-  uint64_t* q_full = empty + STAGES;
-  uint64_t* q_empty = q_full + 1;
-
-  const int N = a.N, C = a.H * D, nkt = (N + BKV - 1) / BKV;
-  // the width of the last key tile's products: its keys rounded up to 16, 32 or 64
-  const int w_last = N - (nkt - 1) * BKV > 32 ? 64 : N - (nkt - 1) * BKV > 16 ? 32 : 16;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      hop::mbar_init(&full[s], 1 + PRODUCERS);  // the K/V loads' arrival, the bias copiers'
-      hop::mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    hop::mbar_init(q_full, 1);
-    hop::mbar_init(q_empty, CONSUMER_WARPS);
-    hop::fence_mbar_init();
-  }
-  __syncthreads();
-
+  setup(raw);
   if (threadIdx.x >= CONSUMERS) {
-    // ---- producer, warpgroup 2: its first thread loads the Q tile and the
-    // K/V tiles by TMA; its 128 threads copy the bias tile by 16-byte
-    // cp.async (the rows of the (H, N, N) bias start at any 4-byte offset,
-    // so a tensor map cannot take them), each then arriving on the stage's
-    // barrier once its copies have landed.  Chunks past a row's last key,
-    // and the rows past N, are not copied: no consumer reads them into a
-    // stored row or a valid key.  A row's last chunk may reach 12 bytes past
-    // its last key, inside the 16-byte granule that holds that key.
-    const int pt = threadIdx.x - CONSUMERS;
-    int it = 0;
-    for (int i = 0, item = blockIdx.x; item < a.items; ++i, item += gridDim.x) {
-      const int b = item % a.B, qt = item / a.B % a.nqt, h = item / a.B / a.nqt;
-      const int rows = min(BQ, N - qt * BQ);
-      if (pt == 0) {
-        if (i > 0) hop::mbar_wait(q_empty, (i - 1) & 1);
-        hop::mbar_arrive_expect_tx(q_full, Q_BYTES);
-        hop::tma_load_3d(qs, &maps.q, h * D, qt * BQ, b, q_full);
-      }
-      // this thread's chunks of every bias tile of the item: chunk idx =
-      // pt + 128m is chunk idx % 17 of row idx / 17; key 0 of that row is
-      // float f[m] of the bias (rows past N: none)
-      size_t f[CHUNKS_PER_THREAD];
-      int dst[CHUNKS_PER_THREAD];
-#pragma unroll
-      for (int m = 0; m < CHUNKS_PER_THREAD; ++m) {
-        const int idx = pt + PRODUCERS * m, r = idx / BIAS_CHUNKS, c = idx % BIAS_CHUNKS;
-        f[m] = r < rows ? ((size_t)h * N + qt * BQ + r) * N : ~(size_t)0;
-        dst[m] = r * BIAS_LD + 4 * c;
-      }
-      for (int j = 0; j < nkt; ++j, ++it) {
-        const int s = it % STAGES, k0 = j * BKV;
-        if (it >= STAGES) hop::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-        uint8_t* st = ring + s * STAGE;
-        if (pt == 0) {
-          hop::mbar_arrive_expect_tx(&full[s], 2 * KV_BYTES);
-          hop::tma_load_3d(st, &maps.kv, C + h * D, k0, b, &full[s]);
-          hop::tma_load_3d(st + KV_BYTES, &maps.kv, 2 * C + h * D, k0, b, &full[s]);
-        }
-        float* bt = reinterpret_cast<float*>(st + 2 * KV_BYTES);
-#pragma unroll
-        for (int m = 0; m < CHUNKS_PER_THREAD; ++m) {
-          // the chunk's first float: chunk dst[m] % 72 / 4 of the aligned span
-          const size_t at = ((f[m] + k0) & ~(size_t)3) + (dst[m] % BIAS_LD);
-          if (f[m] != ~(size_t)0 && at < f[m] + N) cp_async16(bt + dst[m], a.bias + at);
-        }
-        cp_async_arrive(&full[s]);
-      }
-    }
+    produce(maps, a, raw);
     return;
   }
-
-  // ---- consumers: warpgroup wg owns query rows 64wg.. of the item's 128
-  const int wg = threadIdx.x >> 7, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = 64 * wg + 16 * (warp & 3);  // the warp's first row in the item
-  const float qscale = __bfloat162float(__float2bfloat16(a.scale));
-  if (wg == 1) hop::named_arrive(1, 256);  // warpgroup 0 takes the first turn
-  int it = 0;
-  for (int i = 0, item = blockIdx.x; item < a.items; ++i, item += gridDim.x) {
-    const int b = item % a.B, qt = item / a.B % a.nqt, h = item / a.B / a.nqt;
-    const int q0 = qt * BQ;
-
-    // the warp's 16 query rows, scaled in bf16, as A fragments for every key tile
-    uint32_t qa[4][4];
-    hop::mbar_wait(q_full, i & 1);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = wr + g + 8 * (e & 1), col = 16 * kk + 2 * t + 8 * (e >> 1);
-        const uint32_t v = *reinterpret_cast<const uint32_t*>(
-            qs + row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2);
-        const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&v);
-        qa[kk][e] = pack_bf16(__low2float(h2) * qscale, __high2float(h2) * qscale);
-      }
-    __syncwarp();
-    if (lane == 0) hop::mbar_arrive(q_empty);
-
-    Rows r;
-#pragma unroll
-    for (int n = 0; n < 32; ++n) r.o[n] = 0.f;
-    r.m0 = r.m1 = -INFINITY;
-    r.l0 = r.l1 = 0.f;
-    uint32_t pa[4][4];
-    int prev = 0;  // the stage of the previous key tile, released once its P·V is done
-    const int* mask_b = a.mask + (size_t)b * N;
-    // where this thread's two rows' keys k0 + 2t sit in a bias tile: row
-    // offset plus the row's key 0 modulo 4 floats (k0 is a multiple of 64)
-    auto bias_at = [&](int row) {
-      return row * BIAS_LD + (int)((((size_t)h * N + q0 + row) * N) & 3) + 2 * t;
-    };
-    const int boff0 = bias_at(wr + g), boff1 = bias_at(wr + g + 8);
-    // the mask of keys k0 + 2·lane and + 1 of tile j, loaded a tile ahead
-    auto mask_at = [&](int j, int e) {
-      const int k = j * BKV + 2 * lane + e;
-      return k < N ? mask_b[k] : 0;
-    };
-    int m0 = mask_at(0, 0), m1 = mask_at(0, 1);
-    // tile j: its key validity bits, its landed stage, then key_tile<W, j > 0>
-    auto tile = [&](auto width, auto after_first, int j) {
-      const int s = it % STAGES;
-      const uint32_t lo = __ballot_sync(0xffffffffu, m0 != 0), hi = __ballot_sync(0xffffffffu, m1 != 0);
-      m0 = mask_at(j + 1, 0);
-      m1 = mask_at(j + 1, 1);
-      hop::mbar_wait(&full[s], (it / STAGES) & 1);
-      const uint8_t* st = ring + s * STAGE;
-      const uint8_t* v_prev = ring + prev * STAGE + KV_BYTES;  // j > 0
-      auto retire = [&] {
-        if (decltype(after_first)::value && lane == 0) hop::mbar_arrive(&empty[prev]);
-        prev = s;
-      };
-      key_tile<decltype(width)::value, decltype(after_first)::value>(r, pa, qa, st, v_prev, lo, hi,
-                                                                     boff0, boff1, retire);
-      ++it;
-    };
-    // The tiles before the last are 64 keys wide; the last one's products
-    // take its keys rounded up to 16, 32 or 64.  The branch on that width
-    // stays outside the loop: one inside it makes ptxas serialize every
-    // wgmma of the kernel.
-    using W64 = std::integral_constant<int, 64>;
-    using First = std::false_type;
-    using Later = std::true_type;
-#pragma unroll 1
-    for (int j = 0; j + 1 < nkt; ++j) {
-      if (j == 0)
-        tile(W64{}, First{}, j);
-      else
-        tile(W64{}, Later{}, j);
-    }
-    if (nkt == 1) {
-      if (w_last == 64)
-        tile(W64{}, First{}, 0);
-      else if (w_last == 32)
-        tile(std::integral_constant<int, 32>{}, First{}, 0);
-      else
-        tile(std::integral_constant<int, 16>{}, First{}, 0);
-    } else {
-      if (w_last == 64)
-        tile(W64{}, Later{}, nkt - 1);
-      else if (w_last == 32)
-        tile(std::integral_constant<int, 32>{}, Later{}, nkt - 1);
-      else
-        tile(std::integral_constant<int, 16>{}, Later{}, nkt - 1);
-    }
-    // the last tile's P·V
-    const uint8_t* v_last = ring + prev * STAGE + KV_BYTES;
-    tensor_turn_begin();
-    hop::wgmma_fence();
-    if (w_last == 64)
-      issue_pv<64>(r.o, pa, v_last);
-    else if (w_last == 32)
-      issue_pv<32>(r.o, pa, v_last);
-    else
-      issue_pv<16>(r.o, pa, v_last);
-    hop::wgmma_commit();
-    tensor_turn_end();
-    hop::wgmma_wait<0>();
-    hop::fence_regs(r.o);
-    if (lane == 0) hop::mbar_arrive(&empty[prev]);
-
-    // the context o / l in bf16 (rows past N are not stored), and the
-    // training launch's statistics
-    const int row0 = q0 + wr + g, row1 = row0 + 8;
-    bf16* ob = a.out + (size_t)b * N * C + h * D + 2 * t;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      if (row0 < N)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * C + n * 8) =
-            __floats2bfloat162_rn(r.o[4 * n] / r.l0, r.o[4 * n + 1] / r.l0);
-      if (row1 < N)
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * C + n * 8) =
-            __floats2bfloat162_rn(r.o[4 * n + 2] / r.l1, r.o[4 * n + 3] / r.l1);
-    }
-    if (a.stats != nullptr && t == 0) {
-      const size_t srow = ((size_t)b * a.H + h) * N, plane = (size_t)a.B * a.H * N;
-      if (row0 < N) {
-        a.stats[srow + row0] = r.m0;
-        a.stats[plane + srow + row0] = r.l0;
-      }
-      if (row1 < N) {
-        a.stats[srow + row1] = r.m1;
-        a.stats[plane + srow + row1] = r.l1;
-      }
-    }
-  }
-  if (wg == 0) hop::named_sync(1, 256);  // the grant after warpgroup 1's last turn
+  consume(a, raw);
 }
 
 // CTAs of the persistent grid: one per SM, as many as fit.

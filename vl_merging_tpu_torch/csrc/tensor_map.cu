@@ -1,4 +1,4 @@
-// Host side of hopper.cuh: TMA tensor maps (2-D and 3-D bf16).
+// Host side of hopper.cuh: TMA tensor maps (2-D and 3-D bf16, 2-D int8).
 // cuTensorMapEncodeTiled is a driver function; it is looked up in the
 // driver library the CUDA runtime already loaded, so the kernels' library
 // links against nothing new.
@@ -23,20 +23,33 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, size_t elem_bytes,
+                 const void* base, uint64_t rows, uint64_t cols, uint32_t box_rows,
+                 uint32_t box_cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
 }  // namespace
 
 bool make_tensor_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
                      uint32_t box_rows, uint32_t box_cols) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return make_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, sizeof(__nv_bfloat16), base, rows,
+                     cols, box_rows, box_cols);
+}
+
+bool make_tensor_map_i8(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                        uint32_t box_rows, uint32_t box_cols) {
+  return make_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, rows, cols, box_rows,
+                     box_cols);
 }
 
 bool make_tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t (&dims)[3],

@@ -65,8 +65,8 @@ _HIDDEN_CHUNK = 128           # the MLP body walks the hidden in chunks
 _QKV_TILE = {768: 256, 1024: 256}
 # The model widths each width-specific kernel is built for (the CUDA
 # entries' ``switch (C)``): K1, K3, K4, K5, K6 and K13 at the ViT-B and
-# ViT-L widths; K7, K8 (their attention phase keeps a head's k and v for
-# N <= 640 in shared memory sized for 768) and the int8 K14/K15 at 768.
+# ViT-L widths; K7, K8 (which keeps a head's k and v for N <= 640 in
+# shared memory sized for 768) and the int8 K14/K15 at 768.
 # The attention kernels (K2, K9, K10, K11, K12) take any head count at
 # head_dim 64 and are gated by ``models/mome._attention_kernel_ok``.
 KERNEL_WIDTHS = {
@@ -79,10 +79,11 @@ KERNEL_WIDTHS = {
 # the kernels that run an MLP, whose gate also reads the MLP hidden
 _MLP_KERNELS = frozenset({"proj_mlp_tail", "mlp_tail", "block_eval",
                           "tail_train", "mlp", "proj_mlp_tail_i8"})
-_MAX_KEYS = 640               # K7 and K8 keep a head's k and v for N <= 640
-# K7's context scratch: bb batch elements at a time, bb·N·C bf16 within
-# this many bytes (the H100's L2 holds 50 MB)
+_MAX_KEYS = 640               # K8 keeps a head's k and v for N <= 640 (K7 streams them)
+# K7's scratches: bb batch elements at a time, their packed qkv and context
+# (bb·N·3C + bb·N·C bf16) within this many bytes (the H100's L2 holds 50 MB)
 _SCRATCH_BYTES = 32 << 20
+_BODY_ROWS = 64               # the rows of a block of the MLP body (K7's phase C)
 FUSIONS = ("pair", "tail", "qkv", "mega")
 # training-fusion levels: "0" off, "tail" the post-attention half through
 # K6, "full" also LN1 + qkv through K1
@@ -321,9 +322,10 @@ def _block_attention_inputs(name, x, ln_w, ln_b, w_qkv, qkv_bias, bias, mask,
     kernels do not take."""
     B, N, C = x.shape
     require_kernel(name, C)
-    if C != num_heads * HEAD_DIM or N > _MAX_KEYS:
+    max_keys = _MAX_KEYS if name == "ln_qkv_attention" else N
+    if C != num_heads * HEAD_DIM or N > max_keys:
         raise ValueError(f"{name} kernel takes head_dim {HEAD_DIM} and "
-                         f"N <= {_MAX_KEYS}; got C={C}, heads={num_heads}, "
+                         f"N <= {max_keys}; got C={C}, heads={num_heads}, "
                          f"N={N}")
     w_qkv = w_qkv.to(x.dtype)
     ln_w, ln_b, qkv_bias, bias = (t.float() for t in (ln_w, ln_b, qkv_bias,
@@ -376,18 +378,38 @@ def block_eval_reference(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask, scale,
                                    b1, w2, b2, gamma2)
 
 
+def block_eval_chunk(B: int, N: int, C: int, clusters: int) -> int:
+    """K7's chunk: the bb batch elements whose packed qkv and context
+    (bb·N·3C + bb·N·C bf16) fit ``_SCRATCH_BYTES``, taking the fewest
+    rounds of 64-row body blocks (its longest phase) over ``clusters``
+    resident clusters, summed over the chunks; the largest such bb on a
+    tie.  A pure function of shapes."""
+    most = max(1, min(B, _SCRATCH_BYTES // (4 * N * C * 2)))
+
+    def rounds(nb: int) -> int:
+        blocks = -(-nb * N // _BODY_ROWS)
+        return -(-blocks // max(1, clusters))
+
+    def total(bb: int) -> int:
+        full, rest = divmod(B, bb)
+        return full * rounds(bb) + (rounds(rest) if rest else 0)
+
+    return min(range(1, most + 1), key=lambda bb: (total(bb), -bb))
+
+
 def block_eval(x: torch.Tensor, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
                scale, num_heads, wp, bp, gamma1, ln2_w, ln2_b, w1, b1, w2,
                b2, gamma2, *, trace: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
-    """One whole eval block in one launch (K7): K8's LN1 + qkv + attention
-    per (element, head), a grid-wide barrier, then K3's post-attention
-    half per 64-row block, over chunks of the batch whose context fits a
-    scratch of ``_SCRATCH_BYTES``.  ``trace`` (a profiler's): a zeroed
-    int64 (``block_eval_grid()``, 8) tensor on the device that receives
-    each CTA's phase trace (``csrc/block_eval.cu``: ns in phase 1, at
-    the first barrier, in phase 2, at the second; items, blocks; first
-    and last stamp)."""
+    """One whole eval block in one launch (K7), per chunk of
+    ``block_eval_chunk`` batch elements: K1's LN1 + qkv tiles into a
+    scratch, a grid-wide barrier, K2's attention items into a second
+    scratch, a barrier, the MLP body's post-attention half per 64-row
+    block (K3's), a barrier.  ``trace`` (a profiler's): a zeroed int64
+    (``block_eval_grid()``, 12) tensor on the device that receives each
+    CTA's phase trace (``csrc/block_eval.cu``: ns in phases A, B and C
+    and at the barrier after each; K1 tiles of its pair, K2 items, body
+    blocks; first and last stamp; chunks)."""
     if not x.is_cuda:
         return block_eval_reference(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias,
                                     mask, scale, num_heads, wp, bp, gamma1,
@@ -409,8 +431,8 @@ def block_eval(x: torch.Tensor, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
         _build.expect(t, name, torch.float32, (H if name == "b1" else C,),
                       dev)
     bp, gamma1, ln2_w, ln2_b, b1, b2, gamma2 = vecs
-    bb = max(1, min(B, _SCRATCH_BYTES // (N * C * x.element_size())))
-    scratch = torch.empty((bb, N, C), dtype=x.dtype, device=dev)
+    bb = block_eval_chunk(B, N, C, block_eval_grid() // 4)
+    scratch = torch.empty((bb, N, 4 * C), dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
     lib = _build.library()
     _build.check(lib.vlm_block_eval(
