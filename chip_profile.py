@@ -28,8 +28,8 @@ For each window it prints the host wall time, the device busy time (the
 union of the device kernels' intervals), the idle share (1 − busy / wall)
 and the kernels with the most device time.
 
-``python3 chip_profile.py --variants`` runs only this: K1, K2, K7 and K15
-beside design variants that their sources rejected, each built from a
+``python3 chip_profile.py --variants`` runs only this: K1, K2, K7, K8, K14
+and K15 beside design variants that their sources rejected, each built from a
 patched copy of ``vl_merging_tpu_torch/csrc`` into ``build/variants/``
 (one nvcc per variant, all at once; its ptxas spill bytes printed) and
 timed in turns with the built kernel through the same wrapper, at
@@ -41,8 +41,18 @@ without the ping-pong of its two consumer warpgroups, K2 with a whole
 ``setmaxnreg`` budget per phase, or one budget of 168 registers; their
 phase split too), K15 with its pass 1 on the hidden
 warpgroup alone or with every fourth chunk on the output warpgroup, K15
-with weight rings of two stages each.  ``--variants K7`` (any of K1, K2,
-K7, K15) runs those kernels' variants alone.
+with weight rings of two stages each, K2 with K8's element-major item
+order, K14 normalising eight rows a warp at a time; four diagnostics that
+change the output, timed to show what a part costs: K1 without its stores,
+K8 with its K2 role not waiting for its elements, K14 without its LN pass,
+K14 without its epilogue.  And, through the wrappers' own
+arguments (no rebuild): K8's two roles from its trace (``ln_qkv_attention
+(..., trace=...)``: when each role's CTAs end and how long the K2 role
+waits) at three splits and two units, beside K1 and K2 alone; K8 with its
+K1 role on 8 CTAs fewer or more than ``ln_qkv_attention_split`` gives it,
+or dealing units of 3 column tiles (q, k, v) or whole row pairs (9)
+instead of single tiles; K14 in units of 3 column tiles.  ``--variants
+K7`` (any of K1, K2, K7, K8, K14, K15) runs those kernels' variants alone.
 
 First, K7's phase split (``python3 chip_profile.py --k7`` runs it alone):
 one traced launch of K7 (``block_eval(..., trace=...)``) at
@@ -176,6 +186,46 @@ def k7_phases(dev, card: str) -> None:
           f"{k7_ms / (k1_ms + k2_ms + k3_ms):.3f} [{card}]")
 
 
+def k8_roles(dev, card: str) -> None:
+    """K8's two roles at the main-path shapes (B=32, N=577), for its split
+    and order and a few others: K8's time, and from a traced launch the
+    span of its K1 role (the launch's first time stamp to each K1 CTA's
+    last), the span of its K2 role and the time its K2 CTAs spent waiting
+    for elements, mean and max per CTA; beside K1 and K2 alone."""
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    inputs = smoke.kernel_inputs(dev, gen)
+    inputs.update(smoke.fusion_inputs(inputs))
+    args = inputs["ln_qkv_attention"]
+    B, N, C = args[0].shape
+    grid = fb_ops.ln_qkv_attention_grid(C)
+    ga = fb_ops.ln_qkv_attention_split(grid, B, N, C, args[8])
+    qkv = fb_ops.ln_linear(*args[:5])
+    k1_ms = smoke.time_ms(lambda: fb_ops.ln_linear(*args[:5]))
+    k2_ms = smoke.time_ms(lambda: attn_ops.packed_attention(qkv, *args[5:]))
+    print(f"== K8 roles (B={B}, N={N}, C={C}): grid {grid} CTAs; K1 alone "
+          f"{k1_ms:.4f} ms, K2 alone {k2_ms:.4f} ms, sum {k1_ms + k2_ms:.4f} "
+          f"[{card}]")
+    for split in sorted({ga - 4, ga, ga + 4}):
+        for unit in (1, 3):
+            def call(**kw):
+                return fb_ops.ln_qkv_attention(*args, split=split, unit=unit,
+                                               **kw)
+            ms = smoke.time_ms(call)
+            trace = torch.zeros(grid, 4, dtype=torch.int64, device=dev)
+            call(trace=trace)
+            t = trace.double().cpu().numpy()
+            t0 = t[:, 0].min()
+            k1, k2 = t[:split], t[split:]
+            print(f"   K1 role on {split} CTAs, units of {unit}: K8 {ms:.4f} "
+                  f"ms; K1 role ends at {(k1[:, 1] - t0).mean() / 1e6:.4f} / "
+                  f"{(k1[:, 1] - t0).max() / 1e6:.4f} ms (mean / max), "
+                  f"{k1[:, 3].min():.0f}-{k1[:, 3].max():.0f} tiles a CTA; K2 "
+                  f"role ends at {(k2[:, 1] - t0).mean() / 1e6:.4f} / "
+                  f"{(k2[:, 1] - t0).max() / 1e6:.4f} ms, waits "
+                  f"{k2[:, 2].mean() / 1e6:.4f} / {k2[:, 2].max() / 1e6:.4f} "
+                  f"ms, {k2[:, 3].min():.0f}-{k2[:, 3].max():.0f} items a CTA")
+
+
 # name: (kernel, [(file, text, replacement)]): the design variants each
 # kernel's source rejected, each a patch of csrc/
 VARIANTS = {
@@ -214,11 +264,33 @@ VARIANTS = {
     "K15 with weight rings of two stages each": (
         "K15", [("proj_mlp_tail_i8.cu", "SLOTS0 = 3, SLOTS1 = 3;",
                  "SLOTS0 = 2, SLOTS1 = 2;")]),
+    "K2 with element-major items (K8's order, nothing to wait for)": (
+        "K2", [("packed_attention_fwd.cuh", """    b = item % a.B;
+    qt = item / a.B % a.nqt;
+    h = item / a.B / a.nqt;""", """    b = item / (a.H * a.nqt);
+    qt = item % a.nqt;
+    h = item / a.nqt % a.H;""")]),
+    "K8 with its K2 role not waiting (a diagnostic: wrong output)": (
+        "K8", [("packed_attention_fwd.cuh", "    hop::wait_at_least(done + b, groups * ncb);",
+                "    (void)groups;")]),
+    "K1 without its stores (a diagnostic: no output)": (
+        "K1", [("ln_linear.cuh", "      if (rr < a.M)\n        *reinterpret_cast<uint4*>(a.y",
+                "      if (rr < 0)\n        *reinterpret_cast<uint4*>(a.y")]),
+    "K14 without its LN pass (a diagnostic: wrong output)": (
+        "K14", [("ln_linear_i8.cu", "for (int i = 0; i < 16; i += LN_ROWS) {",
+                 "for (int i = 0; i < 0; i += LN_ROWS) {")]),
+    "K14 normalising eight rows a warp at a time": (
+        "K14", [("ln_linear_i8.cu", "constexpr int LN_ROWS = 4;", "constexpr int LN_ROWS = 8;")]),
+    "K14 without its epilogue (a diagnostic: no output)": (
+        "K14", [("ln_linear_i8.cu", "for (int hf = 0; hf < 2; ++hf) {",
+                 "for (int hf = 0; hf < 0; ++hf) {")]),
 }
 # the sources a kernel's variant library is built from (with tensor_map.cu;
 # ln_linear.cu also exports vlm_error_string)
 SOURCES = {"K1": ("ln_linear.cu",), "K2": ("packed_attention_fwd.cu", "ln_linear.cu"),
            "K7": ("block_eval.cu", "ln_linear.cu"),
+           "K8": ("ln_qkv_attention.cu", "ln_linear.cu"),
+           "K14": ("ln_linear_i8.cu", "ln_linear.cu"),
            "K15": ("proj_mlp_tail_i8.cu", "ln_linear.cu")}
 
 
@@ -268,15 +340,25 @@ def build_variants(kernels) -> dict:
     return libs
 
 
+# the grids the wrappers query once per process: each library's own
+GRIDS = (fb_ops.block_eval_grid, fb_ops.ln_qkv_attention_grid,
+         i8_ops.ln_linear_i8_grid)
+
+
 @contextlib.contextmanager
 def using(lib):
-    """The wrappers launch from ``lib`` (a variant's library) meanwhile."""
+    """The wrappers launch from ``lib`` (a variant's library) meanwhile,
+    with its own grids."""
     built = _build.library()
     _build._lib = lib
+    for grid in GRIDS:
+        grid.cache_clear()
     try:
         yield
     finally:
         _build._lib = built
+        for grid in GRIDS:
+            grid.cache_clear()
 
 
 def variants(dev, card: str, kernels) -> None:
@@ -286,7 +368,7 @@ def variants(dev, card: str, kernels) -> None:
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
     inputs = smoke.kernel_inputs(dev, gen)
     inputs.update(smoke.fusion_inputs(inputs))
-    calls = {"K1": {}, "K2": {}, "K7": {}, "K15": {}}
+    calls = {"K1": {}, "K2": {}, "K7": {}, "K8": {}, "K14": {}, "K15": {}}
     for c in (smoke.C, smoke.C_L):
         x = torch.randn(smoke.IMAGE_BATCH, smoke.N, c, device=dev,
                         generator=gen).bfloat16()
@@ -308,6 +390,9 @@ def variants(dev, card: str, kernels) -> None:
     calls["K7"]["B=32"] = lambda: fb_ops.block_eval(*inputs["block_eval"])
     calls["K15"]["B=32"] = lambda: i8_ops.proj_mlp_tail_i8(
         *inputs["proj_mlp_tail_i8"])
+    calls["K8"]["B=32"] = lambda: fb_ops.ln_qkv_attention(
+        *inputs["ln_qkv_attention"])
+    calls["K14"]["B=32"] = lambda: i8_ops.ln_linear_i8(*inputs["ln_linear_i8"])
     built = _build.library()
 
     def k7_split(lib) -> str:
@@ -318,6 +403,11 @@ def variants(dev, card: str, kernels) -> None:
             fb_ops.block_eval(*inputs["block_eval"], trace=trace)
         t = trace.double().cpu()[:, :6].mean(0) / 1e6
         return " / ".join(f"{v:.4f}" for v in t.tolist())
+    if "K8" in kernels:
+        k8_roles(dev, card)
+        k8_variants(inputs, card)
+    if "K14" in kernels:
+        k14_variants(inputs, card)
     for name, (lib, spill) in libs.items():
         for shape, call in calls[VARIANTS[name][0]].items():
             with using(lib):
@@ -337,13 +427,60 @@ def variants(dev, card: str, kernels) -> None:
                       f"{k7_split(lib)}")
 
 
+def against_built(label: str, built, variants: dict, card: str) -> None:
+    """Each variant against the built call, in turns (built, variant,
+    variant, built), and whether its output equals the built one's."""
+    want = built()
+    for name, call in variants.items():
+        same = torch.equal(call(), want)
+        t = [smoke.time_ms(built), smoke.time_ms(call), smoke.time_ms(call),
+             smoke.time_ms(built)]
+        print(f"variants: {label}: built {t[0]:.4f} / {t[3]:.4f} ms, {name} "
+              f"{t[1]:.4f} / {t[2]:.4f} ms (output bit-equal to the built "
+              f"kernel's: {same}) [{card}]")
+
+
+def k8_variants(inputs, card: str) -> None:
+    """K8 at the main-path shapes with other splits of its grid and other
+    units of its K1 role."""
+    args = inputs["ln_qkv_attention"]
+    B, N, C = args[0].shape
+    grid = fb_ops.ln_qkv_attention_grid(C)
+    ga = fb_ops.ln_qkv_attention_split(grid, B, N, C, args[8])
+    ncb = 3 * C // 256
+    variants = {f"K1 role on {g} of {grid} CTAs": (lambda g=g: fb_ops.ln_qkv_attention(
+        *args, split=g)) for g in (ga - 8, ga + 8)}
+    variants.update({f"units of {u} column tiles": (lambda u=u: fb_ops.ln_qkv_attention(
+        *args, unit=u)) for u in (3, ncb)})
+    against_built(f"K8 at B={B} (K1 role on {ga} of {grid} CTAs, units of "
+             f"{fb_ops._K8_UNIT} column tile)",
+             lambda: fb_ops.ln_qkv_attention(*args), variants, card)
+
+
+def k14_variants(inputs, card: str) -> None:
+    """K14 at the main-path shapes in units of 3 column tiles."""
+    args = inputs["ln_linear_i8"]
+    M, O = args[0].shape[0] * args[0].shape[1], args[3].shape[0]
+    grid = i8_ops.ln_linear_i8_grid()
+    variants = {}
+    for group in (3,):
+        units, rounds = i8_ops.ln_linear_i8_plan(M, O, grid, group)
+        variants[f"units of {group} column tiles ({units} units, {rounds} "
+                 f"rounds)"] = lambda group=group: i8_ops.ln_linear_i8(
+                     *args, group=group)
+    units, rounds = i8_ops.ln_linear_i8_plan(M, O, grid)
+    against_built(f"K14 at B={args[0].shape[0]} (units of {i8_ops._I8_GROUP} "
+             f"column tile: {units} units, {rounds} rounds)",
+             lambda: i8_ops.ln_linear_i8(*args), variants, card)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k7", action="store_true",
                         help="run K7's phase split alone")
     parser.add_argument("--variants", nargs="*", metavar="KERNEL",
-                        help="run K1, K2, K7 and K15 (or the kernels named: "
-                             "K1, K2, K7, K15) beside their rejected variants "
+                        help="run K1, K2, K7, K8, K14 and K15 (or the "
+                             "kernels named) beside their rejected variants "
                              "alone")
     opts = parser.parse_args()
     dev = require_cuda()

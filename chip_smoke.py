@@ -37,10 +37,12 @@ Phases, each fatal on failure:
   1. a CUDA device (printed as nvidia-smi names it, with its power limit);
   2. the kernels built from ``vl_merging_tpu_torch/csrc`` (build time),
      and the wgmma instructions of the redesigned kernels (HGMMA: K3, K4,
-     K5, K6, K13 on the shared MLP body; K9's two kernels; K1, K2 and K7;
-     IGMMA: K15) counted in the library's SASS with ``cuobjdump`` (none:
-     fail); the registers and spill bytes ptxas gave K1, K2, K7 (and every
-     function it calls) and K15 (``build/nvcc.log``; a spill fails);
+     K5, K6, K13 on the shared MLP body; K9's two kernels; K1, K2, K7 and
+     K8; IGMMA: K14, K15) counted in the library's SASS with ``cuobjdump``
+     (none: fail); the registers and spill bytes ptxas gave K1, K2, K7 (and
+     every function it calls), K8, K14 and K15 (``build/nvcc.log``; a
+     spill fails), and ptxas's warnings that it serialised a kernel's
+     wgmma (one for K8 or K14 fails);
   3. each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail,
      K9 packed_attention_bwd, K13 mlp, K12 packed_attention_i8qk, K14
      ln_linear_i8, K15 proj_mlp_tail_i8, K4 linear_residual, K5 mlp_tail,
@@ -50,16 +52,17 @@ Phases, each fatal on failure:
      elements that differ; kernel, twin and (where one PyTorch call
      computes the same function) library call timed with CUDA events,
      beside the least time the card could take; K14, K15 and K12 beside
-     K1, K3 and K2 at the same shapes; K4 + K5, K8 and K7 beside the
-     staged kernels they replace (K3, K1 + K2, K8 + K3), in time and
-     output (bit-equal or not, and the share of elements that differ);
-     K10 beside K11 at B=32 and K6 at uniform gammas beside K3, likewise
-     (K4 -> K5, K7 and K6 share K3's MLP body, and K7 runs K1's and K2's
-     code too: K4 -> K5, K6 and K7 not bit-equal to K3, K3 and K1 -> K2 ->
-     K3 fails; K8 more than its 4 ulps from K1 -> K2, and K7 from K8 -> K3,
-     fails, the Hopper K1 and K2 summing their products in another order
-     than K8); K7's time against K1 + K2 + K3 and K15's against K3 beside
-     their bars (1.25x, 0.85x; printed, met or missed); K15 with every
+     K1, K3 and K2 at the same shapes (K14 and K1 in turns); K4 + K5, K8
+     and K7 beside the staged kernels they replace (K3, K1 + K2, K8 + K3),
+     in time (in turns) and output (bit-equal or not, and the share of
+     elements that differ); K10 beside K11 at B=32 and K6 at uniform
+     gammas beside K3, likewise (K4 -> K5, K7 and K6 share K3's MLP body,
+     K7 and K8 run K1's and K2's code: K4 -> K5, K6 and K7 not bit-equal
+     to K3, K3 and K1 -> K2 -> K3, K8 not bit-equal to K1 -> K2, or K7 to
+     K8 -> K3, fails); K7's time against K1 + K2 + K3, K8's against K1 +
+     K2, K15's against K3 and K14's against K1 beside their bars (1.25x,
+     1.10x, 0.85x, 0.8x; printed, met or missed); K14's rounds and the
+     SHA-256 of its output; K15 with every
      gelu and a row of zero context against its twin; K1 at the text
      rows (32·40) and, as a yardstick the port never calls, one cuBLAS
      ``F.linear`` on the pre-normalised rows at each K1 shape; K2 at the
@@ -73,7 +76,9 @@ Phases, each fatal on failure:
      the batch with that sample against its twin; timed beside its eval
      launch; K1, K3, K13, K6, K4 and K5 also at the
      ViT-L width (C=1024) against their twins, timed beside their bound,
-     and K4 -> K5 and K6 at uniform gammas bit-equal to K3 there;
+     and K4 -> K5 and K6 at uniform gammas bit-equal to K3 there; K8 at
+     C=1024 (16 heads) and at N=901 (the @480 image tower) against its
+     twin and bit-equal to K1 -> K2, timed beside them and its bound;
   4. ``compute_irtr_recall`` over 64 images (batches of 32) and 320
      captions (batches of 64): K1-K3 launched 12 times per image batch,
      K13 12 times per text batch; finite features, image cls_feats within
@@ -113,7 +118,9 @@ Phases, each fatal on failure:
   9. ViT-L @384 (C=1024): the image tower over 32 images (K1, K2, K3
      launched 24 times, nothing else) and the text tower over 64 captions
      (K13 24 times), finite features within cosine 0.999 of the plain
-     path's, the image tower's images/s in turns; two fine-tune steps at
+     path's; the image tower again by ``fusion`` "qkv" (K8, K3 24 times),
+     its features bit-equal to the default route's; the image tower's
+     images/s in turns; two fine-tune steps at
      micro-batch 8 at ``train_fusion`` "0" (per step K2 24, K9 24, K13 48)
      and "full" (K2 24, K9 24, K6 48, K1 48), finite loss and grad norm;
      kernel-path gradients within global cosine 0.999 of the plain path's;
@@ -129,11 +136,17 @@ at (``widths``) and, for the kernels built for 1024, its figures there
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
+
+``python3 chip_smoke.py --k14-digest`` prints only the SHA-256 of K14's
+output on phase 3's seeded inputs (to compare the K14 of two trees: a copy
+of this file run from the other tree's root imports that tree's package).
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import hashlib
 import json
 import re
 import subprocess
@@ -218,10 +231,10 @@ DBIAS_REL = 1e-3
 STATS_REL = 1e-5
 MIN_COSINE = 0.999
 TIMED_ITERS = 20
-# the time bars of the Hopper K7 and K15 (printed, met or missed): K7 at
-# most 1.25 x the staged K1 -> K2 -> K3, K15 at most 0.85 x K3 at the same
-# shapes, in the same run
-K7_BAR, K15_BAR = 1.25, 0.85
+# the time bars of the Hopper K7, K8, K15 and K14 (printed, met or missed):
+# K7 at most 1.25 x the staged K1 -> K2 -> K3, K8 1.10 x K1 -> K2, K15 0.85
+# x K3, K14 0.8 x K1, at the same shapes, in the same run
+K7_BAR, K8_BAR, K15_BAR, K14_BAR = 1.25, 1.10, 0.85, 0.8
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor cores,
 # HBM3
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -249,6 +262,14 @@ def time_ms(fn, iters: int = TIMED_ITERS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(a, b) -> tuple:
+    """The best of two timings (ms) each of a and b, taken a, b, b, a."""
+    ta, tb = [time_ms(a)], [time_ms(b)]
+    tb.append(time_ms(b))
+    ta.append(time_ms(a))
+    return min(ta), min(tb)
 
 
 def nbytes(*tensors) -> int:
@@ -507,11 +528,11 @@ def work(name: str, args) -> tuple:
             args[3].shape[0]
         return 4 * M * c * h, nbytes(*args) + M * c * 2
     if name in ("ln_qkv_attention", "block_eval"):
-        x, mask = args[0], args[6]
-        M = x.shape[0] * x.shape[1]
-        flops = 2 * M * C * 3 * C + 4 * 64 * N * HEADS * _valid_keys(mask)
+        x, mask, heads = args[0], args[6], args[8]
+        M, n, c = x.shape[0] * x.shape[1], x.shape[1], x.shape[2]
+        flops = 2 * M * c * 3 * c + 4 * 64 * n * heads * _valid_keys(mask)
         if name == "block_eval":
-            flops += 2 * M * C * C + 4 * M * C * HIDDEN
+            flops += 2 * M * c * c + 4 * M * c * HIDDEN
         tensors = [t for t in args if isinstance(t, torch.Tensor)]
         return flops, nbytes(*tensors) + M * C * 2
     if name == "packed_attention_i8qk":
@@ -685,38 +706,27 @@ def staged_comparisons(inputs, card: str) -> None:
                                    u2.expand(B, 1, C)),
          "K3", lambda: fb_ops.proj_mlp_tail(ctx, wp, bp, u1, res, ln2_w,
                                             ln2_b, w1, b1, w2, b2, u2)))
-    # bit-equal by construction: the shared MLP body (K4 -> K5, K6) and K7,
-    # which runs K1's, K2's and the MLP body's device code
+    # bit-equal by construction: the shared MLP body (K4 -> K5, K6), and K7
+    # and K8, which run K1's and K2's device code (K7 the MLP body's too)
     bit_equal = ("K4 -> K5 vs K3", "K6 at uniform gammas vs K3",
-                 "K7 vs K1 -> K2 -> K3")
-    # within 4 ulps: K8 against the Hopper K1 and K2, which sum in another
-    # order, and so K7 against K8 -> K3
-    within_ulps = {"K8 vs K1 -> K2": "ln_qkv_attention",
-                   "K7 vs K8 -> K3": "block_eval"}
+                 "K8 vs K1 -> K2", "K7 vs K8 -> K3", "K7 vs K1 -> K2 -> K3")
     # the bars of the fused kernels' time against the staged kernels'
-    bars = {"K7 vs K1 -> K2 -> K3": K7_BAR}
+    bars = {"K7 vs K1 -> K2 -> K3": K7_BAR, "K8 vs K1 -> K2": K8_BAR}
     for label, fused, staged_name, staged in cases:
         got, want = fused(), staged()
         torch.cuda.synchronize()
         if label in bit_equal and not torch.equal(got, want):
             fail(f"{label}: not bit-equal")
-        within = ""
-        if label in within_ulps:
-            name = within_ulps[label]
-            _, worst, _ = ulp_check(name, got, want)
-            within = (f" (worst err/bound {worst:.3f} of {ULPS[name]} bf16 "
-                      f"ulps)")
-            if worst > 1.0:
-                fail(f"{label}: more than {ULPS[name]} bf16 ulps apart")
-        fused_ms, staged_ms = time_ms(fused), time_ms(staged)
+        fused_ms, staged_ms = in_turns(fused, staged)
         bar = ""
         if label in bars:
             bar = (f"; {fused_ms / staged_ms:.3f} x (bar {bars[label]}: "
                    f"{'met' if fused_ms <= bars[label] * staged_ms else 'missed'})")
         print(f"{label}: bit-equal {torch.equal(got, want)}, "
-              f"{differ_share(got, want):.3e} of the elements differ{within}; "
+              f"{differ_share(got, want):.3e} of the elements differ; "
               f"{fused_ms:.4f} ms against {staged_name} "
-              f"{staged_ms:.4f} ms at the same shapes{bar} [{card}]")
+              f"{staged_ms:.4f} ms at the same shapes, in turns{bar} "
+              f"[{card}]")
 
 
 def linear_yardstick_ms(args) -> float:
@@ -726,6 +736,30 @@ def linear_yardstick_ms(args) -> float:
     x, lw, lb, w, _ = args
     xn = layer_norm(x, lw, lb, eps=fb_ops.LN_EPS)
     return time_ms(lambda: F.linear(xn, w))
+
+
+def k14_digest(args) -> str:
+    """The SHA-256 of K14's output bits on ``args``."""
+    y = i8_ops.ln_linear_i8(*args)
+    return hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes()
+                          ).hexdigest()
+
+
+def check_k14(args) -> None:
+    """K14's units and rounds at these shapes, the SHA-256 of its output
+    (the same bits as every earlier K14 design: the products are exact and
+    the LN, quantizer and dequant code unchanged), and two launches
+    bit-equal."""
+    x, wq = args[0], args[3]
+    M, O = x.shape[0] * x.shape[1], wq.shape[0]
+    grid = i8_ops.ln_linear_i8_grid()
+    units, rounds = i8_ops.ln_linear_i8_plan(M, O, grid)
+    digest = k14_digest(args)
+    print(f"ln_linear_i8: {units} units on {grid // 2} clusters of two, "
+          f"{rounds} rounds of column tiles; output sha256 on phase 3's "
+          f"seeded inputs {digest}")
+    if k14_digest(args) != digest:
+        fail("ln_linear_i8: two launches differ")
 
 
 def check_i8_gelus(args) -> None:
@@ -781,12 +815,20 @@ def check_kernels(dev, card: str, usage: dict) -> dict:
         bound_ms, bound_by = bound(*work(name, args))
         shape = "x".join(map(str, args[0].shape))
         if name in BF16_TWIN:
-            twin_ms = rows[BF16_TWIN[name]]['ms']
+            twin_ms, turns = rows[BF16_TWIN[name]]['ms'], ""
             bar = ""
+            if name == "ln_linear_i8":
+                k1_args = inputs["ln_linear"]
+                ms_t, twin_ms = in_turns(lambda: kernel(*args),
+                                         lambda: fb_ops.ln_linear(*k1_args))
+                turns = f" (in turns: {ms_t:.4f})"
+                bar = (f"; {ms_t / twin_ms:.3f} x (bar {K14_BAR}: "
+                       f"{'met' if ms_t <= K14_BAR * twin_ms else 'missed'})")
+                check_k14(args)
             if name == "proj_mlp_tail_i8":
                 bar = (f"; {ms / twin_ms:.3f} x (bar {K15_BAR}: "
                        f"{'met' if ms <= K15_BAR * twin_ms else 'missed'})")
-            print(f"{name}: {ms:.4f} ms against {BF16_TWIN[name]} "
+            print(f"{name}: {ms:.4f} ms{turns} against {BF16_TWIN[name]} "
                   f"{twin_ms:.4f} ms at the same shapes{bar} [{card}]")
         if name == "proj_mlp_tail_i8":
             check_i8_gelus(args)
@@ -935,6 +977,7 @@ def check_wide_kernels(dev, gen, rows, card: str) -> None:
     if not (torch.equal(k45, k3) and torch.equal(k6, k3)):
         fail(f"the shared MLP body's bit-equalities fail at C={C_L}")
     check_wide_attention(dev, gen, rows, card)
+    check_wide_k8(dev, gen, rows, card)
 
 
 def check_wide_attention(dev, gen, rows, card: str) -> None:
@@ -969,6 +1012,55 @@ def check_wide_attention(dev, gen, rows, card: str) -> None:
     rows["packed_attention"][f"at_{C_L}"] = {
         "max_abs_err": max_err, "ms": ms, "train_ms": train_ms,
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_wide_k8(dev, gen, rows, card: str) -> None:
+    """K8 at the ViT-L width (B=32, N=577, C=1024, 16 heads) and at the
+    @480 image tower's N=901 (C=768): against its twin with its 4 ulps and
+    bit-equal to K1 -> K2; timed, in turns with K1 -> K2, beside its
+    bound."""
+    for c, heads, n in ((C_L, HEADS_L, N), (C, HEADS, 901)):
+        def r(*shape, s=1.0, shift=0.0):
+            return shift + s * torch.randn(*shape, device=dev, generator=gen)
+
+        mask = torch.ones(IMAGE_BATCH, n, dtype=torch.int32, device=dev)
+        mask[-1, n - 77:] = 0
+        args = (r(IMAGE_BATCH, n, c).bfloat16(), r(c, s=0.1, shift=1.0),
+                r(c, s=0.1), r(3 * c, c, s=0.02).bfloat16(), r(3 * c, s=0.1),
+                r(heads, n, n), mask, 64 ** -0.5, heads)
+
+        def staged():
+            return attn_ops.packed_attention(fb_ops.ln_linear(*args[:5]),
+                                             *args[5:])
+        got, k1_k2 = fb_ops.ln_qkv_attention(*args), staged()
+        want = fb_ops.ln_qkv_attention_reference(*args)
+        torch.cuda.synchronize()
+        max_err, worst, differ = ulp_check("ln_qkv_attention", got, want)
+        same = torch.equal(got, k1_k2)
+        ms, staged_ms = in_turns(lambda: fb_ops.ln_qkv_attention(*args),
+                                 staged)
+        bound_ms, bound_by = bound(*work("ln_qkv_attention", args))
+        print(f"ln_qkv_attention at C={c}, {heads} heads, N={n}: max |kernel "
+              f"- twin| = {max_err:.6g}, worst err/bound = {worst:.3f} "
+              f"(bound {ULPS['ln_qkv_attention']} bf16 ulps), {differ:.3e} "
+              f"of the elements differ; bit-equal to K1 -> K2 {same}; kernel "
+              f"{ms:.4f} ms against K1 -> K2 {staged_ms:.4f} ms in turns "
+              f"({ms / staged_ms:.3f} x), bound {bound_ms:.4f} ms "
+              f"({bound_by}) [{card}]")
+        if not bool(torch.isfinite(got).all()) or worst > 1.0:
+            fail(f"ln_qkv_attention disagrees with its twin at C={c}, N={n}")
+        if not same:
+            fail(f"ln_qkv_attention is not bit-equal to K1 -> K2 at C={c}, "
+                 f"N={n}")
+        if c == C_L:
+            rows["ln_qkv_attention"]["widths"].append(C_L)
+            rows["ln_qkv_attention"][f"at_{C_L}"] = {
+                "max_abs_err": max_err, "ms": ms, "staged_ms": staged_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
+        else:
+            rows["ln_qkv_attention"][f"at_n{n}"] = {
+                "max_abs_err": max_err, "ms": ms, "staged_ms": staged_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def reset_launches() -> None:
@@ -1614,6 +1706,23 @@ def run_large(dev, card: str) -> dict:
         if cos < MIN_COSINE:
             fail(f"ViT-L {tower} features disagree with the plain path")
         feats[tower] = got
+    # the image tower by "qkv": K8 (built for C=1024) and K3
+    reset_launches()
+    with torch.no_grad():
+        got = extract_features(params, spec, images, "image", fusion="qkv")
+    counts = read_launches()
+    want = want_launches(ln_qkv_attention=L, proj_mlp_tail=L)
+    same = torch.equal(got, feats["image"])
+    print(f"ViT-L image tower by fusion 'qkv': kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} } (want "
+          f"{ {k: v for k, v in want.items() if v} }); cls_feats bit-equal to "
+          f"the default route's {same}")
+    if counts != want:
+        fail(f"ViT-L 'qkv' image tower launches {counts}, want {want}")
+    if not same:
+        fail("ViT-L 'qkv' image features differ from the default route's")
+    for k, v in counts.items():
+        launches[k] += v
     rates = {"plain": [], "kernels": []}
     for which in ("plain", "kernels", "kernels", "plain"):
         rates[which].append(images_per_sec(params, spec, images,
@@ -1746,16 +1855,22 @@ def run_tiny(dev, card: str) -> dict:
 WGMMA_KERNELS = {"K1": "16ln_linear_kernel", "K2": "27packed_attention_fwd_kernel",
                  "K3": "20proj_mlp_tail_kernel", "K4": "22linear_residual_kernel",
                  "K5": "15mlp_tail_kernel", "K6": "17tail_train_kernel",
-                 "K7": "17block_eval_kernel", "K13": "10mlp_kernel",
-                 "K9 dq": "9dq_kernel", "K9 dk/dv": "10dkv_kernel",
+                 "K7": "17block_eval_kernel", "K8": "23ln_qkv_attention_kernel",
+                 "K13": "10mlp_kernel", "K9 dq": "9dq_kernel",
+                 "K9 dk/dv": "10dkv_kernel", "K14": "19ln_linear_i8_kernel",
                  "K15": "23proj_mlp_tail_i8_kernel"}
-WGMMA_OP = {"K15": "IGMMA"}
-# The Hopper K1, K2, K7 and K15, whose ptxas report is printed and must
-# show no spill (K7: its kernel and every function it calls)
+WGMMA_OP = {"K14": "IGMMA", "K15": "IGMMA"}
+# The Hopper K1, K2, K7, K8, K14 and K15, whose ptxas report is printed and
+# must show no spill (K7: its kernel and every function it calls)
 SPILL_FREE = {"ln_linear": "16ln_linear_kernel",
               "packed_attention": "27packed_attention_fwd_kernel",
               "block_eval": "_13_block_eval_cu_",
+              "ln_qkv_attention": "23ln_qkv_attention_kernel",
+              "ln_linear_i8": "19ln_linear_i8_kernel",
               "proj_mlp_tail_i8": "23proj_mlp_tail_i8_kernel"}
+# The sources whose kernels ptxas must not serialise the wgmma of (its
+# "wgmma.mma_async instructions are serialized" warning in build/nvcc.log)
+UNSERIALISED = ("ln_qkv_attention.cu", "ln_linear_i8.cu")
 
 
 def check_wgmma(lib) -> None:
@@ -1772,7 +1887,7 @@ def check_wgmma(lib) -> None:
                       None)
         elif fn is not None and WGMMA_OP.get(fn, "HGMMA") in line:
             counts[fn] += 1
-    print("wgmma (HGMMA; K15: IGMMA) instructions in the SASS: "
+    print("wgmma (HGMMA; K14, K15: IGMMA) instructions in the SASS: "
           + ", ".join(f"{k} {v}" for k, v in counts.items()))
     if not all(counts.values()):
         fail(f"a redesigned kernel has no wgmma in its SASS: {counts}")
@@ -1780,7 +1895,7 @@ def check_wgmma(lib) -> None:
 
 def check_spills() -> dict:
     """The registers and spill bytes ptxas reported for each instantiation
-    of K1, K2, K7 and K15 and for every function they call
+    of K1, K2, K7, K8, K14 and K15 and for every function they call
     (``build/nvcc.log``, written by the build); fail on a spill.  Returns
     a printable summary per kernel."""
     log = (_build.BUILD_DIR / "nvcc.log").read_text()
@@ -1822,18 +1937,48 @@ def check_spills() -> dict:
     if not all(any(r is not None for r, _, _ in fns.values())
                for fns in found.values()) or \
             any(st or ld for fns in found.values() for _, st, ld in fns.values()):
-        fail(f"K1, K2, K7 or K15 spills, or ptxas reported none of them: "
-             f"{found}")
+        fail(f"K1, K2, K7, K8, K14 or K15 spills, or ptxas reported none of "
+             f"them: {found}")
     return usage
 
 
+def check_serialisation() -> None:
+    """ptxas's warnings that it serialised the wgmma of a kernel, per
+    source (``build/nvcc.log``); fail on one for a source in
+    UNSERIALISED."""
+    log = (_build.BUILD_DIR / "nvcc.log").read_text()
+    warned = {}
+    for section in log.split("== ")[1:]:
+        name, _, text = section.partition("\n")
+        warned[name.strip()] = [line.strip() for line in text.splitlines()
+                                if "wgmma" in line and "serializ" in line]
+    print("ptxas wgmma serialisation warnings: "
+          + ", ".join(f"{n} {len(w)}" for n, w in warned.items() if w or
+                      n in UNSERIALISED))
+    bad = {n: warned.get(n) for n in UNSERIALISED if warned.get(n)}
+    if bad or not all(n in warned for n in UNSERIALISED):
+        fail(f"ptxas serialised the wgmma of K8 or K14, or built neither: "
+             f"{bad}")
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--k14-digest", action="store_true",
+                        help="print only the SHA-256 of K14's output on "
+                             "phase 3's seeded inputs")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     dev = require_cuda()
     card = card_line()
     print(card)
+    if opts.k14_digest:
+        inputs = kernel_inputs(dev, torch.Generator(device=dev).manual_seed(
+            SEED))
+        print(f"ln_linear_i8 output sha256 on phase 3's seeded inputs "
+              f"{k14_digest(inputs['ln_linear_i8'])} [{card}]")
+        return 0
 
     prebuilt = _build.library_path().exists()
     t0 = time.perf_counter()
@@ -1843,6 +1988,7 @@ def main() -> int:
 
     check_wgmma(_build.library_path())
     usage = check_spills()
+    check_serialisation()
     rows = check_kernels(dev, card, usage)
     paths = {"eval": run_eval(dev, card),
              "eval_int8": run_eval_int8(dev, card),

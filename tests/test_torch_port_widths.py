@@ -1,8 +1,8 @@
 """The port's kernels at every named model width (fault C5).
 
 The width-specific kernels are built for some model widths only
-(``ops.fused_block.KERNEL_WIDTHS``: K1, K3, K4, K5, K6 and K13 at 768 and
-1024; K7, K8 and the int8 K14/K15 at 768), and the port's routing asks
+(``ops.fused_block.KERNEL_WIDTHS``: K1, K3, K4, K5, K6, K8 and K13 at 768
+and 1024; K7 and the int8 K14/K15 at 768), and the port's routing asks
 ``kernel_takes`` -- the JAX package's own shape gates intersected with the
 built widths -- before any launch, as a pure function of shapes.  At C=192
 (the vit-tiny configs) the default route takes the plain ops for
@@ -260,8 +260,7 @@ def test_width_1024_takes_k1_k2_k3_k13_in_the_eval_and_k2_k9_k13_k6_in_training(
 
 
 @pytest.mark.parametrize("fusion,int8,kernel", [
-    ("qkv", False, "ln_qkv_attention"), ("mega", False, "block_eval"),
-    ("tail", True, "ln_linear_i8")])
+    ("mega", False, "block_eval"), ("tail", True, "ln_linear_i8")])
 def test_unbuilt_opt_in_routes_at_1024_raise_naming_kernel_and_width(
         monkeypatch, recorder, fusion, int8, kernel):
     spec = _spec(LARGE)
@@ -272,6 +271,16 @@ def test_unbuilt_opt_in_routes_at_1024_raise_naming_kernel_and_width(
     assert recorder == []
     with pytest.raises(ValueError, match=f"kernel {kernel} is not built"):
         mome.eval_route_built(1024, 4096, fusion, int8)
+
+
+def test_width_1024_qkv_route_takes_k8_and_k3(monkeypatch, recorder):
+    """K8 is built for the ViT-L width: its image block by "qkv" launches
+    K8 and K3 and nothing else, and the route is built there."""
+    spec = _spec(LARGE)
+    _as_if(monkeypatch, spec.image_len)
+    assert _launch(recorder, LARGE, fusion="qkv") == \
+        sorted(["ln_qkv_attention", "proj_mlp_tail"])
+    assert mome.eval_route_built(1024, 4096, "qkv")
 
 
 def test_unbuilt_opt_in_route_raises_before_any_launch(monkeypatch,

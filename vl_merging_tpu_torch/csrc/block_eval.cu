@@ -107,12 +107,6 @@ struct BlockArgs {
 // stamp [9, 10]; the chunks [11].
 constexpr int kTrace = 12;
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
 // One stamp of the trace: after the CTA's threads meet, thread 0 adds the
 // time since the previous stamp (kept in counter 10) to counter i.  Not
 // traced: nothing.
@@ -121,7 +115,7 @@ __device__ __forceinline__ void stamp(unsigned long long* trace, int i) {
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned long long* mine = trace + blockIdx.x * kTrace;
-    const unsigned long long t = global_ns();
+    const unsigned long long t = hop::global_ns();
     mine[i] += t - mine[10];
     mine[10] = t;
   }
@@ -147,7 +141,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     block_eval_kernel(const __grid_constant__ Maps maps, const BlockArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
   if (a.trace != nullptr && threadIdx.x == 0)
-    a.trace[blockIdx.x * kTrace + 9] = a.trace[blockIdx.x * kTrace + 10] = global_ns();
+    a.trace[blockIdx.x * kTrace + 9] = a.trace[blockIdx.x * kTrace + 10] = hop::global_ns();
 #pragma unroll 1
   for (int c0 = 0; c0 < a.B; c0 += a.bb) {
     const int nb = min(a.bb, a.B - c0), M = nb * a.N;
@@ -160,7 +154,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                         ncb, tiles, a.eps, c0 * a.N};
       const k1::Range rg(ka, blockIdx.x / k1::CL, gridDim.x / k1::CL,
                          hop::cluster_rank() & ~(uint32_t)(k1::CL - 1));
-      count(a.trace, 6, rg.t_end - rg.t_begin);
+      count(a.trace, 6, rg.count);
       hop::fence_proxy_async();  // earlier generic use of the shared memory before TMA writes
       k1::setup<C, NC, kTN>(ka, smem);
       if (threadIdx.x >= R::CONSUMERS)
@@ -254,12 +248,8 @@ cudaLaunchConfig_t launch_config(cudaLaunchAttribute (&attrs)[2], cudaStream_t s
 
 // The number of CTAs K7 launches: as many whole clusters as the card holds
 // at once (a grid-wide barrier needs that), or 0 where it cannot hold one.
-// trace (of vlm_block_eval): null, or grid x kTrace zeroed u64 counters
-// that receive the phase trace above.
-// Queried once per process (the port runs on one card).
+// The caller queries it once per process (the port runs on one card).
 extern "C" int vlm_block_eval_grid() {
-  static int grid = -1;
-  if (grid >= 0) return grid;
   if (cudaFuncSetAttribute(block_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)kSmem) != cudaSuccess)
     return 0;
@@ -268,23 +258,26 @@ extern "C" int vlm_block_eval_grid() {
   cfg.numAttrs = 1;  // the occupancy query takes the cluster shape alone
   cfg.gridDim = dim3(body::kCluster);
   int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, block_eval_kernel, &cfg) != cudaSuccess) return 0;
-  grid = clusters * body::kCluster;
-  return grid;
+  if (cudaOccupancyMaxActiveClusters(&clusters, block_eval_kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return clusters * body::kCluster;
 }
 
 // scratch: bb·N·3C bf16 of packed qkv, then bb·N·C bf16 of context.
+// trace: null, or grid x kTrace zeroed u64 counters that receive the phase
+// trace above.  grid: the value of vlm_block_eval_grid().
 extern "C" int vlm_block_eval(const void* x, const void* ln1_w, const void* ln1_b,
                               const void* wqkv, const void* bqkv, const void* bias,
                               const void* mask, const void* wp, const void* bp, const void* g1,
                               const void* ln2_w, const void* ln2_b, const void* w1,
                               const void* b1, const void* w2, const void* b2, const void* g2,
                               void* scratch, void* out, void* trace, int B, int N, int H,
-                              int Hd, int bb, float scale, float eps, void* stream) {
+                              int Hd, int bb, int grid, float scale, float eps, void* stream) {
   if (B <= 0 || N <= 0 || H * k2::D != C || Hd <= 0 || Hd % body::kHC != 0 || bb <= 0)
     return (int)cudaErrorInvalidValue;
-  const int grid = vlm_block_eval_grid();
-  if (grid <= 0) return (int)cudaErrorLaunchOutOfResources;
+  if (grid <= 0 || grid % body::kCluster != 0) return (int)cudaErrorLaunchOutOfResources;
   bf16* qkv = static_cast<bf16*>(scratch);
   bf16* ctx = qkv + (size_t)bb * N * 3 * C;
   const BlockArgs a{static_cast<const bf16*>(x),      static_cast<const float*>(ln1_w),

@@ -7,9 +7,9 @@
 //     rows is the column-major B operand of x·Wᵀ;
 //   * shared-memory rows of the mma.sync kernels carry kPad bf16 of
 //     padding, so that consecutive rows start in different banks;
-//   * the attention helpers (K8, K7, K10, K11, K12, and K9's products
-//     along a tile) use mma.sync directly, for its documented register
-//     layout; K1, K2, the MLP body of K3, K4, K5, K6, K7 and K13
+//   * the attention helpers (K10, K11, K12, and K9's products along a
+//     tile) use mma.sync directly, for its documented register layout; K1,
+//     K2, K7, K8, K14, K15, the MLP body of K3, K4, K5, K6, K7 and K13
 //     (mlp_body.cuh) and K9's q·kᵀ-type products use wgmma (hopper.cuh).
 #pragma once
 
@@ -22,7 +22,6 @@ namespace vlm {
 using bf16 = __nv_bfloat16;
 
 constexpr int kPad = 8;          // bf16 elements of padding per smem row
-constexpr int kGemmThreads = 256;  // 8 warps in the mma.sync GEMM kernels
 
 // Eight bf16 values packed for one 16-byte load or store.
 struct Pack8 {
@@ -207,8 +206,8 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
                : "r"(s));
 }
 
-// One warp's step of the flash-style attention of K2, K8 and K7 over one
-// 64-key tile (kAttnKeys keys of kAttnDim values, rows kAttnLdt apart in
+// One warp's step of the flash-style attention of K10, K11 and K12 over
+// one 64-key tile (kAttnKeys keys of kAttnDim values, rows kAttnLdt apart in
 // shared memory).  s holds the warp's 16 x 64 f32 logits in the m16n8
 // accumulator layout (rows g and g + 8 of the thread's group); m and l are
 // the running row maxima and sums, o the running 16 x 64 output.  The

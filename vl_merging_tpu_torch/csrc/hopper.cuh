@@ -1,18 +1,21 @@
 // Hopper (sm_90a) building blocks of the port's redesigned kernels: the
 // shared MLP body (mlp_body.cuh: K3, K4, K5, K6, K7, K13), K9, K1
-// (ln_linear.cuh), K2 (packed_attention_fwd.cuh), K7 (block_eval.cu) and
-// K15 (proj_mlp_tail_i8.cu).
+// (ln_linear.cuh), K2 (packed_attention_fwd.cuh), K7 (block_eval.cu), K8
+// (ln_qkv_attention.cu), K14 (ln_linear_i8.cu) and K15 (proj_mlp_tail_i8.cu).
 //
 //   * mbarriers (init, arrive, expect_tx, parity waits) in shared memory,
 //     local and, through mapa, in another CTA of the cluster;
 //   * TMA: 2-D tiled loads of a bf16 matrix (also multicast to the CTAs of
 //     a cluster) and 3-D loads of a bf16 tensor into 128-byte-swizzled
-//     shared memory, completing on an mbarrier, and the host-side
-//     tensor maps (cuTensorMapEncodeTiled, found in the driver at run time);
+//     shared memory, completing on an mbarrier, 2-D tiled stores from it
+//     (K14), and the host-side tensor maps (cuTensorMapEncodeTiled, found
+//     in the driver at run time);
 //   * wgmma: shared-memory descriptors of 128-byte-swizzled tiles (K-major,
 //     and MN-major with the transpose bit), the m64nNk16 bf16 products
 //     with f32 accumulators and the m64nNk32 s8 products with s32
-//     accumulators (K15).
+//     accumulators (K14, K15);
+//   * counters in global memory with release/acquire semantics at GPU
+//     scope (K8's handoff between its two roles).
 //
 // A swizzled tile is stored in atoms of 8 rows x 128 bytes (1024 bytes,
 // 1024-aligned): the 16-byte chunk c of row r sits at chunk c ^ (r % 8) of
@@ -179,6 +182,43 @@ __device__ __forceinline__ void named_arrive(int id, int count) {
 }
 
 // ---------------------------------------------------------------------------
+// counters in global memory: a handoff between the CTAs of one launch (K8)
+// ---------------------------------------------------------------------------
+// *p += v with release semantics at GPU scope: the writes this thread made,
+// and those ordered before it (a warp's, by __syncwarp), are visible to a
+// thread that reads the sum with ld_acquire_gpu.
+__device__ __forceinline__ void red_release_gpu(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(v) : "memory");
+}
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+// Order this thread's earlier (generic-proxy) view of global memory before
+// its later async-proxy reads of it: TMA loads of data that other CTAs
+// stored in this launch.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// The global timer, in nanoseconds.
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// Wait until *p >= want (acquire at GPU scope); trap after ~2^34 clocks, as
+// mbar_wait does.
+__device__ __forceinline__ void wait_at_least(const int* p, int want) {
+  if (ld_acquire_gpu(p) >= want) return;
+  const long long t0 = clock64();
+  while (ld_acquire_gpu(p) < want) {
+    __nanosleep(64);
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
 // Load the box at (col, row) of the tensor map into shared memory at dst,
@@ -201,6 +241,30 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(smem_u32(bar)), "h"(mask)
       : "memory");
+}
+// Store the box at (col, row) of the tensor map from shared memory at src
+// (as TMA writes a load: 128B-swizzled), in this thread's bulk async group;
+// parts of the box past the tensor's edge are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int col,
+                                             int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(col), "r"(row), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed bulk groups still read
+// their shared memory (_read), or are still incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 // Load the box at (c0, c1, c2) of a 3-D tensor map.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
@@ -808,7 +872,74 @@ __device__ __forceinline__ void wgmma_s8_m64n192(int (&d)[96], uint64_t da, uint
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// The integer form for a width N of 64, 96 or 192 (first: as wgmma_ss).
+// The integer product at width 256 (K14's 64 x 256 tiles a warpgroup), and
+// its write-only first step.
+__device__ __forceinline__ void wgmma_s8_m64n256(int (&d)[128], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n256_first(int (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+      :
+        "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]), "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]), "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]), "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31]),
+        "=r"(d[32]), "=r"(d[33]), "=r"(d[34]), "=r"(d[35]), "=r"(d[36]), "=r"(d[37]), "=r"(d[38]), "=r"(d[39]),
+        "=r"(d[40]), "=r"(d[41]), "=r"(d[42]), "=r"(d[43]), "=r"(d[44]), "=r"(d[45]), "=r"(d[46]), "=r"(d[47]),
+        "=r"(d[48]), "=r"(d[49]), "=r"(d[50]), "=r"(d[51]), "=r"(d[52]), "=r"(d[53]), "=r"(d[54]), "=r"(d[55]),
+        "=r"(d[56]), "=r"(d[57]), "=r"(d[58]), "=r"(d[59]), "=r"(d[60]), "=r"(d[61]), "=r"(d[62]), "=r"(d[63]),
+        "=r"(d[64]), "=r"(d[65]), "=r"(d[66]), "=r"(d[67]), "=r"(d[68]), "=r"(d[69]), "=r"(d[70]), "=r"(d[71]),
+        "=r"(d[72]), "=r"(d[73]), "=r"(d[74]), "=r"(d[75]), "=r"(d[76]), "=r"(d[77]), "=r"(d[78]), "=r"(d[79]),
+        "=r"(d[80]), "=r"(d[81]), "=r"(d[82]), "=r"(d[83]), "=r"(d[84]), "=r"(d[85]), "=r"(d[86]), "=r"(d[87]),
+        "=r"(d[88]), "=r"(d[89]), "=r"(d[90]), "=r"(d[91]), "=r"(d[92]), "=r"(d[93]), "=r"(d[94]), "=r"(d[95]),
+        "=r"(d[96]), "=r"(d[97]), "=r"(d[98]), "=r"(d[99]), "=r"(d[100]), "=r"(d[101]), "=r"(d[102]), "=r"(d[103]),
+        "=r"(d[104]), "=r"(d[105]), "=r"(d[106]), "=r"(d[107]), "=r"(d[108]), "=r"(d[109]), "=r"(d[110]), "=r"(d[111]),
+        "=r"(d[112]), "=r"(d[113]), "=r"(d[114]), "=r"(d[115]), "=r"(d[116]), "=r"(d[117]), "=r"(d[118]), "=r"(d[119]),
+        "=r"(d[120]), "=r"(d[121]), "=r"(d[122]), "=r"(d[123]), "=r"(d[124]), "=r"(d[125]), "=r"(d[126]), "=r"(d[127])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// The integer form for a width N of 64, 96, 192 or 256 (first: as wgmma_ss).
 template <int N>
 __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t db,
                                          bool first) {
@@ -817,15 +948,19 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t 
       wgmma_s8_m64n64_first(d, da, db);
     else if constexpr (N == 96)
       wgmma_s8_m64n96_first(d, da, db);
-    else
+    else if constexpr (N == 192)
       wgmma_s8_m64n192_first(d, da, db);
+    else
+      wgmma_s8_m64n256_first(d, da, db);
   } else {
     if constexpr (N == 64)
       wgmma_s8_m64n64(d, da, db, 1);
     else if constexpr (N == 96)
       wgmma_s8_m64n96(d, da, db, 1);
-    else
+    else if constexpr (N == 192)
       wgmma_s8_m64n192(d, da, db, 1);
+    else
+      wgmma_s8_m64n256(d, da, db, 1);
   }
 }
 template <int R>

@@ -1,6 +1,6 @@
 // Shared pieces of the port's W8A8 int8 kernels (K12, K14, K15; sm_90a):
-// the quantizers (all three) and the mma.sync pipeline of K14 and K12 (K15
-// runs its products on wgmma, proj_mlp_tail_i8.cu).
+// the quantizers (all three) and K12's mma.sync product (K14 and K15 run
+// theirs on wgmma, hopper.cuh).
 //
 // Quantization follows vl_merging_tpu/ops/int8.py exactly, with one
 // rounding per operation (the __f*_rn intrinsics keep nvcc from
@@ -10,12 +10,12 @@
 //     (IEEE division) and q = round-half-even(x · (1/scale)) with the
 //     reciprocal correctly rounded; no clip, |x/scale| ≤ 127 by
 //     construction (int8.py:100-109);
-//   * s8·s8 products accumulate exactly in s32 (mma.sync m16n8k32, or
-//     wgmma m64nNk32 in K15), and
-//     dequantise as ((float(acc) · s) · ws) + b (int8.py:128-129).
+//   * s8·s8 products accumulate exactly in s32 (mma.sync m16n8k32 in K12,
+//     wgmma m64nNk32 in K14 and K15), and dequantise as
+//     ((float(acc) · s) · ws) + b (int8.py:128-129).
 //
-// Shared-memory int8 rows carry kPad8 bytes of padding: a row stride of
-// K + 16 bytes (K a multiple of 64) puts the 32-bit fragment loads of 8
+// K12's shared-memory int8 rows carry kPad8 bytes of padding: a row stride
+// of K + 16 bytes (K a multiple of 64) puts the 32-bit fragment loads of 8
 // rows x 4 threads in 32 distinct banks and keeps 16-byte alignment for
 // cp.async.
 #pragma once
@@ -79,8 +79,7 @@ __device__ __forceinline__ float dequant(int acc, float s, float ws, float b) {
 // operation), and quantizes each f32 row per token into int8 dst + i*dst_step,
 // its scale into scale[i * scale_step].  Rows i >= nvalid become zeros.
 // dst(i, col) is where the 8 bytes of row i at columns col.. go (col a
-// multiple of 8): a plain row-major block (ln_quant_rows) or a swizzled
-// wgmma operand (K15).
+// multiple of 8): a swizzled wgmma operand (K14, K15).
 template <int R, int NV, class Dst>
 __device__ __forceinline__ void ln_quant_rows_at(const bf16* src, size_t src_step, int nvalid,
                                                  const float* __restrict__ w,
@@ -147,17 +146,6 @@ __device__ __forceinline__ void ln_quant_rows_at(const bf16* src, size_t src_ste
   }
 }
 
-template <int R, int NV>
-__device__ __forceinline__ void ln_quant_rows(const bf16* src, size_t src_step, int nvalid,
-                                              const float* __restrict__ w,
-                                              const float* __restrict__ b, float eps,
-                                              int8_t* dst, int dst_step, float* scale,
-                                              int scale_step) {
-  ln_quant_rows_at<R, NV>(src, src_step, nvalid, w, b, eps,
-                          [&](int i, int col) { return dst + i * dst_step + col; }, scale,
-                          scale_step);
-}
-
 // The same without the LayerNorm: quantize R bf16 rows as they are.
 template <int R, int NV, class Dst>
 __device__ __forceinline__ void quant_rows_at(const bf16* src, size_t src_step, int nvalid,
@@ -191,88 +179,6 @@ __device__ __forceinline__ void quant_rows_at(const bf16* src, size_t src_step, 
     }
     if (lane == 0) scale[i * scale_step] = sc;
   }
-}
-
-// Start copying one NT x BK int8 tile of W (columns [k0, k0 + BK)) into a stage.
-template <int NT, int BK>
-__device__ __forceinline__ void stage_w8_tile(int8_t* dst, const int8_t* __restrict__ W, int ldw,
-                                              int k0) {
-  constexpr int LDB = BK + kPad8, VPR = BK / 16;
-  for (int v = threadIdx.x; v < NT * VPR; v += blockDim.x) {
-    const int r = v / VPR, c = (v % VPR) * 16;
-    cp_async16(dst + r * LDB + c, W + (size_t)r * ldw + k0 + c);
-  }
-}
-
-// acc[MF][NF] += A · Wᵀ in s32 for one block of 8 warps, W streamed through
-// a STAGES-deep ring of int8 tiles filled by cp.async (the int8 twin of the
-// WMMA ring of the first K1 design):
-//   A: the block's rows, int8 in shared memory, stride lda bytes, holding
-//      the whole depth K; warp (wm, wn) covers rows [wm*MF*16, +MF*16);
-//   W: torch-layout int8 weight rows [0, NT) of the block's output tile
-//      (NT = WARPS_N*NF*8), row stride ldw; warp wn covers rows
-//      [wn*NF*8, +NF*8);
-//   Ws: STAGES tiles of NT x (BK + kPad8) bytes.
-// Requires K % BK == 0, BK % 32 == 0 and 16-byte aligned W rows.
-template <int NT, int BK, int STAGES>
-__device__ __forceinline__ void gemm8_prefetch(const int8_t* __restrict__ W, int ldw, int K,
-                                               int8_t* Ws) {
-  constexpr int TILE = NT * (BK + kPad8);
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s * BK < K) stage_w8_tile<NT, BK>(Ws + s * TILE, W, ldw, s * BK);
-    cp_async_commit();
-  }
-}
-
-template <int MF, int NF, int WARPS_N, int BK, int STAGES>
-__device__ __forceinline__ void gemm8_main(int (&acc)[MF][NF][4], const int8_t* As, int lda,
-                                           const int8_t* __restrict__ W, int ldw, int K,
-                                           int8_t* Ws) {
-  constexpr int NT = WARPS_N * NF * 8;
-  constexpr int LDB = BK + kPad8, TILE = NT * LDB;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int8_t* Aw = As + (wm * MF * 16 + g) * lda + 4 * t;
-  const int kt = K / BK;
-  for (int it = 0; it < kt; ++it) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile it landed
-    __syncthreads();              // everyone's did; tile it-1 is consumed
-    const int tn = it + STAGES - 1;
-    if (tn < kt) stage_w8_tile<NT, BK>(Ws + (tn % STAGES) * TILE, W, ldw, tn * BK);
-    cp_async_commit();
-    const int8_t* Wt = Ws + (it % STAGES) * TILE + (wn * NF * 8 + g) * LDB + 4 * t;
-    const int k0 = it * BK;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 32) {
-      uint32_t a[MF][4];
-#pragma unroll
-      for (int i = 0; i < MF; ++i) {
-        const int8_t* ap = Aw + i * 16 * lda + k0 + kk;
-        a[i][0] = ld32(ap);
-        a[i][1] = ld32(ap + 8 * lda);
-        a[i][2] = ld32(ap + 16);
-        a[i][3] = ld32(ap + 8 * lda + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        const int8_t* bp = Wt + j * 8 * LDB + kk;
-        const uint32_t b0 = ld32(bp), b1 = ld32(bp + 16);
-#pragma unroll
-        for (int i = 0; i < MF; ++i) mma16832(acc[i][j], a[i], b0, b1);
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
-
-template <int MF, int NF>
-__device__ __forceinline__ void zero_acc8(int (&acc)[MF][NF][4]) {
-#pragma unroll
-  for (int i = 0; i < MF; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
 }
 
 }  // namespace vlm

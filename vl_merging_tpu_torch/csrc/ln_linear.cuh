@@ -1,7 +1,7 @@
 // K1's device code: y = LN(x)·Wᵀ + b over 64·NC x 256 output tiles, run by
-// its own kernel (ln_linear.cu, which holds the design notes) and by K7's
-// phase A (block_eval.cu), so that the two compute every element with the
-// same instructions.
+// its own kernel (ln_linear.cu, which holds the design notes), by K7's
+// phase A (block_eval.cu) and by K8's first role (ln_qkv_attention.cu), so
+// that the three compute every element with the same instructions.
 #pragma once
 
 #include "common.cuh"
@@ -100,32 +100,133 @@ __device__ __forceinline__ void setup(const Args& a, unsigned char* raw) {
   hop::cluster_sync();
 }
 
-// The tiles [t_begin, t_end) of pair `pair` of npairs (its CTAs are ranks
-// peer0 and peer0 + 1 of their cluster), in row-major tile order.
+// The LN statistics of the 16 rows r0.. of x into mean[0..15] and
+// rstd[0..15] (shared memory), computed by the calling warp four rows at a
+// time (common.cuh ln_rows_stats).
+template <int C>
+__device__ __forceinline__ void warp_row_stats(const Args& a, int r0, float* mean, float* rstd) {
+  constexpr int NV = C / 256;
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int i = 0; i < 16; i += 4) {
+    float mu[4], rs[4];
+    ln_rows_stats<4, NV>(a.x + (size_t)(r0 + i) * C, C, a.M - (r0 + i), a.eps, mu, rs);
+    if (lane < 4) {
+      mean[i + lane] = lane == 0 ? mu[0] : lane == 1 ? mu[1] : lane == 2 ? mu[2] : mu[3];
+      rstd[i + lane] = lane == 0 ? rs[0] : lane == 1 ? rs[1] : lane == 2 ? rs[2] : rs[3];
+    }
+  }
+}
+
+// The order of a pair's tiles (its CTAs are ranks peer0 and peer0 + 1 of
+// their cluster): count of them, the k-th one's index (row pair t / ncb,
+// column tile t % ncb), what the producer waits for before a tile's loads,
+// where a warp's LN statistics come from, and two hooks around each tile's
+// stores.
+//
+// Range, K1's own and K7's: the tiles [t_begin, t_end) of pair `pair` of
+// npairs, in row-major tile order, so that consecutive tiles share their
+// rows (LN statistics computed once per run of a row block).
 struct Range {
   uint32_t peer0;
-  int rank, t_begin, t_end;
+  int rank, t_begin, count;
   __device__ __forceinline__ Range(const Args& a, int pair, int npairs, uint32_t peer0_)
       : peer0(peer0_), rank((int)(hop::cluster_rank() - peer0_)),
         t_begin((int)((long long)pair * a.tiles / npairs)),
-        t_end((int)((long long)(pair + 1) * a.tiles / npairs)) {}
+        count((int)((long long)(pair + 1) * a.tiles / npairs) - t_begin) {}
+  __device__ __forceinline__ int tile(int k) const { return t_begin + k; }
+  __device__ __forceinline__ void rows_ready(int) const {}
+  template <int C>
+  __device__ __forceinline__ void row_stats(const Args& a, int r0, float* mean, float* rstd,
+                                            uint64_t*, int) const {
+    warp_row_stats<C>(a, r0, mean, rstd);
+  }
+  __device__ __forceinline__ void hold() const {}
+  __device__ __forceinline__ void publish(int, int) const {}
+};
+
+// Strided, K8's: the row pairs in order, each cut into units of `unit`
+// consecutive column tiles (unit = ncb: whole row pairs), and the units
+// dealt to the pairs in turn (pair p takes units p, p + npairs, ...), so
+// that the batch elements' rows are finished from the first element on and
+// not at the end of some pair's share.  The LN statistics of every row
+// were computed once, by K8's attention role at the start of the launch
+// (stats: the M means, then the M rstds; warp_row_stats's arithmetic):
+// before a tile's loads the producer waits until stat_done[the CTA's
+// 128-row block] counts the block's groups of four rows (acquire at GPU
+// scope), and a warp reads its 16 rows' once the tile's first stage has
+// landed (the barrier orders them after that wait; a spin in the consumers
+// cost them registers at C = 1024).
+// After a tile's stores every warp publishes them: one release increment
+// of done[e] (GPU scope) for each batch element e of `rows` rows that its
+// 16 rows touch, which K8's attention role waits for.  delay_ns (a
+// test's): every tile's stores held back that long, so that a wait that
+// does not hold shows.
+struct Strided {
+  uint32_t peer0;
+  int rank, pair, npairs, unit, upr, ncb, count;
+  int *done, *stat_done;
+  const float* stats;
+  int rows, M, delay_ns;
+  __device__ __forceinline__ Strided(const Args& a, int pair_, int npairs_, int unit_, int* done_,
+                                     int* stat_done_, const float* stats_, int rows_, int delay)
+      : peer0(0), rank((int)hop::cluster_rank()), pair(pair_), npairs(npairs_), unit(unit_),
+        upr(a.ncb / unit_), ncb(a.ncb), count(0), done(done_), stat_done(stat_done_),
+        stats(stats_), rows(rows_), M(a.M), delay_ns(delay) {
+    const int units = a.tiles / a.ncb * upr;
+    count = units > pair ? ((units - 1 - pair) / npairs + 1) * unit : 0;
+  }
+  __device__ __forceinline__ int tile(int k) const {
+    const int j = k / unit, u = pair + j * npairs;
+    return u / upr * ncb + u % upr * unit + (k - j * unit);
+  }
+  // rb: the CTA's row block (128 rows)
+  __device__ __forceinline__ void rows_ready(int rb) const {
+    if (rb * 128 < M) hop::wait_at_least(stat_done + rb, (min(128, M - rb * 128) + 3) / 4);
+  }
+  // full, it: the ring's barriers and the tile's first stage; rows past M
+  // keep stale statistics: they are not stored
+  template <int C>
+  __device__ __forceinline__ void row_stats(const Args&, int r0, float* mean, float* rstd,
+                                            uint64_t* full, int it) const {
+    hop::mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+    const int lane = threadIdx.x & 31;
+    if (lane < 16 && r0 + lane < M) {
+      mean[lane] = __ldcg(stats + r0 + lane);
+      rstd[lane] = __ldcg(stats + M + r0 + lane);
+    }
+  }
+  __device__ __forceinline__ void hold() const {
+    if (delay_ns <= 0) return;
+    const unsigned long long t0 = hop::global_ns();
+    while (hop::global_ns() - t0 < (unsigned long long)delay_ns) {
+    }
+  }
+  // r0: the warp's first row of x
+  __device__ __forceinline__ void publish(int r0, int lane) const {
+    __syncwarp();  // every lane's stores come before lane 0's release
+    if (lane == 0 && r0 < M)
+      for (int e = r0 / rows; e <= min(r0 + 15, M - 1) / rows; ++e) hop::red_release_gpu(done + e, 1);
+  }
 };
 
 // The producer role, the last warpgroup (its first thread fills the ring).
-template <int C, int NC = 2, int TN = BN>
+template <int C, int NC = 2, int TN = BN, class Order = Range>
 __device__ __forceinline__ void produce(const CUtensorMap& xmap, const CUtensorMap& wmap,
-                                        const Args& a, unsigned char* raw, const Range& rg) {
+                                        const Args& a, unsigned char* raw, const Order& rg) {
   using R = Roles<NC, TN>;
   constexpr int KT = C / BK;
   const Smem<C, NC, TN> sm(raw);
   uint8_t* base = sm.base;
   uint64_t *full = sm.full, *empty = sm.empty;
   const uint32_t peer0 = rg.peer0;
-  const int rank = rg.rank, t_begin = rg.t_begin, t_end = rg.t_end;
+  const int rank = rg.rank;
   if (threadIdx.x == R::CONSUMERS) {
     int it = 0;
-    for (int t = t_begin; t < t_end; ++t) {
+    for (int k = 0; k < rg.count; ++k) {
+      const int t = rg.tile(k);
       const int rb = (t / a.ncb) * CL + rank, cb = t % a.ncb;
+      rg.rows_ready(rb);
       for (int kt = 0; kt < KT; ++kt, ++it) {
         const int s = it % STAGES;
         // the stage's previous use released by every consumer warp of the cluster
@@ -147,17 +248,17 @@ __device__ __forceinline__ void produce(const CUtensorMap& xmap, const CUtensorM
 // The consumer role, warpgroups 0 .. NC - 1: warpgroup wg owns rows 64wg..
 // of the CTA's tile, warp w of it rows 16w.. (wr), this thread rows wr + g
 // and wr + g + 8.
-template <int C, int NC = 2, int TN = BN>
-__device__ __forceinline__ void consume(const Args& a, unsigned char* raw, const Range& rg) {
+template <int C, int NC = 2, int TN = BN, class Order = Range>
+__device__ __forceinline__ void consume(const Args& a, unsigned char* raw, const Order& rg) {
   using R = Roles<NC, TN>;
-  constexpr int NV = C / 256, KT = C / BK;
+  constexpr int KT = C / BK;
   const Smem<C, NC, TN> sm(raw);
   uint8_t* base = sm.base;
   const float4* wb = sm.wb;
   float *mean = sm.mean, *rstd = sm.rstd;
   uint64_t *full = sm.full, *empty = sm.empty;
   const uint32_t peer0 = rg.peer0;
-  const int rank = rg.rank, t_begin = rg.t_begin, t_end = rg.t_end;
+  const int rank = rg.rank;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wr = 16 * warp;
@@ -169,21 +270,13 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* raw, const
   float mu0 = 0.f, rs0 = 0.f, mu1 = 0.f, rs1 = 0.f;  // LN statistics of the two rows
   int it = 0, cur_rb = -1;
 
-  for (int tile = t_begin; tile < t_end; ++tile) {
+  for (int k = 0; k < rg.count; ++k) {
+    const int tile = rg.tile(k);
     const int rb = (tile / a.ncb) * CL + rank, cb = tile % a.ncb;
     const int row0 = rb * R::BM;
-    if (rb != cur_rb) {  // the LN statistics of the warp's 16 rows, four at a time
+    if (rb != cur_rb) {  // the LN statistics of the warp's 16 rows
       __syncwarp();      // every lane has read the previous ones
-#pragma unroll 1
-      for (int i = 0; i < 16; i += 4) {
-        float mu[4], rs[4];
-        ln_rows_stats<4, NV>(a.x + (size_t)(row0 + wr + i) * C, C, a.M - (row0 + wr + i), a.eps,
-                             mu, rs);
-        if (lane < 4) {
-          mean[wr + i + lane] = lane == 0 ? mu[0] : lane == 1 ? mu[1] : lane == 2 ? mu[2] : mu[3];
-          rstd[wr + i + lane] = lane == 0 ? rs[0] : lane == 1 ? rs[1] : lane == 2 ? rs[2] : rs[3];
-        }
-      }
+      rg.template row_stats<C>(a, row0 + wr, mean + wr, rstd + wr, full, it);
       __syncwarp();
       mu0 = mean[wr + g];
       rs0 = rstd[wr + g];
@@ -248,6 +341,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* raw, const
     // bf16x2 words) so that each stores one row's 8 columns in one
     // 16-byte store.
     const int row = row0 + wr + g;
+    rg.hold();
 #pragma unroll
     for (int p = 0; p < TN / 16; ++p) {
       uint32_t u[4];  // u[2jj + hh]: block 2p + jj, row + 8hh, columns 2t, 2t + 1
@@ -275,6 +369,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* raw, const
         *reinterpret_cast<uint4*>(a.y + (size_t)rr * a.O + cb * TN + 8 * (2 * p + (t >> 1))) =
             make_uint4(c[0], c[1], c[2], c[3]);
     }
+    rg.publish(row0 + wr, lane);
   }
 }
 

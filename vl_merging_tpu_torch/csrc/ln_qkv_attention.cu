@@ -1,298 +1,270 @@
 // K8: ctx = attention(LN(x)·W_qkvᵀ + b) with the f32 rel-pos bias and the
-// key mask, the packed qkv never written to device memory.
+// key mask, in one launch.
 //
 // Replaces vl_merging_tpu/ops/attention.py:_ln_qkv_attn_kernel (via
 // _pallas_ln_qkv_attention / ln_qkv_attention, with
-// fused_block.py:_qkv_pair_ctx).  Rounding points as K1 → K2 (see the
-// body below).
+// fused_block.py:_qkv_pair_ctx).  Its device code is K1's and K2's
+// (ln_linear.cuh, packed_attention_fwd.cuh) with their tile shapes, so K8
+// equals K1 → K2 bit for bit.
 //
 // Bound on the H100: by its arithmetic.  At B = 32, N = 577, C = 768, 12
 // heads it needs 2·M·C·3C = 65.4 GFLOP of projections and 4·64·N·N·12 per
 // element (32.7 GFLOP at B = 32) of attention, ~98 GFLOP, against the x
-// read, the context write, the weights and the 16 MB bias (~75 MB).
-// Design: one block of 8 warps per (batch element, head), blockIdx.x the
-// element, so the 32 blocks that share a head's bias (1.3 MB) run together
-// and find it in L2.  Each block keeps its head's k and v for all N rows in
-// shared memory (184 KB: one block per SM) and recomputes the LN
-// statistics; x is re-read from L2 by each of the 12 heads.  N <= 640.
+// read, the context write, the weights and the 16 MB bias (~75 MB).  The
+// qkv scratch (85 MB at B = 32) goes through L2, as between K1 and K2.
 //
-// LN1 + one head's q/k/v projection + attention for one batch element, as
-// the device function of one 256-thread block, one block per (element,
-// head).  The packed qkv never exists outside shared memory and
-// registers.
+// Design (Hopper, sm_90a).  The TPU kernel keeps a batch block's LN(x) and
+// qkv in VMEM; here they would not fit in shared memory (one element's qkv
+// is 2.7 MB at N = 577).  So K8 is one persistent launch of two roles on
+// disjoint SMs, joined by a per-element handoff through L2, with no grid
+// barrier:
+//   * CTAs [0, ga) run K1's roles (a producer warpgroup and two consumer
+//     warpgroups at 40 / 232 registers through setmaxnreg, clusters of two
+//     sharing each W tile by TMA multicast) over the batch's rows, storing
+//     the packed qkv in a (B, N, 3C) scratch, in K1's 128 x 256 tiles.
+//     Their order (ln_linear.cuh Strided): the row pairs in order, cut
+//     into units of `unit` column tiles dealt to the pairs in turn, so
+//     that the elements' rows are finished from element 0 on.  After each
+//     tile's stores every consumer warp adds 1, with release semantics at
+//     GPU scope, to the counter done[b] of each element b its 16 rows
+//     touch.
+//   * CTAs [ga, grid) run K2's roles (a producer warpgroup, two consumer
+//     warpgroups in ping-pong) over its (element, 128 query rows, head)
+//     items, element-major (packed_attention_fwd.cuh ElementMajor).  Before
+//     an item's q, k and v are loaded by TMA from the scratch, the
+//     producer's first thread waits with an acquire load until done[b]
+//     counts every (16-row group, column tile) of element b, and then
+//     orders that view before the TMA reads (fence.proxy.async.global).
+// The K2 role's CTAs first take the LN statistics of every row (K1's
+// arithmetic, four rows a warp at a time in row order) into a global
+// buffer, published per 128-row block; the K1 role's producer waits for
+// its row block's before a tile's loads and its consumers read them once
+// the tile's first stage has landed, so each row's statistics are taken
+// once per launch, not once per tile (dealt singly, a pair's consecutive
+// tiles have other rows).
+// A CTA runs one role for the whole launch, so no value lives across the
+// roles and each keeps the register budget of its own kernel.  The K2
+// role's statistics wait for nothing and the K1 role for nothing else, so
+// the waits form no cycle; the launch is cooperative (every CTA resident
+// at once), so a spinning CTA never holds an SM that the CTA it waits for
+// needs.  The counters are zeroed on the stream before the launch.
 //
-// What it computes, with K1 → K2's rounding points (the TPU kernels'
-// contract, vl_merging_tpu/ops/fused_block.py:_qkv_pair_ctx): LN statistics
-// in f32 with exactly K1's arithmetic (common.cuh:ln_rows_stats), the
-// normalised row rounded to bf16, q/k/v = bf16(f32 products + bias), q
-// scaled in bf16, logits, bias, mask and softmax in f32, P in bf16, the
-// context rounded to bf16 (K2's step, common.cuh:online_softmax_pv).  The
-// products run on mma.sync m16n8k16, 16-deep steps from k = 0 up, as K1's
-// WMMA products do.
+// The split ga is the caller's (ops/fused_block.ln_qkv_attention_split:
+// the K1 role's share of the grid in proportion to its work, K1's per-tile
+// and K2's per-item times).  delay_ns, a test's: every K1 tile's stores
+// held back that long.
 //
-// Design.  The TPU kernel normalises x once per batch block and relies on
-// its grid running the head pairs of a block in sequence
-// (vl_merging_tpu/ops/attention.py:404-409); CUDA blocks run in no fixed
-// order, so here a block owns one (element, head) and does its own LN:
-//   1. the LN statistics of all N rows (four rows a warp at once) into
-//      shared memory, and which keys are valid;
-//   2. k and v of the head for all N rows, in 128-row tiles, into shared
-//      memory where they stay: 2 x 640 x 72 bf16 (184 KB), so N <= 640;
-//   3. per 128-row query tile, q of the head (each warp's 16 rows land in
-//      the accumulator layout of m16n8, which is the A-fragment layout of
-//      the q·kᵀ product: q never leaves registers), then K2's online
-//      softmax over the resident 64-key tiles, and the context to out.
-// Each projection streams x and the head's weight rows from L2 in 32-deep
-// chunks: x normalised on the fly from the kept statistics into a
-// 128 x 32 tile (the next chunk's x already in registers while this
-// chunk's products run), the weight rows through a double-buffered
-// cp.async ring.  x is read from L2 three times per (element, head):
-// statistics, k/v, q.
-#include "common.cuh"
-
-namespace vlm {
-
-constexpr int kQkvRows = 128;   // rows of a projection / query tile: 8 warps x 16
-constexpr int kQkvBk = 32;      // depth of a projection chunk
-constexpr int kQkvLdx = kQkvBk + kPad;
-constexpr int kMaxKeys = 640;   // resident K/V rows (N <= kMaxKeys)
-
-// Dynamic shared memory of ln_qkv_attention_block.
-__host__ __device__ constexpr size_t ln_qkv_attention_smem_bytes() {
-  return (size_t)(2 * kMaxKeys * kAttnLdt + kQkvRows * kQkvLdx + 2 * kQkvRows * kQkvLdx) *
-             sizeof(bf16) +
-         (size_t)2 * kMaxKeys * sizeof(float) + (size_t)kMaxKeys * sizeof(int);
-}
-
-// acc (the warp's 16 rows x NCOL columns, m16n8 accumulator layout) =
-// bf16(LN(x rows [t0, t0 + 128)))·Wᵀ over the whole depth C, W's rows
-// [0, NCOL/2) at w_lo and [NCOL/2, NCOL) at w_hi (row stride C).  Rows past
-// N read as zeros.  Every thread of the block must call it.
-template <int NCOL, int C>
-__device__ __forceinline__ void qkv_project(float (&acc)[NCOL / 8][4], const bf16* __restrict__ xb,
-                                            int t0, int N, const float* mean_s,
-                                            const float* rstd_s, const float* __restrict__ ln_w,
-                                            const float* __restrict__ ln_b,
-                                            const bf16* __restrict__ w_lo,
-                                            const bf16* __restrict__ w_hi, bf16* Xs, bf16* Ws) {
-  constexpr int VPR = kQkvBk / 8, NK = C / kQkvBk;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < NCOL / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  auto stage_w = [&](int kc) {
-    bf16* dst = Ws + (kc & 1) * kQkvRows * kQkvLdx;
-    for (int v = tid; v < NCOL * VPR; v += kGemmThreads) {
-      const int r = v / VPR, c = (v % VPR) * 8;
-      const bf16* src = r < NCOL / 2 ? w_lo + (size_t)r * C : w_hi + (size_t)(r - NCOL / 2) * C;
-      cp_async16(dst + r * kQkvLdx + c, src + kc * kQkvBk + c);
-    }
-    cp_async_commit();
-  };
-
-  // each thread carries XV 16-byte vectors of an x chunk; chunk kc + 1 is
-  // loaded into registers while chunk kc's products run
-  constexpr int XV = kQkvRows * VPR / kGemmThreads;
-  static_assert(XV * kGemmThreads == kQkvRows * VPR, "whole vectors per thread");
-  Pack8 xr[XV];
-  auto load_x = [&](int kc) {
-#pragma unroll
-    for (int i = 0; i < XV; ++i) {
-      const int v = tid + i * kGemmThreads, row = t0 + v / VPR;
-      xr[i].u = row < N ? __ldg(reinterpret_cast<const uint4*>(
-                              xb + (size_t)row * C + kc * kQkvBk + (v % VPR) * 8))
-                        : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-
-  load_x(0);
-  stage_w(0);  // the stage last read two chunks ago: every warp passed a barrier since
-  for (int kc = 0; kc < NK; ++kc) {
-    __syncthreads();  // every warp is done with Xs and with the other stage
-    if (kc + 1 < NK) stage_w(kc + 1);
-    else cp_async_commit();
-#pragma unroll
-    for (int i = 0; i < XV; ++i) {
-      const int v = tid + i * kGemmThreads, r = v / VPR, c = (v % VPR) * 8;
-      const int row = t0 + r, col = kc * kQkvBk + c;
-      Pack8 o;
-      o.u = make_uint4(0u, 0u, 0u, 0u);
-      if (row < N) {
-        const float mean = mean_s[row], rstd = rstd_s[row];
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          o.h()[e] =
-              __float2bfloat16((xr[i].f(e) - mean) * rstd * ln_w[col + e] + ln_b[col + e]);
-      }
-      *reinterpret_cast<uint4*>(Xs + r * kQkvLdx + c) = o.u;
-    }
-    if (kc + 1 < NK) load_x(kc + 1);
-    cp_async_wait<1>();
-    __syncthreads();  // chunk kc of x and of W is in shared memory
-    const bf16* Xw = Xs + warp * 16 * kQkvLdx;
-    const bf16* Wt = Ws + (kc & 1) * kQkvRows * kQkvLdx;
-#pragma unroll
-    for (int kk = 0; kk < kQkvBk; kk += 16) {
-      uint32_t a[4];
-      a[0] = ld32(Xw + g * kQkvLdx + kk + 2 * t);
-      a[1] = ld32(Xw + (g + 8) * kQkvLdx + kk + 2 * t);
-      a[2] = ld32(Xw + g * kQkvLdx + kk + 2 * t + 8);
-      a[3] = ld32(Xw + (g + 8) * kQkvLdx + kk + 2 * t + 8);
-#pragma unroll
-      for (int n = 0; n < NCOL / 8; ++n) {
-        const bf16* wrow = Wt + (n * 8 + g) * kQkvLdx + kk + 2 * t;
-        mma16816(acc[n], a, ld32(wrow), ld32(wrow + 8));
-      }
-    }
-  }
-}
-
-// The context of head h of one batch element: xb its (N, C) rows, mask_b
-// its (N,) key mask, out_b its (N, C) context (this head's 64 columns are
-// written).  wqkv (3C, C) and bqkv (3C) are the packed projection, bias
-// the (H, N, N) f32 rel-pos bias.  Requires N <= kMaxKeys and
-// ln_qkv_attention_smem_bytes() of dynamic shared memory; every thread of
-// the block must call it.
-template <int C>
-__device__ __forceinline__ void ln_qkv_attention_block(
-    const bf16* __restrict__ xb, const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-    const bf16* __restrict__ wqkv, const float* __restrict__ bqkv, const float* __restrict__ bias,
-    const int* __restrict__ mask_b, bf16* out_b, int h, int N, float scale, float eps,
-    unsigned char* smem) {
-  constexpr int NV = C / 256, D = kAttnDim, WARPS = kGemmThreads / 32;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kMaxKeys * kAttnLdt;
-  bf16* Xs = Vs + kMaxKeys * kAttnLdt;
-  bf16* Ws = Xs + kQkvRows * kQkvLdx;
-  float* mean_s = reinterpret_cast<float*>(Ws + 2 * kQkvRows * kQkvLdx);
-  float* rstd_s = mean_s + kMaxKeys;
-  int* kvalid = reinterpret_cast<int*>(rstd_s + kMaxKeys);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-
-  // 1. LN statistics of every row (warp w: rows 4w .. 4w + 3, then 32
-  //    rows on); valid keys
-  constexpr int SR = 4;
-  for (int r = warp * SR; r < N; r += WARPS * SR) {
-    float mean[SR], rstd[SR];
-    ln_rows_stats<SR, NV>(xb + (size_t)r * C, C, N - r, eps, mean, rstd);
-    if (lane == 0) {
-#pragma unroll
-      for (int i = 0; i < SR; ++i)
-        if (r + i < N) {
-          mean_s[r + i] = mean[i];
-          rstd_s[r + i] = rstd[i];
-        }
-    }
-  }
-  for (int r = tid; r < kMaxKeys; r += kGemmThreads) kvalid[r] = r < N && mask_b[r] != 0;
-
-  // 2. k and v of head h for every row, resident in shared memory; rows
-  //    past N (up to the last 64-key tile) are zeros
-  for (int t0 = 0; t0 < N; t0 += kQkvRows) {
-    float acc[2 * D / 8][4];
-    qkv_project<2 * D, C>(acc, xb, t0, N, mean_s, rstd_s, ln_w, ln_b,
-                          wqkv + (size_t)(C + h * D) * C, wqkv + (size_t)(2 * C + h * D) * C,
-                          Xs, Ws);
-    const int r0 = t0 + warp * 16 + g;
-#pragma unroll
-    for (int n = 0; n < 2 * D / 8; ++n) {
-      const int col = (n % (D / 8)) * 8 + 2 * t;
-      const float* bcol = bqkv + (n < D / 8 ? C : 2 * C) + h * D + col;
-      bf16* dst = n < D / 8 ? Ks : Vs;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = r0 + 8 * half;
-        const __nv_bfloat162 kv =
-            r < N ? __floats2bfloat162_rn(acc[n][2 * half] + bcol[0], acc[n][2 * half + 1] + bcol[1])
-                  : __floats2bfloat162_rn(0.f, 0.f);
-        *reinterpret_cast<__nv_bfloat162*>(dst + r * kAttnLdt + col) = kv;
-      }
-    }
-  }
-
-  // 3. per query tile: q in registers, then K2's online softmax over the
-  //    resident key tiles (the first barrier of qkv_project publishes K/V)
-  const float qscale = __bfloat162float(__float2bfloat16(scale));
-  const int ntiles = (N + kAttnKeys - 1) / kAttnKeys;
-  for (int t0 = 0; t0 < N; t0 += kQkvRows) {
-    float acc[D / 8][4];
-    qkv_project<D, C>(acc, xb, t0, N, mean_s, rstd_s, ln_w, ln_b, wqkv + (size_t)h * D * C,
-                      wqkv + (size_t)(h * D + D / 2) * C, Xs, Ws);
-    const int qrow0 = t0 + warp * 16 + g;
-    if (t0 + warp * 16 >= N) continue;  // no barrier follows in this tile
-    // q = bf16(bf16(acc + b) * bf16(scale)), as K1 stores it and K2 scales it
-    uint32_t qa[D / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {  // columns kk*16 + 2t (+8)
-        const int n = 2 * kk + hf, col = n * 8 + 2 * t;
-        const float b0 = bqkv[h * D + col], b1 = bqkv[h * D + col + 1];
-        float q[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          q[e] = __bfloat162float(__float2bfloat16(
-                     __bfloat162float(__float2bfloat16(acc[n][e] + (e & 1 ? b1 : b0))) * qscale));
-        // the A layout: [0] row g, [1] row g + 8 at columns 2t; [2], [3] at 2t + 8
-        qa[kk][2 * hf] = pack_bf16(q[0], q[1]);
-        qa[kk][2 * hf + 1] = pack_bf16(q[2], q[3]);
-      }
-    }
-
-    const float* brow0 = bias + ((size_t)h * N + min(qrow0, N - 1)) * N;  // rows past N
-    const float* brow1 = bias + ((size_t)h * N + min(qrow0 + 8, N - 1)) * N;  // are not stored
-    float o[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-    for (int it = 0; it < ntiles; ++it) {
-      const int k0 = it * kAttnKeys;
-      float s[kAttnKeys / 8][4];
-      logits_from_bias(s, kvalid + k0, brow0 + k0, brow1 + k0);
-      add_qk_bf16(s, qa, Ks + k0 * kAttnLdt);
-      online_softmax_pv(s, o, m0, m1, l0, l1, Vs + k0 * kAttnLdt);
-    }
-    store_ctx_rows(o, l0, l1, out_b + h * D + 2 * t, C, qrow0, N);
-  }
-}
-
-}  // namespace vlm
+// Shared memory: the larger of the two roles' (K2's 225 KB).  Built for
+// C = 768 and 1024 (12 and 16 heads of 64); any N that K2 takes.
+#include "ln_linear.cuh"
+#include "packed_attention_fwd.cuh"
 
 using namespace vlm;
 
 namespace {
 
+constexpr int kThreads = k1::THREADS;
+static_assert(k2::THREADS == kThreads, "K1's and K2's CTAs of three warpgroups");
+
 template <int C>
-__global__ void __launch_bounds__(kGemmThreads, 1)
-ln_qkv_attention_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
-                        const float* __restrict__ ln_b, const bf16* __restrict__ wqkv,
-                        const float* __restrict__ bqkv, const float* __restrict__ bias,
-                        const int* __restrict__ mask, bf16* __restrict__ out, int N, float scale,
-                        float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  ln_qkv_attention_block<C>(x + (size_t)b * N * C, ln_w, ln_b, wqkv, bqkv, bias,
-                            mask + (size_t)b * N, out + (size_t)b * N * C, h, N, scale, eps,
-                            smem);
+constexpr int smem_bytes() {
+  return k1::Layout<C>::BYTES > k2::SMEM ? k1::Layout<C>::BYTES : k2::SMEM;
+}
+
+struct Maps {
+  CUtensorMap x, w;  // the K1 role's: x (B·N x C), W_qkv (3C x C)
+  k2::Maps attn;     // the K2 role's: over the qkv scratch (B, N, 3C)
+};
+
+// The trace a profiler may ask for, per CTA: its first and last time stamp
+// (the global timer, ns), the ns its K2 role spent waiting for elements,
+// and the units it took (K1 role: column tiles; K2 role: items).
+constexpr int kTrace = 4;
+
+struct Args {
+  k1::Args k1;
+  k2::Args k2;
+  int* done;       // (B,) zeroed: the K1 role's published tiles per element
+  int* stat_done;  // (ceil(M / 128),) zeroed: the rows' LN statistics taken
+  float* stats;    // (2, M): each row's LN mean and rstd
+  unsigned long long* trace;  // null, or kTrace counters per CTA
+  int ga, unit, delay_ns;
+};
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    ln_qkv_attention_kernel(const __grid_constant__ Maps m, const Args a) {
+  extern __shared__ __align__(1024) unsigned char raw[];
+  unsigned long long* tr = a.trace == nullptr ? nullptr : a.trace + kTrace * blockIdx.x;
+  if (tr != nullptr && threadIdx.x == 0) tr[0] = hop::global_ns();
+  if ((int)blockIdx.x < a.ga) {
+    k1::setup<C>(a.k1, raw);
+    const k1::Strided rg(a.k1, blockIdx.x / k1::CL, a.ga / k1::CL, a.unit, a.done, a.stat_done,
+                         a.stats, a.k2.N, a.delay_ns);
+    if (threadIdx.x >= k1::CONSUMERS) {
+      hop::setmaxnreg_dec<k1::PRODUCER_REGS>();
+      k1::produce<C>(m.x, m.w, a.k1, raw, rg);
+    } else {
+      hop::setmaxnreg_inc<k1::CONSUMER_REGS>();
+      k1::consume<C>(a.k1, raw, rg);
+    }
+    hop::cluster_sync();  // no CTA leaves while its peer may still multicast or arrive into it
+    if (tr != nullptr && threadIdx.x == 0) tr[3] = rg.count;
+  } else {
+    // the LN statistics of every row for the K1 role (its arithmetic:
+    // ln_linear.cuh warp_row_stats), four rows a warp at a time in row
+    // order, each 128-row block's published by a release increment of
+    // stat_done per four rows
+    constexpr int W = kThreads / 32;
+    const int M = a.k1.M, lane = threadIdx.x & 31;
+    const int nw = ((int)gridDim.x - a.ga) * W;
+    for (int r = 4 * (((int)blockIdx.x - a.ga) * W + (int)(threadIdx.x >> 5)); r < M;
+         r += 4 * nw) {
+      float mu[4], rs[4];
+      ln_rows_stats<4, C / 256>(a.k1.x + (size_t)r * C, C, M - r, a.k1.eps, mu, rs);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (lane == i && r + i < M) {
+          a.stats[r + i] = mu[i];
+          a.stats[M + r + i] = rs[i];
+        }
+      __syncwarp();  // every lane's stores come before lane 0's release
+      if (lane == 0) hop::red_release_gpu(a.stat_done + r / 128, 1);
+    }
+    k2::setup(raw);
+    const k2::ElementMajor its((int)blockIdx.x - a.ga, (int)gridDim.x - a.ga, a.done, a.k1.ncb,
+                               a.k2.N, tr == nullptr ? nullptr : tr + 2);
+    if (threadIdx.x >= k2::CONSUMERS)
+      k2::produce(m.attn, a.k2, raw, its);
+    else
+      k2::consume(a.k2, raw, its);
+    if (tr != nullptr) __syncthreads();  // every thread is past its role
+  }
+  if (tr != nullptr && threadIdx.x == 0) tr[1] = hop::global_ns();
+}
+
+// Clusters of two (K1's), cooperative: every CTA resident at once.
+cudaLaunchConfig_t launch_config(cudaLaunchAttribute (&attrs)[2], int smem, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = k1::CL;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  attrs[1].id = cudaLaunchAttributeCooperative;
+  attrs[1].val.cooperative = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  return cfg;
+}
+
+template <int C>
+int max_grid() {
+  constexpr int smem = smem_bytes<C>();
+  if (cudaFuncSetAttribute(ln_qkv_attention_kernel<C>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
+    return 0;
+  cudaLaunchAttribute attrs[2];
+  cudaLaunchConfig_t cfg = launch_config(attrs, smem, nullptr);
+  cfg.numAttrs = 1;  // the occupancy query takes the cluster shape alone
+  cfg.gridDim = dim3(k1::CL);
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, ln_qkv_attention_kernel<C>, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return clusters * k1::CL;
+}
+
+template <int C>
+int launch(const void* x, const void* ln_w, const void* ln_b, const void* wqkv, const void* bqkv,
+           const void* bias, const void* mask, void* qkv, int* done, float* stats, void* out,
+           void* trace, int B, int N, int grid, int ga, int unit, int delay_ns, float scale,
+           float eps, cudaStream_t stream) {
+  constexpr int H = C / k2::D, O = 3 * C, ncb = O / k1::BN;
+  constexpr int smem = smem_bytes<C>();
+  if (grid % k1::CL != 0 || ga % k1::CL != 0 || ga < k1::CL || ga >= grid || unit <= 0 ||
+      ncb % unit != 0)
+    return (int)cudaErrorInvalidValue;
+  const int M = B * N, tiles = (M + k1::BM * k1::CL - 1) / (k1::BM * k1::CL) * ncb;
+  const int blocks = (M + k1::BM - 1) / k1::BM;
+  const int nqt = (N + k2::BQ - 1) / k2::BQ;
+  cudaError_t err = cudaFuncSetAttribute(ln_qkv_attention_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  Maps m;
+  const uint64_t C3 = 3ull * C;
+  if (!hop::make_tensor_map(&m.x, x, M, C, k1::BM, k1::BK) ||
+      !hop::make_tensor_map(&m.w, wqkv, O, C, k1::BN / k1::CL, k1::BK) ||
+      !hop::make_tensor_map_3d(&m.attn.q, qkv, {C3, (uint64_t)N, (uint64_t)B}, C3 * 2,
+                               C3 * 2 * N, {k2::D, k2::BQ, 1}) ||
+      !hop::make_tensor_map_3d(&m.attn.kv, qkv, {C3, (uint64_t)N, (uint64_t)B}, C3 * 2,
+                               C3 * 2 * N, {k2::D, k2::BKV, 1}))
+    return (int)cudaErrorNotSupported;
+  const Args a{{static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
+                static_cast<const float*>(ln_b), static_cast<const float*>(bqkv),
+                static_cast<bf16*>(qkv), M, O, ncb, tiles, eps, 0},
+               {static_cast<const float*>(bias), static_cast<const int*>(mask),
+                static_cast<bf16*>(out), nullptr, B, N, H, nqt, B * H * nqt, scale},
+               done,
+               done + B,
+               stats,
+               static_cast<unsigned long long*>(trace),
+               ga,
+               unit,
+               delay_ns};
+  err = cudaMemsetAsync(done, 0, sizeof(int) * (B + blocks), stream);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attrs[2];
+  cudaLaunchConfig_t cfg = launch_config(attrs, smem, stream);
+  cfg.gridDim = dim3(grid);
+  err = cudaLaunchKernelEx(&cfg, ln_qkv_attention_kernel<C>, m, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The CTAs K8 launches at model width C: as many whole clusters of two as
+// the card holds at once (the handoff needs every CTA resident), or 0
+// where it cannot hold one or C is not built.
+extern "C" int vlm_ln_qkv_attention_grid(int C) {
+  switch (C) {
+    case 768:
+      return max_grid<768>();
+    case 1024:
+      return max_grid<1024>();
+    default:
+      return 0;
+  }
+}
+
+// qkv: a (B, N, 3C) bf16 scratch; done: B + ceil(B·N / 128) int32 (zeroed
+// here); stats: 2·B·N f32; trace: null, or grid x kTrace zeroed u64
+// counters that receive the trace above.  grid: the value of
+// vlm_ln_qkv_attention_grid(C); ga: the K1 role's CTAs (even, at least 2,
+// below grid); unit: the K1 role's column tiles per unit (a divisor of
+// 3C/256).
 extern "C" int vlm_ln_qkv_attention(const void* x, const void* ln_w, const void* ln_b,
                                     const void* wqkv, const void* bqkv, const void* bias,
-                                    const void* mask, void* out, int B, int N, int H,
-                                    float scale, float eps, void* stream) {
-  constexpr int C = 768;
-  if (B <= 0 || N <= 0 || N > kMaxKeys || H * kAttnDim != C) return (int)cudaErrorInvalidValue;
-  constexpr size_t smem = ln_qkv_attention_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_qkv_attention_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ln_qkv_attention_kernel<C><<<dim3(B, H), kGemmThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
-      static_cast<const float*>(ln_b), static_cast<const bf16*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<const float*>(bias),
-      static_cast<const int*>(mask), static_cast<bf16*>(out), N, scale, eps);
-  return (int)cudaGetLastError();
+                                    const void* mask, void* qkv, void* done, void* stats,
+                                    void* out, void* trace, int B, int N, int H, int grid,
+                                    int ga, int unit, int delay_ns, float scale, float eps,
+                                    void* stream) {
+  if (B <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* d = static_cast<int*>(done);
+  float* st = static_cast<float*>(stats);
+  switch (H * k2::D) {
+    case 768:
+      return launch<768>(x, ln_w, ln_b, wqkv, bqkv, bias, mask, qkv, d, st, out, trace, B, N,
+                         grid, ga, unit, delay_ns, scale, eps, s);
+    case 1024:
+      return launch<1024>(x, ln_w, ln_b, wqkv, bqkv, bias, mask, qkv, d, st, out, trace, B, N,
+                          grid, ga, unit, delay_ns, scale, eps, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

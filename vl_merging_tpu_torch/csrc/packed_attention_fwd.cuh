@@ -1,7 +1,8 @@
 // K2's device code: a persistent flash attention over packed qkv, run by
-// its own kernel (packed_attention_fwd.cu, which holds the design notes)
-// and by K7's phase B (block_eval.cu), so that the two compute every
-// element with the same instructions.
+// its own kernel (packed_attention_fwd.cu, which holds the design notes),
+// by K7's phase B (block_eval.cu) and by K8's second role
+// (ln_qkv_attention.cu), so that the three compute every element with the
+// same instructions.
 #pragma once
 
 #include <type_traits>
@@ -51,6 +52,58 @@ struct Args {
   float* stats;
   int B, N, H, nqt, items;
   float scale;
+};
+
+// The items a CTA takes, first, first + stride, .., and their order: the
+// (element b, query tile qt, head h) of item `item`, and what the
+// producer's first thread waits for before it loads an item's q, k and v.
+//
+// Items, K2's own and K7's: items blockIdx.x, + gridDim.x, .., element
+// fastest, so that the CTAs that share a bias tile run together and a
+// head's K/V rows stay in L2 across its query tiles; nothing to wait for.
+struct Items {
+  int first, stride;
+  __device__ __forceinline__ Items() : first(blockIdx.x), stride(gridDim.x) {}
+  __device__ __forceinline__ void decode(const Args& a, int item, int& b, int& qt, int& h) const {
+    b = item % a.B;
+    qt = item / a.B % a.nqt;
+    h = item / a.B / a.nqt;
+  }
+  __device__ __forceinline__ void ready(int) const {}
+};
+
+// ElementMajor, K8's: element slowest (then head, query tile fastest), the
+// elements in the order K8's first role finishes their qkv rows; an item
+// of element b waits until done[b] counts every (16-row group, column
+// tile) of its rows that the first role publishes (ln_linear.cuh
+// Strided), with acquire semantics, then orders that view before the TMA
+// loads (async proxy) that read the rows.  waited: null, or where the
+// nanoseconds spent waiting and the items are summed (a profiler's trace:
+// waited[0], waited[1]).
+struct ElementMajor {
+  int first, stride;
+  const int* done;
+  int ncb, N;  // the first role's column tiles; rows per element
+  unsigned long long* waited;
+  __device__ __forceinline__ ElementMajor(int first_, int stride_, const int* done_, int ncb_,
+                                          int N_, unsigned long long* waited_)
+      : first(first_), stride(stride_), done(done_), ncb(ncb_), N(N_), waited(waited_) {}
+  __device__ __forceinline__ void decode(const Args& a, int item, int& b, int& qt, int& h) const {
+    const int per = a.H * a.nqt, r = item % per;
+    b = item / per;
+    qt = r % a.nqt;
+    h = r / a.nqt;
+  }
+  __device__ __forceinline__ void ready(int b) const {
+    const int groups = (b * N + N - 1) / 16 - b * N / 16 + 1;
+    const unsigned long long t0 = waited != nullptr ? hop::global_ns() : 0;
+    hop::wait_at_least(done + b, groups * ncb);
+    hop::fence_proxy_async_global();
+    if (waited != nullptr) {
+      waited[0] += hop::global_ns() - t0;
+      waited[1] += 1;
+    }
+  }
 };
 
 // An arrival on `bar` once this thread's earlier cp.async copies have
@@ -273,10 +326,11 @@ __device__ __forceinline__ void setup(unsigned char* raw) {
   __syncthreads();
 }
 
-// The items blockIdx.x, blockIdx.x + gridDim.x, .. of a launch: the
-// producer role (warpgroup 2) and the consumer role (warpgroups 0 and 1).
-template <int NC = 2>
-__device__ __forceinline__ void produce(const Maps& maps, const Args& a, unsigned char* raw) {
+// The items `its` deals this CTA: the producer role (warpgroup NC) and the
+// consumer role (warpgroups 0 .. NC - 1).
+template <int NC = 2, class It = Items>
+__device__ __forceinline__ void produce(const Maps& maps, const Args& a, unsigned char* raw,
+                                        const It& its = It()) {
   using K = Cfg<NC>;
   const Smem<NC> sm(raw);
   uint8_t *qs = sm.qs, *ring = sm.ring;
@@ -292,10 +346,12 @@ __device__ __forceinline__ void produce(const Maps& maps, const Args& a, unsigne
   // its last key, inside the 16-byte granule that holds that key.
   const int pt = threadIdx.x - K::CONSUMERS;
   int it = 0;
-  for (int i = 0, item = blockIdx.x; item < a.items; ++i, item += gridDim.x) {
-    const int b = item % a.B, qt = item / a.B % a.nqt, h = item / a.B / a.nqt;
+  for (int i = 0, item = its.first; item < a.items; ++i, item += its.stride) {
+    int b, qt, h;
+    its.decode(a, item, b, qt, h);
     const int rows = min(K::BQ, N - qt * K::BQ);
     if (pt == 0) {
+      its.ready(b);
       if (i > 0) hop::mbar_wait(q_empty, (i - 1) & 1);
       hop::mbar_arrive_expect_tx(q_full, K::Q_BYTES);
       hop::tma_load_3d(qs, &maps.q, h * D, qt * K::BQ, b, q_full);
@@ -332,8 +388,8 @@ __device__ __forceinline__ void produce(const Maps& maps, const Args& a, unsigne
   }
 }
 
-template <int NC = 2>
-__device__ __forceinline__ void consume(const Args& a, unsigned char* raw) {
+template <int NC = 2, class It = Items>
+__device__ __forceinline__ void consume(const Args& a, unsigned char* raw, const It& its = It()) {
   using K = Cfg<NC>;
   const Smem<NC> sm(raw);
   const uint8_t* qs = sm.qs;
@@ -349,8 +405,9 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* raw) {
   const float qscale = __bfloat162float(__float2bfloat16(a.scale));
   if (NC == 2 && wg == 1) hop::named_arrive(1, 256);  // warpgroup 0 takes the first turn
   int it = 0;
-  for (int i = 0, item = blockIdx.x; item < a.items; ++i, item += gridDim.x) {
-    const int b = item % a.B, qt = item / a.B % a.nqt, h = item / a.B / a.nqt;
+  for (int i = 0, item = its.first; item < a.items; ++i, item += its.stride) {
+    int b, qt, h;
+    its.decode(a, item, b, qt, h);
     const int q0 = qt * K::BQ;
 
     // the warp's 16 query rows, scaled in bf16, as A fragments for every key tile

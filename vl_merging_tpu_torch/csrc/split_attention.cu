@@ -18,7 +18,7 @@
 //
 // The TPU kernels hold a whole (Np, Np) logits tile in VMEM, with N padded
 // to a multiple of 128.  Here a block walks 64-key tiles with K2's online
-// softmax (common.cuh:online_softmax_pv, shared by K2, K8 and K7): the bf16
+// softmax (common.cuh:online_softmax_pv, shared with K12): the bf16
 // cast applies to exp(s - running max) before normalisation, and the
 // division by the row sum happens once, in f32, at the end.  The bias is the
 // initial value of the f32 accumulator of q·kᵀ.  N is not padded: keys past

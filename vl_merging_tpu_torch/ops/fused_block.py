@@ -10,9 +10,10 @@ and of ``ops/attention.py:ln_qkv_attention``).
   * ``proj_mlp_tail``    — proj + LayerScale + residual + LN2 + MLP +
                            LayerScale + residual, kernel K3,
                            ``csrc/proj_mlp_tail.cu`` (or K4 → K5)
-  * ``ln_qkv_attention`` — LN1 + qkv projection + attention with the packed
-                           qkv kept on chip, kernel K8,
-                           ``csrc/ln_qkv_attention.cu``
+  * ``ln_qkv_attention`` — LN1 + qkv projection + attention in one launch,
+                           kernel K8, ``csrc/ln_qkv_attention.cu`` (K1's
+                           and K2's code as two roles of one persistent
+                           grid, the packed qkv handed over through L2)
   * ``block_eval``       — a whole eval block in one launch, kernel K7,
                            ``csrc/block_eval.cu``
   * ``tail_train``       — ``proj_mlp_tail`` with per-element gammas
@@ -48,6 +49,7 @@ Reference semantics: vision_transformer.py:489-530 (LayerScale residuals),
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -64,22 +66,31 @@ _HIDDEN_CHUNK = 128           # the MLP body walks the hidden in chunks
 # must be a multiple of it (K1's 128 x 256 tiles; qkv: O = 3C = 2304, 3072)
 _QKV_TILE = {768: 256, 1024: 256}
 # The model widths each width-specific kernel is built for (the CUDA
-# entries' ``switch (C)``): K1, K3, K4, K5, K6 and K13 at the ViT-B and
-# ViT-L widths; K7, K8 (which keeps a head's k and v for N <= 640 in
-# shared memory sized for 768) and the int8 K14/K15 at 768.
+# entries' ``switch (C)``): K1, K3, K4, K5, K6, K8 and K13 at the ViT-B and
+# ViT-L widths; K7 and the int8 K14/K15 at 768.
 # The attention kernels (K2, K9, K10, K11, K12) take any head count at
 # head_dim 64 and are gated by ``models/mome._attention_kernel_ok``.
 KERNEL_WIDTHS = {
     "ln_linear": (768, 1024), "proj_mlp_tail": (768, 1024),
     "linear_residual": (768, 1024), "mlp_tail": (768, 1024),
     "tail_train": (768, 1024), "mlp": (768, 1024),
-    "ln_qkv_attention": (768,), "block_eval": (768,),
+    "ln_qkv_attention": (768, 1024), "block_eval": (768,),
     "ln_linear_i8": (768,), "proj_mlp_tail_i8": (768,),
 }
 # the kernels that run an MLP, whose gate also reads the MLP hidden
 _MLP_KERNELS = frozenset({"proj_mlp_tail", "mlp_tail", "block_eval",
                           "tail_train", "mlp", "proj_mlp_tail_i8"})
-_MAX_KEYS = 640               # K8 keeps a head's k and v for N <= 640 (K7 streams them)
+# K8's split of its grid between its two roles (``ln_qkv_attention_split``):
+# per CTA, the time of one 64-deep k-step of K1's 128 x 256 tile and of one
+# 64-key tile of K2's 128-query-row item, in µs, as K8's two roles take
+# them side by side at B=32, N=577, C=768 on an H100 80GB HBM3 at 700 W
+# (chip_profile.py --variants K8, its trace: the K1 role 22-23 tiles of 12
+# k-steps in 0.40 ms on 58 CTAs, the K2 role 25-26 items of 10 key tiles
+# in 0.40 ms of its 74 CTAs' time not spent waiting).  Only their ratio is
+# read.
+_K8_STEP_US, _K8_KEY_TILE_US = 1.47, 1.55
+# K8's K1 role: column tiles of 256 per unit of work dealt to its CTA pairs
+_K8_UNIT = 1
 # K7's scratches: bb batch elements at a time, their packed qkv and context
 # (bb·N·3C + bb·N·C bf16) within this many bytes (the H100's L2 holds 50 MB)
 _SCRATCH_BYTES = 32 << 20
@@ -322,11 +333,9 @@ def _block_attention_inputs(name, x, ln_w, ln_b, w_qkv, qkv_bias, bias, mask,
     kernels do not take."""
     B, N, C = x.shape
     require_kernel(name, C)
-    max_keys = _MAX_KEYS if name == "ln_qkv_attention" else N
-    if C != num_heads * HEAD_DIM or N > max_keys:
-        raise ValueError(f"{name} kernel takes head_dim {HEAD_DIM} and "
-                         f"N <= {max_keys}; got C={C}, heads={num_heads}, "
-                         f"N={N}")
+    if C != num_heads * HEAD_DIM:
+        raise ValueError(f"{name} kernel takes head_dim {HEAD_DIM}; got "
+                         f"C={C}, heads={num_heads}")
     w_qkv = w_qkv.to(x.dtype)
     ln_w, ln_b, qkv_bias, bias = (t.float() for t in (ln_w, ln_b, qkv_bias,
                                                       bias))
@@ -342,11 +351,43 @@ def _block_attention_inputs(name, x, ln_w, ln_b, w_qkv, qkv_bias, bias, mask,
     return ln_w, ln_b, w_qkv, qkv_bias, bias, mask
 
 
+@functools.cache
+def ln_qkv_attention_grid(C: int) -> int:
+    """The CTAs K8 launches at width C: as many whole clusters of two as
+    the card holds at once (its handoff needs every CTA resident).
+    Queried once per process and width."""
+    return _build.library().vlm_ln_qkv_attention_grid(C)
+
+
+def ln_qkv_attention_split(grid: int, B: int, N: int, C: int,
+                           heads: int) -> int:
+    """K8's CTAs that run K1's role (the rest of ``grid`` run K2's): an
+    even share of the grid in proportion to that role's work, its 128-row
+    x 256-column tiles times their 64-deep k-steps, against the K2 role's,
+    its (element, 128 query rows, head) items times their 64-key tiles, at
+    the per-unit times ``_K8_STEP_US`` and ``_K8_KEY_TILE_US``; at least
+    one cluster of two for each role.  A pure function of shapes."""
+    w1 = -(-B * N // 128) * (3 * C // 256) * (C // 64) * _K8_STEP_US
+    w2 = B * heads * -(-N // 128) * -(-N // 64) * _K8_KEY_TILE_US
+    return min(max(2 * round(grid / 2 * w1 / (w1 + w2)), 2), grid - 2)
+
+
 def ln_qkv_attention(x: torch.Tensor, ln_w, ln_b, w_qkv, qkv_bias, bias,
-                     mask, scale: float, num_heads: int) -> torch.Tensor:
+                     mask, scale: float, num_heads: int, *,
+                     split: Optional[int] = None, unit: int = _K8_UNIT,
+                     delay_ns: int = 0,
+                     trace: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ctx = attention(LN(x)·W_qkvᵀ + b) over x (B, N, C), with an f32
-    (H, N, N) additive bias and a (B, N) key mask, the packed qkv never
-    stored (K8).  The kernel takes head_dim 64 and N <= 640."""
+    (H, N, N) additive bias and a (B, N) key mask, in one launch (K8): K1's
+    tiles on ``split`` CTAs (``ln_qkv_attention_split``), storing the
+    packed qkv in a scratch, and K2's items on the rest, each element's
+    once its rows are published.  The kernel takes head_dim 64 and any N.
+    ``unit``: the K1 role's column tiles per unit of work (a divisor of
+    3C/256); ``delay_ns`` (a test's): every K1 tile's stores held back that
+    long; ``trace`` (a profiler's): a zeroed int64
+    (``ln_qkv_attention_grid(C)``, 4) tensor on the device that receives
+    each CTA's first and last time stamp (ns), its K2 role's ns waiting for
+    elements, and its units (``csrc/ln_qkv_attention.cu``)."""
     if not x.is_cuda:
         return ln_qkv_attention_reference(x, ln_w, ln_b, w_qkv, qkv_bias,
                                           bias, mask, scale, num_heads)
@@ -354,13 +395,27 @@ def ln_qkv_attention(x: torch.Tensor, ln_w, ln_b, w_qkv, qkv_bias, bias,
     ln_w, ln_b, w_qkv, qkv_bias, bias, mask = _block_attention_inputs(
         "ln_qkv_attention", x, ln_w, ln_b, w_qkv, qkv_bias, bias, mask,
         num_heads)
+    dev = x.device
+    grid = ln_qkv_attention_grid(C)
+    if grid < 4:
+        raise RuntimeError(f"ln_qkv_attention: the card holds {grid // 2} "
+                           f"clusters of K8's CTAs at once; it needs two")
+    if split is None:
+        split = ln_qkv_attention_split(grid, B, N, C, num_heads)
+    qkv = torch.empty((B, N, 3 * C), dtype=x.dtype, device=dev)
+    # the counters of the handoff (per element, per 128-row block) and the
+    # rows' LN statistics
+    done = torch.empty(B + -(-B * N // 128), dtype=torch.int32, device=dev)
+    stats = torch.empty(2 * B * N, dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     lib = _build.library()
     _build.check(lib.vlm_ln_qkv_attention(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), w_qkv.data_ptr(),
         qkv_bias.data_ptr(), bias.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), B, N, num_heads, float(scale), LN_EPS,
-        _build.stream_handle(x.device)), "ln_qkv_attention")
+        qkv.data_ptr(), done.data_ptr(), stats.data_ptr(), out.data_ptr(),
+        0 if trace is None else trace.data_ptr(), B, N, num_heads,
+        grid, split, unit, delay_ns, float(scale), LN_EPS,
+        _build.stream_handle(dev)), "ln_qkv_attention")
     ln_qkv_attention.launches += 1
     return out
 
@@ -431,7 +486,8 @@ def block_eval(x: torch.Tensor, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
         _build.expect(t, name, torch.float32, (H if name == "b1" else C,),
                       dev)
     bp, gamma1, ln2_w, ln2_b, b1, b2, gamma2 = vecs
-    bb = block_eval_chunk(B, N, C, block_eval_grid() // 4)
+    grid = block_eval_grid()
+    bb = block_eval_chunk(B, N, C, grid // 4)
     scratch = torch.empty((bb, N, 4 * C), dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
     lib = _build.library()
@@ -442,7 +498,7 @@ def block_eval(x: torch.Tensor, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
         gamma2.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         0 if trace is None else trace.data_ptr(), B, N, num_heads, H, bb,
-        float(scale), LN_EPS, _build.stream_handle(dev)), "block_eval")
+        grid, float(scale), LN_EPS, _build.stream_handle(dev)), "block_eval")
     block_eval.launches += 1
     return out
 
@@ -450,9 +506,11 @@ def block_eval(x: torch.Tensor, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
 block_eval.launches = 0
 
 
+@functools.cache
 def block_eval_grid() -> int:
     """The CTAs K7 launches: as many whole clusters of four as the card
-    holds at once (its grid-wide barriers need every CTA resident)."""
+    holds at once (its grid-wide barriers need every CTA resident).
+    Queried once per process."""
     return _build.library().vlm_block_eval_grid()
 
 

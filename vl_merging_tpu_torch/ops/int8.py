@@ -28,6 +28,7 @@ and its M ≥ 512 gate are TPU tile sizes: the kernels take any row count.
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Dict, Tuple
 
@@ -42,7 +43,8 @@ from .fused_block import require_kernel
 from .mlp import GELUS
 
 LN_EPS = 1e-6
-_QKV_TILE = 384        # ln_linear_i8's output tile width
+_QKV_TILE = 256        # ln_linear_i8's output tile width
+_I8_GROUP = 1          # ln_linear_i8: column tiles per unit of work
 
 # params-dict key suffixes of the quantized companions of a ".weight" key
 INT8_SUFFIX = "::int8"
@@ -114,9 +116,27 @@ def ref_proj_mlp_tail_i8(ctx, pq, ps, bp, gamma1, res, ln_w, ln_b, w1q, w1s,
     return (x1.float() + y2).to(ctx.dtype)
 
 
-def ln_linear_i8(x: torch.Tensor, ln_w, ln_b, wq, wscale, b) -> torch.Tensor:
+@functools.cache
+def ln_linear_i8_grid() -> int:
+    """The CTAs of K14's persistent grid: as many whole clusters of two as
+    the card holds at once.  Queried once per process."""
+    return _build.library().vlm_ln_linear_i8_grid()
+
+
+def ln_linear_i8_plan(M: int, O: int, grid: int,
+                      group: int = _I8_GROUP) -> Tuple[int, int]:
+    """K14's work at M rows and O columns on ``grid`` CTAs: its units (a
+    pair of 128-row blocks x ``group`` column tiles of 256) and its rounds
+    (the most column tiles a cluster of two takes)."""
+    units = -(-M // 256) * (O // _QKV_TILE // group)
+    return units, -(-units // max(1, grid // 2)) * group
+
+
+def ln_linear_i8(x: torch.Tensor, ln_w, ln_b, wq, wscale, b, *,
+                 group: int = _I8_GROUP) -> torch.Tensor:
     """K14: y = dequant(quant(LN(x)) @ wqᵀ) + b; x (B, N, C), wq int8 (O, C),
-    wscale (O,).  The LN output stays in f32 up to the quantizer."""
+    wscale (O,).  The LN output stays in f32 up to the quantizer.
+    ``group``: column tiles of 256 per unit of work (a divisor of O/256)."""
     if not x.is_cuda:
         return ref_ln_linear_i8(x, ln_w, ln_b, wq, wscale, b)
     B, N, C = x.shape
@@ -136,8 +156,9 @@ def ln_linear_i8(x: torch.Tensor, ln_w, ln_b, wq, wscale, b) -> torch.Tensor:
     lib = _build.library()
     _build.check(lib.vlm_ln_linear_i8(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(),
-        wscale.data_ptr(), b.data_ptr(), y.data_ptr(), B * N, C, O, LN_EPS,
-        _build.stream_handle(dev)), "ln_linear_i8")
+        wscale.data_ptr(), b.data_ptr(), y.data_ptr(), B * N, C, O,
+        ln_linear_i8_grid(), group, LN_EPS, _build.stream_handle(dev)),
+        "ln_linear_i8")
     ln_linear_i8.launches += 1
     return y
 
