@@ -11,6 +11,9 @@ of each window at ``chip_smoke.py``'s shapes and seeded inputs:
     K14 → K2 → K15 per image block);
   * ``eval @224``: the Flickr30k @224 eval over 70 images (batches of 32,
     32 and 6: K11, K11, K10 in every block) and 350 captions;
+  * ``train @224 (kernels)``: one optimizer step of the f30k @224
+    fine-tune (2 micro-batches of 32 pairs; K11 forward in every image
+    block under ``fused_attention``, K13 in every block);
   * ``image tower, fusion <route>``: ``extract_features`` over the 64
     images under each eval-block route ("pair" K1 → K2 → K4 → K5, "tail"
     K1 → K2 → K3, "qkv" K8 → K3, "mega" K7);
@@ -51,8 +54,17 @@ arguments (no rebuild): K8's two roles from its trace (``ln_qkv_attention
 waits) at three splits and two units, beside K1 and K2 alone; K8 with its
 K1 role on 8 CTAs fewer or more than ``ln_qkv_attention_split`` gives it,
 or dealing units of 3 column tiles (q, k, v) or whole row pairs (9)
-instead of single tiles; K14 in units of 3 column tiles.  ``--variants
-K7`` (any of K1, K2, K7, K8, K14, K15) runs those kernels' variants alone.
+instead of single tiles; K14 in units of 3 column tiles.  K10 (B=6) and
+K11 (B=32) at N=197, their per-call and device times (a CUDA graph): K10
+with 64-row items (K7's CTA of one consumer warpgroup), K11 taking a
+group's 4 elements (or a pair) back to back with each bias tile copied
+once for the group (the TPU kernel's resident bias block); and K10's
+wrapper's host µs a call beside its parts and K2's wrapper's.  ``--variants K10 K11 --parent
+TREE`` also times the K10 and K11 of the tree at TREE (another checkout,
+its wrappers and its kernels built from its own sources) beside this
+tree's: per call, device time and the wrappers' host µs.  ``--variants
+K7`` (any of K1, K2, K7, K8, K14, K15, K10, K11) runs those kernels'
+variants alone.
 
 First, K7's phase split (``python3 chip_profile.py --k7`` runs it alone):
 one traced launch of K7 (``block_eval(..., trace=...)``) at
@@ -69,10 +81,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import importlib
+import importlib.util
 import re
 import shutil
 import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -226,6 +242,49 @@ def k8_roles(dev, card: str) -> None:
                   f"ms, {k2[:, 3].min():.0f}-{k2[:, 3].max():.0f} items a CTA")
 
 
+def k11_groups(g: int) -> list:
+    """K11's group variant: a CTA takes the items of a group of g elements
+    (one query tile and head) back to back, units of groups dealt to the
+    CTAs in turn; its producer skips the copy of a bias tile that the stage
+    it fills already holds (at N = 197 the 4 key tiles of an item fill the
+    4 stages, so the group's later elements find all of theirs)."""
+    return [
+        ("packed_attention_fwd.cuh", "item += its.stride", "item = its.next(item)"),
+        ("packed_attention_fwd.cuh",
+         "  __device__ __forceinline__ Items() : first(blockIdx.x), stride(gridDim.x) {}\n",
+         "  __device__ __forceinline__ Items() : first(blockIdx.x), stride(gridDim.x) {}\n"
+         "  __device__ __forceinline__ int next(int item) const { return item + stride; }\n"),
+        ("packed_attention_fwd.cuh",
+         "  const int pt = threadIdx.x - K::CONSUMERS;\n  int it = 0;\n",
+         "  const int pt = threadIdx.x - K::CONSUMERS;\n  int it = 0;\n"
+         "  int held[STAGES];  // the (head, query tile, key tile) of each stage's bias\n"
+         "  for (int q = 0; q < STAGES; ++q) held[q] = -1;\n"),
+        ("packed_attention_fwd.cuh",
+         "      float* bt = reinterpret_cast<float*>(st + 2 * KV_BYTES);\n",
+         "      float* bt = reinterpret_cast<float*>(st + 2 * KV_BYTES);\n"
+         "      const int key = (h * a.nqt + qt) * nkt + j;\n"
+         "      const bool copy = held[s] != key;\n"
+         "      held[s] = key;\n"),
+        ("packed_attention_fwd.cuh", "if (f[m] != ~(size_t)0 && at < f[m] + N)",
+         "if (copy && f[m] != ~(size_t)0 && at < f[m] + N)"),
+        ("split_attention.cu", "using GroupOrder = Items;\n", f"""struct GroupOrder {{
+  int first, stride;
+  __device__ __forceinline__ GroupOrder() : first({g} * blockIdx.x), stride(gridDim.x) {{}}
+  __device__ __forceinline__ int next(int item) const {{
+    return item % {g} != {g} - 1 ? item + 1 : item + 1 + {g} * (stride - 1);
+  }}
+  __device__ __forceinline__ void decode(const Args& a, int item, int& b, int& qt, int& h) const {{
+    const int u = item / {g}, groups = a.B / {g};
+    b = {g} * (u % groups) + item % {g};
+    qt = u / groups % a.nqt;
+    h = u / groups / a.nqt;
+  }}
+  __device__ __forceinline__ void ready(int) const {{}}
+}};
+"""),
+    ]
+
+
 # name: (kernel, [(file, text, replacement)]): the design variants each
 # kernel's source rejected, each a patch of csrc/
 VARIANTS = {
@@ -284,6 +343,13 @@ VARIANTS = {
     "K14 without its epilogue (a diagnostic: no output)": (
         "K14", [("ln_linear_i8.cu", "for (int hf = 0; hf < 2; ++hf) {",
                  "for (int hf = 0; hf < 0; ++hf) {")]),
+    "K10 with 64-row items (K7's CTA of one consumer warpgroup)": (
+        "K10", [("split_attention.cu", "constexpr int kNC = 2;",
+                 "constexpr int kNC = 1;")]),
+    "K11 taking a group's 4 elements back to back, each bias tile copied "
+    "once for the 4": ("K11", k11_groups(4)),
+    "K11 taking pairs of elements back to back, each bias tile copied once "
+    "for the 2": ("K11", k11_groups(2)),
 }
 # the sources a kernel's variant library is built from (with tensor_map.cu;
 # ln_linear.cu also exports vlm_error_string)
@@ -291,7 +357,9 @@ SOURCES = {"K1": ("ln_linear.cu",), "K2": ("packed_attention_fwd.cu", "ln_linear
            "K7": ("block_eval.cu", "ln_linear.cu"),
            "K8": ("ln_qkv_attention.cu", "ln_linear.cu"),
            "K14": ("ln_linear_i8.cu", "ln_linear.cu"),
-           "K15": ("proj_mlp_tail_i8.cu", "ln_linear.cu")}
+           "K15": ("proj_mlp_tail_i8.cu", "ln_linear.cu"),
+           "K10": ("split_attention.cu", "ln_linear.cu"),
+           "K11": ("split_attention.cu", "ln_linear.cu")}
 
 
 def spills(log: str) -> str:
@@ -361,14 +429,90 @@ def using(lib):
             grid.cache_clear()
 
 
-def variants(dev, card: str, kernels) -> None:
+def load_parent_ops(root: Path):
+    """The ``ops`` package of another tree of the port (its root
+    ``root``), imported as ``parent_ops``: its wrappers, and its
+    library built from its own ``csrc/`` into its own ``build/``."""
+    ops = root / "vl_merging_tpu_torch" / "ops"
+    spec = importlib.util.spec_from_file_location(
+        "parent_ops", ops / "__init__.py",
+        submodule_search_locations=[str(ops)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["parent_ops"] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module("parent_ops.attention")
+
+
+def parent_split(root: Path, inputs, card: str) -> None:
+    """K10 (B=6) and K11 (B=32) at N=197 of the tree at ``root`` (its
+    wrappers and kernels) beside this tree's, in turns: per-call time,
+    device time alone (a CUDA graph), the wrapper's host µs a call, and
+    whether the outputs are bit-equal."""
+    old = load_parent_ops(root)
+    for name in ("split_attention", "split_attention_bb"):
+        args = inputs[name]
+
+        def new_call(name=name, args=args):
+            return getattr(attn_ops, name)(*args)
+
+        def old_call(name=name, args=args):
+            return getattr(old, name)(*args)
+        same = torch.equal(new_call(), old_call())
+        per_call = smoke.in_turns(new_call, old_call)
+        device = smoke.in_turns(new_call, old_call, smoke.device_ms)
+        us = (smoke.host_us(new_call), smoke.host_us(old_call))
+        print(f"variants: {name} at {'x'.join(map(str, args[0].shape))}: "
+              f"this tree per call {per_call[0]:.4f} ms, device "
+              f"{device[0]:.4f} ms, host {us[0]:.2f} us; {root} per call "
+              f"{per_call[1]:.4f} ms, device {device[1]:.4f} ms, host "
+              f"{us[1]:.2f} us (in turns; outputs bit-equal: {same}) [{card}]")
+
+
+def split_host(inputs, card: str) -> None:
+    """Where K10's wrapper spends its host time (B=6, N=197): the whole
+    call beside its parts, each alone, µs a call over 200 calls."""
+    q, k, v, bias, mask, scale = args = inputs["split_attention"]
+    dev = q.device
+    B, H, N, d = q.shape
+    key = ("vlm_split_attention", q.shape, k.shape, v.shape, q.stride(),
+           k.stride(), v.stride(), (q.dtype, k.dtype, v.dtype),
+           (dev, k.device, v.device, bias.device, mask.device), bias.shape,
+           mask.shape)
+    strides = attn_ops._split_strides(*key)
+    out = torch.empty_strided(q.shape, (*strides[9:], 1), dtype=q.dtype,
+                              device=dev)
+    launch = _build.library().vlm_split_attention
+    c_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+              mask.data_ptr(), out.data_ptr(), B, N, H, *strides,
+              float(scale))
+    stream = _build.stream_handle(dev)
+    parts = {
+        "the wrapper (split_attention)": lambda: attn_ops.split_attention(
+            *args),
+        "the layout lookup (_split_strides, cached)": lambda:
+            attn_ops._split_strides(*key),
+        "torch.empty_strided of the output": lambda: torch.empty_strided(
+            q.shape, (*strides[9:], 1), dtype=q.dtype, device=dev),
+        "_build.stream_handle": lambda: _build.stream_handle(dev),
+        "the C entry alone (3 tensor maps + launch)": lambda: launch(
+            *c_args, stream),
+        "K2's wrapper at B=32, N=577": lambda: attn_ops.packed_attention(
+            *inputs["packed_attention"]),
+    }
+    for name, fn in parts.items():
+        print(f"variants: K10 host path, {name}: {smoke.host_us(fn):.2f} us "
+              f"a call [{card}]")
+
+
+def variants(dev, card: str, kernels, parent=None) -> None:
     """The kernels named against their rejected variants, in turns (built,
-    variant, variant, built), through the same wrappers and inputs."""
+    variant, variant, built), through the same wrappers and inputs; with
+    ``parent`` (another tree's root), K10 and K11 beside that tree's."""
     libs = build_variants(kernels)
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
     inputs = smoke.kernel_inputs(dev, gen)
     inputs.update(smoke.fusion_inputs(inputs))
-    calls = {"K1": {}, "K2": {}, "K7": {}, "K8": {}, "K14": {}, "K15": {}}
+    calls = {k: {} for k in SOURCES}
     for c in (smoke.C, smoke.C_L):
         x = torch.randn(smoke.IMAGE_BATCH, smoke.N, c, device=dev,
                         generator=gen).bfloat16()
@@ -393,6 +537,10 @@ def variants(dev, card: str, kernels) -> None:
     calls["K8"]["B=32"] = lambda: fb_ops.ln_qkv_attention(
         *inputs["ln_qkv_attention"])
     calls["K14"]["B=32"] = lambda: i8_ops.ln_linear_i8(*inputs["ln_linear_i8"])
+    calls["K10"]["B=6, N=197"] = lambda: attn_ops.split_attention(
+        *inputs["split_attention"])
+    calls["K11"]["B=32, N=197"] = lambda: attn_ops.split_attention_bb(
+        *inputs["split_attention_bb"])
     built = _build.library()
 
     def k7_split(lib) -> str:
@@ -408,8 +556,13 @@ def variants(dev, card: str, kernels) -> None:
         k8_variants(inputs, card)
     if "K14" in kernels:
         k14_variants(inputs, card)
+    if "K10" in kernels:
+        split_host(inputs, card)
+    if parent is not None and {"K10", "K11"} & set(kernels):
+        parent_split(parent, inputs, card)
     for name, (lib, spill) in libs.items():
-        for shape, call in calls[VARIANTS[name][0]].items():
+        kernel = VARIANTS[name][0]
+        for shape, call in calls[kernel].items():
             with using(lib):
                 got = call()
             same = torch.equal(got, call())
@@ -417,10 +570,17 @@ def variants(dev, card: str, kernels) -> None:
             for which in (built, lib, lib, built):
                 with using(which):
                     times.append(smoke.time_ms(call))
-            print(f"variants: {VARIANTS[name][0]} at {shape}: built "
+            if kernel in ("K10", "K11"):   # host-bound per call: device too
+                for which in (built, lib, lib, built):
+                    with using(which):
+                        times.append(smoke.device_ms(call))
+            device = "" if len(times) == 4 else (
+                f"; device {times[4]:.4f} / {times[7]:.4f} ms against "
+                f"{times[5]:.4f} / {times[6]:.4f}")
+            print(f"variants: {kernel} at {shape}: built "
                   f"{times[0]:.4f} / {times[3]:.4f} ms, {name} {times[1]:.4f} / "
-                  f"{times[2]:.4f} ms (ptxas: {spill}; output bit-equal to the "
-                  f"built kernel's: {same}) [{card}]")
+                  f"{times[2]:.4f} ms{device} (ptxas: {spill}; output bit-equal "
+                  f"to the built kernel's: {same}) [{card}]")
             if VARIANTS[name][0] == "K7":
                 print(f"variants: K7 phases A, barrier, B, barrier, C, barrier "
                       f"(ms, mean per CTA): built {k7_split(built)}, variant "
@@ -479,15 +639,18 @@ def main() -> None:
     parser.add_argument("--k7", action="store_true",
                         help="run K7's phase split alone")
     parser.add_argument("--variants", nargs="*", metavar="KERNEL",
-                        help="run K1, K2, K7, K8, K14 and K15 (or the "
-                             "kernels named) beside their rejected variants "
-                             "alone")
+                        help="run K1, K2, K7, K8, K14, K15, K10 and K11 (or "
+                             "the kernels named) beside their rejected "
+                             "variants alone")
+    parser.add_argument("--parent", type=Path, metavar="TREE",
+                        help="with --variants: K10 and K11 beside those of "
+                             "the tree at TREE (another checkout's root)")
     opts = parser.parse_args()
     dev = require_cuda()
     card = smoke.card_line()
     print(card)
     if opts.variants is not None:
-        variants(dev, card, opts.variants or list(SOURCES))
+        variants(dev, card, opts.variants or list(SOURCES), opts.parent)
         return
     k7_phases(dev, card)
     if opts.k7:
@@ -519,6 +682,22 @@ def main() -> None:
     trace("eval @224", lambda: compute_irtr_recall(params224, spec224,
                                                    *sets224), card)
     del params224, sets224
+    # the f30k @224 fine-tune step: K11 forward in every image block (the
+    # plain VJP backward), K13 in every block
+    cfg224t = build_config(*smoke.CONFIG_224, overrides=dict(
+        per_device_batch_size=smoke.MICRO_BATCH,
+        batch_size=2 * smoke.MICRO_BATCH, warmup_steps=0,
+        pallas_attention=True))
+    state, step = build_train_step(cfg224t, spec224, master_params(
+        smoke.seeded_params(spec224, dev)), 10)
+    batch224 = smoke.synthetic_train_batch(spec224, accum_steps(cfg224t),
+                                           dev, gen)
+    holder = [state]
+
+    def step224():
+        holder[0] = step(holder[0], batch224)[0]
+    trace("train @224 (kernels)", step224, card)
+    del state, step, holder, batch224
 
     train_cfg = smoke.train_config(kernels=True)
     batch = smoke.synthetic_train_batch(spec, accum_steps(train_cfg), dev,

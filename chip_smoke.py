@@ -37,12 +37,13 @@ Phases, each fatal on failure:
   1. a CUDA device (printed as nvidia-smi names it, with its power limit);
   2. the kernels built from ``vl_merging_tpu_torch/csrc`` (build time),
      and the wgmma instructions of the redesigned kernels (HGMMA: K3, K4,
-     K5, K6, K13 on the shared MLP body; K9's two kernels; K1, K2, K7 and
-     K8; IGMMA: K14, K15) counted in the library's SASS with ``cuobjdump``
-     (none: fail); the registers and spill bytes ptxas gave K1, K2, K7 (and
-     every function it calls), K8, K14 and K15 (``build/nvcc.log``; a
-     spill fails), and ptxas's warnings that it serialised a kernel's
-     wgmma (one for K8 or K14 fails);
+     K5, K6, K13 on the shared MLP body; K9's two kernels; K1, K2, K7, K8
+     and K10/K11 (one kernel); IGMMA: K14, K15) counted in the library's
+     SASS with ``cuobjdump`` (none: fail); the registers and spill bytes
+     ptxas gave K1, K2, K7 (and every function it calls), K8, K14, K15 and
+     K10/K11 (``build/nvcc.log``; a spill fails), and ptxas's warnings
+     that it serialised a kernel's wgmma (one for K8, K14 or K10/K11
+     fails);
   3. each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail,
      K9 packed_attention_bwd, K13 mlp, K12 packed_attention_i8qk, K14
      ln_linear_i8, K15 proj_mlp_tail_i8, K4 linear_residual, K5 mlp_tail,
@@ -55,11 +56,17 @@ Phases, each fatal on failure:
      K1, K3 and K2 at the same shapes (K14 and K1 in turns); K4 + K5, K8
      and K7 beside the staged kernels they replace (K3, K1 + K2, K8 + K3),
      in time (in turns) and output (bit-equal or not, and the share of
-     elements that differ); K10 beside K11 at B=32 and K6 at uniform
-     gammas beside K3, likewise (K4 -> K5, K7 and K6 share K3's MLP body,
-     K7 and K8 run K1's and K2's code: K4 -> K5, K6 and K7 not bit-equal
-     to K3, K3 and K1 -> K2 -> K3, K8 not bit-equal to K1 -> K2, or K7 to
-     K8 -> K3, fails); K7's time against K1 + K2 + K3, K8's against K1 +
+     elements that differ); K10 beside K11 at B=32, K10 at B=6 beside
+     K11's first 6 elements, K10 beside K2 on the packed qkv whose views
+     it reads (N=197), and K6 at uniform gammas beside K3, likewise (K4 ->
+     K5, K7 and K6 share K3's MLP body, K7, K8, K10 and K11 run K1's and
+     K2's code: K4 -> K5, K6 and K7 not bit-equal to K3, K3 and K1 -> K2
+     -> K3, K8 not bit-equal to K1 -> K2, K7 to K8 -> K3, or K10 to K11
+     or K2, fails); K10 (B=6) and K11 (B=32) timed by device time alone
+     (a CUDA graph of 100 launches) and per call, SDPA both ways, in
+     turns, the wrappers' host µs per call beside K2's, and their bars
+     (K11's device time at most 0.045 ms, K10's below SDPA's; printed,
+     met or missed); K7's time against K1 + K2 + K3, K8's against K1 +
      K2, K15's against K3 and K14's against K1 beside their bars (1.25x,
      1.10x, 0.85x, 0.8x; printed, met or missed); K14's rounds and the
      SHA-256 of its output; K15 with every
@@ -231,10 +238,15 @@ DBIAS_REL = 1e-3
 STATS_REL = 1e-5
 MIN_COSINE = 0.999
 TIMED_ITERS = 20
+# launches per CUDA graph when a kernel's device time is taken alone
+GRAPH_LAUNCHES = 100
 # the time bars of the Hopper K7, K8, K15 and K14 (printed, met or missed):
 # K7 at most 1.25 x the staged K1 -> K2 -> K3, K8 1.10 x K1 -> K2, K15 0.85
 # x K3, K14 0.8 x K1, at the same shapes, in the same run
 K7_BAR, K8_BAR, K15_BAR, K14_BAR = 1.25, 1.10, 0.85, 0.8
+# K11's device time at B=32, N=197 at most 0.045 ms; K10's at B=6 below
+# SDPA's on the same inputs (printed, met or missed)
+K11_BAR_MS = 0.045
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 and int8 tensor cores,
 # HBM3
 PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 989e12, 1979e12, 3.35e12
@@ -264,11 +276,50 @@ def time_ms(fn, iters: int = TIMED_ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(a, b) -> tuple:
+def device_ms(fn, launches: int = GRAPH_LAUNCHES) -> float:
+    """The device time of one call of ``fn`` alone: ``launches`` calls
+    captured in a CUDA graph, the graph replayed between two events (best
+    of 3 replays), per call.  No host work runs between the launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / launches)
+    del graph
+    return best
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """The host's time per call of ``fn`` (µs) over ``calls`` calls issued
+    back to back without a synchronise (the launches queue on the device),
+    after a warm call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
+def in_turns(a, b, timer=time_ms) -> tuple:
     """The best of two timings (ms) each of a and b, taken a, b, b, a."""
-    ta, tb = [time_ms(a)], [time_ms(b)]
-    tb.append(time_ms(b))
-    ta.append(time_ms(a))
+    ta, tb = [timer(a)], [timer(b)]
+    tb.append(timer(b))
+    ta.append(timer(a))
     return min(ta), min(tb)
 
 
@@ -643,6 +694,39 @@ BF16_TWIN = {"ln_linear_i8": "ln_linear", "proj_mlp_tail_i8": "proj_mlp_tail",
              "packed_attention_i8qk": "packed_attention"}
 
 
+def split_timing(inputs, rows: dict, card: str) -> None:
+    """K10 (B=6) and K11 (B=32) at N=197, 12 heads, on the views of a
+    packed qkv: the kernel's device time alone (``device_ms``: a CUDA
+    graph) beside its per-call time (``time_ms``: the wrapper's host path
+    between launches), SDPA's both ways, each pair in turns; the wrappers'
+    host µs per call beside K2's, in turns; the two bars, met or
+    missed."""
+    k2_args = inputs["packed_attention"]
+    label = {"split_attention": "K10", "split_attention_bb": "K11"}
+    for name in ("split_attention", "split_attention_bb"):
+        args, kernel = inputs[name], KERNELS[name][0]
+        sdpa = library_call(name, args)
+        dev_ms, sdpa_dev = in_turns(lambda: kernel(*args), sdpa, device_ms)
+        call_ms, sdpa_call = in_turns(lambda: kernel(*args), sdpa)
+        us, k2_us = in_turns(lambda: kernel(*args),
+                             lambda: attn_ops.packed_attention(*k2_args),
+                             host_us)
+        rows[name].update(device_ms=dev_ms, library_device_ms=sdpa_dev,
+                          host_us=us)
+        if name == "split_attention_bb":
+            bar = (f"bar: device <= {K11_BAR_MS} ms "
+                   f"{'met' if dev_ms <= K11_BAR_MS else 'missed'}")
+        else:
+            bar = (f"bar: device below SDPA's "
+                   f"{'met' if dev_ms < sdpa_dev else 'missed'}")
+        print(f"{label[name]} ({name}) at {'x'.join(map(str, args[0].shape))}"
+              f": device {dev_ms:.4f} ms (a graph of {GRAPH_LAUNCHES}), per "
+              f"call {call_ms:.4f} ms; SDPA device {sdpa_dev:.4f} ms, per "
+              f"call {sdpa_call:.4f} ms (each pair in turns); wrapper host "
+              f"{us:.2f} us a call (K2's at B={k2_args[0].shape[0]}, "
+              f"N={N}, in turns: {k2_us:.2f}); {bar} [{card}]")
+
+
 def ulp_check(name: str, got, want) -> tuple:
     """(max |kernel - twin|, worst error as a share of the bound, share of
     elements that differ at all)."""
@@ -694,12 +778,26 @@ def staged_comparisons(inputs, card: str) -> None:
         ("K7 vs K8 -> K3", k7, "K8 + K3", k8_k3),
         ("K7 vs K1 -> K2 -> K3", k7, "K1 + K2 + K3", k1_k2_k3))
     split = inputs["split_attention_bb"]
+    sq, sk, sv, sbias, smask, sscale = split
+    sB = sq.shape[0]
+    # the packed qkv whose views K10 and K11 read (q starts it)
+    qkv = sq.as_strided((sB, N_224, 3 * C), (N_224 * 3 * C, 3 * C, 1))
+    six = (sq[:K10_BATCH], sk[:K10_BATCH], sv[:K10_BATCH], sbias,
+           smask[:K10_BATCH], sscale)
     u1, u2 = (g.bfloat16().float() for g in (g1, g2))
     B = ctx.shape[0]
     cases += (
         ("K10 vs K11 (B=32, N=197)",
          lambda: attn_ops.split_attention(*split), "K11",
          lambda: attn_ops.split_attention_bb(*split)),
+        (f"K10 at B={K10_BATCH} vs K11's first {K10_BATCH} (B=32, N=197)",
+         lambda: attn_ops.split_attention(*six), "K11",
+         lambda: attn_ops.split_attention_bb(*split)[:K10_BATCH]),
+        ("K10 vs K2 (packed qkv, N=197)",
+         lambda: attn_ops.split_attention(*split).transpose(1, 2).reshape(
+             sB, N_224, C), "K2",
+         lambda: attn_ops.packed_attention(qkv, sbias, smask, sscale,
+                                           HEADS)),
         ("K6 at uniform gammas vs K3",
          lambda: fb_ops.tail_train(ctx, wp, bp, u1.expand(B, 1, C), res,
                                    ln2_w, ln2_b, w1, b1, w2, b2,
@@ -707,9 +805,13 @@ def staged_comparisons(inputs, card: str) -> None:
          "K3", lambda: fb_ops.proj_mlp_tail(ctx, wp, bp, u1, res, ln2_w,
                                             ln2_b, w1, b1, w2, b2, u2)))
     # bit-equal by construction: the shared MLP body (K4 -> K5, K6), and K7
-    # and K8, which run K1's and K2's device code (K7 the MLP body's too)
+    # and K8, which run K1's and K2's device code (K7 the MLP body's too),
+    # and K10 and K11, which run K2's
     bit_equal = ("K4 -> K5 vs K3", "K6 at uniform gammas vs K3",
-                 "K8 vs K1 -> K2", "K7 vs K8 -> K3", "K7 vs K1 -> K2 -> K3")
+                 "K8 vs K1 -> K2", "K7 vs K8 -> K3", "K7 vs K1 -> K2 -> K3",
+                 "K10 vs K11 (B=32, N=197)",
+                 f"K10 at B={K10_BATCH} vs K11's first {K10_BATCH} (B=32, "
+                 f"N=197)", "K10 vs K2 (packed qkv, N=197)")
     # the bars of the fused kernels' time against the staged kernels'
     bars = {"K7 vs K1 -> K2 -> K3": K7_BAR, "K8 vs K1 -> K2": K8_BAR}
     for label, fused, staged_name, staged in cases:
@@ -881,6 +983,7 @@ def check_kernels(dev, card: str, usage: dict) -> dict:
           f"{bound(*work('tail_train', args))[0]:.4f} ms [{card}]")
     if worst > 1.0:
         fail("tail_train disagrees with its plain twin at the text rows")
+    split_timing(inputs, rows, card)
     # K2's training launch stores each query row's softmax statistics for K9
     rows["packed_attention"]["train_ms"] = check_training_attention(
         inputs["packed_attention_bwd"], card)
@@ -1858,19 +1961,24 @@ WGMMA_KERNELS = {"K1": "16ln_linear_kernel", "K2": "27packed_attention_fwd_kerne
                  "K7": "17block_eval_kernel", "K8": "23ln_qkv_attention_kernel",
                  "K13": "10mlp_kernel", "K9 dq": "9dq_kernel",
                  "K9 dk/dv": "10dkv_kernel", "K14": "19ln_linear_i8_kernel",
-                 "K15": "23proj_mlp_tail_i8_kernel"}
+                 "K15": "23proj_mlp_tail_i8_kernel",
+                 "K10": "22split_attention_kernel",
+                 "K11": "22split_attention_kernel"}
 WGMMA_OP = {"K14": "IGMMA", "K15": "IGMMA"}
-# The Hopper K1, K2, K7, K8, K14 and K15, whose ptxas report is printed and
-# must show no spill (K7: its kernel and every function it calls)
+# The Hopper K1, K2, K7, K8, K14, K15, K10 and K11, whose ptxas report is
+# printed and must show no spill (K7: its kernel and every function it
+# calls).  K10 and K11 launch one kernel: both names match it.
 SPILL_FREE = {"ln_linear": "16ln_linear_kernel",
               "packed_attention": "27packed_attention_fwd_kernel",
               "block_eval": "_13_block_eval_cu_",
               "ln_qkv_attention": "23ln_qkv_attention_kernel",
               "ln_linear_i8": "19ln_linear_i8_kernel",
-              "proj_mlp_tail_i8": "23proj_mlp_tail_i8_kernel"}
+              "proj_mlp_tail_i8": "23proj_mlp_tail_i8_kernel",
+              "split_attention": "22split_attention_kernel",
+              "split_attention_bb": "22split_attention_kernel"}
 # The sources whose kernels ptxas must not serialise the wgmma of (its
 # "wgmma.mma_async instructions are serialized" warning in build/nvcc.log)
-UNSERIALISED = ("ln_qkv_attention.cu", "ln_linear_i8.cu")
+UNSERIALISED = ("ln_qkv_attention.cu", "ln_linear_i8.cu", "split_attention.cu")
 
 
 def check_wgmma(lib) -> None:
@@ -1880,13 +1988,13 @@ def check_wgmma(lib) -> None:
     out = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
                           "-sass", str(lib)], capture_output=True, text=True,
                          check=True).stdout
-    counts, fn = dict.fromkeys(WGMMA_KERNELS, 0), None
+    counts, fns = dict.fromkeys(WGMMA_KERNELS, 0), []
     for line in out.splitlines():
         if "Function :" in line:
-            fn = next((k for k, m in WGMMA_KERNELS.items() if m in line),
-                      None)
-        elif fn is not None and WGMMA_OP.get(fn, "HGMMA") in line:
-            counts[fn] += 1
+            fns = [k for k, m in WGMMA_KERNELS.items() if m in line]
+        else:
+            for fn in fns:
+                counts[fn] += WGMMA_OP.get(fn, "HGMMA") in line
     print("wgmma (HGMMA; K14, K15: IGMMA) instructions in the SASS: "
           + ", ".join(f"{k} {v}" for k, v in counts.items()))
     if not all(counts.values()):
@@ -1895,15 +2003,15 @@ def check_wgmma(lib) -> None:
 
 def check_spills() -> dict:
     """The registers and spill bytes ptxas reported for each instantiation
-    of K1, K2, K7, K8, K14 and K15 and for every function they call
+    of K1, K2, K7, K8, K14, K15 and K10/K11 and for every function they call
     (``build/nvcc.log``, written by the build); fail on a spill.  Returns
     a printable summary per kernel."""
     log = (_build.BUILD_DIR / "nvcc.log").read_text()
     found = {name: {} for name in SPILL_FREE}   # name -> function -> [regs, st, ld]
     entry = props = None
 
-    def key(fn):
-        return next((n for n, m in SPILL_FREE.items() if m in fn), None)
+    def keys(fn):
+        return [n for n, m in SPILL_FREE.items() if m in fn]
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = re.search(r"'([^']+)'", line)[1]
@@ -1912,13 +2020,13 @@ def check_spills() -> dict:
         elif props and "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
-            if key(props):
-                found[key(props)].setdefault(props, [None, 0, 0])[1:] = \
+            for k in keys(props):
+                found[k].setdefault(props, [None, 0, 0])[1:] = \
                     [int(m[1]), int(m[2])]
             props = None
         elif entry and "Used" in line and "registers" in line:
-            if key(entry):
-                found[key(entry)].setdefault(entry, [None, 0, 0])[0] = \
+            for k in keys(entry):
+                found[k].setdefault(entry, [None, 0, 0])[0] = \
                     int(re.search(r"Used (\d+) registers", line)[1])
             entry = None
 
@@ -1937,8 +2045,8 @@ def check_spills() -> dict:
     if not all(any(r is not None for r, _, _ in fns.values())
                for fns in found.values()) or \
             any(st or ld for fns in found.values() for _, st, ld in fns.values()):
-        fail(f"K1, K2, K7, K8, K14 or K15 spills, or ptxas reported none of "
-             f"them: {found}")
+        fail(f"K1, K2, K7, K8, K14, K15, K10 or K11 spills, or ptxas "
+             f"reported none of them: {found}")
     return usage
 
 
@@ -1957,8 +2065,8 @@ def check_serialisation() -> None:
                       n in UNSERIALISED))
     bad = {n: warned.get(n) for n in UNSERIALISED if warned.get(n)}
     if bad or not all(n in warned for n in UNSERIALISED):
-        fail(f"ptxas serialised the wgmma of K8 or K14, or built neither: "
-             f"{bad}")
+        fail(f"ptxas serialised the wgmma of K8, K14 or K10/K11, or built "
+             f"one of them not: {bad}")
 
 
 def main() -> int:

@@ -26,7 +26,8 @@ block_eval runs K1's, K2's and K3's code and equals K1 → K2 → K3 bit for
 bit, within 4 ulps of its twin.
 The image tower takes the launches of the route ``fusion`` names.  The
 split-layout attention, K10 split_attention and K11 split_attention_bb,
-rounds its softmax as K2 does, 4 ulps, and the two give the same bits;
+runs K2's device code over strided q, k, v: 4 ulps, and the two give the
+same bits, K2's bits on the packed qkv whose views they read;
 K6 tail_train is K3 with per-element gammas, 2 ulps, and K3's bits when
 every element's gammas are K3's.  A @224 image tower layer takes K11 or
 K10; a training block under ``train_fusion`` takes K6 (and K1 under
@@ -560,39 +561,96 @@ def test_image_tower_routes_launch_their_kernels_on_card(cuda_device):
         assert float(cos.min()) >= 0.9999, (fusion, float(cos.min()))
 
 
-def _split_args(dev, g, B, N, H=12):
+def _split_args(dev, g, B, N, H=12, dead=False):
     """q, k, v as the (B, H, N, 64) views of a packed qkv (as the towers
-    hand them to the split kernels), an f32 bias and a ragged key mask."""
+    hand them to the split kernels), an f32 bias and a ragged key mask
+    (with ``dead``, element 0 has no valid key)."""
     qkv = torch.randn(B, N, 3 * H * 64, device=dev, generator=g).bfloat16()
     q, k, v = qkv.view(B, N, 3, H, 64).permute(2, 0, 3, 1, 4)
     bias = torch.randn(H, N, N, device=dev, generator=g)
     mask = torch.ones(B, N, dtype=torch.int32, device=dev)
     mask[-1, N // 2:] = 0
+    if dead:
+        mask[0] = 0
     return q, k, v, bias, mask, 0.125
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N", [(8, 197), (4, 577), (4, 130)])
-def test_split_attention_kernels_match_twin_on_card(cuda_device, B, N):
+@pytest.mark.parametrize("B,N,H,dead", [(8, 197, 12, False),
+                                        (4, 577, 12, False),
+                                        (4, 130, 12, False),
+                                        (6, 197, 12, False),
+                                        (32, 197, 12, False),
+                                        (8, 197, 16, False),
+                                        (4, 197, 12, True)])
+def test_split_attention_kernels_match_twin_on_card(cuda_device, B, N, H,
+                                                    dead):
     """K10 and K11 on strided views of a packed qkv against their twin
     (4 ulps: K2's softmax rounding), equal to each other bit for bit (the
-    same arithmetic per element); contiguous inputs give the same bits;
-    K11 refuses a batch that is not a multiple of 4."""
+    same kernel); contiguous inputs give the same bits; a sample with no
+    valid key stores 0/0, as K2 does; K11 refuses a batch that is not a
+    multiple of 4.  At B = 6 (the @224 eval's ragged batch), K10's rows
+    equal K11's over a batch of 8 whose first 6 elements they are."""
     g = torch.Generator(device=cuda_device).manual_seed(13)
-    args = _split_args(cuda_device, g, B, N)
+    args = _split_args(cuda_device, g, B, N, H, dead)
     n = (TA.split_attention.launches, TA.split_attention_bb.launches)
     k10 = TA.split_attention(*args)
-    k11 = TA.split_attention_bb(*args)
-    assert (TA.split_attention.launches, TA.split_attention_bb.launches) == \
-        (n[0] + 1, n[1] + 1)
     assert k10.shape == args[0].shape
-    _bf16_close(k10, TA.split_attention_reference(*args), ulps=4)
-    assert torch.equal(k10, k11)
+    live = slice(1 if dead else 0, B)
+    _bf16_close(k10[live],
+                TA.split_attention_reference(*args)[live], ulps=4)
+    if dead:
+        assert bool(k10[0].isnan().all())
     dense = [t.contiguous() for t in args[:3]]
-    assert torch.equal(TA.split_attention(*dense, *args[3:]), k10)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        TA.split_attention_bb(*(t[:3] for t in args[:3]), args[3],
-                              args[4][:3], args[5])
+    assert torch.equal(TA.split_attention(*dense, *args[3:]).nan_to_num(),
+                       k10.nan_to_num())
+    if B % 4 == 0:
+        k11 = TA.split_attention_bb(*args)
+        assert torch.equal(k10.nan_to_num(), k11.nan_to_num())
+        with pytest.raises(ValueError, match="multiple of 4"):
+            TA.split_attention_bb(*(t[:3] for t in args[:3]), args[3],
+                                  args[4][:3], args[5])
+        assert (TA.split_attention.launches,
+                TA.split_attention_bb.launches) == (n[0] + 2, n[1] + 1)
+    else:
+        wide = _split_args(cuda_device, g, 8, N, H)
+        six = (*(t[:B] for t in wide[:3]), wide[3], wide[4][:B], wide[5])
+        assert torch.equal(TA.split_attention(*six),
+                           TA.split_attention_bb(*wide)[:B])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H", [(6, 197, 12), (32, 197, 12),
+                                   (4, 197, 16), (3, 577, 12), (2, 40, 3),
+                                   (3, 197, 3)])
+def test_split_attention_equals_packed_k2_on_card(cuda_device, B, N, H):
+    """K10 and K11 run K2's device code: on the (B, H, N, 64) views of a
+    packed qkv they give K2's bits on that qkv (any N), element 0 with no
+    valid key (0/0) included.  The bias is layer 1's slice of an (L, H, N,
+    N) table; at H = 3, N = 197 it starts off a 16-byte boundary and the
+    wrappers copy it (fault C6)."""
+    g = torch.Generator(device=cuda_device).manual_seed(7 * N + H)
+    C = 64 * H
+    qkv = torch.randn(B, N, 3 * C, device=cuda_device, generator=g).bfloat16()
+    bias = torch.randn(2, H, N, N, device=cuda_device, generator=g)[1]
+    assert (bias.data_ptr() % 16 != 0) == (H * N * N % 4 != 0)
+    mask = torch.ones(B, N, dtype=torch.int32, device=cuda_device)
+    mask[0] = 0
+    mask[-1, N - N // 3:] = 0
+    q, k, v = qkv.view(B, N, 3, H, 64).permute(2, 0, 3, 1, 4)
+    want = TA.packed_attention(qkv, bias, mask, 0.125, H)
+    assert bool(want[0].isnan().all())
+    kernels = [TA.split_attention]
+    if B % 4 == 0:
+        kernels.append(TA.split_attention_bb)
+    for kernel in kernels:
+        got = kernel(q, k, v, bias, mask, 0.125).transpose(1, 2).reshape(
+            B, N, C)
+        assert torch.equal(got.nan_to_num(), want.nan_to_num()), \
+            kernel.__name__
+        assert bool(got[0].isnan().all())
+    _bf16_close(want[1:], TA.packed_attention_reference(
+        qkv, bias, mask, 0.125, H)[1:], ulps=4)
 
 
 @pytest.mark.cuda

@@ -7,9 +7,9 @@
 //     rows is the column-major B operand of x·Wᵀ;
 //   * shared-memory rows of the mma.sync kernels carry kPad bf16 of
 //     padding, so that consecutive rows start in different banks;
-//   * the attention helpers (K10, K11, K12, and K9's products along a
-//     tile) use mma.sync directly, for its documented register layout; K1,
-//     K2, K7, K8, K14, K15, the MLP body of K3, K4, K5, K6, K7 and K13
+//   * the attention helpers (K12, and K9's products along a tile) use
+//     mma.sync directly, for its documented register layout; K1, K2, K7,
+//     K8, K10, K11, K14, K15, the MLP body of K3, K4, K5, K6, K7 and K13
 //     (mlp_body.cuh) and K9's q·kᵀ-type products use wgmma (hopper.cuh).
 #pragma once
 
@@ -206,7 +206,7 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
                : "r"(s));
 }
 
-// One warp's step of the flash-style attention of K10, K11 and K12 over
+// One warp's step of the flash-style attention of K12 over
 // one 64-key tile (kAttnKeys keys of kAttnDim values, rows kAttnLdt apart in
 // shared memory).  s holds the warp's 16 x 64 f32 logits in the m16n8
 // accumulator layout (rows g and g + 8 of the thread's group); m and l are

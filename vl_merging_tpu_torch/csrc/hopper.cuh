@@ -6,7 +6,7 @@
 //   * mbarriers (init, arrive, expect_tx, parity waits) in shared memory,
 //     local and, through mapa, in another CTA of the cluster;
 //   * TMA: 2-D tiled loads of a bf16 matrix (also multicast to the CTAs of
-//     a cluster) and 3-D loads of a bf16 tensor into 128-byte-swizzled
+//     a cluster) and 3-D and 4-D loads of a bf16 tensor into 128-byte-swizzled
 //     shared memory, completing on an mbarrier, 2-D tiled stores from it
 //     (K14), and the host-side tensor maps (cuTensorMapEncodeTiled, found
 //     in the driver at run time);
@@ -273,6 +273,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+// Load the box at (c0, c1, c2, c3) of a 4-D tensor map.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -988,6 +998,13 @@ bool make_tensor_map_i8(CUtensorMap* map, const void* base, uint64_t rows, uint6
 // (box[0] at most 64); elements past a dim read as zeros.
 bool make_tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t (&dims)[3],
                         uint64_t row_bytes, uint64_t plane_bytes, const uint32_t (&box)[3]);
+// A 4-D tensor map, 128B-swizzled, over bf16 values: dims[0] contiguous,
+// dims[i] strides[i - 1] bytes apart (16-byte multiples, in any order: K10
+// and K11 read (B, H, N, 64) views whose head stride is 128 bytes; base
+// 16-byte aligned), boxes of box[0] x .. x box[3] (box[0] at most 64);
+// elements past a dim read as zeros.
+bool make_tensor_map_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                        const uint64_t (&strides)[3], const uint32_t (&box)[4]);
 
 }  // namespace hop
 }  // namespace vlm

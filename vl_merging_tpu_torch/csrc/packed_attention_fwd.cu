@@ -52,7 +52,9 @@
 // makes it serialize every product of the kernel.  The grid is persistent:
 // one CTA per SM walks the items b fastest, so the CTAs that share a bias
 // tile run together and a head's K/V rows stay in L2 across its query
-// tiles.
+// tiles.  K10 and K11 (split_attention.cu) run the same device code over
+// split q, k and v: only the producer's TMA maps differ (the layout
+// policy, Maps here, SplitMaps there).
 //
 // L2 traffic per launch at B=32, N=577, 12 heads (arithmetic from the
 // tiles): 1920 items; K and V 1920 x 148 KB = 284 MB (the 64-query-row

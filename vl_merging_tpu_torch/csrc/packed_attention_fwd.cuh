@@ -1,8 +1,9 @@
 // K2's device code: a persistent flash attention over packed qkv, run by
 // its own kernel (packed_attention_fwd.cu, which holds the design notes),
-// by K7's phase B (block_eval.cu) and by K8's second role
-// (ln_qkv_attention.cu), so that the three compute every element with the
-// same instructions.
+// by K7's phase B (block_eval.cu), by K8's second role
+// (ln_qkv_attention.cu) and, over split q, k and v (the SplitMaps layout
+// policy), by K10 and K11 (split_attention.cu), so that all five compute
+// every element with the same instructions.
 #pragma once
 
 #include <type_traits>
@@ -41,8 +42,40 @@ struct Cfg {
 constexpr int BQ = Cfg<2>::BQ, CONSUMERS = Cfg<2>::CONSUMERS, THREADS = Cfg<2>::THREADS;
 constexpr int SMEM = Cfg<2>::SMEM;
 
+// Where the producer's TMA loads find an item's q tile and a key tile's k
+// and v: the layout policy of the launch.
+//
+// Maps, K2's, K7's and K8's: q, k and v in place in a packed qkv, one 3-D
+// map over (B, N, 3C) (q at column 0, k at C, v at 2C, head h at h·64).
 struct Maps {
-  CUtensorMap q, kv;  // qkv (B, N, 3C) in 64 x 128 and 64 x 64 boxes
+  CUtensorMap q, kv;  // qkv (B, N, 3C) in 64 x BQ and 64 x 64 boxes
+  __device__ __forceinline__ void load_q(void* dst, int b, int h, int row, int,
+                                         uint64_t* bar) const {
+    hop::tma_load_3d(dst, &q, h * D, row, b, bar);
+  }
+  __device__ __forceinline__ void load_kv(void* k_dst, void* v_dst, int b, int h, int k0, int C,
+                                          uint64_t* bar) const {
+    hop::tma_load_3d(k_dst, &kv, C + h * D, k0, b, bar);
+    hop::tma_load_3d(v_dst, &kv, 2 * C + h * D, k0, b, bar);
+  }
+};
+
+// SplitMaps, K10's and K11's: q, k and v as three (B, H, N, 64) tensors
+// with a contiguous head dimension and any (element, head, token) strides
+// (16-byte multiples), each through a 4-D map over (64, N, H, B) whose
+// rows past N read as zeros.  The boxes, and so the shared memory the
+// consumers read, are the packed maps' own.
+struct SplitMaps {
+  CUtensorMap q, k, v;  // 64 x BQ x 1 x 1 and 64 x 64 x 1 x 1 boxes
+  __device__ __forceinline__ void load_q(void* dst, int b, int h, int row, int,
+                                         uint64_t* bar) const {
+    hop::tma_load_4d(dst, &q, 0, row, h, b, bar);
+  }
+  __device__ __forceinline__ void load_kv(void* k_dst, void* v_dst, int b, int h, int k0, int,
+                                          uint64_t* bar) const {
+    hop::tma_load_4d(k_dst, &k, 0, k0, h, b, bar);
+    hop::tma_load_4d(v_dst, &v, 0, k0, h, b, bar);
+  }
 };
 
 struct Args {
@@ -148,8 +181,8 @@ __device__ __forceinline__ void tensor_turn_end() {
 
 // The phases of one key tile of W keys (16, 32 or 64) for the warp's rows.
 // The logits start as the bias tile's values (in shared memory) or -inf for
-// a key that is masked or past N (bits lo: even keys 2i, hi: odd keys
-// 2i + 1).
+// a key that is masked (mask <= 0) or past N (bits lo: even keys 2i, hi:
+// odd keys 2i + 1).
 // b0, b1: the bias tile's rows of this thread's two query rows, at their
 // offsets, plus 2t.
 template <int W>
@@ -328,22 +361,23 @@ __device__ __forceinline__ void setup(unsigned char* raw) {
 
 // The items `its` deals this CTA: the producer role (warpgroup NC) and the
 // consumer role (warpgroups 0 .. NC - 1).
-template <int NC = 2, class It = Items>
-__device__ __forceinline__ void produce(const Maps& maps, const Args& a, unsigned char* raw,
+template <int NC = 2, class It = Items, class M = Maps>
+__device__ __forceinline__ void produce(const M& maps, const Args& a, unsigned char* raw,
                                         const It& its = It()) {
   using K = Cfg<NC>;
   const Smem<NC> sm(raw);
   uint8_t *qs = sm.qs, *ring = sm.ring;
   uint64_t *full = sm.full, *empty = sm.empty, *q_full = sm.q_full, *q_empty = sm.q_empty;
   const int N = a.N, C = a.H * D, nkt = (N + BKV - 1) / BKV;
-  // ---- producer, warpgroup 2: its first thread loads the Q tile and the
-  // K/V tiles by TMA; its 128 threads copy the bias tile by 16-byte
-  // cp.async (the rows of the (H, N, N) bias start at any 4-byte offset,
-  // so a tensor map cannot take them), each then arriving on the stage's
-  // barrier once its copies have landed.  Chunks past a row's last key,
-  // and the rows past N, are not copied: no consumer reads them into a
-  // stored row or a valid key.  A row's last chunk may reach 12 bytes past
-  // its last key, inside the 16-byte granule that holds that key.
+  // ---- producer, warpgroup NC: its first thread loads the Q tile and the
+  // K/V tiles by TMA (where the layout policy M finds them); its 128
+  // threads copy the bias tile by 16-byte cp.async (the rows of the
+  // (H, N, N) bias start at any 4-byte offset, so a tensor map cannot
+  // take them), each then arriving on the stage's barrier once its copies
+  // have landed.  Chunks past a row's last key, and the rows past N, are
+  // not copied: no consumer reads them into a stored row or a valid key.
+  // A row's last chunk may reach 12 bytes past its last key, inside the
+  // 16-byte granule that holds that key.
   const int pt = threadIdx.x - K::CONSUMERS;
   int it = 0;
   for (int i = 0, item = its.first; item < a.items; ++i, item += its.stride) {
@@ -354,7 +388,7 @@ __device__ __forceinline__ void produce(const Maps& maps, const Args& a, unsigne
       its.ready(b);
       if (i > 0) hop::mbar_wait(q_empty, (i - 1) & 1);
       hop::mbar_arrive_expect_tx(q_full, K::Q_BYTES);
-      hop::tma_load_3d(qs, &maps.q, h * D, qt * K::BQ, b, q_full);
+      maps.load_q(qs, b, h, qt * K::BQ, C, q_full);
     }
     // this thread's chunks of every bias tile of the item: chunk idx =
     // pt + 128m is chunk idx % 17 of row idx / 17; key 0 of that row is
@@ -373,8 +407,7 @@ __device__ __forceinline__ void produce(const Maps& maps, const Args& a, unsigne
       uint8_t* st = ring + s * K::STAGE;
       if (pt == 0) {
         hop::mbar_arrive_expect_tx(&full[s], 2 * KV_BYTES);
-        hop::tma_load_3d(st, &maps.kv, C + h * D, k0, b, &full[s]);
-        hop::tma_load_3d(st + KV_BYTES, &maps.kv, 2 * C + h * D, k0, b, &full[s]);
+        maps.load_kv(st, st + KV_BYTES, b, h, k0, C, &full[s]);
       }
       float* bt = reinterpret_cast<float*>(st + 2 * KV_BYTES);
 #pragma unroll
@@ -449,7 +482,7 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* raw, const
     // tile j: its key validity bits, its landed stage, then key_tile<W, j > 0>
     auto tile = [&](auto width, auto after_first, int j) {
       const int s = it % STAGES;
-      const uint32_t lo = __ballot_sync(0xffffffffu, m0 != 0), hi = __ballot_sync(0xffffffffu, m1 != 0);
+      const uint32_t lo = __ballot_sync(0xffffffffu, m0 > 0), hi = __ballot_sync(0xffffffffu, m1 > 0);
       m0 = mask_at(j + 1, 0);
       m1 = mask_at(j + 1, 1);
       hop::mbar_wait(&full[s], (it / STAGES) & 1);

@@ -1,6 +1,7 @@
 // K10 and K11: attention over split q, k, v of shape (B, H, N, 64), with an
 // f32 (H, N, N) relative-position bias and a (B, N) key mask, writing the
-// context in the same (B, H, N, 64) layout.
+// context as (B, N, H, 64), which the caller sees as a (B, H, N, 64)
+// transposed view.
 //
 // Replaces vl_merging_tpu/ops/attention.py:_mha_kernel (K10, via
 // _pallas_attention) and :_mha_kernel_bb (K11, via _pallas_attention_bb):
@@ -11,234 +12,128 @@
 // at -inf, softmax in f32, P in bf16, P·v accumulated in f32, the context
 // rounded to bf16.
 //
-// q, k, v and the output are addressed through (element, head, token)
-// strides with a contiguous head dimension, so the port hands the kernels
-// the (B, H, N, 64) views of its packed qkv projection without a transpose,
-// and takes the context back in (B, N, C) order through a transposed view.
+// q, k and v are addressed through (element, head, token) strides with a
+// contiguous head dimension, so the port hands the kernels the
+// (B, H, N, 64) views of its packed qkv projection without a transpose.
 //
 // The TPU kernels hold a whole (Np, Np) logits tile in VMEM, with N padded
-// to a multiple of 128.  Here a block walks 64-key tiles with K2's online
-// softmax (common.cuh:online_softmax_pv, shared with K12): the bf16
-// cast applies to exp(s - running max) before normalisation, and the
-// division by the row sum happens once, in f32, at the end.  The bias is the
-// initial value of the f32 accumulator of q·kᵀ.  N is not padded: keys past
-// N are -inf and queries past N are not stored.
-//   * K10 (split_attention): a block per (element, 64-query tile, head), 4
-//     warps of 16 query rows, the bias read from device memory (L2) as K2
-//     reads it.
-//   * K11 (split_attention_bb): a block per (group of 4 elements, 64-query
-//     tile, head), 16 warps, 4 per element.  Each 64 x 64 bias tile is
-//     copied into shared memory once and read by the 4 elements' warps:
-//     the TPU kernel's resident bias block, here a quarter of the bias
-//     reads from L2.  Whether that pays on this card is measured
-//     (chip_smoke.py), not assumed.
-// Both run the same arithmetic per element in the same order (the same
-// device functions, the same bias values), so their outputs are equal bit
-// for bit.
+// to a multiple of 128; K11 keeps a bias block resident for a group of 4
+// elements.  Here both are launches of K2's device code
+// (packed_attention_fwd.cuh, whose kernel holds the design notes): a
+// persistent grid, items of (element b, 128 query rows, head h) taken b
+// fastest, a producer warpgroup keeping a 4-stage ring of 64-key K/V tiles
+// full by TMA and copying the f32 bias tile by 16-byte cp.async at any
+// 4-byte row offset (the 197-float rows are not aligned), two consumer
+// warpgroups in ping-pong on wgmma with q and P from registers, the online
+// softmax on the SFU, the last key tile as narrow as its keys allow (197 =
+// 3·64 + 5: 16 keys), rows past N computed and not stored.  The one
+// difference from K2 is the layout policy: each of q, k and v is read
+// through a 4-D tensor map over (64, N, H, B) built from its strides
+// (SplitMaps), where K2 reads one 3-D map over the packed (B, N, 3C).  So
+// K10, K11 and K2 on the same values give the same bits.
+//
+// K11 keeps its own entry (the JAX package's dispatch: B % 4 == 0 and
+// N <= 640) and runs the same kernel as K10: on this card a layer's bias
+// (12·197·197·4 B = 1.9 MB) stays in L2, and the b-fastest order already
+// runs the CTAs that share a bias tile together.  A CTA that takes a
+// group's 4 elements (or a pair) back to back and copies each bias tile
+// once for the group is a variant (chip_profile.py --variants K11): the
+// groups of 4 measured slower on the H100 (fewer, larger units leave the
+// CTAs uneven), the pairs no faster.
 //
 // Bound on the H100: at B=32, H=12, N=197 the work is 3.8 GFLOP of tensor-
 // core products against ~40 MB of q, k, v, context and bias, about 100
 // flops a byte, below the ridge (~295): the bytes bound it (~0.012 ms).
-// K and V tiles are double-buffered with cp.async (and K11's bias tiles
-// with 4-byte cp.async: a bias row of 197 floats is not 16-byte aligned);
-// S, P and the output stay in registers in the mma.sync m16n8k16 layouts.
-#include "common.cuh"
+#include "packed_attention_fwd.cuh"
 
 using namespace vlm;
+using namespace vlm::k2;
 
 namespace {
 
-constexpr int D = kAttnDim, BQ = 64, BKV = kAttnKeys, LDT = kAttnLdt;
-constexpr int WARPS_PER_ELEM = BQ / 16;   // 4 warps of 16 query rows per element
-constexpr int LDBIAS = BKV + 4;           // K11's f32 bias tile stride
+// consumer warpgroups: 2 (K2's CTA, 128-row items)
+constexpr int kNC = 2;
+// K11's item order: K10's
+using GroupOrder = Items;
 
-// Element strides of a (B, H, N, 64) tensor whose last dimension is
-// contiguous.
-struct Layout {
-  int b, h, n;
-  __device__ __forceinline__ size_t at(int bi, int hi, int ni) const {
-    return (size_t)bi * b + (size_t)hi * h + (size_t)ni * n;
+template <class It>
+__global__ void __launch_bounds__(Cfg<kNC>::THREADS, 1)
+    split_attention_kernel(const __grid_constant__ SplitMaps maps, const Args a) {
+  extern __shared__ __align__(1024) unsigned char raw[];
+  setup<kNC>(raw);
+  if (threadIdx.x >= Cfg<kNC>::CONSUMERS) {
+    produce<kNC>(maps, a, raw, It());
+    return;
   }
-};
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+  consume<kNC>(a, raw, It());
 }
 
-template <int EB>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return (size_t)2 * 2 * EB * BKV * LDT * sizeof(bf16)     // K and V, 2 stages
-         + (size_t)2 * EB * BKV * sizeof(int)                // valid keys, 2 stages
-         + (EB > 1 ? (size_t)2 * BQ * LDBIAS * sizeof(float) : 0);  // K11's bias tiles
-}
-
-// Start loading key tile [k0, k0 + BKV) of the block's EB elements' K and V
-// into stage st (rows past N are zeros), record which keys are valid, and
-// (K11) start copying the bias rows of the block's queries at these keys.
-template <int EB>
-__device__ __forceinline__ void load_tiles(bf16* Ks, bf16* Vs, int* kvalid, float* Bs,
-                                           const bf16* __restrict__ k,
-                                           const bf16* __restrict__ v,
-                                           const float* __restrict__ bias,
-                                           const int* __restrict__ mask, Layout lk,
-                                           Layout lv, int b0, int h, int q0, int k0, int N,
-                                           int st) {
-  constexpr int THREADS = EB * WARPS_PER_ELEM * 32, VECS = BKV * D / 8;
-  for (int idx = threadIdx.x; idx < EB * VECS; idx += THREADS) {
-    const int e = idx / VECS, r = (idx % VECS) / (D / 8), c = (idx % (D / 8)) * 8;
-    bf16* kt = Ks + (st * EB + e) * BKV * LDT + r * LDT + c;
-    bf16* vt = Vs + (st * EB + e) * BKV * LDT + r * LDT + c;
-    if (k0 + r < N) {
-      cp_async16(kt, k + lk.at(b0 + e, h, k0 + r) + c);
-      cp_async16(vt, v + lv.at(b0 + e, h, k0 + r) + c);
-    } else {
-      *reinterpret_cast<uint4*>(kt) = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(vt) = make_uint4(0u, 0u, 0u, 0u);
+// CTAs of the persistent grid: one per SM, as many as fit.
+template <class It>
+int max_ctas() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (cudaFuncSetAttribute(split_attention_kernel<It>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Cfg<kNC>::SMEM) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, split_attention_kernel<It>,
+                                                      Cfg<kNC>::THREADS,
+                                                      Cfg<kNC>::SMEM) != cudaSuccess ||
+        per_sm <= 0) {
+      cudaGetLastError();
+      return 0;
     }
+    n = sms * per_sm;
   }
-  if (threadIdx.x < EB * BKV) {
-    const int e = threadIdx.x / BKV, r = threadIdx.x % BKV;
-    kvalid[(st * EB + e) * BKV + r] =
-        (k0 + r < N) && mask[(size_t)(b0 + e) * N + k0 + r] > 0;
-  }
-  if constexpr (EB > 1) {
-    // keys past N are never read (they are -inf); query rows past N read
-    // row N - 1, as K10 does, and are not stored
-    for (int idx = threadIdx.x; idx < BQ * BKV; idx += THREADS) {
-      const int r = idx / BKV, c = idx % BKV;
-      if (k0 + c < N)
-        cp_async4(Bs + st * BQ * LDBIAS + r * LDBIAS + c,
-                  bias + ((size_t)h * N + min(q0 + r, N - 1)) * N + k0 + c);
-    }
-  }
+  return n;
 }
 
-// The logits of a 64-key tile before q·kᵀ, from K11's bias tile in shared
-// memory (rows brow0, brow1 of the thread): the same values, chosen the
-// same way, as common.cuh:logits_from_bias reads from device memory.
-__device__ __forceinline__ void logits_from_bias_smem(float (&s)[BKV / 8][4], const int* kv,
-                                                      const float* brow0,
-                                                      const float* brow1) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < BKV / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    const bool v0 = kv[c], v1 = kv[c + 1];
-    s[j][0] = v0 ? brow0[c] : -INFINITY;
-    s[j][1] = v1 ? brow0[c + 1] : -INFINITY;
-    s[j][2] = v0 ? brow1[c] : -INFINITY;
-    s[j][3] = v1 ? brow1[c + 1] : -INFINITY;
-  }
+// A 4-D map over a (B, H, N, 64) bf16 tensor with element strides sb, sh,
+// sn (multiples of 8: 16-byte rows) and boxes of 64 x rows.
+bool split_map(CUtensorMap* map, const void* base, int B, int H, int N, int sb, int sh, int sn,
+               uint32_t rows) {
+  return hop::make_tensor_map_4d(map, base, {D, (uint64_t)N, (uint64_t)H, (uint64_t)B},
+                                 {(uint64_t)sn * 2, (uint64_t)sh * 2, (uint64_t)sb * 2},
+                                 {D, rows, 1, 1});
 }
 
-// Two consecutive q values of a row (zeros past N), each scaled in bf16 as
-// K2 scales them, packed as one A-fragment register.
-__device__ __forceinline__ uint32_t scaled_q_pair(const bf16* qrow, bool valid, float qscale) {
-  if (!valid) return 0u;
-  const __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(qrow);
-  return pack_bf16(__bfloat162float(p.x) * qscale, __bfloat162float(p.y) * qscale);
-}
-
-// EB elements per block: 1 for K10, 4 for K11.
-template <int EB>
-__global__ void __launch_bounds__(EB * WARPS_PER_ELEM * 32)
-split_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const float* __restrict__ bias,
-                       const int* __restrict__ mask, bf16* __restrict__ out, Layout lq,
-                       Layout lk, Layout lv, Layout lo, int N, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);               // [2][EB][BKV * LDT]
-  bf16* Vs = Ks + 2 * EB * BKV * LDT;                     // [2][EB][BKV * LDT]
-  int* kvalid = reinterpret_cast<int*>(Vs + 2 * EB * BKV * LDT);  // [2][EB][BKV]
-  float* Bs = reinterpret_cast<float*>(kvalid + 2 * EB * BKV);    // K11: [2][BQ * LDBIAS]
-
-  const int b0 = blockIdx.x * EB, q0 = blockIdx.y * BQ, h = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int e = warp / WARPS_PER_ELEM, wq = warp % WARPS_PER_ELEM;  // element, row slice
-  const int g = lane >> 2, t = lane & 3;  // mma fragment row group, thread in group
-  const int b = b0 + e;
-
-  load_tiles<EB>(Ks, Vs, kvalid, Bs, k, v, bias, mask, lk, lv, b0, h, q0, 0, N, 0);
-  cp_async_commit();
-
-  // this thread's two query rows (g and g + 8 of the warp's 16) as A
-  // fragments, straight from device memory, scaled in bf16
-  const int qrow0 = q0 + wq * 16 + g, qrow1 = qrow0 + 8;
-  const float qscale = __bfloat162float(__float2bfloat16(scale));
-  const bf16* qr0 = q + lq.at(b, h, min(qrow0, N - 1)) + 2 * t;
-  const bf16* qr1 = q + lq.at(b, h, min(qrow1, N - 1)) + 2 * t;
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = scaled_q_pair(qr0 + kk * 16, qrow0 < N, qscale);
-    qa[kk][1] = scaled_q_pair(qr1 + kk * 16, qrow1 < N, qscale);
-    qa[kk][2] = scaled_q_pair(qr0 + kk * 16 + 8, qrow0 < N, qscale);
-    qa[kk][3] = scaled_q_pair(qr1 + kk * 16 + 8, qrow1 < N, qscale);
-  }
-
-  const float* brow0 = bias + ((size_t)h * N + min(qrow0, N - 1)) * N;  // K10: rows past N
-  const float* brow1 = bias + ((size_t)h * N + min(qrow1, N - 1)) * N;  // are not stored
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  const int ntiles = (N + BKV - 1) / BKV;
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * BKV, st = it & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // tile it is visible; every warp is done with tile it - 1
-    if (it + 1 < ntiles)
-      load_tiles<EB>(Ks, Vs, kvalid, Bs, k, v, bias, mask, lk, lv, b0, h, q0, k0 + BKV, N,
-                     st ^ 1);
-    cp_async_commit();
-    const int* kv = kvalid + (st * EB + e) * BKV;
-    float s[BKV / 8][4];
-    if constexpr (EB > 1) {
-      const float* bt = Bs + st * BQ * LDBIAS + (wq * 16 + g) * LDBIAS;
-      logits_from_bias_smem(s, kv, bt, bt + 8 * LDBIAS);
-    } else {
-      logits_from_bias(s, kv, brow0 + k0, brow1 + k0);
-    }
-    add_qk_bf16(s, qa, Ks + (st * EB + e) * BKV * LDT);
-    online_softmax_pv(s, o, m0, m1, l0, l1, Vs + (st * EB + e) * BKV * LDT);
-  }
-
-  store_ctx_rows(o, l0, l1, out + lo.at(b, h, 0) + 2 * t, (size_t)lo.n, qrow0, N);
-}
-
-template <int EB>
+// Strides, in elements: (element, head, token) of q, then k, v and out; out
+// must be the (B, N, H, 64) contiguous tensor seen as (B, H, N, 64).
+template <class It>
 int launch(const void* q, const void* k, const void* v, const void* bias, const void* mask,
-           void* out, int B, int N, int H, const int* strides, float scale, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0 || B % EB != 0) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < 12; ++i)  // 16-byte aligned rows for cp.async
-    if (strides[i] % 8 != 0) return (int)cudaErrorInvalidValue;
-  const Layout lq{strides[0], strides[1], strides[2]}, lk{strides[3], strides[4], strides[5]},
-      lv{strides[6], strides[7], strides[8]}, lo{strides[9], strides[10], strides[11]};
-  constexpr size_t smem = smem_bytes<EB>();
-  cudaError_t err = cudaFuncSetAttribute(
-      split_attention_kernel<EB>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B / EB, (N + BQ - 1) / BQ, H);
-  split_attention_kernel<EB><<<grid, EB * WARPS_PER_ELEM * 32, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(bias), static_cast<const int*>(mask), static_cast<bf16*>(out),
-      lq, lk, lv, lo, N, scale);
+           void* out, int B, int N, int H, const int* st, float scale, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 9; ++i)  // 16-byte rows for the tensor maps
+    if (st[i] <= 0 || st[i] % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (st[9] != N * H * D || st[10] != D || st[11] != H * D) return (int)cudaErrorInvalidValue;
+  const int ctas = max_ctas<It>();
+  if (ctas == 0) return (int)cudaErrorNotSupported;
+  SplitMaps maps;
+  if (!split_map(&maps.q, q, B, H, N, st[0], st[1], st[2], Cfg<kNC>::BQ) ||
+      !split_map(&maps.k, k, B, H, N, st[3], st[4], st[5], BKV) ||
+      !split_map(&maps.v, v, B, H, N, st[6], st[7], st[8], BKV))
+    return (int)cudaErrorNotSupported;
+  const int nqt = (N + Cfg<kNC>::BQ - 1) / Cfg<kNC>::BQ, items = B * H * nqt;
+  const Args a{static_cast<const float*>(bias), static_cast<const int*>(mask),
+               static_cast<bf16*>(out), nullptr, B, N, H, nqt, items, scale};
+  const int grid = items < ctas ? items : ctas;
+  split_attention_kernel<It><<<grid, Cfg<kNC>::THREADS, Cfg<kNC>::SMEM,
+                               static_cast<cudaStream_t>(stream)>>>(maps, a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Strides, in elements: (element, head, token) of q, then k, v and out.
 extern "C" int vlm_split_attention(const void* q, const void* k, const void* v,
                                    const void* bias, const void* mask, void* out, int B,
                                    int N, int H, int qsb, int qsh, int qsn, int ksb, int ksh,
                                    int ksn, int vsb, int vsh, int vsn, int osb, int osh,
                                    int osn, float scale, void* stream) {
-  const int strides[12] = {qsb, qsh, qsn, ksb, ksh, ksn, vsb, vsh, vsn, osb, osh, osn};
-  return launch<1>(q, k, v, bias, mask, out, B, N, H, strides, scale, stream);
+  const int st[12] = {qsb, qsh, qsn, ksb, ksh, ksn, vsb, vsh, vsn, osb, osh, osn};
+  return launch<Items>(q, k, v, bias, mask, out, B, N, H, st, scale, stream);
 }
 
 extern "C" int vlm_split_attention_bb(const void* q, const void* k, const void* v,
@@ -246,6 +141,7 @@ extern "C" int vlm_split_attention_bb(const void* q, const void* k, const void* 
                                       int N, int H, int qsb, int qsh, int qsn, int ksb,
                                       int ksh, int ksn, int vsb, int vsh, int vsn, int osb,
                                       int osh, int osn, float scale, void* stream) {
-  const int strides[12] = {qsb, qsh, qsn, ksb, ksh, ksn, vsb, vsh, vsn, osb, osh, osn};
-  return launch<4>(q, k, v, bias, mask, out, B, N, H, strides, scale, stream);
+  if (B % 4 != 0) return (int)cudaErrorInvalidValue;
+  const int st[12] = {qsb, qsh, qsn, ksb, ksh, ksn, vsb, vsh, vsn, osb, osh, osn};
+  return launch<GroupOrder>(q, k, v, bias, mask, out, B, N, H, st, scale, stream);
 }

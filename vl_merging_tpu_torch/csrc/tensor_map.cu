@@ -1,4 +1,4 @@
-// Host side of hopper.cuh: TMA tensor maps (2-D and 3-D bf16, 2-D int8).
+// Host side of hopper.cuh: TMA tensor maps (2-D, 3-D and 4-D bf16, 2-D int8).
 // cuTensorMapEncodeTiled is a driver function; it is looked up in the
 // driver library the CUDA runtime already loaded, so the kernels' library
 // links against nothing new.
@@ -62,6 +62,19 @@ bool make_tensor_map_3d(CUtensorMap* map, const void* base, const uint64_t (&dim
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), d, strides, b,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool make_tensor_map_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                        const uint64_t (&strides)[3], const uint32_t (&box)[4]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t b[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), d, st, b, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

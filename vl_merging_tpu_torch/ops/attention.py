@@ -19,8 +19,9 @@ the JAX package's ``_packed_reference``; ``packed_attention_bwd_reference``;
 
 The split layout: ``split_attention`` is kernel K10 and
 ``split_attention_bb`` kernel K11, ``csrc/split_attention.cu``: attention
-over q, k, v of shape (B, H, N, 64), read and written through strides, so
-the (B, H, N, 64) views of a packed qkv need no copy.  Their plain twin is
+over q, k, v of shape (B, H, N, 64), read through strides (K2's device
+code over 4-D tensor maps), so the (B, H, N, 64) views of a packed qkv
+need no copy.  Their plain twin is
 ``split_attention_reference`` (``reference_attention`` with f32 logits,
 the rounding points of the JAX package's ``_mha_kernel``).
 ``fused_attention`` is the JAX package's dispatcher: the plain path below
@@ -31,6 +32,7 @@ K11 or K10 forward (``_pallas_dispatch``'s choice) and the autograd VJP of
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -372,46 +374,83 @@ def split_attention_reference(q, k, v, bias, mask, scale: float):
     return reference_attention(q, k, v, bias, mask, scale)
 
 
-def _split_launch(entry: str, q, k, v, bias, mask, scale: float):
-    """Check what K10 and K11 take, launch ``entry`` and return the
-    context (B, H, N, 64), a transposed view of a (B, N, H, 64) tensor, so
-    that ``.transpose(1, 2).reshape(B, N, C)`` needs no copy."""
-    B, H, N, d = q.shape
-    dev = q.device
+@functools.cache
+def _split_strides(entry: str, q_shape, k_shape, v_shape, q_stride,
+                   k_stride, v_stride, dtypes, devices, bias_shape,
+                   mask_shape) -> tuple:
+    """The 12 strides K10 and K11 take, (element, head, token) of q, k, v
+    and the (B, N, H, 64) output seen as (B, H, N, 64), once the layout is
+    checked: bf16 q, k, v of one shape (B, H, N, 64) with a contiguous head
+    dim and positive strides that are multiples of 8 (16-byte rows for the
+    tensor maps), an f32 bias (H, N, N) and an int32 mask (B, N), all on
+    one device.  Cached per layout (it depends on no value); a layout that
+    fails raises each time."""
+    B, H, N, d = q_shape
     if d != HEAD_DIM:
         raise ValueError(f"{entry}: the kernel takes head_dim {HEAD_DIM}; "
                          f"got {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != dev or t.dtype != torch.bfloat16 or \
-                tuple(t.shape) != (B, H, N, d):
-            raise ValueError(f"{entry}: {name} is {t.dtype} {tuple(t.shape)} "
-                             f"on {t.device}; the kernel takes bf16 "
-                             f"{(B, H, N, d)} on {dev}")
-        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or \
-                t.data_ptr() % 16:
-            raise ValueError(f"{entry}: {name} needs a contiguous head dim, "
-                             f"strides that are multiples of 8 and a 16-byte "
-                             f"aligned start; got strides {t.stride()}")
-    bias = _f32_aligned(bias)
-    mask = mask.to(torch.int32).contiguous()
-    _build.expect(bias, "bias", torch.float32, (H, N, N), dev)
-    _build.expect(mask, "mask", torch.int32, (B, N), dev)
-    out = torch.empty((B, N, H, d), dtype=q.dtype, device=dev).transpose(1, 2)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    lib = _build.library()
-    _build.check(getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), B, N, H, *strides, float(scale),
-        _build.stream_handle(dev)), entry)
+    want = (B, H, N, d)
+    for name, shape, stride, dtype in zip(("q", "k", "v"),
+                                          (q_shape, k_shape, v_shape),
+                                          (q_stride, k_stride, v_stride),
+                                          dtypes):
+        if dtype != torch.bfloat16 or tuple(shape) != want:
+            raise ValueError(f"{entry}: {name} is {dtype} {tuple(shape)}; "
+                             f"the kernel takes bf16 {want}")
+        if stride[3] != 1 or any(s <= 0 or s % 8 for s in stride[:3]):
+            raise ValueError(f"{entry}: {name} needs a contiguous head dim "
+                             f"and positive strides that are multiples of "
+                             f"8; got strides {stride}")
+    if tuple(bias_shape) != (H, N, N) or tuple(mask_shape) != (B, N):
+        raise ValueError(f"{entry}: bias {tuple(bias_shape)} and mask "
+                         f"{tuple(mask_shape)}; the kernel takes {(H, N, N)} "
+                         f"and {(B, N)}")
+    if len(set(devices)) != 1:
+        raise ValueError(f"{entry}: q, k, v, bias and mask on more than "
+                         f"one of the devices {devices}")
+    return (*q_stride[:3], *k_stride[:3], *v_stride[:3],
+            N * H * d, d, H * d)
+
+
+def _split_launch(entry: str, q, k, v, bias, mask, scale: float):
+    """Check what K10 and K11 take, launch ``entry`` and return the
+    context (B, H, N, 64) with the strides of a transposed (B, N, H, 64)
+    tensor, so that ``.transpose(1, 2).reshape(B, N, C)`` needs no copy.
+    What depends only on the layout is checked once per layout
+    (``_split_strides``); a call checks the device and the 16-byte
+    alignment of its pointers."""
+    if bias.dtype != torch.float32 or not bias.is_contiguous() or \
+            bias.data_ptr() % 16:
+        bias = _f32_aligned(bias)
+    if mask.dtype != torch.int32 or not mask.is_contiguous():
+        mask = mask.to(torch.int32).contiguous()
+    dev = q.device
+    strides = _split_strides(
+        entry, q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
+        (q.dtype, k.dtype, v.dtype),
+        (dev, k.device, v.device, bias.device, mask.device), bias.shape,
+        mask.shape)
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"{entry}: {dev} is not the current CUDA device")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if any(p % 16 for p in ptrs):
+        raise ValueError(f"{entry}: q, k and v need 16-byte aligned starts")
+    B, H, N, d = q.shape
+    out = torch.empty_strided((B, H, N, d), (*strides[9:], 1), dtype=q.dtype,
+                              device=dev)
+    _build.check(getattr(_build.library(), entry)(
+        *ptrs, bias.data_ptr(), mask.data_ptr(), out.data_ptr(), B, N, H,
+        *strides, float(scale), _build.stream_handle(dev)), entry)
     return out
 
 
 def split_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, mask: torch.Tensor,
                     scale: float) -> torch.Tensor:
-    """K10: attention over (B, H, N, 64) q, k, v (any strides with a
-    contiguous head dim) with an f32 (H, N, N) bias and a (B, N) key mask;
-    one block per (element, 64-query tile, head)."""
+    """K10: attention over (B, H, N, 64) q, k, v (strides that are
+    multiples of 8, a contiguous head dim) with an f32 (H, N, N) bias and a
+    (B, N) key mask: K2's persistent kernel over 4-D tensor maps of q, k
+    and v, so the same bits as K2 on the same values."""
     if not q.is_cuda:
         return split_attention_reference(q, k, v, bias, mask, scale)
     out = _split_launch("vlm_split_attention", q, k, v, bias, mask, scale)
@@ -425,11 +464,11 @@ split_attention.launches = 0
 def split_attention_bb(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bias: torch.Tensor, mask: torch.Tensor,
                        scale: float) -> torch.Tensor:
-    """K11: ``split_attention`` with one block per (group of SPLIT_BB = 4
-    elements, the JAX package's ``block_b``; 64-query tile; head), each
-    bias tile staged once in shared memory for the group; B must be a
-    multiple of 4.  The same arithmetic per element as K10, so the same
-    bits."""
+    """K11: ``split_attention`` for a batch that is a multiple of
+    SPLIT_BB = 4 (the JAX package's ``block_b``), its own entry and launch
+    count.  It runs K10's kernel: on the H100 a layer's bias stays in L2
+    and K10's element-fastest items already run the CTAs that share a bias
+    tile together (``csrc/split_attention.cu``).  The same bits as K10."""
     if not q.is_cuda:
         return split_attention_reference(q, k, v, bias, mask, scale)
     if q.shape[0] % SPLIT_BB:
