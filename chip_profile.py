@@ -23,10 +23,13 @@ of each window at ``chip_smoke.py``'s shapes and seeded inputs:
     (K1 and K6 in every block) and on the plain path (K9's three CUDA
     kernels, D + dq, dk/dv + dbias partials and the partial sum, show
     separately);
-  * ``eval ViT-L`` / ``train ViT-L (kernels)``: the ViT-L @384 width
+  * ``eval ViT-L`` / ``image tower ViT-L, fusion <route>`` / ``eval
+    ViT-L int8`` / ``train ViT-L (kernels)``: the ViT-L @384 width
     (C=1024, 16 heads, MLP 4096, 24 layers): ``compute_irtr_recall`` over
-    32 images and 64 captions, and one optimizer step of one micro-batch of
-    8 pairs on the kernel path.
+    32 images and 64 captions, the image tower over the 32 images by
+    "tail" (K1 → K2 → K3) and by "mega" (K7), the same eval in the W8A8
+    int8 mode (K14 → K2 → K15 per image block), and one optimizer step of
+    one micro-batch of 8 pairs on the kernel path.
 For each window it prints the host wall time, the device busy time (the
 union of the device kernels' intervals), the idle share (1 − busy / wall)
 and the kernels with the most device time.
@@ -44,8 +47,11 @@ without the ping-pong of its two consumer warpgroups, K2 with a whole
 ``setmaxnreg`` budget per phase, or one budget of 168 registers; their
 phase split too), K15 with its pass 1 on the hidden
 warpgroup alone or with every fourth chunk on the output warpgroup, K15
-with weight rings of two stages each, K2 with K8's element-major item
-order, K14 normalising eight rows a warp at a time; four diagnostics that
+with weight rings of two stages each (at C=768), K2 with
+K8's element-major item order, K14 normalising twice the rows a warp at a
+time, K14 at C=1024 with three W stages and the tile stored from
+registers (no staging); K7, K14 and K15 are timed at C=768 and at the
+ViT-L width (C=1024, 16 heads, MLP 4096); four diagnostics that
 change the output, timed to show what a part costs: K1 without its stores,
 K8 with its K2 role not waiting for its elements, K14 without its LN pass,
 K14 without its epilogue.  And, through the wrappers' own
@@ -65,6 +71,19 @@ its wrappers and its kernels built from its own sources) beside this
 tree's: per call, device time and the wrappers' host µs.  ``--variants
 K7`` (any of K1, K2, K7, K8, K14, K15, K10, K11) runs those kernels'
 variants alone.
+
+``python3 chip_profile.py --digests TREE`` runs only this: the SHA-256 of
+K14's and K15's outputs at C=768 on ``chip_smoke.py``'s phase 3 inputs,
+through this tree's kernels and through those of the tree at TREE (another
+checkout's root, its wrappers and kernels built from its own sources).
+
+``python3 chip_profile.py --c8`` runs only this: fault C8's two repairs of
+K9's row sums D side by side (``c8_repairs``): the built one, D = Σ_k dp ⊙ p
+in a first pass over the keys, and an f32 context stored by K2's training
+launch, built from patched sources (``C8_F32_CONTEXT``); each against its
+twin fed the plain forward and against the plain backward, K9 and K2's
+training launch in turns, and the @384 train step's time and peak memory
+in turns.
 
 First, K7's phase split (``python3 chip_profile.py --k7`` runs it alone):
 one traced launch of K7 (``block_eval(..., trace=...)``) at
@@ -161,7 +180,7 @@ def k7_phases(dev, card: str) -> None:
     args = inputs["block_eval"]
     B, N = args[0].shape[:2]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = fb_ops.block_eval_grid()
+    grid = fb_ops.block_eval_grid(smoke.C)
     clusters = grid // 4
     bb = fb_ops.block_eval_chunk(B, N, smoke.C, clusters)
     k7_ms = smoke.time_ms(lambda: fb_ops.block_eval(*args))
@@ -285,6 +304,46 @@ def k11_groups(g: int) -> list:
     ]
 
 
+# K14's epilogue at C=1024 stored from registers as K1 stores it (per pair
+# of 8-column blocks the four threads of a quad trade their column pairs, a
+# 4 x 4 transpose of bf16x2 words, so that each stores one row's 8 columns
+# in one 16-byte store), inserted before the staged epilogue, which it skips
+K14_REGISTER_EPILOGUE = """      if constexpr (C > 768) {
+        const int row = row0 + wr + g;
+#pragma unroll
+        for (int p = 0; p < TN / 16; ++p) {
+          uint32_t u[4];  // u[2jj + hh]: block 2p + jj, row + 8hh, columns 2t, 2t + 1
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int j = 2 * p + jj, col = cb * TN + 8 * j + 2 * t;
+            const float2 w2 = __ldg(reinterpret_cast<const float2*>(a.ws + col));
+            const float2 b2 = __ldg(reinterpret_cast<const float2*>(a.bias + col));
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float s = hh ? s1 : s0;
+              u[2 * jj + hh] = pack_bf16(dequant(acc[4 * j + 2 * hh], s, w2.x, b2.x),
+                                         dequant(acc[4 * j + 2 * hh + 1], s, w2.y, b2.y));
+            }
+          }
+          uint32_t c[4];  // chunk t of the four: its word w from quad lane w
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int k = (t - i) & 3, src = (t + i) & 3;
+            const uint32_t send = k == 0 ? u[0] : k == 1 ? u[1] : k == 2 ? u[2] : u[3];
+            const uint32_t got = __shfl_sync(0xffffffffu, send, (lane & ~3) | src);
+#pragma unroll
+            for (int w = 0; w < 4; ++w)
+              if (src == w) c[w] = got;
+          }
+          const int rr = row + 8 * (t & 1);
+          if (rr < a.M)
+            *reinterpret_cast<uint4*>(a.y + (size_t)rr * a.O + cb * TN + 8 * (2 * p + (t >> 1))) =
+                make_uint4(c[0], c[1], c[2], c[3]);
+        }
+        continue;
+      }
+"""
+
 # name: (kernel, [(file, text, replacement)]): the design variants each
 # kernel's source rejected, each a patch of csrc/
 VARIANTS = {
@@ -320,9 +379,10 @@ VARIANTS = {
     "K15 with pass 1's every fourth chunk on the output warpgroup": (
         "K15", [("proj_mlp_tail_i8.cu", "constexpr int kOutEvery = 2;",
                  "constexpr int kOutEvery = 4;")]),
-    "K15 with weight rings of two stages each": (
-        "K15", [("proj_mlp_tail_i8.cu", "SLOTS0 = 3, SLOTS1 = 3;",
-                 "SLOTS0 = 2, SLOTS1 = 2;")]),
+    "K15 with weight rings of two stages each (at C=768; at 1024 four is the "
+    "least)": (
+        "K15", [("proj_mlp_tail_i8.cu", "SLOTS0 = C <= 768 ? 3 : 4, SLOTS1 = SLOTS0;",
+                 "SLOTS0 = C <= 768 ? 2 : 4, SLOTS1 = SLOTS0;")]),
     "K2 with element-major items (K8's order, nothing to wait for)": (
         "K2", [("packed_attention_fwd.cuh", """    b = item % a.B;
     qt = item / a.B % a.nqt;
@@ -336,10 +396,25 @@ VARIANTS = {
         "K1", [("ln_linear.cuh", "      if (rr < a.M)\n        *reinterpret_cast<uint4*>(a.y",
                 "      if (rr < 0)\n        *reinterpret_cast<uint4*>(a.y")]),
     "K14 without its LN pass (a diagnostic: wrong output)": (
-        "K14", [("ln_linear_i8.cu", "for (int i = 0; i < 16; i += LN_ROWS) {",
-                 "for (int i = 0; i < 0; i += LN_ROWS) {")]),
-    "K14 normalising eight rows a warp at a time": (
-        "K14", [("ln_linear_i8.cu", "constexpr int LN_ROWS = 4;", "constexpr int LN_ROWS = 8;")]),
+        "K14", [("ln_linear_i8.cu", "for (int i = 0; i < 16; i += F::LN_ROWS) {",
+                 "for (int i = 0; i < 0; i += F::LN_ROWS) {")]),
+    "K14 normalising twice the rows a warp at a time (8 at C=768, 4 at 1024)": (
+        "K14", [("ln_linear_i8.cu", "LN_ROWS = C <= 768 ? 4 : 2;",
+                 "LN_ROWS = C <= 768 ? 8 : 4;")]),
+    "K14 at C=1024 with three W stages and no staging (the tile stored from "
+    "registers as K1 stores it)": (
+        "K14", [("ln_linear_i8.cu", "STAGES = C <= 768 ? 3 : 2;", "STAGES = 3;"),
+                ("ln_linear_i8.cu", "SCALE = STG + 2 * STG_WG,",
+                 "SCALE = STG + (C <= 768 ? 2 * STG_WG : 0),"),
+                ("ln_linear_i8.cu", "    if (lead) hop::bulk_wait<0>();",
+                 "    if (C <= 768 && lead) hop::bulk_wait<0>();"),
+                ("ln_linear_i8.cu", "  int M, ncb, units, group;",
+                 "  bf16* y;\n  int M, O, ncb, units, group;"),
+                ("ln_linear_i8.cu", "static_cast<const float*>(b), M, ncb,",
+                 "static_cast<const float*>(b), static_cast<bf16*>(y), M, O, ncb,"),
+                ("ln_linear_i8.cu", "      uint8_t* stg = base + F::STG + wg * STG_WG;\n",
+                 K14_REGISTER_EPILOGUE
+                 + "      uint8_t* stg = base + F::STG + wg * STG_WG;\n")]),
     "K14 without its epilogue (a diagnostic: no output)": (
         "K14", [("ln_linear_i8.cu", "for (int hf = 0; hf < 2; ++hf) {",
                  "for (int hf = 0; hf < 0; ++hf) {")]),
@@ -351,6 +426,66 @@ VARIANTS = {
     "K11 taking pairs of elements back to back, each bias tile copied once "
     "for the 2": ("K11", k11_groups(2)),
 }
+# Fault C8's other repair, measured beside the built one (D = Σ_k dp ⊙ p,
+# a first pass of K9's dq_kernel over the keys): K2's training launch also
+# stores the f32 context (after three planes of statistics: m, l and the D
+# K9 writes), and dq_kernel takes D = Σ_c g ⊙ o from it, without the first
+# pass.  Its wrappers (``c8_wrappers``) give the launch that buffer.
+C8_F32_CONTEXT = [
+    ("packed_attention_fwd.cuh", """    if (a.stats != nullptr && t == 0) {
+      const size_t srow""", """    if (a.stats != nullptr) {
+      float* o32 = a.stats + 3 * (size_t)a.B * a.H * N + (size_t)b * N * C + h * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        if (row0 < N)
+          *reinterpret_cast<float2*>(o32 + (size_t)row0 * C + n * 8) =
+              make_float2(r.o[4 * n] / r.l0, r.o[4 * n + 1] / r.l0);
+        if (row1 < N)
+          *reinterpret_cast<float2*>(o32 + (size_t)row1 * C + n * 8) =
+              make_float2(r.o[4 * n + 2] / r.l1, r.o[4 * n + 3] / r.l1);
+      }
+    }
+    if (a.stats != nullptr && t == 0) {
+      const size_t srow"""),
+    ("packed_attention_bwd.cu",
+     "  float d0 = 0.f, d1 = 0.f;  // D of the two rows: the thread's share, then the row's\n",
+     """  float d0 = 0.f, d1 = 0.f;
+  {
+    const float* ob = stats + 3 * plane + (size_t)b * N * C + h * D + 2 * t;
+    auto dot = [](uint32_t gw, const float* p) {
+      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&gw);
+      const float2 y = *reinterpret_cast<const float2*>(p);
+      return __low2float(x) * y.x + __high2float(x) * y.y;
+    };
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      if (qrow0 < N)
+        d0 += dot(ga[kk][0], ob + (size_t)qrow0 * C + kk * 16) +
+              dot(ga[kk][2], ob + (size_t)qrow0 * C + kk * 16 + 8);
+      if (qrow1 < N)
+        d1 += dot(ga[kk][1], ob + (size_t)qrow1 * C + kk * 16) +
+              dot(ga[kk][3], ob + (size_t)qrow1 * C + kk * 16 + 8);
+    }
+    d0 = group_sum(d0);
+    d1 = group_sum(d1);
+    if (inv0 == 0.f) d0 = 0.f;
+    if (inv1 == 0.f) d1 = 0.f;
+    if (t == 0) {
+      if (qrow0 < N) stats[2 * plane + srow + qrow0] = d0;
+      if (qrow1 < N) stats[2 * plane + srow + qrow1] = d1;
+    }
+  }
+"""),
+    ("packed_attention_bwd.cu", "  for (int it = 0; it < 2 * ntiles; ++it) {",
+     "  for (int it = ntiles; it < 2 * ntiles; ++it) {"),
+    ("packed_attention_bwd.cu", "    const int k0 = (it % ntiles) * TK, st = it & 1;",
+     "    const int k0 = (it % ntiles) * TK, st = (it - ntiles) & 1;"),
+]
+VARIANTS["K9 with D from an f32 context stored by K2's training launch "
+         "(C8 repair b)"] = ("K9b", C8_F32_CONTEXT)
+# the variants timed at C=768 only: K7 with three warpgroups did not finish
+# a launch at C=1024 within 900 s
+AT_768_ONLY = {n for n in VARIANTS if n.startswith("K7 with K1's and K2's CTA")}
 # the sources a kernel's variant library is built from (with tensor_map.cu;
 # ln_linear.cu also exports vlm_error_string)
 SOURCES = {"K1": ("ln_linear.cu",), "K2": ("packed_attention_fwd.cu", "ln_linear.cu"),
@@ -359,7 +494,9 @@ SOURCES = {"K1": ("ln_linear.cu",), "K2": ("packed_attention_fwd.cu", "ln_linear
            "K14": ("ln_linear_i8.cu", "ln_linear.cu"),
            "K15": ("proj_mlp_tail_i8.cu", "ln_linear.cu"),
            "K10": ("split_attention.cu", "ln_linear.cu"),
-           "K11": ("split_attention.cu", "ln_linear.cu")}
+           "K11": ("split_attention.cu", "ln_linear.cu"),
+           "K9b": ("packed_attention_bwd.cu", "packed_attention_fwd.cu",
+                   "ln_linear.cu")}
 
 
 def spills(log: str) -> str:
@@ -429,18 +566,35 @@ def using(lib):
             grid.cache_clear()
 
 
-def load_parent_ops(root: Path):
-    """The ``ops`` package of another tree of the port (its root
-    ``root``), imported as ``parent_ops``: its wrappers, and its
-    library built from its own ``csrc/`` into its own ``build/``."""
-    ops = root / "vl_merging_tpu_torch" / "ops"
-    spec = importlib.util.spec_from_file_location(
-        "parent_ops", ops / "__init__.py",
-        submodule_search_locations=[str(ops)])
-    module = importlib.util.module_from_spec(spec)
-    sys.modules["parent_ops"] = module
-    spec.loader.exec_module(module)
-    return importlib.import_module("parent_ops.attention")
+def load_parent_ops(root: Path, name: str):
+    """The module ``ops.<name>`` of another tree of the port (its root
+    ``root``), whose package is imported as ``parent_vlm``: its wrappers,
+    and its library built from its own ``csrc/`` into its own
+    ``build/``."""
+    if "parent_vlm" not in sys.modules:
+        pkg = root / "vl_merging_tpu_torch"
+        spec = importlib.util.spec_from_file_location(
+            "parent_vlm", pkg / "__init__.py",
+            submodule_search_locations=[str(pkg)])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules["parent_vlm"] = module
+        spec.loader.exec_module(module)
+    return importlib.import_module(f"parent_vlm.ops.{name}")
+
+
+def parent_digests(root: Path, dev, card: str) -> None:
+    """The SHA-256 of K14's and K15's outputs at C=768 on ``chip_smoke.py``'s
+    phase 3 inputs, through this tree's wrappers and kernels and through
+    those of the tree at ``root``."""
+    inputs = smoke.kernel_inputs(dev, torch.Generator(device=dev).manual_seed(
+        smoke.SEED))
+    old = load_parent_ops(root, "int8")
+    for name in ("ln_linear_i8", "proj_mlp_tail_i8"):
+        args = inputs[name]
+        new, was = (smoke.digest(getattr(ops, name), args)
+                    for ops in (i8_ops, old))
+        print(f"digests: {name} at {'x'.join(map(str, args[0].shape))}: "
+              f"this tree {new}, {root} {was}, equal: {new == was} [{card}]")
 
 
 def parent_split(root: Path, inputs, card: str) -> None:
@@ -448,7 +602,7 @@ def parent_split(root: Path, inputs, card: str) -> None:
     wrappers and kernels) beside this tree's, in turns: per-call time,
     device time alone (a CUDA graph), the wrapper's host µs a call, and
     whether the outputs are bit-equal."""
-    old = load_parent_ops(root)
+    old = load_parent_ops(root, "attention")
     for name in ("split_attention", "split_attention_bb"):
         args = inputs[name]
 
@@ -531,12 +685,18 @@ def variants(dev, card: str, kernels, parent=None) -> None:
         calls["K2"][f"{heads} heads"] = \
             lambda qkv=qkv, bias=bias, mask=mask, heads=heads: \
             attn_ops.packed_attention(qkv, bias, mask, 64 ** -0.5, heads)
+    wide = smoke.wide_fused_inputs(dev, gen)
     calls["K7"]["B=32"] = lambda: fb_ops.block_eval(*inputs["block_eval"])
+    calls["K7"]["B=32, C=1024"] = lambda: fb_ops.block_eval(*wide["block_eval"])
     calls["K15"]["B=32"] = lambda: i8_ops.proj_mlp_tail_i8(
         *inputs["proj_mlp_tail_i8"])
+    calls["K15"]["B=32, C=1024"] = lambda: i8_ops.proj_mlp_tail_i8(
+        *wide["proj_mlp_tail_i8"])
     calls["K8"]["B=32"] = lambda: fb_ops.ln_qkv_attention(
         *inputs["ln_qkv_attention"])
     calls["K14"]["B=32"] = lambda: i8_ops.ln_linear_i8(*inputs["ln_linear_i8"])
+    calls["K14"]["B=32, C=1024"] = lambda: i8_ops.ln_linear_i8(
+        *wide["ln_linear_i8"])
     calls["K10"]["B=6, N=197"] = lambda: attn_ops.split_attention(
         *inputs["split_attention"])
     calls["K11"]["B=32, N=197"] = lambda: attn_ops.split_attention_bb(
@@ -546,7 +706,7 @@ def variants(dev, card: str, kernels, parent=None) -> None:
     def k7_split(lib) -> str:
         """A traced K7 launch from ``lib``: its phase split."""
         with using(lib):
-            trace = torch.zeros(fb_ops.block_eval_grid(), 12, dtype=torch.int64,
+            trace = torch.zeros(fb_ops.block_eval_grid(smoke.C), 12, dtype=torch.int64,
                                 device=dev)
             fb_ops.block_eval(*inputs["block_eval"], trace=trace)
         t = trace.double().cpu()[:, :6].mean(0) / 1e6
@@ -563,6 +723,8 @@ def variants(dev, card: str, kernels, parent=None) -> None:
     for name, (lib, spill) in libs.items():
         kernel = VARIANTS[name][0]
         for shape, call in calls[kernel].items():
+            if name in AT_768_ONLY and "C=1024" in shape:
+                continue
             with using(lib):
                 got = call()
             same = torch.equal(got, call())
@@ -621,7 +783,7 @@ def k14_variants(inputs, card: str) -> None:
     """K14 at the main-path shapes in units of 3 column tiles."""
     args = inputs["ln_linear_i8"]
     M, O = args[0].shape[0] * args[0].shape[1], args[3].shape[0]
-    grid = i8_ops.ln_linear_i8_grid()
+    grid = i8_ops.ln_linear_i8_grid(args[0].shape[-1])
     variants = {}
     for group in (3,):
         units, rounds = i8_ops.ln_linear_i8_plan(M, O, grid, group)
@@ -634,6 +796,182 @@ def k14_variants(inputs, card: str) -> None:
              lambda: i8_ops.ln_linear_i8(*args), variants, card)
 
 
+@contextlib.contextmanager
+def c8_wrappers(vlib):
+    """Meanwhile K2's training launch and K9 run from ``vlib`` (C8's repair
+    b): the training launch gets one f32 buffer of 3·B·H·N statistics
+    (m, l, and the D K9 writes) and the B·N·C f32 context, and hands back
+    the first two planes as its statistics; K9 reads the whole buffer
+    through them.  Every other kernel runs from the built library."""
+    real_fwd, real_bwd = attn_ops.packed_attention, attn_ops.packed_attention_bwd
+
+    def fwd(qkv, bias, mask, scale, num_heads, *, with_stats=False):
+        if not with_stats:
+            return real_fwd(qkv, bias, mask, scale, num_heads)
+        B, N, C = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+        plane = B * num_heads * N
+        bias, mask = attn_ops._f32_aligned(bias), mask.to(torch.int32)
+        buf = torch.empty(3 * plane + B * N * C, dtype=torch.float32,
+                          device=qkv.device)
+        out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+        _build.check(vlib.vlm_packed_attention(
+            qkv.data_ptr(), bias.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            buf.data_ptr(), B, N, num_heads, float(scale),
+            _build.stream_handle(qkv.device)), "packed_attention (C8 b)")
+        return out, buf[:2 * plane].view(2, B, num_heads, N)
+
+    def bwd(qkv, bias, mask, g, stats, scale, num_heads):
+        B, N, C = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+        plane = B * num_heads * N
+        buf = torch.as_strided(stats, (3 * plane + B * N * C,), (1,),
+                               stats.storage_offset())
+        bias, mask = attn_ops._f32_aligned(bias), mask.to(torch.int32)
+        ldb = -(-N // 64) * 64
+        bias_rows = torch.nn.functional.pad(bias, (0, ldb - N))
+        groups = vlib.vlm_packed_attention_bwd_groups(B)
+        dqkv = torch.empty_like(qkv)
+        dbias = torch.empty((num_heads, N, N), dtype=torch.float32,
+                            device=qkv.device)
+        part = torch.empty((groups, num_heads, N, -(-N // 4) * 4),
+                           dtype=torch.float32, device=qkv.device)
+        _build.check(vlib.vlm_packed_attention_bwd(
+            qkv.data_ptr(), bias_rows.data_ptr(), mask.data_ptr(),
+            g.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), buf.data_ptr(),
+            part.data_ptr(), B, N, num_heads, ldb, groups, float(scale),
+            _build.stream_handle(qkv.device)), "packed_attention_bwd (C8 b)")
+        return dqkv, dbias
+
+    attn_ops.packed_attention, attn_ops.packed_attention_bwd = fwd, bwd
+    try:
+        yield
+    finally:
+        attn_ops.packed_attention, attn_ops.packed_attention_bwd = \
+            real_fwd, real_bwd
+
+
+def plain_context_f32(qkv, bias, mask, scale, heads):
+    """The plain forward's context before its rounding: f32 logits, f32
+    softmax, P rounded to qkv's dtype, P·V in f32 (``reference_attention``
+    without its last cast)."""
+    B, N, C = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+    q, k, v = (attn_ops._heads(t, heads) for t in qkv.split(C, dim=-1))
+    s = torch.matmul((q * scale).float(), k.float().transpose(-1, -2)) + \
+        bias[None].float()
+    s = s.masked_fill(mask[:, None, None, :] <= 0, float("-inf"))
+    p = torch.softmax(s, dim=-1).to(qkv.dtype)
+    return torch.matmul(p.float(), v.float()).transpose(1, 2).reshape(B, N, C)
+
+
+def twin_from_context(qkv, bias, mask, g, o, stats, scale, heads):
+    """K9's twin (``packed_attention_bwd_reference``) with repair (b)'s
+    row sums, D = Σ g ⊙ o over each head's columns of a context o, in
+    place of Σ_k dp ⊙ p."""
+    B, N, C = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
+    dt = qkv.dtype
+    q, k, v = (attn_ops._heads(t, heads) for t in qkv.split(C, dim=-1))
+    qs = q * torch.tensor(scale, dtype=dt)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2)) + \
+        bias[None].float()
+    s = s.masked_fill(mask[:, None, None, :] <= 0, float("-inf"))
+    m, l = stats[0].float(), stats[1].float()
+    live = (l > 0)[..., None]
+    p = torch.where(live, torch.exp(s - torch.where(live, m[..., None], 0.0))
+                    / torch.where(live, l[..., None], 1.0), 0.0)
+    gh = attn_ops._heads(g, heads).float()
+    d = torch.where(live, (gh * attn_ops._heads(o, heads).float()).sum(
+        -1, keepdim=True), 0.0)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gh)
+    dp = torch.matmul(gh, v.float().transpose(-1, -2))
+    ds = p * (dp - d)
+    ds16 = ds.to(dt).float()
+    dq = torch.matmul(ds16, k.float()) * scale
+    dk = torch.matmul(ds16.transpose(-1, -2), qs.float())
+    dqkv = torch.cat([t.transpose(1, 2).reshape(B, N, C)
+                      for t in (dq, dk, dv)], dim=-1)
+    return dqkv.to(dt), ds.sum(0)
+
+
+def c8_repairs(dev, card: str) -> None:
+    """Fault C8's two repairs side by side: (a), built, D = Σ_k dp ⊙ p in a
+    first pass of K9's dq_kernel; (b) D = Σ_c g ⊙ o from an f32 context
+    K2's training launch stores (``C8_F32_CONTEXT``).  At chip_smoke.py's K9
+    inputs (B=32, N=577, 12 heads), as a share of K9's 4-ulp bound: each
+    repair against its twin fed the plain forward (its statistics and, for
+    (b), its f32 context: the figure the fault was found by), and (b) also
+    against (a)'s twin, the plain backward with the reference's
+    D = Σ_k dp ⊙ p; K9 and K2's training launch timed (a) against (b) in
+    turns; the @384 irtr train step (2 micro-batches of 32, kernel path)
+    in turns, with its peak memory."""
+    (vlib, spill), = build_variants(["K9b"]).values()
+    print(f"c8: repair (b) built (ptxas: {spill})")
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED)
+    args = smoke.kernel_inputs(dev, gen)["packed_attention_bwd"]
+    qkv, bias, mask, g, stats, scale, heads = args
+    plain = smoke.plain_args("packed_attention_bwd", args)
+    want_a = attn_ops.packed_attention_bwd_reference(*plain)
+    want_b = twin_from_context(qkv, bias, mask, g, plain_context_f32(
+        qkv, bias, mask, scale, heads), plain[4], scale, heads)
+    got_a = attn_ops.packed_attention_bwd(*args)
+    with c8_wrappers(vlib):
+        _, stats_b = attn_ops.packed_attention(qkv, bias, mask, scale, heads,
+                                               with_stats=True)
+        got_b = attn_ops.packed_attention_bwd(qkv, bias, mask, g, stats_b,
+                                              scale, heads)
+    torch.cuda.synchronize()
+    for label, got, want in (
+            ("(a) against its twin fed the plain forward", got_a, want_a),
+            ("(b) against its twin fed the plain forward (its f32 context)",
+             got_b, want_b),
+            ("(b) against (a)'s twin, the plain backward (D = Σ_k dp ⊙ p)",
+             got_b, want_a)):
+        max_err, worst, differ = smoke.ulp_check("packed_attention_bwd",
+                                                 got[0], want[0])
+        rel = float((got[1] - want[1]).norm() / want[1].norm())
+        print(f"c8: repair {label}: worst err/bound = {worst:.3f} (bound 4 "
+              f"bf16 ulps), max |kernel - twin| = {max_err:.6g}, "
+              f"{differ:.3e} of the elements differ; dbias relative norm "
+              f"error {rel:.3e}")
+
+    def k2_train():
+        return attn_ops.packed_attention(qkv, bias, mask, scale, heads,
+                                         with_stats=True)
+
+    # (the wrappers are looked up at each call: within c8_wrappers, (b)'s)
+    calls = {"K2 training launch": (k2_train, k2_train),
+             "K9": (lambda: attn_ops.packed_attention_bwd(*args),
+                    lambda: attn_ops.packed_attention_bwd(
+                        qkv, bias, mask, g, stats_b, scale, heads))}
+    for label, (fa, fb) in calls.items():
+        t = {"a": [], "b": []}
+        for path in ("a", "b", "b", "a"):
+            with c8_wrappers(vlib) if path == "b" else \
+                    contextlib.nullcontext():
+                t[path].append(smoke.time_ms(fa if path == "a" else fb))
+        print(f"c8: {label} at B=32, N=577, 12 heads: repair (a) "
+              f"{min(t['a']):.4f} ms, repair (b) {min(t['b']):.4f} ms (in "
+              f"turns) [{card}]")
+
+    cfg = build_config(*smoke.CONFIG)
+    spec = make_model_spec(cfg)
+    base = smoke.seeded_params(spec, dev)
+    tcfg = smoke.train_config(kernels=True)
+    batch = smoke.synthetic_train_batch(spec, accum_steps(tcfg), dev, gen)
+    state, step = build_train_step(tcfg, spec, master_params(base), 10)
+    holder = [state]
+    times, peak = {"a": [], "b": []}, {}
+    for path in ("a", "b", "a", "b", "b", "a"):
+        with c8_wrappers(vlib) if path == "b" else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats(dev)
+            holder[0], _, ms = smoke.timed_step(step, holder[0], batch)
+            peak[path] = torch.cuda.max_memory_allocated(dev)
+        times[path].append(ms)
+    print(f"c8: train step @384 (kernel path, 2 micro-batches of 32): repair "
+          f"(a) {min(times['a'][1:]):.1f} ms, peak {peak['a'] / 2**30:.2f} "
+          f"GiB; repair (b) {min(times['b'][1:]):.1f} ms, peak "
+          f"{peak['b'] / 2**30:.2f} GiB (best of 2 after a warm step each, "
+          f"in turns) [{card}]")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k7", action="store_true",
@@ -642,15 +980,27 @@ def main() -> None:
                         help="run K1, K2, K7, K8, K14, K15, K10 and K11 (or "
                              "the kernels named) beside their rejected "
                              "variants alone")
+    parser.add_argument("--c8", action="store_true",
+                        help="fault C8's two repairs side by side alone")
     parser.add_argument("--parent", type=Path, metavar="TREE",
                         help="with --variants: K10 and K11 beside those of "
                              "the tree at TREE (another checkout's root)")
+    parser.add_argument("--digests", type=Path, metavar="TREE",
+                        help="K14's and K15's output digests beside those "
+                             "of the tree at TREE alone")
     opts = parser.parse_args()
     dev = require_cuda()
     card = smoke.card_line()
     print(card)
+    if opts.c8:
+        c8_repairs(dev, card)
+        return
+    if opts.digests is not None:
+        parent_digests(opts.digests, dev, card)
+        return
     if opts.variants is not None:
-        variants(dev, card, opts.variants or list(SOURCES), opts.parent)
+        variants(dev, card, opts.variants or [k for k in SOURCES if k != "K9b"],
+                 opts.parent)
         return
     k7_phases(dev, card)
     if opts.k7:
@@ -726,11 +1076,21 @@ def main() -> None:
                                     generator=gen)}]
     ids, masks = smoke.synthetic_captions(spec_l, smoke.L_CAPTIONS, dev, gen)
     per = smoke.L_CAPTIONS // smoke.L_IMAGES
-    trace("eval ViT-L", lambda: compute_irtr_recall(
-        params_l, spec_l, [{"text_ids": ids, "text_masks": masks}], images,
-        np.repeat(np.arange(smoke.L_IMAGES), per),
-        np.arange(smoke.L_IMAGES)), card)
+    eval_set = ([{"text_ids": ids, "text_masks": masks}], images,
+                np.repeat(np.arange(smoke.L_IMAGES), per),
+                np.arange(smoke.L_IMAGES))
+    trace("eval ViT-L", lambda: compute_irtr_recall(params_l, spec_l,
+                                                    *eval_set), card)
+    for fusion in ("tail", "mega"):
+        trace(f"image tower ViT-L, fusion {fusion}", lambda: extract_features(
+            params_l, spec_l, images, "image", fusion=fusion), card)
     del params_l
+    cfg_l8 = build_config(*smoke.CONFIG_L, overrides=dict(eval_int8=True))
+    spec_l8 = make_model_spec(cfg_l8)
+    params_l8 = eval_cast_params(base_l, spec_l8, cfg_l8)
+    trace("eval ViT-L int8", lambda: compute_irtr_recall(params_l8, spec_l8,
+                                                         *eval_set), card)
+    del params_l8
     tcfg = build_config(*smoke.CONFIG_L, overrides=dict(
         per_device_batch_size=smoke.L_MICRO, batch_size=smoke.L_MICRO,
         warmup_steps=0, pallas_attention=True))

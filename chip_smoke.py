@@ -38,12 +38,13 @@ Phases, each fatal on failure:
   2. the kernels built from ``vl_merging_tpu_torch/csrc`` (build time),
      and the wgmma instructions of the redesigned kernels (HGMMA: K3, K4,
      K5, K6, K13 on the shared MLP body; K9's two kernels; K1, K2, K7, K8
-     and K10/K11 (one kernel); IGMMA: K14, K15) counted in the library's
-     SASS with ``cuobjdump`` (none: fail); the registers and spill bytes
-     ptxas gave K1, K2, K7 (and every function it calls), K8, K14, K15 and
-     K10/K11 (``build/nvcc.log``; a spill fails), and ptxas's warnings
-     that it serialised a kernel's wgmma (one for K8, K14 or K10/K11
-     fails);
+     and K10/K11 (one kernel); IGMMA: K14, K15; K7, K14 and K15 at each of
+     their widths, 768 and 1024) counted in the library's SASS with
+     ``cuobjdump`` (none: fail); the registers and spill bytes ptxas gave
+     K1, K2, K7 (and every function it calls), K8, K14, K15 and K10/K11
+     (``build/nvcc.log``; a spill, or no instantiation of K7, K14 or K15
+     at C=1024, fails), and ptxas's warnings that it serialised a kernel's
+     wgmma (one for K8, K14, K10/K11, K7 or K15 fails);
   3. each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail,
      K9 packed_attention_bwd, K13 mlp, K12 packed_attention_i8qk, K14
      ln_linear_i8, K15 proj_mlp_tail_i8, K4 linear_residual, K5 mlp_tail,
@@ -69,14 +70,14 @@ Phases, each fatal on failure:
      met or missed); K7's time against K1 + K2 + K3, K8's against K1 +
      K2, K15's against K3 and K14's against K1 beside their bars (1.25x,
      1.10x, 0.85x, 0.8x; printed, met or missed); K14's rounds and the
-     SHA-256 of its output; K15 with every
+     SHA-256 of its output, K15's SHA-256; K15 with every
      gelu and a row of zero context against its twin; K1 at the text
      rows (32·40) and, as a yardstick the port never calls, one cuBLAS
      ``F.linear`` on the pre-normalised rows at each K1 shape; K2 at the
      ViT-L shape (B=32, 16 heads) against its twin, timed beside SDPA, its
-     training launch too; K9's
-     twin fed the plain forward's softmax statistics, not K2's (and, as a
-     printed figure, its context too); K2's
+     training launch too; K9 against its twin fed the plain forward's
+     softmax statistics, not K2's, so that the twin is the plain backward
+     throughout (D = Σ_k dp ⊙ p in f32 on both sides: fault C8); K2's
      training launch (it also stores the softmax statistics K9 reads),
      with and without a sample of no valid key: its context bit-equal to
      the eval launch's, its statistics against the plain ones, and K9 on
@@ -86,6 +87,11 @@ Phases, each fatal on failure:
      and K4 -> K5 and K6 at uniform gammas bit-equal to K3 there; K8 at
      C=1024 (16 heads) and at N=901 (the @480 image tower) against its
      twin and bit-equal to K1 -> K2, timed beside them and its bound;
+     K14, K15 (every gelu) and K7 at C=1024 (B=32, 16 heads, MLP 4096)
+     against their twins, each timed in turns beside its staged yardstick
+     (K1, K3, K1 -> K2 -> K3) with its bar (0.8x, 0.85x, 1.25x; printed),
+     its plain twin and its bound, K14's rounds and the digests there, and K7
+     bit-equal to K1 -> K2 -> K3 and to K8 -> K3 there;
   4. ``compute_irtr_recall`` over 64 images (batches of 32) and 320
      captions (batches of 64): K1-K3 launched 12 times per image batch,
      K13 12 times per text batch; finite features, image cls_feats within
@@ -125,9 +131,12 @@ Phases, each fatal on failure:
   9. ViT-L @384 (C=1024): the image tower over 32 images (K1, K2, K3
      launched 24 times, nothing else) and the text tower over 64 captions
      (K13 24 times), finite features within cosine 0.999 of the plain
-     path's; the image tower again by ``fusion`` "qkv" (K8, K3 24 times),
-     its features bit-equal to the default route's; the image tower's
-     images/s in turns; two fine-tune steps at
+     path's; the image tower again by ``fusion`` "qkv" (K8, K3 24 times)
+     and by "mega" (K7 24 times), its features bit-equal to the default
+     route's; the image tower in the W8A8 int8 eval (``eval_int8``: K14,
+     K2, K15 24 times each), its features within cosine 0.999 of the int8
+     plain path's; the image tower's images/s on the plain path, by "tail"
+     and "mega" and in int8, in turns; two fine-tune steps at
      micro-batch 8 at ``train_fusion`` "0" (per step K2 24, K9 24, K13 48)
      and "full" (K2 24, K9 24, K6 48, K1 48), finite loss and grad norm;
      kernel-path gradients within global cosine 0.999 of the plain path's;
@@ -144,9 +153,10 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 
-``python3 chip_smoke.py --k14-digest`` prints only the SHA-256 of K14's
-output on phase 3's seeded inputs (to compare the K14 of two trees: a copy
-of this file run from the other tree's root imports that tree's package).
+``python3 chip_smoke.py --digests`` prints only the SHA-256 of K14's and
+K15's outputs at C=768 on phase 3's seeded inputs (``chip_profile.py
+--digests TREE`` compares them with another tree's K14 and K15 on the same
+inputs).
 """
 
 from __future__ import annotations
@@ -394,31 +404,25 @@ def kernel_inputs(dev, gen):
 
     inputs["split_attention"] = split(K10_BATCH)
     inputs["split_attention_bb"] = split(B)
-    # K9 reads the context and softmax statistics of K2's training launch
-    # (its twin the plain forward's: ``plain_args``)
+    # K9 reads the softmax statistics of K2's training launch (its twin the
+    # plain forward's: ``plain_args``)
     qkv, bias, mask, g = inputs["packed_attention_bwd"]
-    o, stats = attn_ops.packed_attention(qkv, bias, mask, 64 ** -0.5, HEADS,
+    _, stats = attn_ops.packed_attention(qkv, bias, mask, 64 ** -0.5, HEADS,
                                          with_stats=True)
-    inputs["packed_attention_bwd"] = (qkv, bias, mask, g, o, stats,
-                                      64 ** -0.5, HEADS)
+    inputs["packed_attention_bwd"] = (qkv, bias, mask, g, stats, 64 ** -0.5,
+                                      HEADS)
     return inputs
 
 
-def plain_args(name: str, args, plain_context: bool = False):
+def plain_args(name: str, args):
     """A twin's arguments: the kernel's, except that K9's twin reads the
     softmax statistics of the plain forward, not K2's, so that its p is
-    the plain softmax of qkv, bias and mask.  The context o it reads is the
-    forward's, as autograd hands it to the backward (K2's, which
-    ``check_training_attention`` holds bit-equal to the eval launch, held
-    to its twin in turn); with ``plain_context`` the plain forward's,
-    which moves D = Σ g ⊙ o by o's own rounding (K2 rounds exp(s - m) to
-    bf16 before it normalises, the twin after): printed, not gated."""
+    the plain softmax of qkv, bias and mask: the twin is the plain
+    backward throughout (D = Σ_k dp ⊙ p in f32 on both sides: fault C8)."""
     if name != "packed_attention_bwd":
         return args
-    qkv, bias, mask, g, o, _, scale, heads = args
-    if plain_context:
-        o = attn_ops.packed_attention_reference(qkv, bias, mask, scale, heads)
-    return (qkv, bias, mask, g, o,
+    qkv, bias, mask, g, _, scale, heads = args
+    return (qkv, bias, mask, g,
             attn_ops.packed_attention_stats_reference(qkv, bias, mask, scale,
                                                       heads),
             scale, heads)
@@ -452,7 +456,7 @@ def check_training_attention(args, card: str) -> float:
     valid key, where K9 keeps p = 0); and K9 on the batch with that sample
     against its twin fed the plain forward (``plain_args``), its dead
     sample's gradient zero."""
-    qkv, bias, mask, g, _, _, scale, heads = args
+    qkv, bias, mask, g, _, scale, heads = args
     dead = mask.clone()
     dead[0] = 0
     for label, m in (("", mask), (" (sample 0 with no valid key)", dead)):
@@ -479,7 +483,7 @@ def check_training_attention(args, card: str) -> float:
                 or not dead_l:
             fail(f"packed_attention training launch{label}: its softmax "
                  f"statistics disagree with the plain ones")
-    k9 = (qkv, bias, dead, g, ctx, stats, scale, heads)
+    k9 = (qkv, bias, dead, g, stats, scale, heads)
     check_backward(k9, attn_ops.packed_attention_bwd_reference(
         *plain_args("packed_attention_bwd", k9)),
         " (sample 0 with no valid key)")
@@ -555,21 +559,22 @@ def work(name: str, args) -> tuple:
             args[7].shape[0]
         return 2 * M * c * c + 4 * M * c * h, nbytes(*args) + M * c * 2
     if name == "packed_attention_bwd":
-        qkv, bias, mask, g, o, stats = args[:6]
+        qkv, bias, mask, g, stats = args[:5]
         flops = 10 * 64 * N * HEADS * _valid_keys(mask)
-        return flops, 2 * nbytes(qkv, bias) + nbytes(mask, g, o, stats)
+        return flops, 2 * nbytes(qkv, bias) + nbytes(mask, g, stats)
     if name == "mlp":
         M, c, h = args[0].shape[0] * args[0].shape[1], args[0].shape[-1], \
             args[1].shape[0]
         return 4 * M * c * h, nbytes(*args) + M * c * 2
     if name == "ln_linear_i8":
         x, wq = args[0], args[3]
-        M, O = x.shape[0] * x.shape[1], wq.shape[0]
-        return 0, nbytes(*args) + M * O * 2, 2 * M * C * O
+        M, c, O = x.shape[0] * x.shape[1], x.shape[-1], wq.shape[0]
+        return 0, nbytes(*args) + M * O * 2, 2 * M * c * O
     if name == "proj_mlp_tail_i8":
-        M = args[0].shape[0] * args[0].shape[1]
-        return 0, nbytes(*args) + M * C * 2, \
-            2 * M * C * C + 4 * M * C * HIDDEN
+        M, c, h = args[0].shape[0] * args[0].shape[1], args[0].shape[-1], \
+            args[8].shape[0]
+        tensors = [t for t in args if isinstance(t, torch.Tensor)]
+        return 0, nbytes(*tensors) + M * c * 2, 2 * M * c * c + 4 * M * c * h
     if name == "linear_residual":
         x, w = args[:2]
         M, O = x.shape[0] * x.shape[1], w.shape[0]
@@ -583,9 +588,9 @@ def work(name: str, args) -> tuple:
         M, n, c = x.shape[0] * x.shape[1], x.shape[1], x.shape[2]
         flops = 2 * M * c * 3 * c + 4 * 64 * n * heads * _valid_keys(mask)
         if name == "block_eval":
-            flops += 2 * M * c * c + 4 * M * c * HIDDEN
+            flops += 2 * M * c * c + 4 * M * c * args[14].shape[0]
         tensors = [t for t in args if isinstance(t, torch.Tensor)]
-        return flops, nbytes(*tensors) + M * C * 2
+        return flops, nbytes(*tensors) + M * c * 2
     if name == "packed_attention_i8qk":
         qkv, bias, mask = args[:3]
         pairs = 2 * 64 * N * HEADS * _valid_keys(mask)   # QKᵀ int8, P·V bf16
@@ -625,7 +630,7 @@ def library_call(name: str, args):
         q, k, v, am = (t.detach().requires_grad_()
                        for t in _sdpa_args(qkv, bias, mask))
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
-                                             scale=args[6])
+                                             scale=args[5])
         gh = g.view(g.shape[0], N, bias.shape[0], 64).transpose(1, 2)
         return lambda: torch.autograd.grad(out, (q, k, v, am), gh,
                                            retain_graph=True)
@@ -840,9 +845,9 @@ def linear_yardstick_ms(args) -> float:
     return time_ms(lambda: F.linear(xn, w))
 
 
-def k14_digest(args) -> str:
-    """The SHA-256 of K14's output bits on ``args``."""
-    y = i8_ops.ln_linear_i8(*args)
+def digest(kernel, args) -> str:
+    """The SHA-256 of the bits of ``kernel``'s output on ``args``."""
+    y = kernel(*args)
     return hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes()
                           ).hexdigest()
 
@@ -854,33 +859,37 @@ def check_k14(args) -> None:
     bit-equal."""
     x, wq = args[0], args[3]
     M, O = x.shape[0] * x.shape[1], wq.shape[0]
-    grid = i8_ops.ln_linear_i8_grid()
+    grid = i8_ops.ln_linear_i8_grid(x.shape[-1])
     units, rounds = i8_ops.ln_linear_i8_plan(M, O, grid)
-    digest = k14_digest(args)
-    print(f"ln_linear_i8: {units} units on {grid // 2} clusters of two, "
-          f"{rounds} rounds of column tiles; output sha256 on phase 3's "
-          f"seeded inputs {digest}")
-    if k14_digest(args) != digest:
+    got = digest(i8_ops.ln_linear_i8, args)
+    print(f"ln_linear_i8 at C={x.shape[-1]}: {units} units on {grid // 2} "
+          f"clusters of two, {rounds} rounds of column tiles; output sha256 "
+          f"on phase 3's seeded inputs {got}")
+    if digest(i8_ops.ln_linear_i8, args) != got:
         fail("ln_linear_i8: two launches differ")
 
 
 def check_i8_gelus(args) -> None:
-    """K15 with each gelu of ``ops/mlp.GELUS`` other than the default
-    against its twin, within its 4 ulps; a row of context all zero (its
-    quantizer's amax floor) among them."""
+    """The SHA-256 of K15's output on ``args``, printed; K15 with each gelu
+    of ``ops/mlp.GELUS`` against its twin, within its 4 ulps, a row of
+    context all zero (its quantizer's amax floor) among them."""
+    print(f"proj_mlp_tail_i8 at C={args[0].shape[-1]}: output sha256 on "
+          f"phase 3's seeded inputs {digest(i8_ops.proj_mlp_tail_i8, args)}")
     args = list(args)
     args[0] = args[0].clone()
     args[0][0, 0] = 0
+    width = args[0].shape[-1]
     for gelu in mlp_ops.GELUS:
         got = i8_ops.proj_mlp_tail_i8(*args, gelu=gelu)
         want = i8_ops.ref_proj_mlp_tail_i8(*args, gelu=gelu)
         torch.cuda.synchronize()
         max_err, worst, differ = ulp_check("proj_mlp_tail_i8", got, want)
-        print(f"proj_mlp_tail_i8, gelu {gelu!r}, a zero context row: max "
-              f"|kernel - twin| = {max_err:.6g}, worst err/bound = "
+        print(f"proj_mlp_tail_i8 at C={width}, gelu {gelu!r}, a zero context "
+              f"row: max |kernel - twin| = {max_err:.6g}, worst err/bound = "
               f"{worst:.3f}, {differ:.3e} of the elements differ")
         if not bool(torch.isfinite(got).all()) or worst > 1.0:
-            fail(f"proj_mlp_tail_i8 with gelu {gelu!r} disagrees with its twin")
+            fail(f"proj_mlp_tail_i8 at C={width} with gelu {gelu!r} disagrees "
+                 f"with its twin")
 
 
 def check_kernels(dev, card: str, usage: dict) -> dict:
@@ -893,14 +902,12 @@ def check_kernels(dev, card: str, usage: dict) -> dict:
         args = inputs[name]
         twin_args = plain_args(name, args)
         if name == "packed_attention_bwd":
-            max_err = check_backward(args, twin(*twin_args), "")
-            got = kernel(*args)[0]
-            want = twin(*plain_args(name, args, plain_context=True))[0]
-            _, worst, differ = ulp_check(name, got, want)
-            print(f"{name} against its twin fed the plain forward's context "
-                  f"too (not a gate: D = Σ g ⊙ o takes the context's own "
-                  f"rounding): worst err/bound = {worst:.3f}, {differ:.3e} "
-                  f"of the elements differ")
+            # fault C8: D = Σ_k dp ⊙ p in f32, not the context's Σ g ⊙ o, so
+            # that the twin fed the plain forward is the plain backward
+            # throughout: gated
+            max_err = check_backward(args, twin(*twin_args),
+                                     " (C8: its twin fed the plain forward, "
+                                     "D = Σ_k dp ⊙ p)")
         else:
             got, want = kernel(*args), twin(*twin_args)
             torch.cuda.synchronize()
@@ -1081,6 +1088,7 @@ def check_wide_kernels(dev, gen, rows, card: str) -> None:
         fail(f"the shared MLP body's bit-equalities fail at C={C_L}")
     check_wide_attention(dev, gen, rows, card)
     check_wide_k8(dev, gen, rows, card)
+    check_wide_fused(dev, gen, rows, card)
 
 
 def check_wide_attention(dev, gen, rows, card: str) -> None:
@@ -1164,6 +1172,110 @@ def check_wide_k8(dev, gen, rows, card: str) -> None:
             rows["ln_qkv_attention"][f"at_n{n}"] = {
                 "max_abs_err": max_err, "ms": ms, "staged_ms": staged_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def wide_fused_inputs(dev, gen):
+    """K14, K15 and K7 at the ViT-L eval shape (B=32, N=577, C=1024, 16
+    heads, MLP 4096), and the staged kernels' inputs (K1, K3) made of the
+    same tensors: K14 takes K1's x, LN and qkv bias with the int8 qkv
+    weight, K15 K3's tensors with the int8 proj and MLP weights, K7 those
+    of K1, K2 (a bias and a key mask) and K3."""
+    B, c, h = IMAGE_BATCH, C_L, HIDDEN_L
+
+    def r(*shape, s=1.0, bf16=False, shift=0.0):
+        t = shift + s * torch.randn(*shape, device=dev, generator=gen)
+        return t.bfloat16() if bf16 else t
+
+    def q(w):   # an int8 weight and its per-channel scales
+        return i8_ops.quantize_weight(w.float())
+
+    mask = torch.ones(B, N, dtype=torch.int32, device=dev)
+    mask[-1, 500:] = 0
+    x, ctx = r(B, N, c, bf16=True), r(B, N, c, bf16=True)
+    lw, lb = r(c, s=0.1, shift=1.0), r(c, s=0.1)
+    wqkv, bqkv = r(3 * c, c, s=0.02, bf16=True), r(3 * c, s=0.1)
+    wp, bp, g1 = r(c, c, s=0.02, bf16=True), r(c, s=0.1), r(c, s=0.1)
+    lw2, lb2 = r(c, s=0.1, shift=1.0), r(c, s=0.1)
+    w1, b1 = r(h, c, s=0.02, bf16=True), r(h, s=0.1)
+    w2, b2, g2 = r(c, h, s=0.02, bf16=True), r(c, s=0.1), r(c, s=0.1)
+    tail = (wp, bp, g1, x, lw2, lb2, w1, b1, w2, b2, g2)
+    return {
+        "ln_linear": (x, lw, lb, wqkv, bqkv),
+        "proj_mlp_tail": (ctx, *tail),
+        "ln_linear_i8": (x, lw, lb, *q(wqkv), bqkv),
+        "proj_mlp_tail_i8": (ctx, *q(wp), bp, g1, x, lw2, lb2, *q(w1), b1,
+                             *q(w2), b2, g2),
+        "block_eval": (x, lw, lb, wqkv, bqkv, r(HEADS_L, N, N), mask,
+                       64 ** -0.5, HEADS_L, wp, bp, g1, lw2, lb2, w1, b1, w2,
+                       b2, g2)}
+
+
+def check_wide_fused(dev, gen, rows, card: str) -> None:
+    """K14, K15 and K7 at the ViT-L width (B=32, N=577, C=1024, 16 heads,
+    MLP 4096) against their twins with their tolerance at 768 (K15 at
+    every gelu); each timed in turns beside its staged yardstick at the
+    same shapes (K14 beside K1, K15 beside K3, K7 beside K1 -> K2 -> K3)
+    with its bar (printed, met or missed), its plain twin and its bound;
+    K7 bit-equal to K1 -> K2 -> K3 and to K8 -> K3 there (a difference
+    fails)."""
+    inputs = wide_fused_inputs(dev, gen)
+    x, lw, lb, wqkv, bqkv, bias, mask, scale, heads, wp, bp, g1, lw2, lb2, \
+        w1, b1, w2, b2, g2 = inputs["block_eval"]
+    tail = (wp, bp, g1, x, lw2, lb2, w1, b1, w2, b2, g2)
+
+    def k1_k2_k3():
+        qkv = fb_ops.ln_linear(x, lw, lb, wqkv, bqkv)
+        ctx = attn_ops.packed_attention(qkv, bias, mask, scale, heads)
+        return fb_ops.proj_mlp_tail(ctx, *tail)
+
+    def k8_k3():
+        return fb_ops.proj_mlp_tail(fb_ops.ln_qkv_attention(
+            *inputs["block_eval"][:9]), *tail)
+
+    staged = {
+        "ln_linear_i8": ("K1", lambda: fb_ops.ln_linear(*inputs["ln_linear"]),
+                         K14_BAR),
+        "proj_mlp_tail_i8": ("K3", lambda: fb_ops.proj_mlp_tail(
+            *inputs["proj_mlp_tail"]), K15_BAR),
+        "block_eval": ("K1 + K2 + K3", k1_k2_k3, K7_BAR)}
+    for name, (yardstick, staged_fn, bar) in staged.items():
+        kernel, twin = KERNELS[name][:2]
+        args = inputs[name]
+        got, want = kernel(*args), twin(*args)
+        torch.cuda.synchronize()
+        max_err, worst, differ = ulp_check(name, got, want)
+        ms, staged_ms = in_turns(lambda: kernel(*args), staged_fn)
+        plain_ms = time_ms(lambda: twin(*args), iters=TIMED_ITERS // 2)
+        bound_ms, bound_by = bound(*work(name, args))
+        met = ms <= bar * staged_ms
+        print(f"{name} at C={C_L}: max |kernel - twin| = {max_err:.6g}, worst "
+              f"err/bound = {worst:.3f} (bound {ULPS[name]} bf16 ulps), "
+              f"{differ:.3e} of the elements differ; kernel {ms:.4f} ms "
+              f"against {yardstick} {staged_ms:.4f} ms in turns, "
+              f"{ms / staged_ms:.3f} x (bar {bar}: "
+              f"{'met' if met else 'missed'}); plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}) at "
+              f"{'x'.join(map(str, args[0].shape))} [{card}]")
+        if not bool(torch.isfinite(got).all()) or worst > 1.0:
+            fail(f"{name} disagrees with its plain twin at C={C_L}")
+        rows[name]["widths"].append(C_L)
+        rows[name][f"at_{C_L}"] = {
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "staged_ms": staged_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        if name == "ln_linear_i8":
+            check_k14(args)
+        if name == "proj_mlp_tail_i8":
+            check_i8_gelus(args)
+    k7 = fb_ops.block_eval(*inputs["block_eval"])
+    staged_k7, k8 = k1_k2_k3(), k8_k3()
+    torch.cuda.synchronize()
+    print(f"at C={C_L}: K7 vs K1 -> K2 -> K3 bit-equal "
+          f"{torch.equal(k7, staged_k7)}, {differ_share(k7, staged_k7):.3e} "
+          f"of the elements differ; K7 vs K8 -> K3 bit-equal "
+          f"{torch.equal(k7, k8)}, {differ_share(k7, k8):.3e} differ")
+    if not (torch.equal(k7, staged_k7) and torch.equal(k7, k8)):
+        fail(f"block_eval is not bit-equal to the staged kernels at C={C_L}")
 
 
 def reset_launches() -> None:
@@ -1756,8 +1868,9 @@ def run_train_fusion(dev, card: str) -> dict:
 # --------------------------------------------------------------------------
 
 def run_large(dev, card: str) -> dict:
-    """The ViT-L towers and fine-tune step: launches per block, features and
-    gradients against the plain path."""
+    """The ViT-L towers (the image tower by "tail", "qkv" and "mega" and in
+    the W8A8 int8 eval) and fine-tune step: launches per block, features
+    and gradients against the plain path."""
     cfg = build_config(*CONFIG_L)
     spec = make_model_spec(cfg)
     if (spec.hidden_size, spec.num_heads, spec.image_len) != \
@@ -1774,7 +1887,7 @@ def run_large(dev, card: str) -> dict:
     ids, masks = synthetic_captions(spec, L_CAPTIONS, dev, gen)
     texts = [{"text_ids": ids, "text_masks": masks}]
     launches = dict.fromkeys(KERNELS, 0)
-    feats = {}
+    feats, plain_feats = {}, {}
     for tower, batches, want in (
             ("image", images, want_launches(ln_linear=L, packed_attention=L,
                                             proj_mlp_tail=L)),
@@ -1808,7 +1921,7 @@ def run_large(dev, card: str) -> dict:
               f"{cos:.6f} (need >= {MIN_COSINE})")
         if cos < MIN_COSINE:
             fail(f"ViT-L {tower} features disagree with the plain path")
-        feats[tower] = got
+        feats[tower], plain_feats[tower] = got, plain
     # the image tower by "qkv": K8 (built for C=1024) and K3
     reset_launches()
     with torch.no_grad():
@@ -1826,14 +1939,69 @@ def run_large(dev, card: str) -> dict:
         fail("ViT-L 'qkv' image features differ from the default route's")
     for k, v in counts.items():
         launches[k] += v
-    rates = {"plain": [], "kernels": []}
-    for which in ("plain", "kernels", "kernels", "plain"):
-        rates[which].append(images_per_sec(params, spec, images,
-                                           kernels=which == "kernels"))
-    print(f"image tower (ViT-L/16 @384, bf16, batch {L_IMAGES}): kernels "
-          f"{max(rates['kernels']):.1f} img/s, plain "
-          f"{max(rates['plain']):.1f} img/s (best of 2) [{card}]")
-    del params
+    # the image tower by "mega": K7 (built for C=1024), bit-equal to the
+    # default route's K1 -> K2 -> K3
+    reset_launches()
+    with torch.no_grad():
+        got = extract_features(params, spec, images, "image", fusion="mega")
+    counts = read_launches()
+    want = want_launches(block_eval=L)
+    same = torch.equal(got, feats["image"])
+    cos = min_cosine(got, plain_feats["image"])
+    print(f"ViT-L image tower by fusion 'mega': kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} } (want "
+          f"{ {k: v for k, v in want.items() if v} }); cls_feats bit-equal to "
+          f"the default route's {same}, min cosine to the plain path "
+          f"{cos:.6f} (need >= {MIN_COSINE})")
+    if counts != want:
+        fail(f"ViT-L 'mega' image tower launches {counts}, want {want}")
+    if not same or cos < MIN_COSINE:
+        fail("ViT-L 'mega' image features differ from the default route's "
+             "or disagree with the plain path")
+    for k, v in counts.items():
+        launches[k] += v
+    # the W8A8 int8 eval's image tower: K14 -> K2 -> K15 (built for C=1024)
+    cfg8 = build_config(*CONFIG_L, overrides=dict(eval_int8=True))
+    spec8 = make_model_spec(cfg8)
+    params8 = eval_cast_params(base, spec8, cfg8)
+    reset_launches()
+    with torch.no_grad():
+        got8 = extract_features(params8, spec8, images, "image")
+    counts = read_launches()
+    want = want_launches(ln_linear_i8=L, packed_attention=L,
+                         proj_mlp_tail_i8=L)
+    with torch.no_grad(), int8_plain_path():
+        plain8 = extract_features(params8, spec8, images, "image")
+    finite = got8.shape == plain8.shape and bool(torch.isfinite(got8).all())
+    cos = min_cosine(got8, plain8)
+    print(f"ViT-L int8 image tower (W8A8): kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} } (want "
+          f"{ {k: v for k, v in want.items() if v} }); cls_feats finite "
+          f"{finite}, min cosine to the int8 plain path {cos:.6f} (need >= "
+          f"{MIN_COSINE}); to the bf16 kernel path (no gate) "
+          f"{min_cosine(got8, feats['image']):.6f}")
+    if counts != want:
+        fail(f"ViT-L int8 image tower launches {counts}, want {want}")
+    if not finite or cos < MIN_COSINE:
+        fail("ViT-L int8 kernel-path image features disagree with the int8 "
+             "plain path")
+    for k, v in counts.items():
+        launches[k] += v
+    # the image tower's rates by path, in turns: plain, the kernels by
+    # "tail" and by "mega", the int8 kernels, and back
+    paths = {"plain": (params, spec, False, "tail"),
+             "kernels 'tail'": (params, spec, True, "tail"),
+             "kernels 'mega'": (params, spec, True, "mega"),
+             "int8 kernels": (params8, spec8, True, "tail")}
+    rates = {k: [] for k in paths}
+    for which in list(paths) + list(paths)[::-1]:
+        p, sp, kernels, fusion = paths[which]
+        rates[which].append(images_per_sec(p, sp, images, kernels=kernels,
+                                           fusion=fusion))
+    print(f"image tower (ViT-L/16 @384, batch {L_IMAGES}): "
+          + ", ".join(f"{k} {max(v):.1f} img/s" for k, v in rates.items())
+          + f" (best of 2, in turns) [{card}]")
+    del params, params8
 
     # the fine-tune step at micro-batch L_MICRO, one micro-batch a step
     tcfg = build_config(*CONFIG_L, overrides=dict(
@@ -1953,21 +2121,28 @@ def run_tiny(dev, card: str) -> dict:
 
 
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
-# of their entry functions in the library's SASS.
-# The wgmma instruction each counts: HGMMA (bf16), IGMMA (K15's s8).
+# of their entry functions in the library's SASS (K7, K14 and K15 by
+# width: their instantiations at C=768 and 1024).
+# The wgmma instruction each counts: HGMMA (bf16), IGMMA (K14's, K15's s8).
 WGMMA_KERNELS = {"K1": "16ln_linear_kernel", "K2": "27packed_attention_fwd_kernel",
                  "K3": "20proj_mlp_tail_kernel", "K4": "22linear_residual_kernel",
                  "K5": "15mlp_tail_kernel", "K6": "17tail_train_kernel",
-                 "K7": "17block_eval_kernel", "K8": "23ln_qkv_attention_kernel",
+                 "K7": "17block_eval_kernelILi768E",
+                 "K7 C=1024": "17block_eval_kernelILi1024E",
+                 "K8": "23ln_qkv_attention_kernel",
                  "K13": "10mlp_kernel", "K9 dq": "9dq_kernel",
-                 "K9 dk/dv": "10dkv_kernel", "K14": "19ln_linear_i8_kernel",
-                 "K15": "23proj_mlp_tail_i8_kernel",
+                 "K9 dk/dv": "10dkv_kernel", "K14": "19ln_linear_i8_kernelILi768E",
+                 "K14 C=1024": "19ln_linear_i8_kernelILi1024E",
+                 "K15": "23proj_mlp_tail_i8_kernelILi768E",
+                 "K15 C=1024": "23proj_mlp_tail_i8_kernelILi1024E",
                  "K10": "22split_attention_kernel",
                  "K11": "22split_attention_kernel"}
-WGMMA_OP = {"K14": "IGMMA", "K15": "IGMMA"}
+WGMMA_OP = {"K14": "IGMMA", "K14 C=1024": "IGMMA", "K15": "IGMMA",
+            "K15 C=1024": "IGMMA"}
 # The Hopper K1, K2, K7, K8, K14, K15, K10 and K11, whose ptxas report is
 # printed and must show no spill (K7: its kernel and every function it
-# calls).  K10 and K11 launch one kernel: both names match it.
+# calls), K7, K14 and K15 at both widths.  K10 and K11 launch one kernel:
+# both names match it.
 SPILL_FREE = {"ln_linear": "16ln_linear_kernel",
               "packed_attention": "27packed_attention_fwd_kernel",
               "block_eval": "_13_block_eval_cu_",
@@ -1977,8 +2152,12 @@ SPILL_FREE = {"ln_linear": "16ln_linear_kernel",
               "split_attention": "22split_attention_kernel",
               "split_attention_bb": "22split_attention_kernel"}
 # The sources whose kernels ptxas must not serialise the wgmma of (its
-# "wgmma.mma_async instructions are serialized" warning in build/nvcc.log)
-UNSERIALISED = ("ln_qkv_attention.cu", "ln_linear_i8.cu", "split_attention.cu")
+# "wgmma.mma_async instructions are serialized" warning in build/nvcc.log):
+# K8, K14, K10/K11, and K7 and K15 at both widths
+UNSERIALISED = ("ln_qkv_attention.cu", "ln_linear_i8.cu", "split_attention.cu",
+                "block_eval.cu", "proj_mlp_tail_i8.cu")
+# the kernels whose instantiation at C=1024 the spill check must find
+BUILT_AT_1024 = ("block_eval", "ln_linear_i8", "proj_mlp_tail_i8")
 
 
 def check_wgmma(lib) -> None:
@@ -2031,10 +2210,11 @@ def check_spills() -> dict:
             entry = None
 
     def label(fn, name):
-        tmpl = re.search(r"ILi(\d+)E", fn)
-        if name == "proj_mlp_tail_i8":
-            return f"gelu {tmpl[1]} " if tmpl else ""
-        return f"C={tmpl[1]} " if tmpl else ""
+        tmpl = re.findall(r"Li(\d+)E", fn.split("I", 1)[-1]) if "ILi" in fn \
+            else []
+        if name == "proj_mlp_tail_i8" and len(tmpl) == 2:
+            return f"C={tmpl[0]} gelu {tmpl[1]} "
+        return f"C={tmpl[0]} " if tmpl else ""
     usage = {}
     for n, fns in found.items():
         usage[n] = ", ".join(
@@ -2047,6 +2227,11 @@ def check_spills() -> dict:
             any(st or ld for fns in found.values() for _, st, ld in fns.values()):
         fail(f"K1, K2, K7, K8, K14, K15, K10 or K11 spills, or ptxas "
              f"reported none of them: {found}")
+    missing = [n for n in BUILT_AT_1024
+               if not any("ILi1024E" in fn and r is not None
+                          for fn, (r, _, _) in found[n].items())]
+    if missing:
+        fail(f"ptxas reported no instantiation at C=1024 of {missing}")
     return usage
 
 
@@ -2065,15 +2250,15 @@ def check_serialisation() -> None:
                       n in UNSERIALISED))
     bad = {n: warned.get(n) for n in UNSERIALISED if warned.get(n)}
     if bad or not all(n in warned for n in UNSERIALISED):
-        fail(f"ptxas serialised the wgmma of K8, K14 or K10/K11, or built "
-             f"one of them not: {bad}")
+        fail(f"ptxas serialised the wgmma of K8, K14, K10/K11, K7 or K15, "
+             f"or built one of them not: {bad}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--k14-digest", action="store_true",
-                        help="print only the SHA-256 of K14's output on "
-                             "phase 3's seeded inputs")
+    parser.add_argument("--digests", action="store_true",
+                        help="print only the SHA-256 of K14's and K15's "
+                             "outputs on phase 3's seeded inputs")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2081,11 +2266,12 @@ def main() -> int:
     dev = require_cuda()
     card = card_line()
     print(card)
-    if opts.k14_digest:
+    if opts.digests:
         inputs = kernel_inputs(dev, torch.Generator(device=dev).manual_seed(
             SEED))
-        print(f"ln_linear_i8 output sha256 on phase 3's seeded inputs "
-              f"{k14_digest(inputs['ln_linear_i8'])} [{card}]")
+        for name in ("ln_linear_i8", "proj_mlp_tail_i8"):
+            print(f"{name} output sha256 on phase 3's seeded inputs "
+                  f"{digest(getattr(i8_ops, name), inputs[name])} [{card}]")
         return 0
 
     prebuilt = _build.library_path().exists()

@@ -185,9 +185,10 @@ def test_proj_mlp_tail_kernel_matches_twin_on_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,N", [(2, 577), (5, 577), (5, 40)])
 def test_packed_attention_bwd_kernel_matches_twin_on_card(cuda_device, B, N):
-    """K9 fed K2's training launch (its context and softmax statistics),
-    against its twin fed the plain forward's statistics and the same
-    context (held bit-equal to the eval launch's): B = 5 splits the batch
+    """K9 fed K2's training launch's softmax statistics (its context held
+    bit-equal to the eval launch's), against its twin fed the plain
+    forward's statistics (D = Σ_k dp ⊙ p in f32 on both): B = 5 splits the
+    batch
     into 3 dbias groups (2 + 2 + 1); N = 40 is a single query tile; sample
     0 has no valid key (l = 0: p = 0, zero gradients, a finite dbias) and
     the last one a ragged mask."""
@@ -210,20 +211,19 @@ def test_packed_attention_bwd_kernel_matches_twin_on_card(cuda_device, B, N):
     torch.testing.assert_close(stats[:, 1:], ref[:, 1:], rtol=1e-5,
                                atol=1e-5)
     n = TA.packed_attention_bwd.launches
-    dqkv, dbias = TA.packed_attention_bwd(qkv, bias, mask, gout, o, stats,
+    dqkv, dbias = TA.packed_attention_bwd(qkv, bias, mask, gout, stats,
                                           0.125, H)
     assert TA.packed_attention_bwd.launches == n + 1
     # the twin reads the plain forward's statistics, so that its p is the
-    # plain softmax; the context is the forward's, as autograd hands it on
+    # plain softmax: the plain backward throughout
     want_dqkv, want_dbias = TA.packed_attention_bwd_reference(
-        qkv, bias, mask, gout, o, ref, 0.125, H)
+        qkv, bias, mask, gout, ref, 0.125, H)
     assert not dqkv[0].float().any()
     _bf16_close(dqkv, want_dqkv, ulps=4)
     rel = float((dbias - want_dbias).norm() / want_dbias.norm())
     assert rel < 1e-3, rel
     assert bool(torch.isfinite(dbias).all())
-    again = TA.packed_attention_bwd(qkv, bias, mask, gout, o, stats, 0.125,
-                                    H)
+    again = TA.packed_attention_bwd(qkv, bias, mask, gout, stats, 0.125, H)
     assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
 
 
@@ -505,7 +505,7 @@ def test_block_eval_kernel_matches_twin_on_card(cuda_device, B, N):
     _bf16_close(got, TF.block_eval_reference(*args), ulps=4)
     assert torch.equal(got, TF.fused_eval_block(*args))
     assert torch.equal(TF.block_eval(*args), got)
-    grid = TF.block_eval_grid()
+    grid = TF.block_eval_grid(768)
     trace = torch.zeros(grid, 12, dtype=torch.int64, device=cuda_device)
     assert torch.equal(TF.block_eval(*args, trace=trace), got)
     t = trace.cpu()
@@ -851,7 +851,8 @@ def test_vit_large_block_takes_k1_k2_k3_on_card(cuda_device):
     """One ViT-L @384 layer (C = 1024, 16 heads, MLP 4096, 577 tokens), two
     images, through ``_block_fast``: K1, K2 and K3 once each and nothing
     else; the features within cosine 0.999 of the plain path; the opt-in
-    "mega" route raises before any launch."""
+    "mega" route launches K7 once and nothing else, its features bit-equal
+    to the default route's."""
     from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, \
         params_from_numpy
     from vl_merging_tpu_torch.config import build_config
@@ -884,8 +885,126 @@ def test_vit_large_block_takes_k1_k2_k3_on_card(cuda_device):
     cos = torch.nn.functional.cosine_similarity(got.float(), plain.float(),
                                                 dim=-1)
     assert float(cos.min()) >= 0.999, float(cos.min())
-    with pytest.raises(ValueError, match="block_eval is not built for "
-                                         "C=1024"):
-        with torch.no_grad():
-            model.infer_image_ft(params, spec, image, fusion="mega")
-    assert TF.block_eval.launches == before["block_eval"]
+    before = {k: f.launches for k, f in kernels.items()}
+    with torch.no_grad():
+        mega = model.infer_image_ft(params, spec, image,
+                                    fusion="mega")["cls_feats"]
+    launched = {k: f.launches - before[k] for k, f in kernels.items()}
+    assert launched == {"ln_linear": 0, "packed_attention": 0,
+                        "proj_mlp_tail": 0, "mlp": 0, "tail_train": 0,
+                        "block_eval": 1}
+    assert torch.equal(mega, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 100, 3 * 577 + 5])
+def test_ln_linear_i8_at_1024_matches_twin_on_card(cuda_device, M):
+    """K14 at the ViT-L width (C = 1024, O = 3072; two W stages beside the
+    128 KB resident operand): M < 128, a ragged M and an all-zero row of x,
+    within 2 ulps of the twin; two launches and units of 3 column tiles
+    give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    C, O = 1024, 3072
+    x = torch.randn(1, M, C, device=cuda_device, generator=g).bfloat16()
+    x[0, M // 2] = 0
+    lnw = 1 + 0.1 * torch.randn(C, device=cuda_device, generator=g)
+    lnb = 0.1 * torch.randn(C, device=cuda_device, generator=g)
+    wq, ws = TI.quantize_weight(
+        0.02 * torch.randn(O, C, device=cuda_device, generator=g))
+    b = 0.1 * torch.randn(O, device=cuda_device, generator=g)
+    n = TI.ln_linear_i8.launches
+    got = TI.ln_linear_i8(x, lnw, lnb, wq, ws, b)
+    assert TI.ln_linear_i8.launches == n + 1
+    _bf16_close(got, TI.ref_ln_linear_i8(x, lnw, lnb, wq, ws, b))
+    assert torch.equal(TI.ln_linear_i8(x, lnw, lnb, wq, ws, b), got)
+    assert torch.equal(TI.ln_linear_i8(x, lnw, lnb, wq, ws, b, group=3), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gelu", ["poly", "poly11", "poly13", "erf"])
+def test_proj_mlp_tail_i8_at_1024_matches_twin_on_card(cuda_device, gelu):
+    """K15 at the ViT-L width (C = 1024, MLP 4096; halved ring stages, fc2
+    as two m64n128 products), M = 3·577 rows with rows of context all zero
+    in the first and the last, ragged 64-row block; every gelu, within 4
+    ulps of the twin; two launches agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(32)
+    args = list(_int8_tail_args(cuda_device, g, 3, 577, C=1024, Hd=4096))
+    ctx = args[0].clone()
+    ctx[0, :3] = 0
+    ctx[-1, -1] = 0
+    args[0] = ctx
+    n = TI.proj_mlp_tail_i8.launches
+    got = TI.proj_mlp_tail_i8(*args, gelu=gelu)
+    assert TI.proj_mlp_tail_i8.launches == n + 1
+    assert bool(torch.isfinite(got).all())
+    _bf16_close(got, TI.ref_proj_mlp_tail_i8(*args, gelu=gelu), ulps=4)
+    assert torch.equal(TI.proj_mlp_tail_i8(*args, gelu=gelu), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(3, 577), (2, 300)])
+def test_block_eval_at_1024_matches_twin_and_staged_kernels_on_card(
+        cuda_device, B, N):
+    """K7 at the ViT-L width (C = 1024, 16 heads, MLP 4096) against its
+    twin within 4 ulps, bit-equal to K1 → K2 → K3 and to K8 → K3; two
+    launches agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(33)
+    args = _block_args(cuda_device, g, B, N, C=1024, H=16, Hd=4096)
+    n = TF.block_eval.launches
+    got = TF.block_eval(*args)
+    assert TF.block_eval.launches == n + 1
+    _bf16_close(got, TF.block_eval_reference(*args), ulps=4)
+    assert torch.equal(got, TF.fused_eval_block(*args, fusion="tail"))
+    assert torch.equal(got, TF.fused_eval_block(*args, fusion="qkv"))
+    assert torch.equal(TF.block_eval(*args), got)
+
+
+def _mask_beyond_0_1(dev, B, N):
+    """A key mask with -1 and 2 entries beside 0 and 1, cast to int32 as
+    the wrappers cast it: a key is valid where its entry is > 0."""
+    mask = torch.ones(B, N, dtype=torch.int32, device=dev)
+    mask[0, 10:40] = -1
+    mask[0, 40:60] = 2
+    mask[-1, N - 50:] = 0
+    mask[-1, :20] = -1
+    return mask
+
+
+@pytest.mark.cuda
+def test_packed_attention_bwd_counts_only_positive_mask_entries_on_card(
+        cuda_device):
+    """Fault C7: K9 treats a key whose mask entry is -1 as masked and one of
+    2 as valid, as its twin (and K2, and the JAX kernel) do: dqkv within 4
+    ulps and dbias within 1e-3 of the twin fed the plain statistics."""
+    g = torch.Generator(device=cuda_device).manual_seed(34)
+    B, N, H = 3, 577, 12
+    C = 64 * H
+    qkv = torch.randn(B, N, 3 * C, device=cuda_device, generator=g).bfloat16()
+    bias = torch.randn(H, N, N, device=cuda_device, generator=g)
+    gout = torch.randn(B, N, C, device=cuda_device, generator=g).bfloat16()
+    mask = _mask_beyond_0_1(cuda_device, B, N)
+    _, stats = TA.packed_attention(qkv, bias, mask, 0.125, H, with_stats=True)
+    ref = TA.packed_attention_stats_reference(qkv, bias, mask, 0.125, H)
+    dqkv, dbias = TA.packed_attention_bwd(qkv, bias, mask, gout, stats,
+                                          0.125, H)
+    want_dqkv, want_dbias = TA.packed_attention_bwd_reference(
+        qkv, bias, mask, gout, ref, 0.125, H)
+    _bf16_close(dqkv, want_dqkv, ulps=4)
+    rel = float((dbias - want_dbias).norm() / want_dbias.norm())
+    assert rel < 1e-3, rel
+
+
+@pytest.mark.cuda
+def test_packed_attention_i8qk_counts_only_positive_mask_entries_on_card(
+        cuda_device):
+    """Fault C7: K12 treats a key whose mask entry is -1 as masked and one
+    of 2 as valid, as its twin does: within 4 ulps."""
+    g = torch.Generator(device=cuda_device).manual_seed(35)
+    B, N, H = 3, 577, 12
+    C = 64 * H
+    qkv = torch.randn(B, N, 3 * C, device=cuda_device, generator=g).bfloat16()
+    bias = torch.randn(H, N, N, device=cuda_device, generator=g)
+    mask = _mask_beyond_0_1(cuda_device, B, N)
+    got = TA.packed_attention_i8qk(qkv, bias, mask, 0.125, H)
+    want = TA.packed_attention_i8qk_reference(qkv, bias, mask, 0.125, H)
+    _bf16_close(got, want, ulps=4)

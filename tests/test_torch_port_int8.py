@@ -253,6 +253,56 @@ def test_proj_mlp_tail_i8_twin_matches_jax_kernel(dtype, gelu,
     _assert_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ln_linear_i8_twin_matches_jax_reference_at_1024(dtype):
+    """K14's twin at the ViT-L width (C = 1024, O = 3072; 48 rows) against
+    the JAX package's jnp reference ``ref_ln_linear_i8`` (the oracle of its
+    kernel), with the tolerance of the C = 128 case above."""
+    x, lnw, lnb, w, b = _ln_linear_inputs(np.random.RandomState(5), B=2,
+                                          N=24, C=1024, O=3072)
+    (jx,), (tx,) = _pair([x], dtype)
+    want = JI.ref_ln_linear_i8(jx, jnp.asarray(lnw), jnp.asarray(lnb),
+                               *JI.quantize_weight(jnp.asarray(w)),
+                               jnp.asarray(b))
+    got = TI.ln_linear_i8(tx, torch.from_numpy(lnw), torch.from_numpy(lnb),
+                          *TI.quantize_weight(torch.from_numpy(w)),
+                          torch.from_numpy(b))
+    _assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("gelu", ["poly", "erf"])
+def test_proj_mlp_tail_i8_twin_matches_jax_reference_at_1024(gelu,
+                                                             monkeypatch):
+    """K15's twin at the ViT-L width (C = 1024, MLP 4096; 48 rows, bf16)
+    against the JAX package's jnp reference ``ref_proj_mlp_tail_i8``, with
+    the tolerance of the C = 128 case above: XLA and torch sum the f32
+    LayerNorm statistics in another order, which at this width moves a
+    quantized value across a rounding tie in a few rows."""
+    monkeypatch.setattr(JI, "_GELU", JAX_GELUS[gelu])
+    rng = np.random.RandomState(6)
+    B, N, C, H = 2, 24, 1024, 4096
+
+    def r(*shape, s=1.0):
+        return (s * rng.randn(*shape)).astype(np.float32)
+
+    (jctx, jres), (tctx, tres) = _pair([r(B, N, C), r(B, N, C)], "bf16")
+    wp, w1, w2 = r(C, C, s=0.05), r(H, C, s=0.05), r(C, H, s=0.05)
+    vecs = dict(bp=r(C, s=0.1), g1=r(C, s=0.1), lnw=1 + r(C, s=0.1),
+                lnb=r(C, s=0.1), b1=r(H, s=0.1), b2=r(C, s=0.1),
+                g2=r(C, s=0.1))
+    J = {k: jnp.asarray(v) for k, v in vecs.items()}
+    T = {k: torch.from_numpy(v) for k, v in vecs.items()}
+    jq = [JI.quantize_weight(jnp.asarray(w)) for w in (wp, w1, w2)]
+    tq = [TI.quantize_weight(torch.from_numpy(w)) for w in (wp, w1, w2)]
+    want = JI.ref_proj_mlp_tail_i8(jctx, *jq[0], J["bp"], J["g1"], jres,
+                                   J["lnw"], J["lnb"], *jq[1], J["b1"],
+                                   *jq[2], J["b2"], J["g2"])
+    got = TI.proj_mlp_tail_i8(tctx, *tq[0], T["bp"], T["g1"], tres,
+                              T["lnw"], T["lnb"], *tq[1], T["b1"], *tq[2],
+                              T["b2"], T["g2"], gelu=gelu)
+    _assert_close(got, want, "bf16")
+
+
 def _attention_inputs(rng, B=2, N=128, H=2):
     qkv = rng.randn(B, N, 3 * 64 * H).astype(np.float32)
     bias = rng.randn(H, N, N).astype(np.float32)

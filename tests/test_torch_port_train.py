@@ -107,10 +107,10 @@ def test_packed_attention_bwd_twin_matches_jax_kernel(monkeypatch, dtype, B):
     dqkv, dbias = A._pallas_packed_attention_bwd(
         qkv, jnp.asarray(bias_a), jnp.asarray(mask), g, scale, H)
     tbias, tmask = torch.from_numpy(bias_a), torch.from_numpy(mask)
-    o, stats = TA.packed_attention(tqkv, tbias, tmask, scale, H,
+    _, stats = TA.packed_attention(tqkv, tbias, tmask, scale, H,
                                    with_stats=True)
     got_dqkv, got_dbias = TA.packed_attention_bwd(
-        tqkv, tbias, tmask, tg, o, stats, scale, H)
+        tqkv, tbias, tmask, tg, stats, scale, H)
     assert got_dqkv.dtype == tqkv.dtype and got_dbias.dtype == torch.float32
     assert bool(torch.isfinite(got_dbias).all())
     assert not got_dqkv[0].float().any()

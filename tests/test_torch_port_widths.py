@@ -1,14 +1,14 @@
 """The port's kernels at every named model width (fault C5).
 
 The width-specific kernels are built for some model widths only
-(``ops.fused_block.KERNEL_WIDTHS``: K1, K3, K4, K5, K6, K8 and K13 at 768
-and 1024; K7 and the int8 K14/K15 at 768), and the port's routing asks
-``kernel_takes`` -- the JAX package's own shape gates intersected with the
-built widths -- before any launch, as a pure function of shapes.  At C=192
-(the vit-tiny configs) the default route takes the plain ops for
-K1/K3/K13/K6, as the JAX package takes XLA; at C=1024 (ViT-L) it takes the
-kernels; an opt-in route whose kernel is not built for the width raises
-``ValueError`` before any launch.
+(``ops.fused_block.KERNEL_WIDTHS``: each at 768 and 1024), and the port's
+routing asks ``kernel_takes`` -- the JAX package's own shape gates
+intersected with the built widths -- before any launch, as a pure
+function of shapes.  At C=192 (the vit-tiny configs) the default route
+takes the plain ops for K1/K3/K13/K6, as the JAX package takes XLA; at
+C=1024 (ViT-L) every route takes its kernels; an opt-in route whose
+kernel is not built for the width (C=640, which the JAX gates take)
+raises ``ValueError`` before any launch.
 
 The routing tests need no card: a recording stub stands in for the kernel
 wrappers (on CPU tensors each wrapper runs its plain twin), and one
@@ -64,12 +64,14 @@ def _spec(name):
 
 
 @functools.lru_cache(maxsize=None)
-def _one_layer(name):
-    """A one-layer spec of the named config at full width (a small
-    vocabulary: the block does not read it), its params, and the int8
-    eval's spec and params (the int8 companions of ``eval_int8``)."""
+def _one_layer(name, C=None):
+    """A one-layer spec of the named config at full width, or at width C
+    (heads of 64) (a small vocabulary: the block does not read it), its
+    params, and the int8 eval's spec and params (the int8 companions of
+    ``eval_int8``)."""
+    width = {} if C is None else dict(hidden_size=C, num_heads=C // 64)
     cfg = build_config(name, "ufo", overrides=dict(num_layers=1,
-                                                   vocab_size=64))
+                                                   vocab_size=64, **width))
     spec = make_model_spec(cfg)
     params = init_params(spec, torch.Generator().manual_seed(0))
     return spec, params, dataclasses.replace(spec, eval_int8=True), \
@@ -100,10 +102,11 @@ def _as_if(monkeypatch, real_n):
 
 
 def _launch(recorder, name, *, train=False, fusion="tail", level="0",
-            int8=False):
-    """The kernels one block of the named config launches, forward and,
-    in training, backward; or the ValueError it raised."""
-    spec, params, spec8, params8 = _one_layer(name)
+            int8=False, C=None):
+    """The kernels one block of the named config (at width C, if given)
+    launches, forward and, in training, backward; or the ValueError it
+    raised."""
+    spec, params, spec8, params8 = _one_layer(name, C)
     if int8:
         spec, params = spec8, params8
     x, bias, mask = _inputs(spec)
@@ -259,18 +262,35 @@ def test_width_1024_takes_k1_k2_k3_k13_in_the_eval_and_k2_k9_k13_k6_in_training(
     assert _launch(recorder, LARGE) == ["mlp"]
 
 
-@pytest.mark.parametrize("fusion,int8,kernel", [
-    ("mega", False, "block_eval"), ("tail", True, "ln_linear_i8")])
-def test_unbuilt_opt_in_routes_at_1024_raise_naming_kernel_and_width(
-        monkeypatch, recorder, fusion, int8, kernel):
+@pytest.mark.parametrize("fusion,int8,kernels", [
+    ("mega", False, ["block_eval"]),
+    ("tail", True, ["ln_linear_i8", "packed_attention", "proj_mlp_tail_i8"])])
+def test_width_1024_opt_in_routes_take_their_kernels(
+        monkeypatch, recorder, fusion, int8, kernels):
+    """K7, K14 and K15 are built for the ViT-L width: its image block by
+    "mega" launches K7 alone, in the int8 eval K14, K2 and K15, and both
+    routes are built there."""
     spec = _spec(LARGE)
     _as_if(monkeypatch, spec.image_len)
-    got = _launch(recorder, LARGE, fusion=fusion, int8=int8)
+    assert _launch(recorder, LARGE, fusion=fusion, int8=int8) == \
+        sorted(kernels)
+    assert mome.eval_route_built(1024, 4096, fusion, int8)
+
+
+@pytest.mark.parametrize("fusion,int8,kernel", [
+    ("mega", False, "block_eval"), ("tail", True, "ln_linear_i8")])
+def test_unbuilt_opt_in_routes_raise_naming_kernel_and_width(
+        monkeypatch, recorder, fusion, int8, kernel):
+    """At C=640 (the JAX gates take it; no kernel is built for it) the
+    opt-in routes raise before any launch, naming the kernel and the
+    width."""
+    _as_if(monkeypatch, 577)
+    got = _launch(recorder, LARGE, fusion=fusion, int8=int8, C=640)
     assert isinstance(got, ValueError)
-    assert f"kernel {kernel} is not built for C=1024" in str(got)
+    assert f"kernel {kernel} is not built for C=640" in str(got)
     assert recorder == []
     with pytest.raises(ValueError, match=f"kernel {kernel} is not built"):
-        mome.eval_route_built(1024, 4096, fusion, int8)
+        mome.eval_route_built(640, 2560, fusion, int8)
 
 
 def test_width_1024_qkv_route_takes_k8_and_k3(monkeypatch, recorder):
@@ -286,10 +306,10 @@ def test_width_1024_qkv_route_takes_k8_and_k3(monkeypatch, recorder):
 def test_unbuilt_opt_in_route_raises_before_any_launch(monkeypatch,
                                                        recorder):
     _as_if(monkeypatch, 577)
-    spec, params = _one_layer(LARGE)[:2]
+    spec, params = _one_layer(LARGE, 640)[:2]
     x, bias, mask = _inputs(spec)
     with pytest.raises(ValueError, match="block_eval is not built for "
-                                         "C=1024"):
+                                         "C=640"):
         mome.block_forward(params, spec, spec.blocks[0], x, mask, bias, V,
                            fusion="mega")
     assert recorder == []
@@ -311,7 +331,7 @@ def test_block_forward_launches_the_kernels_of_its_width(
 
 @pytest.mark.parametrize("B", [2, 3])
 def test_k9_statistics_twin_matches_jax_backward_kernel(monkeypatch, B):
-    """K9's twin, fed the softmax statistics and context of the port's own
+    """K9's twin, fed the softmax statistics of the port's own
     forward (``packed_attention(..., with_stats=True)``), against the JAX
     package's backward kernel in interpret mode, f32, tiny spec: sample 0
     has every key masked (a row with no valid key: p = 0, zero gradients,
@@ -332,10 +352,10 @@ def test_k9_statistics_twin_matches_jax_backward_kernel(monkeypatch, B):
         jnp.asarray(qkv), jnp.asarray(bias), jnp.asarray(mask),
         jnp.asarray(g), scale, H)
     tq, tb, tm, tg = (torch.from_numpy(a) for a in (qkv, bias, mask, g))
-    o, stats = TA.packed_attention(tq, tb, tm, scale, H, with_stats=True)
+    _, stats = TA.packed_attention(tq, tb, tm, scale, H, with_stats=True)
     assert stats.shape == (2, B, H, N) and stats.dtype == torch.float32
     assert bool((stats[1, 0] == 0).all()) and bool((stats[1, 1:] > 0).all())
-    dqkv, dbias = TA.packed_attention_bwd(tq, tb, tm, tg, o, stats, scale, H)
+    dqkv, dbias = TA.packed_attention_bwd(tq, tb, tm, tg, stats, scale, H)
     assert bool(torch.isfinite(dbias).all())
     assert not dqkv[0].any()
     np.testing.assert_allclose(dqkv.numpy(), np.asarray(jd), atol=2e-5,

@@ -53,6 +53,11 @@
 // What stays on chip: LN1(x), the logits, LN2(x') and the MLP hidden; what
 // goes through L2 (and, past its capacity, device memory): qkv and the
 // context, and x' parked in the output rows as K3 parks it.
+//
+// Built for C = 768 and 1024 (ViT-B and ViT-L: 12 and 16 heads): each
+// phase's code is built for both already (K1's Layout, K2 at any head
+// count, body::Cfg), and the largest phase's shared memory, the body's,
+// is the same at both.
 #include <cooperative_groups.h>
 
 #include "ln_linear.cuh"
@@ -64,7 +69,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int C = 768;
 // NC consumer warpgroups in phases A and B (see the design notes), K1's
 // tile width in phase A.
 constexpr int NC = 1, kTN = 128 * NC;
@@ -82,7 +86,11 @@ static_assert(NC == 1 || 2 * kBodyRegs + kIdleRegs == 3 * kRegs &&
 constexpr size_t max3(size_t a, size_t b, size_t c) {
   return a > b ? (a > c ? a : c) : (b > c ? b : c);
 }
-constexpr size_t kSmem = max3(k1::Layout<C, NC, kTN>::BYTES, k2::Cfg<NC>::SMEM, body::Cfg<C>::SMEM);
+template <int C>
+constexpr size_t kSmem =
+    max3(k1::Layout<C, NC, kTN>::BYTES, k2::Cfg<NC>::SMEM, body::Cfg<C>::SMEM);
+static_assert(kSmem<768> <= 232448 && kSmem<1024> <= 232448,
+              "over the H100's shared memory per block");
 
 struct Maps {
   CUtensorMap x, wqkv;  // phase A: x (B·N x C) and W_qkv (3C x C)
@@ -137,6 +145,7 @@ __device__ __forceinline__ void with_regs(Role role) {
   if constexpr (NC == 2 && R < kRegs) hop::setmaxnreg_inc<kRegs>();
 }
 
+template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
     block_eval_kernel(const __grid_constant__ Maps maps, const BlockArgs a) {
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -226,12 +235,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The launch configuration of K7 without its grid: clusters of four CTAs,
-// cooperative (its grid-wide barriers need every CTA resident at once).
+// The launch configuration of K7 at width C without its grid: clusters of
+// four CTAs, cooperative (its grid-wide barriers need every CTA resident
+// at once).
+template <int C>
 cudaLaunchConfig_t launch_config(cudaLaunchAttribute (&attrs)[2], cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmem;
+  cfg.dynamicSmemBytes = kSmem<C>;
   cfg.stream = stream;
   attrs[0].id = cudaLaunchAttributeClusterDimension;
   attrs[0].val.clusterDim.x = body::kCluster;
@@ -244,30 +255,66 @@ cudaLaunchConfig_t launch_config(cudaLaunchAttribute (&attrs)[2], cudaStream_t s
   return cfg;
 }
 
-}  // namespace
-
-// The number of CTAs K7 launches: as many whole clusters as the card holds
-// at once (a grid-wide barrier needs that), or 0 where it cannot hold one.
-// The caller queries it once per process (the port runs on one card).
-extern "C" int vlm_block_eval_grid() {
-  if (cudaFuncSetAttribute(block_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kSmem) != cudaSuccess)
+template <int C>
+int grid_of() {
+  if (cudaFuncSetAttribute(block_eval_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kSmem<C>) != cudaSuccess)
     return 0;
   cudaLaunchAttribute attrs[2];
-  cudaLaunchConfig_t cfg = launch_config(attrs, nullptr);
+  cudaLaunchConfig_t cfg = launch_config<C>(attrs, nullptr);
   cfg.numAttrs = 1;  // the occupancy query takes the cluster shape alone
   cfg.gridDim = dim3(body::kCluster);
   int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, block_eval_kernel, &cfg) != cudaSuccess) {
+  if (cudaOccupancyMaxActiveClusters(&clusters, block_eval_kernel<C>, &cfg) != cudaSuccess) {
     cudaGetLastError();
     return 0;
   }
   return clusters * body::kCluster;
 }
 
-// scratch: bb·N·3C bf16 of packed qkv, then bb·N·C bf16 of context.
-// trace: null, or grid x kTrace zeroed u64 counters that receive the phase
-// trace above.  grid: the value of vlm_block_eval_grid().
+// The tensor maps and the launch at width C.
+template <int C>
+int launch(const BlockArgs& a, const void* x, const void* wqkv, const void* wp, const void* w1,
+           const void* w2, int grid, cudaStream_t stream) {
+  const int B = a.B, N = a.N, bb = a.bb;
+  Maps maps;
+  const uint64_t C3 = 3ull * C;
+  if (!hop::make_tensor_map(&maps.x, x, (uint64_t)B * N, C, k1::Roles<NC, kTN>::BM, k1::BK) ||
+      !hop::make_tensor_map(&maps.wqkv, wqkv, 3 * C, C, kTN / k1::CL, k1::BK) ||
+      !hop::make_tensor_map_3d(&maps.attn.q, a.qkv, {C3, (uint64_t)N, (uint64_t)bb}, C3 * 2,
+                               C3 * 2 * N, {k2::D, k2::Cfg<NC>::BQ, 1}) ||
+      !hop::make_tensor_map_3d(&maps.attn.kv, a.qkv, {C3, (uint64_t)N, (uint64_t)bb}, C3 * 2,
+                               C3 * 2 * N, {k2::D, k2::BKV, 1}) ||
+      !body::make_maps<C>(&maps.tail, body::kProjMlp, a.ctx, bb * N, wp, w1, w2, a.Hd))
+    return (int)cudaErrorNotSupported;
+  cudaLaunchAttribute attrs[2];
+  cudaLaunchConfig_t cfg = launch_config<C>(attrs, stream);
+  cfg.gridDim = dim3(grid);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, block_eval_kernel<C>, maps, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The number of CTAs K7 launches at width C: as many whole clusters as the
+// card holds at once (a grid-wide barrier needs that), or 0 where it cannot
+// hold one or K7 is not built for C.  The caller queries it once per
+// process and width (the port runs on one card).
+extern "C" int vlm_block_eval_grid(int C) {
+  switch (C) {
+    case 768:
+      return grid_of<768>();
+    case 1024:
+      return grid_of<1024>();
+    default:
+      return 0;
+  }
+}
+
+// scratch: bb·N·3C bf16 of packed qkv, then bb·N·C bf16 of context, C =
+// 64·H.  trace: null, or grid x kTrace zeroed u64 counters that receive the
+// phase trace above.  grid: the value of vlm_block_eval_grid(C).
 extern "C" int vlm_block_eval(const void* x, const void* ln1_w, const void* ln1_b,
                               const void* wqkv, const void* bqkv, const void* bias,
                               const void* mask, const void* wp, const void* bp, const void* g1,
@@ -275,7 +322,8 @@ extern "C" int vlm_block_eval(const void* x, const void* ln1_w, const void* ln1_
                               const void* b1, const void* w2, const void* b2, const void* g2,
                               void* scratch, void* out, void* trace, int B, int N, int H,
                               int Hd, int bb, int grid, float scale, float eps, void* stream) {
-  if (B <= 0 || N <= 0 || H * k2::D != C || Hd <= 0 || Hd % body::kHC != 0 || bb <= 0)
+  const int C = H * k2::D;
+  if (B <= 0 || N <= 0 || (C != 768 && C != 1024) || Hd <= 0 || Hd % body::kHC != 0 || bb <= 0)
     return (int)cudaErrorInvalidValue;
   if (grid <= 0 || grid % body::kCluster != 0) return (int)cudaErrorLaunchOutOfResources;
   bf16* qkv = static_cast<bf16*>(scratch);
@@ -293,20 +341,7 @@ extern "C" int vlm_block_eval(const void* x, const void* ln1_w, const void* ln1_
                     H,                                Hd,
                     bb,                               scale,
                     eps};
-  Maps maps;
-  const uint64_t C3 = 3ull * C;
-  if (!hop::make_tensor_map(&maps.x, x, (uint64_t)B * N, C, k1::Roles<NC, kTN>::BM, k1::BK) ||
-      !hop::make_tensor_map(&maps.wqkv, wqkv, 3 * C, C, kTN / k1::CL, k1::BK) ||
-      !hop::make_tensor_map_3d(&maps.attn.q, qkv, {C3, (uint64_t)N, (uint64_t)bb}, C3 * 2,
-                               C3 * 2 * N, {k2::D, k2::Cfg<NC>::BQ, 1}) ||
-      !hop::make_tensor_map_3d(&maps.attn.kv, qkv, {C3, (uint64_t)N, (uint64_t)bb}, C3 * 2,
-                               C3 * 2 * N, {k2::D, k2::BKV, 1}) ||
-      !body::make_maps<C>(&maps.tail, body::kProjMlp, ctx, bb * N, wp, w1, w2, Hd))
-    return (int)cudaErrorNotSupported;
-  cudaLaunchAttribute attrs[2];
-  cudaLaunchConfig_t cfg = launch_config(attrs, static_cast<cudaStream_t>(stream));
-  cfg.gridDim = dim3(grid);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, block_eval_kernel, maps, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return C == 768 ? launch<768>(a, x, wqkv, wp, w1, w2, grid, s)
+                  : launch<1024>(a, x, wqkv, wp, w1, w2, grid, s);
 }

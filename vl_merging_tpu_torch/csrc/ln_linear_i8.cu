@@ -25,10 +25,11 @@
 // of every W k-tile, multicast to both, so W reaches the SMs once per 256
 // rows.  The A operand is resident: when a tile starts a new row block,
 // each consumer warp LayerNorms its 16 rows in f32 and quantizes them per
-// row into the CTA's 128 x 768 int8 operand in shared memory (six
+// row into the CTA's 128 x C int8 operand in shared memory (C/128
 // 128B-swizzled k-blocks), the row scales beside it, once for all the
-// column tiles of the row block that the CTA takes in a row (four rows a
-// warp at a time: eight spill beside the staging's epilogue).  The grid is persistent (as many clusters as fit): each
+// column tiles of the row block that the CTA takes in a row (Cfg::LN_ROWS
+// rows a warp at a time: more spill).  The grid is persistent (as many
+// clusters as fit): each
 // cluster walks a contiguous run of units of `group` column tiles in
 // row-major order, so its tiles share their rows.  The epilogue dequantizes
 // into a 128B-swizzled staging tile in shared memory, half a tile at a
@@ -43,9 +44,13 @@
 // quantized every row six times and read W from L2 by each of its 289 row
 // blocks (511 MB), on mma.sync.
 //
-// Shared memory: the A operand 96 KB, STAGES x 32 KB of W, the staging 32
-// KB, 128 row scales, barriers, 1 KB alignment slack: 225.6 KB.  Built for
-// C = 768; O a multiple of 256.
+// Shared memory at C = 768: the A operand 96 KB, 3 x 32 KB of W, the
+// staging 32 KB, 128 row scales, barriers, 1 KB alignment slack: 225.6 KB.
+// At C = 1024 the A operand is 128 KB, and the ring holds two stages of W
+// beside the staging: 225.5 KB.  (Three stages and no staging, the tile
+// stored from registers as K1 stores it, fit too, and ran 8% slower on
+// the card: PERF.md.)  Built for C = 768 and 1024 (Cfg); O a multiple of
+// 256.
 #include "hopper.cuh"
 #include "int8.cuh"
 
@@ -53,19 +58,28 @@ using namespace vlm;
 
 namespace {
 
-constexpr int C = 768, KB = C / 128;  // k-blocks of 128 int8 values
-constexpr int BM = 128, TN = 256, CL = 2, STAGES = 3;
+constexpr int BM = 128, TN = 256, CL = 2;
 constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128, CONSUMER_WARPS = CONSUMERS / 32;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
-constexpr int LN_ROWS = 4;          // rows a warp normalises and quantizes at once
 constexpr int kAtom = BM * 128;   // a k-block of the CTA's rows
 constexpr int W_BYTES = TN * 128;  // a W k-tile
 // a warpgroup's staging: 64 rows x 128 columns of bf16 as two 64 x 64 boxes
 constexpr int kBox = 64 * 128, STG_WG = 2 * kBox;
-constexpr int RING = KB * kAtom, STG = RING + STAGES * W_BYTES;
-constexpr int SCALE = STG + 2 * STG_WG, BAR = SCALE + BM * 4;
-constexpr int SMEM = 1024 + BAR + 2 * STAGES * 8;
-static_assert(SMEM <= 232448, "over the H100's shared memory per block");
+
+// The width's layout: KB k-blocks of 128 int8 values; LN_ROWS rows a warp
+// normalises and quantizes at once (ptxas compiles the kernel for 168
+// registers a thread: at C = 1024 four rows of x spill); STAGES W k-tiles
+// in the ring, beside the epilogue's staging.
+template <int C>
+struct Cfg {
+  static constexpr int KB = C / 128;
+  static constexpr int LN_ROWS = C <= 768 ? 4 : 2;
+  static constexpr int STAGES = C <= 768 ? 3 : 2;
+  static constexpr int RING = KB * kAtom, STG = RING + STAGES * W_BYTES;
+  static constexpr int SCALE = STG + 2 * STG_WG, BAR = SCALE + BM * 4;
+  static constexpr int SMEM = 1024 + BAR + 2 * STAGES * 8;
+  static_assert(SMEM <= 232448, "over the H100's shared memory per block");
+};
 
 struct Args {
   const bf16* x;
@@ -80,15 +94,18 @@ __device__ __forceinline__ int swz(int r, int col) {
   return (col >> 7) * kAtom + r * 128 + ((((col >> 4) & 7) ^ (r & 7)) << 4) + (col & 15);
 }
 
+template <int C>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
     ln_linear_i8_kernel(const __grid_constant__ CUtensorMap wmap,
                         const __grid_constant__ CUtensorMap ymap, const Args a) {
+  using F = Cfg<C>;
+  constexpr int KB = F::KB, STAGES = F::STAGES;
   extern __shared__ __align__(1024) unsigned char raw[];
   uint8_t* base = raw + ((1024u - (hop::smem_u32(raw) & 1023u)) & 1023u);
   int8_t* A = reinterpret_cast<int8_t*>(base);
-  uint8_t* ring = base + RING;
-  float* scale = reinterpret_cast<float*>(base + SCALE);
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + BAR);
+  uint8_t* ring = base + F::RING;
+  float* scale = reinterpret_cast<float*>(base + F::SCALE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + F::BAR);
   uint64_t* empty = full + STAGES;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -146,9 +163,9 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
         // a time, once the warpgroup's products on the previous rows are done
         hop::named_sync(1 + wg, 128);
 #pragma unroll 1
-        for (int i = 0; i < 16; i += LN_ROWS) {
+        for (int i = 0; i < 16; i += F::LN_ROWS) {
           const int r = wr + i;
-          ln_quant_rows_at<LN_ROWS, C / 256>(
+          ln_quant_rows_at<F::LN_ROWS, C / 256>(
               a.x + (size_t)(row0 + r) * C, C, a.M - (row0 + r), a.ln_w, a.ln_b, a.eps,
               [&](int j, int col) { return A + swz(r + j, col); }, scale + r, 1);
         }
@@ -184,7 +201,7 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
       // warpgroup's 64 rows of a half as two 64 x 64 boxes, 128B-swizzled
       // (row r's 8-column chunk ch at chunk ch ^ (r % 8)), while the next
       // half is computed and the next tile's products run
-      uint8_t* stg = base + STG + wg * STG_WG;
+      uint8_t* stg = base + F::STG + wg * STG_WG;
       const int lr = 16 * (warp & 3) + g;  // the thread's first row in the warpgroup's 64
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
@@ -220,48 +237,75 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
   hop::cluster_sync();  // no CTA leaves while its peer may still multicast or arrive into it
 }
 
-}  // namespace
-
-// The CTAs of K14's persistent grid: as many whole clusters of two as fit
-// on the device at once.  The caller queries it once per process (the port
-// runs on one card).
-extern "C" int vlm_ln_linear_i8_grid() {
-  if (cudaFuncSetAttribute(ln_linear_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SMEM) != cudaSuccess)
+template <int C>
+int grid_of() {
+  constexpr int smem = Cfg<C>::SMEM;
+  if (cudaFuncSetAttribute(ln_linear_i8_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess)
     return 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CL, 1, 1);
   cfg.blockDim = dim3(THREADS, 1, 1);
-  cfg.dynamicSmemBytes = SMEM;
+  cfg.dynamicSmemBytes = smem;
   int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, ln_linear_i8_kernel, &cfg) != cudaSuccess) {
+  if (cudaOccupancyMaxActiveClusters(&clusters, ln_linear_i8_kernel<C>, &cfg) != cudaSuccess) {
     cudaGetLastError();
     return 0;
   }
   return clusters * CL;
 }
 
-// grid: the value of vlm_ln_linear_i8_grid(); group: column tiles of 256
-// per unit of work (a divisor of O / 256).
-extern "C" int vlm_ln_linear_i8(const void* x, const void* ln_w, const void* ln_b,
-                                const void* w, const void* ws, const void* b, void* y, int M,
-                                int width, int O, int grid, int group, float eps, void* stream) {
-  if (M <= 0 || width != C || O <= 0 || O % TN != 0 || grid < CL || grid % CL != 0 ||
-      group <= 0 || (O / TN) % group != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ln_linear_i8_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+template <int C>
+int launch(const void* w, void* y, int O, const Args& a, int grid, cudaStream_t stream) {
+  constexpr int smem = Cfg<C>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(ln_linear_i8_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap wmap, ymap;
   if (!hop::make_tensor_map_i8(&wmap, w, O, C, TN / CL, 128) ||
-      !hop::make_tensor_map(&ymap, y, M, O, 64, 64))
+      !hop::make_tensor_map(&ymap, y, a.M, O, 64, 64))
     return (int)cudaErrorNotSupported;
+  const int clusters = a.units < grid / CL ? a.units : grid / CL;
+  ln_linear_i8_kernel<C><<<clusters * CL, THREADS, smem, stream>>>(wmap, ymap, a);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The CTAs of K14's persistent grid at width C: as many whole clusters of
+// two as fit on the device at once (0 at a width it is not built for).  The
+// caller queries it once per process and width (the port runs on one
+// card).
+extern "C" int vlm_ln_linear_i8_grid(int C) {
+  switch (C) {
+    case 768:
+      return grid_of<768>();
+    case 1024:
+      return grid_of<1024>();
+    default:
+      return 0;
+  }
+}
+
+// grid: the value of vlm_ln_linear_i8_grid(width); group: column tiles of
+// 256 per unit of work (a divisor of O / 256).
+extern "C" int vlm_ln_linear_i8(const void* x, const void* ln_w, const void* ln_b,
+                                const void* w, const void* ws, const void* b, void* y, int M,
+                                int width, int O, int grid, int group, float eps, void* stream) {
+  if (M <= 0 || O <= 0 || O % TN != 0 || grid < CL || grid % CL != 0 || group <= 0 ||
+      (O / TN) % group != 0)
+    return (int)cudaErrorInvalidValue;
   const int ncb = O / TN, units = (M + BM * CL - 1) / (BM * CL) * (ncb / group);
-  const int clusters = units < grid / CL ? units : grid / CL;
   const Args a{static_cast<const bf16*>(x), static_cast<const float*>(ln_w),
                static_cast<const float*>(ln_b), static_cast<const float*>(ws),
                static_cast<const float*>(b), M, ncb, units, group, eps};
-  ln_linear_i8_kernel<<<clusters * CL, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
-      wmap, ymap, a);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 768:
+      return launch<768>(w, y, O, a, grid, s);
+    case 1024:
+      return launch<1024>(w, y, O, a, grid, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -6,7 +6,7 @@
 // Replaces vl_merging_tpu/ops/attention.py:_packed_kernel (via
 // _pallas_packed_attention / packed_fused_attention).  Per head:
 // s = (q·scale)·kᵀ in f32 with q pre-scaled in bf16 (exact for 1/8),
-// + bias[h] in f32, keys with mask 0 (or past N) at -inf, softmax in f32,
+// + bias[h] in f32, keys with mask <= 0 (or past N) at -inf, softmax in f32,
 // P in bf16, P·v accumulated in f32, context rounded to bf16.  q, k and v
 // are read in place from the packed qkv columns (q at 0, k at C, v at 2C,
 // head h at h·64): no transpose into (3, B, H, N, d).
@@ -114,7 +114,7 @@ __device__ __forceinline__ void load_kv_tile(bf16* Kt, bf16* Vt, int* kvalid,
     }
   }
   if (threadIdx.x < BKV)
-    kvalid[threadIdx.x] = (k0 + (int)threadIdx.x < N) && mask_b[k0 + threadIdx.x] != 0;
+    kvalid[threadIdx.x] = (k0 + (int)threadIdx.x < N) && mask_b[k0 + threadIdx.x] > 0;
 }
 
 // I8QK: K12 (int8 q·kᵀ) instead of K2 (bf16 q·kᵀ)

@@ -1,7 +1,7 @@
 // K9: the backward of K2's attention over packed qkv.  From qkv (B, N, 3C),
-// the f32 bias (H, N, N), the key mask (B, N), the context o (B, N, C) and
-// its gradient g, and the softmax statistics K2's training launch stored
-// (each query row's max m and sum l), it computes dqkv (B, N, 3C) and
+// the f32 bias (H, N, N), the key mask (B, N), the context's gradient g
+// (B, N, C) and the softmax statistics K2's training launch stored (each
+// query row's max m and sum l), it computes dqkv (B, N, 3C) and
 // dbias (H, N, N) f32 summed over the batch, without any (N, N) tensor of
 // p, dp or ds in device memory.
 //
@@ -10,19 +10,23 @@
 // pre-scaled in bf16; s = q·kᵀ in f32 + bias, masked keys at -inf (as in K2
 // the bias is the initial value of the f32 accumulator); p = exp(s - m)/l
 // in f32, 0 on a row with no valid key (l = 0); dv = bf16(p)ᵀ·g;
-// dp = g·vᵀ; ds = p ⊙ (dp − D) in f32 with D = Σ_c g ⊙ o, the row sum
-// Σ_k dp ⊙ p of the reference taken from the context instead (equal up to
-// the rounding of o); dq = bf16(ds)·k · scale and dk = bf16(ds)ᵀ·q (q
+// dp = g·vᵀ; ds = p ⊙ (dp − D) in f32 with D = Σ_k dp ⊙ p, the row sum in
+// f32 as the reference takes it; dq = bf16(ds)·k · scale and dk = bf16(ds)ᵀ·q (q
 // pre-scaled), both accumulated in f32; dq, dk, dv are stored in bf16 and
 // dbias = Σ_b ds stays f32.
 //
 // The TPU kernel holds whole (N, N) tiles of a batch block in VMEM and sums
 // dbias over a sequential grid.  Here three launches share the work:
 //   1. dq_kernel, one block per (batch, 64-query tile, head), one
-//      warpgroup (4 warps of 16 query rows): D of its rows from g and o,
-//      then one pass over 64-key tiles that recomputes s and dp, forms p
-//      from the stored m and l, ds, and accumulates dq; it stores D for
-//      the second launch.
+//      warpgroup (4 warps of 16 query rows): two passes over 64-key tiles
+//      that recompute s and dp and form p from the stored m and l, the
+//      first summing D = Σ_k dp ⊙ p of its rows, the second forming ds and
+//      accumulating dq; it stores D for the second launch.  (D taken from
+//      a context, Σ_c g ⊙ o, saves the first pass but moves ds by the
+//      context's rounding of P, which K2 and a plain forward take at other
+//      points: against a twin fed the plain forward's context, 1.10 of
+//      K9's 4-ulp bound from the bf16 context, 1.13 from an f32 one that
+//      K2's training launch would store; chip_profile.py --c8.)
 //   2. dkv_kernel, one block per (64-key tile, head, batch group), one
 //      warpgroup of 16 keys per warp: for each batch of its group it walks
 //      the query tiles, recomputes sᵀ and dpᵀ with the key rows as the A
@@ -39,9 +43,9 @@
 //
 // Bound on the H100: by its arithmetic, 10·B·H·N²·d flops for the five
 // products (82 GFLOP at B = 32, N = 577, 12 heads) against ~100 MB of qkv,
-// g, o, dqkv, bias and dbias.  As built it recomputes s and dp once more
-// (14·B·H·N²·d over whole 64-wide tiles; the design before this one also
-// recomputed them in a statistics pass, 18).  The q·kᵀ-type products
+// g, dqkv, bias and dbias.  As built it recomputes s and dp twice more
+// (18·B·H·N²·d over whole 64-wide tiles: dq_kernel's D pass, then its dq
+// pass).  The q·kᵀ-type products
 // (s = q·kᵀ, dp = g·vᵀ and their transposes in dkv_kernel) are wgmma
 // m64n64k16 with A from registers (the mma.sync A fragments of each warp's
 // 16 rows) and B a 64 x 64 tile in 128B-swizzled shared memory
@@ -161,12 +165,6 @@ __device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float dot_bf16x2(uint32_t a, uint32_t b) {
-  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(&b);
-  return __low2float(x) * __low2float(y) + __high2float(x) * __high2float(y);
-}
-
 // ---------------------------------------------------------------------------
 // 1. D and dq
 // ---------------------------------------------------------------------------
@@ -174,7 +172,7 @@ __device__ __forceinline__ float dot_bf16x2(uint32_t a, uint32_t b) {
 __global__ void __launch_bounds__(THREADS)
 dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
           const int* __restrict__ mask, const bf16* __restrict__ gout,
-          const bf16* __restrict__ o, bf16* __restrict__ dqkv, float* __restrict__ stats, int B,
+          bf16* __restrict__ dqkv, float* __restrict__ stats, int B,
           int N, int H, int ldb, float scale) {
   __shared__ __align__(1024) bf16 St[TILE];  // the Q tile, then the g tile
   __shared__ __align__(1024) bf16 Ks[2][TILE];
@@ -194,7 +192,7 @@ dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
     const int k0 = tile * TK;
     stage_rows(Ks[st], base + C, ld, k0, N);
     stage_rows(Vs[st], base + 2 * C, ld, k0, N);
-    if (tid < TK) kvalid[st][tid] = (k0 + tid < N) && mask_b[k0 + tid] != 0;
+    if (tid < TK) kvalid[st][tid] = (k0 + tid < N) && mask_b[k0 + tid] > 0;
   };
   load_kv(0, 0);
   cp_async_commit();
@@ -227,41 +225,20 @@ dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
     m1 = stats[srow + qrow1];
     inv1 = 1.f / stats[plane + srow + qrow1];
   }
-  float d0 = 0.f, d1 = 0.f;  // D = Σ_c g ⊙ o: the thread's 16 columns, then its group's
-  {
-    const bf16* ob = o + (size_t)b * N * C + h * D + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      if (qrow0 < N) {
-        d0 += dot_bf16x2(ga[kk][0], ld32(ob + (size_t)qrow0 * C + kk * 16));
-        d0 += dot_bf16x2(ga[kk][2], ld32(ob + (size_t)qrow0 * C + kk * 16 + 8));
-      }
-      if (qrow1 < N) {
-        d1 += dot_bf16x2(ga[kk][1], ld32(ob + (size_t)qrow1 * C + kk * 16));
-        d1 += dot_bf16x2(ga[kk][3], ld32(ob + (size_t)qrow1 * C + kk * 16 + 8));
-      }
-    }
-    d0 = group_sum(d0);  // every lane shuffles; a row with p = 0 keeps D = 0
-    d1 = group_sum(d1);  // (its context is not finite)
-    if (inv0 == 0.f) d0 = 0.f;
-    if (inv1 == 0.f) d1 = 0.f;
-    if (t == 0) {
-      if (qrow0 < N) stats[2 * plane + srow + qrow0] = d0;
-      if (qrow1 < N) stats[2 * plane + srow + qrow1] = d1;
-    }
-  }
-
   const float* brow0 = bias + ((size_t)h * N + min(qrow0, N - 1)) * ldb;  // rows past N
   const float* brow1 = bias + ((size_t)h * N + min(qrow1, N - 1)) * ldb;  // are not stored
   float dq[D / 8][4];
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  float d0 = 0.f, d1 = 0.f;  // D of the two rows: the thread's share, then the row's
 
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * TK, st = it & 1;
+  // iterations [0, ntiles): the D pass; [ntiles, 2 ntiles): the dq pass,
+  // over the same key tiles in the same order
+  for (int it = 0; it < 2 * ntiles; ++it) {
+    const int k0 = (it % ntiles) * TK, st = it & 1;
     cp_async_wait<0>();
     __syncthreads();  // tile it is visible; every warp is done with tile it - 1
-    if (it + 1 < ntiles) load_kv(it + 1, st ^ 1);
+    if (it + 1 < 2 * ntiles) load_kv((it + 1) % ntiles, st ^ 1);
     cp_async_commit();
     const bf16* Kt = Ks[st];
     const int* kv = kvalid[st];
@@ -284,6 +261,28 @@ dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
     zero8x4(dp);
     rows_dot(dp, ga, Vs[st]);
     rows_dot(s, qa, Kt);
+
+    if (it < ntiles) {  // D += Σ_k dp ⊙ p in f32
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p0 = inv0 > 0.f ? expf(s[j][e] - m0) * inv0 : 0.f;
+          const float p1 = inv1 > 0.f ? expf(s[j][2 + e] - m1) * inv1 : 0.f;
+          d0 += dp[j][e] * p0;
+          d1 += dp[j][2 + e] * p1;
+        }
+      }
+      if (it == ntiles - 1) {  // the rows' D, for this pass and dkv_kernel
+        d0 = group_sum(d0);
+        d1 = group_sum(d1);
+        if (t == 0) {
+          if (qrow0 < N) stats[2 * plane + srow + qrow0] = d0;
+          if (qrow1 < N) stats[2 * plane + srow + qrow1] = d1;
+        }
+      }
+      continue;
+    }
 
     // p, ds = p (dp - D), dq += bf16(ds) · k
 #pragma unroll
@@ -370,7 +369,7 @@ dkv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
     if (i % nq == 0) {
       stage_rows(sm.kv[0], base + C, ld, k0, N);
       stage_rows(sm.kv[1], base + 2 * C, ld, k0, N);
-      if (tid < TK) sm.kvalid[tid] = (k0 + tid < N) && mask[(size_t)b * N + k0 + tid] != 0;
+      if (tid < TK) sm.kvalid[tid] = (k0 + tid < N) && mask[(size_t)b * N + k0 + tid] > 0;
     }
     stage_rows(sm.qg[st][0], base, ld, q0, N);
     stage_rows(sm.qg[st][1], gout + (size_t)b * N * C + h * D, C, q0, N);
@@ -517,12 +516,12 @@ extern "C" int vlm_packed_attention_bwd_groups(int B) {
 
 // bias: (H, N, ldb) f32, the (H, N, N) bias with each row padded to ldb
 // columns (ldb even and at least N rounded up to 64: the kernels read
-// whole 64-key tiles, bias pairs as float2).  o: K2's context (B, N, C).
+// whole 64-key tiles, bias pairs as float2).
 // stats: (3, B, H, N) f32, planes 0 and 1 the m and l of K2's training
 // launch; plane 2 receives D.  dbias_part: (groups, H, N, ldp) f32 scratch,
 // ldp = N rounded up to 4.
 extern "C" int vlm_packed_attention_bwd(const void* qkv, const void* bias, const void* mask,
-                                        const void* g, const void* o, void* dqkv, void* dbias,
+                                        const void* g, void* dqkv, void* dbias,
                                         void* stats, void* dbias_part, int B, int N, int H,
                                         int ldb, int groups, float scale, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0 || groups != vlm_packed_attention_bwd_groups(B) ||
@@ -538,8 +537,8 @@ extern "C" int vlm_packed_attention_bwd(const void* qkv, const void* bias, const
   float* st = static_cast<float*>(stats);
   float* part = static_cast<float*>(dbias_part);
 
-  dq_kernel<<<dim3(B, (N + TQ - 1) / TQ, H), THREADS, 0, s>>>(
-      q, bi, m, go, static_cast<const bf16*>(o), dq, st, B, N, H, ldb, scale);
+  dq_kernel<<<dim3(B, (N + TQ - 1) / TQ, H), THREADS, 0, s>>>(q, bi, m, go, dq, st, B, N, H,
+                                                               ldb, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 

@@ -16,17 +16,18 @@
 //
 // Design (Hopper, sm_90a): the MLP body's structure (mlp_body.cuh) over
 // int8.  A cluster of four CTAs takes one 64-row block and each CTA owns
-// a quarter of the output columns (CQ = 192), so that each weight tile
-// reaches the SMs once per 64 rows; TMA rings carry 128B-swizzled int8
-// weight tiles; the products are wgmma m64nNk32 s8·s8→s32 in two
-// warpgroups with their own rings: an output warpgroup (CQ/2 = 96 s32
-// accumulators a thread for fc2) and a hidden warpgroup.  Byte for byte
+// a quarter of the output columns (CQ = C/4: 192 or 256), so that each
+// weight tile reaches the SMs once per 64 rows; TMA rings carry
+// 128B-swizzled int8 weight tiles; the products are wgmma m64nNk32
+// s8·s8→s32 in two warpgroups with their own rings: an output warpgroup
+// (CQ/2 s32 accumulators a thread for fc2: 96, or 128 at C = 1024) and a
+// hidden warpgroup.  Byte for byte
 // every operand has the bf16 body's layout (a k32 step of s8 is 32 bytes
 // of a swizzled row, as a k16 step of bf16), with a hidden chunk of 256
 // (64 columns a CTA, a 4 KB slice as in the body).
 //   * The ctx rows are quantized per row by every CTA (the scale needs the
-//     whole row) into 6 int8 atoms of 64 rows x 128 bytes; the proj runs
-//     half of the CTA's columns in each warpgroup (m64n96), and each CTA
+//     whole row) into C/128 int8 atoms of 64 rows x 128 bytes; the proj
+//     runs half of the CTA's columns in each warpgroup (m64nCQ/2), and each CTA
 //     stores its quarter of x1 into the output rows; a cluster barrier
 //     publishes the whole x1 rows; LN2 runs in f32 and is quantized into
 //     the same atoms.
@@ -42,7 +43,8 @@
 //     quant_rows applies it.  Pass 2 recomputes each chunk (m64n64),
 //     quantizes it with the now known scale and exchanges the int8 slices
 //     between the CTAs by bulk copies, as the body exchanges its bf16
-//     slices; fc2 (m64n192) contracts them.  The recomputation is exact:
+//     slices; fc2 (m64n192, or two m64n128 at C = 1024) contracts them.
+//     The recomputation is exact:
 //     the s32 sums do not depend on their order and the f32 epilogue runs
 //     the same instructions in both passes.
 // Weight traffic per 64 rows: proj 0.59 MB, fc1 2 x 2.36, fc2 2.36: 7.7
@@ -53,11 +55,15 @@
 // Each product starts with a write-only first step (hopper.cuh), and a
 // chunk's f32 epilogue follows its products.
 //
-// Shared memory: A atoms 48 KB, hidden 2 buffers x 16 KB (the proj's row
-// scales and pass 1's partial amaxes live there first), rings of 3 + 3
-// stages of 24 KB, LN2's row scales and the CTAs' amaxes 1.25 KB,
-// barriers, 1 KB of alignment slack: 226.4 KB.  Built for C = 768; the
-// hidden a multiple of 256.
+// Shared memory at C = 768: A atoms 48 KB, hidden 2 buffers x 16 KB (the
+// proj's row scales and pass 1's partial amaxes live there first), rings
+// of 3 + 3 stages of 24 KB, LN2's row scales and the CTAs' amaxes 1.25
+// KB, barriers, 1 KB of alignment slack: 226.4 KB.  At C = 1024 the A
+// atoms take 64 KB and six such stages would not fit (290 KB): a stage is
+// halved (16 KB: NB = CQ/2 rows of W2, KW1 = C/4 of W1, as the bf16 body
+// halves its own), and each ring holds four, the least that fc1's four
+// stages a chunk, all issued before it waits, take: 226.4 KB.  Built for C = 768
+// and 1024 (Cfg); the hidden a multiple of 256.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -67,34 +73,46 @@ using namespace vlm;
 
 namespace {
 
-constexpr int C = 768;
 constexpr int kRows = 64, kCluster = 4;
-constexpr int CQ = C / kCluster;          // output columns of a CTA
-constexpr int KA = C / 128;               // k-tiles (atoms) of 128 int8 over the width
 constexpr int kAtom = kRows * 128;        // 64 rows x 128 bytes, 128B-swizzled
 constexpr int kHC = 256;                  // hidden chunk of the cluster
 constexpr int kHq = kHC / kCluster;       // hidden columns a CTA computes per chunk
 constexpr int kSlice = kRows * kHq;       // bytes of a CTA's slice of a hidden chunk
 constexpr int kHBuf = kCluster * kSlice;  // bytes of a hidden buffer
 constexpr int kThreads = 256, kWarps = kThreads / 32;
-constexpr int KW1 = 384;                  // depth of a W1 stage: 3 boxes of 64 x 128 bytes
 constexpr int kW1Box = kHq * 128;
-constexpr int STAGE = CQ * 128;           // a W2 stage (CQ x 128) = a W1 stage (64 x 384)
-static_assert(STAGE == kHq * KW1, "the two rings' stages differ");
-constexpr int kProjBox = CQ / 2 * 128;    // a warpgroup's half of a Wp k-tile
 constexpr int kOutEvery = 2;              // pass 1: chunk c to the output warpgroup iff c % 2 == 1
-constexpr int SLOTS0 = 3, SLOTS1 = 3;     // stages of the output ring and the hidden ring
-constexpr int H_OFF = KA * kAtom;
-constexpr int RING0 = H_OFF + 2 * kHBuf;
-constexpr int RING1 = RING0 + SLOTS0 * STAGE;
-constexpr int F_OFF = RING1 + SLOTS1 * STAGE;  // s_ln[64], red[4][64]
-constexpr int BAR_OFF = F_OFF + (1 + kCluster) * kRows * 4;
-constexpr int kBarriers = SLOTS0 + SLOTS1 + 6;  // full, hfull[2], hempty[2], xready, amax
-constexpr int SMEM = 1024 + BAR_OFF + kBarriers * 8;
-static_assert(SMEM <= 232448, "over the H100's shared memory per block");
+
+// The width's layout.  CQ output columns a CTA, KA k-tiles (atoms) of 128
+// int8 over the width.  A stage of the output ring holds NB of the CTA's
+// W2 rows x 128 bytes (fc2 runs NH = CQ/NB products of NB columns), a
+// stage of the hidden ring the CTA's 64 W1 rows x KW1 bytes (SW1 stages a
+// chunk); both STAGE bytes; SLOTS0 and SLOTS1 stages in the output and the
+// hidden ring.
+template <int C>
+struct Cfg {
+  static constexpr int CQ = C / kCluster, KA = C / 128;
+  static constexpr int NB = C <= 768 ? CQ : CQ / 2, KW1 = C <= 768 ? 384 : C / 4;
+  static constexpr int NH = CQ / NB, SW1 = C / KW1;
+  static constexpr int STAGE = NB * 128;
+  static_assert(STAGE == kHq * KW1, "the two rings' stages differ");
+  static constexpr int kProjBox = CQ / 2 * 128;  // a warpgroup's half of a Wp k-tile
+  static_assert(kProjBox <= STAGE, "a proj k-tile in a ring stage");
+  static constexpr int SLOTS0 = C <= 768 ? 3 : 4, SLOTS1 = SLOTS0;
+  static_assert(SLOTS0 >= SW1 && SLOTS1 >= SW1,
+                "fc1 issues a chunk's SW1 stages before it waits for any");
+  static constexpr int H_OFF = KA * kAtom;
+  static constexpr int RING0 = H_OFF + 2 * kHBuf;
+  static constexpr int RING1 = RING0 + SLOTS0 * STAGE;
+  static constexpr int F_OFF = RING1 + SLOTS1 * STAGE;  // s_ln[64], red[4][64]
+  static constexpr int BAR_OFF = F_OFF + (1 + kCluster) * kRows * 4;
+  static constexpr int kBarriers = SLOTS0 + SLOTS1 + 6;  // full, hfull[2], hempty[2], xready, amax
+  static constexpr int SMEM = 1024 + BAR_OFF + kBarriers * 8;
+  static_assert(SMEM <= 232448, "over the H100's shared memory per block");
+};
 
 // Tensor maps (hop::make_tensor_map_i8): wp (C x C) in CQ/2 x 128 boxes,
-// w1 (Hd x C) in 64 x 128, w2 (C x Hd) in CQ x 128.
+// w1 (Hd x C) in 64 x 128, w2 (C x Hd) in NB x 128.
 struct Maps {
   CUtensorMap wp, w1, w2;
 };
@@ -161,7 +179,10 @@ __device__ __forceinline__ float gelu(float x) {
 // pass-1 chunks, the W2 stages; ring 1 (the hidden warpgroup): the lower
 // half of Wp, the W1 stages of its pass-1 chunks, the W1 stages of every
 // chunk again for pass 2.
+template <int C>
 struct Ring {
+  using F = Cfg<C>;
+  static constexpr int KA = F::KA, STAGE = F::STAGE, SW1 = F::SW1, NH = F::NH;
   const Maps& m;
   uint8_t* base;
   uint64_t* full;
@@ -169,9 +190,9 @@ struct Ring {
   int n = 0, filled = 0, freed = 0;  // stages acquired, loaded, handed back
   __device__ __forceinline__ Ring(const Maps& mp, uint8_t* b, uint64_t* f, int ring, int q_,
                                   int nch)
-      : m(mp), base(b), full(f), r(ring), q(q_), slots(ring == 0 ? SLOTS0 : SLOTS1),
+      : m(mp), base(b), full(f), r(ring), q(q_), slots(ring == 0 ? F::SLOTS0 : F::SLOTS1),
         np1(ring == 0 ? nch / kOutEvery : nch - nch / kOutEvery),
-        total(KA + 2 * np1 + 2 * nch) {
+        total(KA + SW1 * np1 + (ring == 0 ? 2 * NH : SW1) * nch) {
     while (filled < slots && filled < total) fill();
   }
   // the chunk of this ring's j-th pass-1 chunk
@@ -181,8 +202,8 @@ struct Ring {
   __device__ __forceinline__ bool leader() const { return (threadIdx.x & 127) == 0; }
   __device__ __forceinline__ void w1_stage(uint8_t* dst, uint64_t* bar, int c, int s) const {
     hop::mbar_arrive_expect_tx(bar, STAGE);
-    for (int i = 0; i < KW1 / 128; ++i)
-      hop::tma_load_2d(dst + i * kW1Box, &m.w1, s * KW1 + 128 * i, c * kHC + kHq * q, bar);
+    for (int i = 0; i < F::KW1 / 128; ++i)
+      hop::tma_load_2d(dst + i * kW1Box, &m.w1, s * F::KW1 + 128 * i, c * kHC + kHq * q, bar);
   }
   // load the next stage, by the warpgroup's first thread
   __device__ __forceinline__ void fill() {
@@ -191,21 +212,22 @@ struct Ring {
     uint64_t* bar = &full[k % slots];
     uint8_t* dst = base + (k % slots) * STAGE;
     if (k < KA) {
-      hop::mbar_arrive_expect_tx(bar, kProjBox);
-      hop::tma_load_2d(dst, &m.wp, 128 * k, q * CQ + (1 - r) * CQ / 2, bar);
+      hop::mbar_arrive_expect_tx(bar, F::kProjBox);
+      hop::tma_load_2d(dst, &m.wp, 128 * k, q * F::CQ + (1 - r) * F::CQ / 2, bar);
       return;
     }
     const int k1 = k - KA;
-    if (k1 < 2 * np1) {
-      w1_stage(dst, bar, pass1_chunk(k1 / 2), k1 % 2);
+    if (k1 < SW1 * np1) {
+      w1_stage(dst, bar, pass1_chunk(k1 / SW1), k1 % SW1);
       return;
     }
-    const int k2 = k1 - 2 * np1, c = k2 / 2, s = k2 % 2;
+    const int k2 = k1 - SW1 * np1;
     if (r == 1) {
-      w1_stage(dst, bar, c, s);
-    } else {  // W2: hidden columns c·256 + 128s.., the CTA's output rows
+      w1_stage(dst, bar, k2 / SW1, k2 % SW1);
+    } else {  // W2: hidden columns c·256 + 128hs.., the CTA's output rows h·NB..
+      const int c = k2 / (2 * NH), hs = k2 % (2 * NH) / NH, h = k2 % NH;
       hop::mbar_arrive_expect_tx(bar, STAGE);
-      hop::tma_load_2d(dst, &m.w2, c * kHC + 128 * s, q * CQ, bar);
+      hop::tma_load_2d(dst, &m.w2, c * kHC + 128 * hs, q * F::CQ + h * F::NB, bar);
     }
   }
   // the next stage's byte offset in the ring, once its tiles have landed
@@ -247,21 +269,24 @@ __device__ __forceinline__ uint64_t at(uint64_t d, int bytes) {
   return d + (uint64_t)(bytes >> 4);
 }
 
-template <int G>
+template <int C, int G>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     proj_mlp_tail_i8_kernel(const __grid_constant__ Maps m, const Args a) {
+  using F = Cfg<C>;
+  constexpr int CQ = F::CQ, KA = F::KA, NB = F::NB, NH = F::NH, SW1 = F::SW1;
+  constexpr int SLOTS0 = F::SLOTS0, SLOTS1 = F::SLOTS1;
   extern __shared__ __align__(1024) unsigned char raw[];
   uint8_t* base = raw + ((1024u - (hop::smem_u32(raw) & 1023u)) & 1023u);
   int8_t* A = reinterpret_cast<int8_t*>(base);
-  uint8_t* H = base + H_OFF;
+  uint8_t* H = base + F::H_OFF;
   // s_ctx (the proj's row scales) and the warpgroups' pass-1 partials
   // (part[warpgroup][row]) live in the hidden buffers, which no CTA writes
   // before every CTA is past pass 1 (the amax barrier)
-  float* s_ctx = reinterpret_cast<float*>(base + H_OFF);
+  float* s_ctx = reinterpret_cast<float*>(base + F::H_OFF);
   float* part = s_ctx + kRows;
-  float* s_ln = reinterpret_cast<float*>(base + F_OFF);
+  float* s_ln = reinterpret_cast<float*>(base + F::F_OFF);
   float* red = s_ln + kRows;  // [CTA][row]: the CTAs' pass-1 amaxes
-  uint64_t* full0 = reinterpret_cast<uint64_t*>(base + BAR_OFF);
+  uint64_t* full0 = reinterpret_cast<uint64_t*>(base + F::BAR_OFF);
   uint64_t* full1 = full0 + SLOTS0;
   uint64_t* hfull = full1 + SLOTS1;
   uint64_t* hempty = hfull + 2;
@@ -288,9 +313,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   const bool out_wg = wg == 1;
   const int r0 = 16 * (warp & 3) + (lane >> 2);  // this thread's rows: r0 and r0 + 8
   const int c0 = q * CQ;                          // the CTA's output columns
-  Ring ring(m, base + (out_wg ? RING0 : RING1), out_wg ? full0 : full1, out_wg ? 0 : 1, q, nch);
+  Ring<C> ring(m, base + (out_wg ? F::RING0 : F::RING1), out_wg ? full0 : full1, out_wg ? 0 : 1,
+               q, nch);
   const uint64_t dA = hop::sw128_desc(A), dH = hop::sw64_desc(H);
-  const uint64_t dW = hop::sw128_desc(base + (out_wg ? RING0 : RING1));
+  const uint64_t dW = hop::sw128_desc(base + (out_wg ? F::RING0 : F::RING1));
 
   // ---- quant(ctx) of the block's 64 rows into the A atoms: warp w, rows
   // w + 8i
@@ -363,7 +389,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   hop::named_sync(1, kThreads);
 
   // fc1 of the CTA's 64 hidden columns of chunk c: issue() its products
-  // (two ring stages) into acc, finish() its f32 epilogue once they retired,
+  // (SW1 ring stages) into acc, finish() its f32 epilogue once they retired,
   // h = gelu(dequant(acc) + b1), handed to take(j, hh, h0, h1): the thread's
   // row r0 (hh 0) or r0 + 8 (hh 1), columns c·256 + 64q + 8j + 2t and + 1.
   // Both passes compute h with these same instructions.
@@ -373,16 +399,17 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     auto step = [&](auto first, int s) {  // first: s = 0, which starts the product
       const int w = ring.acquire();
 #pragma unroll
-      for (int i = 0; i < KW1 / 128; ++i)
+      for (int i = 0; i < F::KW1 / 128; ++i)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          hop::wgmma_s8<kHq>(acc, at(dA, (s * (KW1 / 128) + i) * kAtom + kk * 32),
+          hop::wgmma_s8<kHq>(acc, at(dA, (s * (F::KW1 / 128) + i) * kAtom + kk * 32),
                              at(dW, w + i * kW1Box + kk * 32),
                              decltype(first)::value && (i | kk) == 0);
       ring.commit();
     };
     step(std::true_type{}, 0);
-    step(std::false_type{}, 1);
+#pragma unroll
+    for (int s = 1; s < SW1; ++s) step(std::false_type{}, s);
   };
   auto finish = [&](Acc& acc, int c, auto take) {
     hop::fence_regs(acc);
@@ -486,20 +513,25 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
     // ---- pass 2, output role: acc += quant(h) · W2ᵀ per chunk, once every
     // CTA's hidden warpgroup stored its slice (hfull); a buffer is released
     // to all CTAs (hempty) once the products reading it retired.
-    int acc[CQ / 2];
-    // the products of hidden bytes 128hs.. of chunk c; first: c = 0, hs = 0,
-    // which starts the product
+    int acc[NH][NB / 2];
+    // the products of hidden bytes 128hs.. of chunk c, NB output columns at
+    // a time, each from its own stage; first: c = 0, hs = 0, which starts
+    // each product
     auto step = [&](auto first, int c, int hs) {
-      const int w = ring.acquire();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)  // hidden bytes 128hs + 32kk: slice 2hs + kk/2
-        hop::wgmma_s8<CQ>(acc,
-                          at(dH, (c & 1) * kHBuf + (2 * hs + (kk >> 1)) * kSlice +
-                                     (kk & 1) * 32),
-                          at(dW, w + kk * 32), decltype(first)::value && kk == 0);
-      ring.retire();
-      if (hs == 0 && c > 0 && lane == 0)  // chunk c - 1's products retired
-        for (int rk = 0; rk < kCluster; ++rk) hop::mbar_arrive_cluster(&hempty[(c - 1) & 1], rk);
+      for (int h = 0; h < NH; ++h) {
+        const int w = ring.acquire();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // hidden bytes 128hs + 32kk: slice 2hs + kk/2
+          hop::wgmma_s8<NB>(acc[h],
+                            at(dH, (c & 1) * kHBuf + (2 * hs + (kk >> 1)) * kSlice +
+                                       (kk & 1) * 32),
+                            at(dW, w + kk * 32), decltype(first)::value && kk == 0);
+        ring.retire();
+        if (hs == 0 && h == 0 && c > 0 && lane == 0)  // chunk c - 1's products retired
+          for (int rk = 0; rk < kCluster; ++rk)
+            hop::mbar_arrive_cluster(&hempty[(c - 1) & 1], rk);
+      }
     };
     hop::mbar_wait<true>(&hfull[0], 0);  // chunk 0 apart: no branch around a wgmma
     step(std::true_type{}, 0, 0);
@@ -511,53 +543,80 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
       for (int hs = 0; hs < 2; ++hs) step(std::false_type{}, c, hs);
     }
     ring.drain();
-    hop::fence_regs(acc);
     // out = bf16(x1 + (dequant(acc) + b2) ⊙ γ2), the CTA's columns, 32 at a
     // time: a group's loads, then its stores
 #pragma unroll
-    for (int jb = 0; jb < CQ / 8; jb += 4) {
-      float2 ws[4], bb[4], g2[4], x1[4][2];
+    for (int h = 0; h < NH; ++h) {
+      hop::fence_regs(acc[h]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = c0 + 8 * (jb + j) + 2 * t;
-        ws[j] = __ldg(reinterpret_cast<const float2*>(a.w2s + col));
-        bb[j] = __ldg(reinterpret_cast<const float2*>(a.b2 + col));
-        g2[j] = __ldg(reinterpret_cast<const float2*>(a.g2 + col));
+      for (int jb = 0; jb < NB / 8; jb += 4) {
+        float2 ws[4], bb[4], g2[4], x1[4][2];
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = row0 + r0 + 8 * hh;
-          x1[j][hh] = make_float2(0.f, 0.f);
-          if (row < a.M)
-            x1[j][hh] = __bfloat1622float2(
-                *reinterpret_cast<const __nv_bfloat162*>(a.out + (size_t)row * C + col));
+        for (int j = 0; j < 4; ++j) {
+          const int col = c0 + h * NB + 8 * (jb + j) + 2 * t;
+          ws[j] = __ldg(reinterpret_cast<const float2*>(a.w2s + col));
+          bb[j] = __ldg(reinterpret_cast<const float2*>(a.b2 + col));
+          g2[j] = __ldg(reinterpret_cast<const float2*>(a.g2 + col));
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = row0 + r0 + 8 * hh;
+            x1[j][hh] = make_float2(0.f, 0.f);
+            if (row < a.M)
+              x1[j][hh] = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(a.out + (size_t)row * C + col));
+          }
         }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = row0 + r0 + 8 * hh, col = c0 + h * NB + 8 * (jb + j) + 2 * t;
+            if (row >= a.M) continue;
+            const int e = 4 * (jb + j) + 2 * hh;
+            const float y0 = __fmul_rn(dequant(acc[h][e], s_hid[hh], ws[j].x, bb[j].x), g2[j].x);
+            const float y1 =
+                __fmul_rn(dequant(acc[h][e + 1], s_hid[hh], ws[j].y, bb[j].y), g2[j].y);
+            *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)row * C + col) =
+                __floats2bfloat162_rn(__fadd_rn(x1[j][hh].x, y0), __fadd_rn(x1[j][hh].y, y1));
+          }
+        asm volatile("" ::: "memory");  // the next group's loads stay after these stores
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = row0 + r0 + 8 * hh, col = c0 + 8 * (jb + j) + 2 * t;
-          if (row >= a.M) continue;
-          const int e = 4 * (jb + j) + 2 * hh;
-          const float y0 = __fmul_rn(dequant(acc[e], s_hid[hh], ws[j].x, bb[j].x), g2[j].x);
-          const float y1 = __fmul_rn(dequant(acc[e + 1], s_hid[hh], ws[j].y, bb[j].y), g2[j].y);
-          *reinterpret_cast<__nv_bfloat162*>(a.out + (size_t)row * C + col) =
-              __floats2bfloat162_rn(__fadd_rn(x1[j][hh].x, y0), __fadd_rn(x1[j][hh].y, y1));
-        }
-      asm volatile("" ::: "memory");  // the next group's loads stay after these stores
     }
   }
   hop::cluster_sync();  // no CTA leaves while another may still write into it
 }
 
-template <int G>
+template <int C, int G>
 int launch(const Maps& m, const Args& a, cudaStream_t stream) {
+  constexpr int smem = Cfg<C>::SMEM;
   const cudaError_t err = cudaFuncSetAttribute(
-      proj_mlp_tail_i8_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+      proj_mlp_tail_i8_kernel<C, G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  proj_mlp_tail_i8_kernel<G>
-      <<<(a.M + kRows - 1) / kRows * kCluster, kThreads, SMEM, stream>>>(m, a);
+  proj_mlp_tail_i8_kernel<C, G>
+      <<<(a.M + kRows - 1) / kRows * kCluster, kThreads, smem, stream>>>(m, a);
   return (int)cudaGetLastError();
+}
+
+// The launch at width C with the gelu gelu_kind; the tensor maps first.
+template <int C>
+int launch_width(const void* pq, const void* w1q, const void* w2q, const Args& a, int gelu_kind,
+                 cudaStream_t stream) {
+  using F = Cfg<C>;
+  Maps m;
+  if (!hop::make_tensor_map_i8(&m.wp, pq, C, C, F::CQ / 2, 128) ||
+      !hop::make_tensor_map_i8(&m.w1, w1q, a.Hd, C, kHq, 128) ||
+      !hop::make_tensor_map_i8(&m.w2, w2q, C, a.Hd, F::NB, 128))
+    return (int)cudaErrorNotSupported;
+  switch (gelu_kind) {
+    case 0:
+      return launch<C, 0>(m, a, stream);
+    case 1:
+      return launch<C, 1>(m, a, stream);
+    case 2:
+      return launch<C, 2>(m, a, stream);
+    default:
+      return launch<C, 3>(m, a, stream);
+  }
 }
 
 }  // namespace
@@ -569,13 +628,8 @@ extern "C" int vlm_proj_mlp_tail_i8(const void* ctx, const void* res, const void
                                     const void* w2s, const void* b2, const void* g2,
                                     void* out, int M, int width, int Hd, int gelu_kind,
                                     float eps, void* stream) {
-  if (M <= 0 || width != C || Hd <= 0 || Hd % kHC != 0 || gelu_kind < 0 || gelu_kind > 3)
+  if (M <= 0 || Hd <= 0 || Hd % kHC != 0 || gelu_kind < 0 || gelu_kind > 3)
     return (int)cudaErrorInvalidValue;
-  Maps m;
-  if (!hop::make_tensor_map_i8(&m.wp, pq, C, C, CQ / 2, 128) ||
-      !hop::make_tensor_map_i8(&m.w1, w1q, Hd, C, kHq, 128) ||
-      !hop::make_tensor_map_i8(&m.w2, w2q, C, Hd, CQ, 128))
-    return (int)cudaErrorNotSupported;
   const Args a{static_cast<const bf16*>(ctx),  static_cast<const bf16*>(res),
                static_cast<const float*>(ps),  static_cast<const float*>(bp),
                static_cast<const float*>(g1),  static_cast<const float*>(ln_w),
@@ -585,14 +639,12 @@ extern "C" int vlm_proj_mlp_tail_i8(const void* ctx, const void* res, const void
                static_cast<bf16*>(out),        M,
                Hd,                             eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (gelu_kind) {
-    case 0:
-      return launch<0>(m, a, s);
-    case 1:
-      return launch<1>(m, a, s);
-    case 2:
-      return launch<2>(m, a, s);
+  switch (width) {
+    case 768:
+      return launch_width<768>(pq, w1q, w2q, a, gelu_kind, s);
+    case 1024:
+      return launch_width<1024>(pq, w1q, w2q, a, gelu_kind, s);
     default:
-      return launch<3>(m, a, s);
+      return (int)cudaErrorInvalidValue;
   }
 }

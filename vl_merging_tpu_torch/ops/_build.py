@@ -38,10 +38,10 @@ _SIGNATURES = {
     "vlm_packed_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
     "vlm_proj_mlp_tail": (_P,) * 13 + (_I, _I, _I, _F, _P),
     "vlm_mlp": (_P,) * 6 + (_I, _I, _I, _P),
-    "vlm_packed_attention_bwd": (_P,) * 9 + (_I,) * 5 + (_F, _P),
+    "vlm_packed_attention_bwd": (_P,) * 8 + (_I,) * 5 + (_F, _P),
     "vlm_packed_attention_bwd_groups": (_I,),
     "vlm_ln_linear_i8": (_P,) * 7 + (_I,) * 5 + (_F, _P),
-    "vlm_ln_linear_i8_grid": (),
+    "vlm_ln_linear_i8_grid": (_I,),
     "vlm_proj_mlp_tail_i8": (_P,) * 16 + (_I, _I, _I, _I, _F, _P),
     "vlm_packed_attention_i8qk": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     "vlm_linear_residual": (_P,) * 6 + (_I, _I, _I, _P),
@@ -49,7 +49,7 @@ _SIGNATURES = {
     "vlm_ln_qkv_attention": (_P,) * 12 + (_I,) * 7 + (_F, _F, _P),
     "vlm_ln_qkv_attention_grid": (_I,),
     "vlm_block_eval": (_P,) * 20 + (_I,) * 6 + (_F, _F, _P),
-    "vlm_block_eval_grid": (),
+    "vlm_block_eval_grid": (_I,),
     "vlm_split_attention": (_P,) * 6 + (_I,) * 15 + (_F, _P),
     "vlm_split_attention_bb": (_P,) * 6 + (_I,) * 15 + (_F, _P),
     "vlm_tail_train": (_P,) * 13 + (_I,) * 4 + (_F, _P),

@@ -248,17 +248,16 @@ def packed_attention_i8qk(qkv: torch.Tensor, bias: torch.Tensor,
 packed_attention_i8qk.launches = 0
 
 
-def packed_attention_bwd_reference(qkv, bias, mask, g, o, stats,
+def packed_attention_bwd_reference(qkv, bias, mask, g, stats,
                                    scale: float, num_heads: int):
     """Plain twin of K9 with its rounding points
     (``vl_merging_tpu/ops/attention.py:_packed_bwd_kernel``): q pre-scaled
     in its dtype, the biased and masked f32 logits s, p = exp(s - m)/l from
     the forward's softmax statistics ``stats`` (m, l: (2, B, H, N) f32;
     p = 0 on a row with l = 0, no valid key), dv = cast(p)ᵀ·g,
-    ds = p ⊙ (dp − D) in f32 with D = Σ g ⊙ o over the head's columns of
-    the context o (the reference's Σ_k dp ⊙ p, equal up to o's rounding;
-    0 where p = 0), dq = cast(ds)·k · scale, dk = cast(ds)ᵀ·q, all products
-    accumulated in f32.  Returns (dqkv (B, N, 3C) in qkv's dtype, dbias
+    ds = p ⊙ (dp − D) in f32 with D = Σ_k dp ⊙ p in f32 (0 where p = 0),
+    dq = cast(ds)·k · scale, dk = cast(ds)ᵀ·q, all products accumulated
+    in f32.  Returns (dqkv (B, N, 3C) in qkv's dtype, dbias
     (H, N, N) f32 summed over the batch)."""
     B, N, threeC = qkv.shape
     C = threeC // 3
@@ -273,11 +272,9 @@ def packed_attention_bwd_reference(qkv, bias, mask, g, o, stats,
     p = torch.where(live, torch.exp(s - torch.where(live, m[..., None], 0.0))
                     / torch.where(live, l[..., None], 1.0), 0.0)
     gh = _heads(g, num_heads).float()
-    d = torch.where(live, (gh * _heads(o, num_heads).float()).sum(
-        -1, keepdim=True), 0.0)
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), gh)
     dp = torch.matmul(gh, v.float().transpose(-1, -2))
-    ds = p * (dp - d)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
     ds16 = ds.to(dt).float()
     dq = torch.matmul(ds16, k.float()) * scale
     dk = torch.matmul(ds16.transpose(-1, -2), qs.float())
@@ -287,19 +284,19 @@ def packed_attention_bwd_reference(qkv, bias, mask, g, o, stats,
 
 
 def packed_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
-                         mask: torch.Tensor, g: torch.Tensor, o: torch.Tensor,
+                         mask: torch.Tensor, g: torch.Tensor,
                          stats: torch.Tensor, scale: float, num_heads: int):
     """K9: the backward of ``packed_attention`` → (dqkv (B, N, 3C),
     dbias (H, N, N) f32 summed over the batch).  ``g`` is the context
-    gradient (B, N, C), contiguous, ``o`` the forward's context and
-    ``stats`` the (2, B, H, N) softmax statistics of its training launch.
+    gradient (B, N, C), contiguous, and ``stats`` the (2, B, H, N) softmax
+    statistics of the forward's training launch.
     The kernel takes any N and head_dim 64, reads a copy of the bias whose
     rows are padded to whole 64-key tiles (aligned pairs: a 16 MB copy at
     N = 577, 12 heads), and sums dbias over at most four batch groups whose
     partials (rows padded to 4 floats) it adds in a fixed order (no
     atomics)."""
     if not qkv.is_cuda:
-        return packed_attention_bwd_reference(qkv, bias, mask, g, o, stats,
+        return packed_attention_bwd_reference(qkv, bias, mask, g, stats,
                                               scale, num_heads)
     B, N, threeC = qkv.shape
     C = threeC // 3
@@ -313,7 +310,6 @@ def packed_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
     _build.expect(bias, "bias", torch.float32, (num_heads, N, N), dev)
     _build.expect(mask, "mask", torch.int32, (B, N), dev)
     _build.expect(g, "g", torch.bfloat16, (B, N, C), dev)
-    _build.expect(o, "o", torch.bfloat16, (B, N, C), dev)
     _build.expect(stats, "stats", torch.float32, (2, B, num_heads, N), dev)
     ldb = -(-N // 64) * 64
     bias_rows = F.pad(bias, (0, ldb - N))
@@ -327,7 +323,7 @@ def packed_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
                        dtype=torch.float32, device=dev)
     _build.check(lib.vlm_packed_attention_bwd(
         qkv.data_ptr(), bias_rows.data_ptr(), mask.data_ptr(), g.data_ptr(),
-        o.data_ptr(), dqkv.data_ptr(), dbias.data_ptr(), st.data_ptr(),
+        dqkv.data_ptr(), dbias.data_ptr(), st.data_ptr(),
         part.data_ptr(), B, N, num_heads, ldb, groups, float(scale),
         _build.stream_handle(dev)), "packed_attention_bwd")
     packed_attention_bwd.launches += 1
@@ -342,17 +338,15 @@ class _PackedFusedAttention(torch.autograd.Function):
     def forward(ctx, qkv, bias, mask, scale, num_heads):
         out, stats = packed_attention(qkv, bias, mask, scale, num_heads,
                                       with_stats=True)
-        # the proj's weight gradient keeps out alive anyway
-        ctx.save_for_backward(qkv, bias, mask, out, stats)
+        ctx.save_for_backward(qkv, bias, mask, stats)
         ctx.scale, ctx.num_heads = scale, num_heads
         return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv, bias, mask, out, stats = ctx.saved_tensors
+        qkv, bias, mask, stats = ctx.saved_tensors
         dqkv, dbias = packed_attention_bwd(qkv, bias, mask, g.contiguous(),
-                                           out, stats, ctx.scale,
-                                           ctx.num_heads)
+                                           stats, ctx.scale, ctx.num_heads)
         return dqkv, dbias.to(bias.dtype), None, None, None
 
 

@@ -66,16 +66,15 @@ _HIDDEN_CHUNK = 128           # the MLP body walks the hidden in chunks
 # must be a multiple of it (K1's 128 x 256 tiles; qkv: O = 3C = 2304, 3072)
 _QKV_TILE = {768: 256, 1024: 256}
 # The model widths each width-specific kernel is built for (the CUDA
-# entries' ``switch (C)``): K1, K3, K4, K5, K6, K8 and K13 at the ViT-B and
-# ViT-L widths; K7 and the int8 K14/K15 at 768.
+# entries' ``switch (C)``): every one at the ViT-B and ViT-L widths.
 # The attention kernels (K2, K9, K10, K11, K12) take any head count at
 # head_dim 64 and are gated by ``models/mome._attention_kernel_ok``.
 KERNEL_WIDTHS = {
     "ln_linear": (768, 1024), "proj_mlp_tail": (768, 1024),
     "linear_residual": (768, 1024), "mlp_tail": (768, 1024),
     "tail_train": (768, 1024), "mlp": (768, 1024),
-    "ln_qkv_attention": (768, 1024), "block_eval": (768,),
-    "ln_linear_i8": (768,), "proj_mlp_tail_i8": (768,),
+    "ln_qkv_attention": (768, 1024), "block_eval": (768, 1024),
+    "ln_linear_i8": (768, 1024), "proj_mlp_tail_i8": (768, 1024),
 }
 # the kernels that run an MLP, whose gate also reads the MLP hidden
 _MLP_KERNELS = frozenset({"proj_mlp_tail", "mlp_tail", "block_eval",
@@ -461,7 +460,7 @@ def block_eval(x: torch.Tensor, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
     scratch, a grid-wide barrier, K2's attention items into a second
     scratch, a barrier, the MLP body's post-attention half per 64-row
     block (K3's), a barrier.  ``trace`` (a profiler's): a zeroed int64
-    (``block_eval_grid()``, 12) tensor on the device that receives each
+    (``block_eval_grid(C)``, 12) tensor on the device that receives each
     CTA's phase trace (``csrc/block_eval.cu``: ns in phases A, B and C
     and at the barrier after each; K1 tiles of its pair, K2 items, body
     blocks; first and last stamp; chunks)."""
@@ -486,7 +485,7 @@ def block_eval(x: torch.Tensor, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask,
         _build.expect(t, name, torch.float32, (H if name == "b1" else C,),
                       dev)
     bp, gamma1, ln2_w, ln2_b, b1, b2, gamma2 = vecs
-    grid = block_eval_grid()
+    grid = block_eval_grid(C)
     bb = block_eval_chunk(B, N, C, grid // 4)
     scratch = torch.empty((bb, N, 4 * C), dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
@@ -507,11 +506,11 @@ block_eval.launches = 0
 
 
 @functools.cache
-def block_eval_grid() -> int:
-    """The CTAs K7 launches: as many whole clusters of four as the card
-    holds at once (its grid-wide barriers need every CTA resident).
-    Queried once per process."""
-    return _build.library().vlm_block_eval_grid()
+def block_eval_grid(C: int) -> int:
+    """The CTAs K7 launches at width C: as many whole clusters of four as
+    the card holds at once (its grid-wide barriers need every CTA
+    resident).  Queried once per process and width."""
+    return _build.library().vlm_block_eval_grid(C)
 
 
 def fused_eval_block(x, ln1_w, ln1_b, w_qkv, qkv_bias, bias, mask, scale,

@@ -117,10 +117,11 @@ def ref_proj_mlp_tail_i8(ctx, pq, ps, bp, gamma1, res, ln_w, ln_b, w1q, w1s,
 
 
 @functools.cache
-def ln_linear_i8_grid() -> int:
-    """The CTAs of K14's persistent grid: as many whole clusters of two as
-    the card holds at once.  Queried once per process."""
-    return _build.library().vlm_ln_linear_i8_grid()
+def ln_linear_i8_grid(C: int) -> int:
+    """The CTAs of K14's persistent grid at width C: as many whole
+    clusters of two as the card holds at once.  Queried once per process
+    and width."""
+    return _build.library().vlm_ln_linear_i8_grid(C)
 
 
 def ln_linear_i8_plan(M: int, O: int, grid: int,
@@ -157,7 +158,7 @@ def ln_linear_i8(x: torch.Tensor, ln_w, ln_b, wq, wscale, b, *,
     _build.check(lib.vlm_ln_linear_i8(
         x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), wq.data_ptr(),
         wscale.data_ptr(), b.data_ptr(), y.data_ptr(), B * N, C, O,
-        ln_linear_i8_grid(), group, LN_EPS, _build.stream_handle(dev)),
+        ln_linear_i8_grid(C), group, LN_EPS, _build.stream_handle(dev)),
         "ln_linear_i8")
     ln_linear_i8.launches += 1
     return y
