@@ -8,7 +8,9 @@ Traces, with ``torch.profiler`` (CPU and CUDA activities), one warm call
 of each window at ``chip_smoke.py``'s shapes and seeded inputs:
   * ``eval``: ``compute_irtr_recall`` over 64 images and 320 captions;
   * ``eval int8``: the same in the W8A8 int8 eval mode (``eval_int8``:
-    K14 → K2 → K15 per image block);
+    K14 → K2 → K15 per image block); ``image tower int8`` and ``image
+    tower int8-QK``: its image tower over the 64 images, and with the
+    int8-QK attention (``qk_int8``: K14 → K12 → K15);
   * ``eval @224``: the Flickr30k @224 eval over 70 images (batches of 32,
     32 and 6: K11, K11, K10 in every block) and 350 captions;
   * ``train @224 (kernels)``: one optimizer step of the f30k @224
@@ -34,8 +36,10 @@ For each window it prints the host wall time, the device busy time (the
 union of the device kernels' intervals), the idle share (1 − busy / wall)
 and the kernels with the most device time.
 
-``python3 chip_profile.py --variants`` runs only this: K1, K2, K7, K8, K14
-and K15 beside design variants that their sources rejected, each built from a
+``python3 chip_profile.py --int8`` runs only the three int8 windows.
+
+``python3 chip_profile.py --variants`` runs only this: K1, K2, K7, K8, K14,
+K15 and K12 beside design variants that their sources rejected, each built from a
 patched copy of ``vl_merging_tpu_torch/csrc`` into ``build/variants/``
 (one nvcc per variant, all at once; its ptxas spill bytes printed) and
 timed in turns with the built kernel through the same wrapper, at
@@ -50,11 +54,16 @@ warpgroup alone or with every fourth chunk on the output warpgroup, K15
 with weight rings of two stages each (at C=768), K2 with
 K8's element-major item order, K14 normalising twice the rows a warp at a
 time, K14 at C=1024 with three W stages and the tile stored from
-registers (no staging); K7, K14 and K15 are timed at C=768 and at the
-ViT-L width (C=1024, 16 heads, MLP 4096); four diagnostics that
+registers (no staging), K12 (at 12 and 16 heads) converting its s32
+logits by I2F, quantizing each k tile one tile behind its loads (not as
+soon as it lands), without the ping-pong, rounding q and k by F2I, or
+at the register budgets 184 / 160; K7, K14 and K15 are timed at C=768 and at the
+ViT-L width (C=1024, 16 heads, MLP 4096); seven diagnostics that
 change the output, timed to show what a part costs: K1 without its stores,
 K8 with its K2 role not waiting for its elements, K14 without its LN pass,
-K14 without its epilogue.  And, through the wrappers' own
+K14 without its epilogue, K12 without its producer's quantization, K12
+without its dequantization (the bias alone), and K2's bf16 q·kᵀ at K12's
+register budgets.  And, through the wrappers' own
 arguments (no rebuild): K8's two roles from its trace (``ln_qkv_attention
 (..., trace=...)``: when each role's CTAs end and how long the K2 role
 waits) at three splits and two units, beside K1 and K2 alone; K8 with its
@@ -69,13 +78,14 @@ wrapper's host µs a call beside its parts and K2's wrapper's.  ``--variants K10
 TREE`` also times the K10 and K11 of the tree at TREE (another checkout,
 its wrappers and its kernels built from its own sources) beside this
 tree's: per call, device time and the wrappers' host µs.  ``--variants
-K7`` (any of K1, K2, K7, K8, K14, K15, K10, K11) runs those kernels'
+K7`` (any of K1, K2, K7, K8, K14, K15, K10, K11, K12) runs those kernels'
 variants alone.
 
 ``python3 chip_profile.py --digests TREE`` runs only this: the SHA-256 of
-K14's and K15's outputs at C=768 on ``chip_smoke.py``'s phase 3 inputs,
-through this tree's kernels and through those of the tree at TREE (another
-checkout's root, its wrappers and kernels built from its own sources).
+the outputs of K2, K7, K8, K10, K11, K12, K14 and K15 at C=768 on
+``chip_smoke.py``'s phase 3 inputs, through this tree's kernels and
+through those of the tree at TREE (another checkout's root, its wrappers
+and kernels built from its own sources).
 
 ``python3 chip_profile.py --c8`` runs only this: fault C8's two repairs of
 K9's row sums D side by side (``c8_repairs``): the built one, D = Σ_k dp ⊙ p
@@ -426,6 +436,62 @@ VARIANTS = {
     "K11 taking pairs of elements back to back, each bias tile copied once "
     "for the 2": ("K11", k11_groups(2)),
 }
+# K12's rejected variants (patches of csrc/): its s32 logits converted by
+# I2F (the conversion the design avoids); each k tile quantized one tile
+# behind its loads (so that the loads never wait for a tile to land); no
+# ping-pong of the consumer warpgroups (K2's variant, the same device
+# code); q and k rounded by F2I; the register budgets the first build took.
+VARIANTS["K12 converting its s32 logits by I2F (__int2float_rn)"] = (
+    "K12", [("int8.cuh",
+             "  return __fsub_rn(__int_as_float(x + 0x4B400000), 12582912.f);",
+             "  return __int2float_rn(x);")])
+VARIANTS["K12 quantizing each k tile one tile behind its loads"] = (
+    "K12", [("packed_attention_fwd.cuh", """      if constexpr (Qk::kInt8) quant_k(st, &kfull[s], (it / STAGES) & 1, &full[s], pt);
+    }
+  }
+}""", """      if constexpr (Qk::kInt8)
+        if (it > 0) {
+          const int u = (it - 1) % STAGES;
+          quant_k(ring + u * K::STAGE, &kfull[u], ((it - 1) / STAGES) & 1, &full[u], pt);
+        }
+    }
+  }
+  if constexpr (Qk::kInt8)
+    if (it > 0) {
+      const int u = (it - 1) % STAGES;
+      quant_k(ring + u * K::STAGE, &kfull[u], ((it - 1) / STAGES) & 1, &full[u], pt);
+    }
+}""")])
+VARIANTS["K12 without the warpgroups' ping-pong"] = (
+    "K12", VARIANTS["K2 without the warpgroups' ping-pong"][1])
+VARIANTS["K12 quantizing q and k by F2I (__float2int_rn)"] = (
+    "K12", [("packed_attention_fwd.cuh", "quantize_alu(", "quantize(")])
+VARIANTS["K12 with registers 184 / 160 (producer / consumers)"] = (
+    "K12", [("packed_attention_i8qk.cu", "PRODUCER_REGS = 200, CONSUMER_REGS = 152",
+             "PRODUCER_REGS = 184, CONSUMER_REGS = 160")])
+# three diagnostics that change the output, timed to show what a part of
+# K12 costs: its producer waiting for each k tile without quantizing it,
+# its logits taking the bias alone (no dequantization), and K2's bf16
+# q·kᵀ at K12's register budgets
+VARIANTS["K12 without its producer's quantization (a diagnostic: wrong "
+         "output)"] = (
+    "K12", [("packed_attention_fwd.cuh",
+             "      if constexpr (Qk::kInt8) quant_k(st, &kfull[s], (it / STAGES) & 1, &full[s], pt);",
+             "      if constexpr (Qk::kInt8) {\n"
+             "        hop::mbar_wait(&kfull[s], (it / STAGES) & 1);\n"
+             "        hop::mbar_arrive(&full[s]);\n"
+             "      }")])
+VARIANTS["K12 without its dequantization (a diagnostic: the bias alone)"] = (
+    "K12", [("packed_attention_fwd.cuh",
+             "    return __fadd_rn(__fmul_rn(__fmul_rn(s32_to_f32(x), sq), sk), b);",
+             "    return b;")])
+VARIANTS["K2's bf16 q·kᵀ at K12's register budgets (a diagnostic)"] = (
+    "K12", [("packed_attention_i8qk.cu", "setup<2, Int8Qk>", "setup<2, Bf16Qk>"),
+            ("packed_attention_i8qk.cu", "produce<2, Items, Maps, Int8Qk>",
+             "produce<2, Items, Maps, Bf16Qk>"),
+            ("packed_attention_i8qk.cu", "consume<2, Items, Int8Qk>",
+             "consume<2, Items, Bf16Qk>")])
+
 # Fault C8's other repair, measured beside the built one (D = Σ_k dp ⊙ p,
 # a first pass of K9's dq_kernel over the keys): K2's training launch also
 # stores the f32 context (after three planes of statistics: m, l and the D
@@ -496,7 +562,8 @@ SOURCES = {"K1": ("ln_linear.cu",), "K2": ("packed_attention_fwd.cu", "ln_linear
            "K10": ("split_attention.cu", "ln_linear.cu"),
            "K11": ("split_attention.cu", "ln_linear.cu"),
            "K9b": ("packed_attention_bwd.cu", "packed_attention_fwd.cu",
-                   "ln_linear.cu")}
+                   "ln_linear.cu"),
+           "K12": ("packed_attention_i8qk.cu", "ln_linear.cu")}
 
 
 def spills(log: str) -> str:
@@ -583,16 +650,16 @@ def load_parent_ops(root: Path, name: str):
 
 
 def parent_digests(root: Path, dev, card: str) -> None:
-    """The SHA-256 of K14's and K15's outputs at C=768 on ``chip_smoke.py``'s
-    phase 3 inputs, through this tree's wrappers and kernels and through
-    those of the tree at ``root``."""
-    inputs = smoke.kernel_inputs(dev, torch.Generator(device=dev).manual_seed(
-        smoke.SEED))
-    old = load_parent_ops(root, "int8")
-    for name in ("ln_linear_i8", "proj_mlp_tail_i8"):
+    """The SHA-256 of the outputs of K2, K7, K8, K10, K11, K12, K14 and K15
+    at C=768 on ``chip_smoke.py``'s phase 3 inputs, through this tree's
+    wrappers and kernels and through those of the tree at ``root``."""
+    inputs = smoke.digest_inputs(dev)
+    for name in smoke.DIGESTED:
         args = inputs[name]
-        new, was = (smoke.digest(getattr(ops, name), args)
-                    for ops in (i8_ops, old))
+        kernel = smoke.KERNELS[name][0]
+        old = getattr(load_parent_ops(root, kernel.__module__.rsplit(".", 1)[1]),
+                      name)
+        new, was = (smoke.digest(k, args) for k in (kernel, old))
         print(f"digests: {name} at {'x'.join(map(str, args[0].shape))}: "
               f"this tree {new}, {root} {was}, equal: {new == was} [{card}]")
 
@@ -685,6 +752,9 @@ def variants(dev, card: str, kernels, parent=None) -> None:
         calls["K2"][f"{heads} heads"] = \
             lambda qkv=qkv, bias=bias, mask=mask, heads=heads: \
             attn_ops.packed_attention(qkv, bias, mask, 64 ** -0.5, heads)
+        calls["K12"][f"{heads} heads"] = \
+            lambda qkv=qkv, bias=bias, mask=mask, heads=heads: \
+            attn_ops.packed_attention_i8qk(qkv, bias, mask, 64 ** -0.5, heads)
     wide = smoke.wide_fused_inputs(dev, gen)
     calls["K7"]["B=32"] = lambda: fb_ops.block_eval(*inputs["block_eval"])
     calls["K7"]["B=32, C=1024"] = lambda: fb_ops.block_eval(*wide["block_eval"])
@@ -972,6 +1042,20 @@ def c8_repairs(dev, card: str) -> None:
           f"in turns) [{card}]")
 
 
+def int8_windows(base, text_b, image_b, tiids, iids, card: str) -> None:
+    """The W8A8 int8 eval over the @384 eval set, and its image tower with
+    K2 and with K12 (``qk_int8``)."""
+    cfg8 = build_config(*smoke.CONFIG, overrides=dict(eval_int8=True))
+    spec8 = make_model_spec(cfg8)
+    params8 = eval_cast_params(base, spec8, cfg8)
+    trace("eval int8", lambda: compute_irtr_recall(
+        params8, spec8, text_b, image_b, tiids, iids), card)
+    for label, qk_int8 in (("image tower int8", False),
+                           ("image tower int8-QK", True)):
+        trace(label, lambda qk_int8=qk_int8: extract_features(
+            params8, spec8, image_b, "image", qk_int8=qk_int8), card)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k7", action="store_true",
@@ -982,12 +1066,15 @@ def main() -> None:
                              "variants alone")
     parser.add_argument("--c8", action="store_true",
                         help="fault C8's two repairs side by side alone")
+    parser.add_argument("--int8", action="store_true",
+                        help="the int8 windows alone")
     parser.add_argument("--parent", type=Path, metavar="TREE",
                         help="with --variants: K10 and K11 beside those of "
                              "the tree at TREE (another checkout's root)")
     parser.add_argument("--digests", type=Path, metavar="TREE",
-                        help="K14's and K15's output digests beside those "
-                             "of the tree at TREE alone")
+                        help="the output digests of K2, K7, K8, K10, K11, "
+                             "K12, K14 and K15 beside those of the tree at "
+                             "TREE alone")
     opts = parser.parse_args()
     dev = require_cuda()
     card = smoke.card_line()
@@ -1002,27 +1089,26 @@ def main() -> None:
         variants(dev, card, opts.variants or [k for k in SOURCES if k != "K9b"],
                  opts.parent)
         return
-    k7_phases(dev, card)
+    if not opts.int8:
+        k7_phases(dev, card)
     if opts.k7:
         return
 
     cfg = build_config(*smoke.CONFIG)
     spec = make_model_spec(cfg)
     base = smoke.seeded_params(spec, dev)
-    params = eval_cast_params(base, spec, cfg)
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 1)
     text_b, image_b, tiids, iids = smoke.synthetic_eval_set(spec, dev, gen)
+    if opts.int8:
+        int8_windows(base, text_b, image_b, tiids, iids, card)
+        return
+    params = eval_cast_params(base, spec, cfg)
     trace("eval", lambda: compute_irtr_recall(params, spec, text_b, image_b,
                                               tiids, iids), card)
     for fusion in FUSIONS:
         trace(f"image tower, fusion {fusion}", lambda: extract_features(
             params, spec, image_b, "image", fusion=fusion), card)
-    cfg8 = build_config(*smoke.CONFIG, overrides=dict(eval_int8=True))
-    spec8 = make_model_spec(cfg8)
-    params8 = eval_cast_params(base, spec8, cfg8)
-    trace("eval int8", lambda: compute_irtr_recall(
-        params8, spec8, text_b, image_b, tiids, iids), card)
-    del params8
+    int8_windows(base, text_b, image_b, tiids, iids, card)
 
     cfg224 = build_config(*smoke.CONFIG_224)
     spec224 = make_model_spec(cfg224)

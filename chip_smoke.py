@@ -38,13 +38,16 @@ Phases, each fatal on failure:
   2. the kernels built from ``vl_merging_tpu_torch/csrc`` (build time),
      and the wgmma instructions of the redesigned kernels (HGMMA: K3, K4,
      K5, K6, K13 on the shared MLP body; K9's two kernels; K1, K2, K7, K8
-     and K10/K11 (one kernel); IGMMA: K14, K15; K7, K14 and K15 at each of
-     their widths, 768 and 1024) counted in the library's SASS with
-     ``cuobjdump`` (none: fail); the registers and spill bytes ptxas gave
-     K1, K2, K7 (and every function it calls), K8, K14, K15 and K10/K11
-     (``build/nvcc.log``; a spill, or no instantiation of K7, K14 or K15
-     at C=1024, fails), and ptxas's warnings that it serialised a kernel's
-     wgmma (one for K8, K14, K10/K11, K7 or K15 fails);
+     and K10/K11 (one kernel); IGMMA: K14, K15, K12; K7, K14 and K15 at
+     each of their widths, 768 and 1024) counted in the library's SASS
+     with ``cuobjdump`` (none: fail), and K12's I2F instructions beside
+     K2's (its s32 logits convert on the integer and FP32 pipes: more
+     than K2's, whose come from decoding items, fails); the
+     registers and spill bytes ptxas gave K1, K2, K7 (and every function
+     it calls), K8, K14, K15, K10/K11 and K12 (``build/nvcc.log``; a
+     spill, or no instantiation of K7, K14 or K15 at C=1024, fails), and
+     ptxas's warnings that it serialised a kernel's wgmma (one for K8,
+     K14, K10/K11, K7, K15 or K12 fails);
   3. each kernel (K1 ln_linear, K2 packed_attention, K3 proj_mlp_tail,
      K9 packed_attention_bwd, K13 mlp, K12 packed_attention_i8qk, K14
      ln_linear_i8, K15 proj_mlp_tail_i8, K4 linear_residual, K5 mlp_tail,
@@ -54,7 +57,9 @@ Phases, each fatal on failure:
      elements that differ; kernel, twin and (where one PyTorch call
      computes the same function) library call timed with CUDA events,
      beside the least time the card could take; K14, K15 and K12 beside
-     K1, K3 and K2 at the same shapes (K14 and K1 in turns); K4 + K5, K8
+     K1, K3 and K2 at the same shapes (K14 and K1, K12 and K2 in turns,
+     K12 also at 16 heads, with its bar: at most 1.00 x K2, printed met or
+     missed); the SHA-256 of K12's output; K4 + K5, K8
      and K7 beside the staged kernels they replace (K3, K1 + K2, K8 + K3),
      in time (in turns) and output (bit-equal or not, and the share of
      elements that differ); K10 beside K11 at B=32, K10 at B=6 beside
@@ -108,8 +113,9 @@ Phases, each fatal on failure:
      K2 0); int8 kernel-path image features within cosine 0.999 of the
      int8 plain path's (``ops/int8.ref_fused_eval_block_i8``) in both
      modes, and their cosine to the bf16 kernel path's (printed, no
-     gate); the image tower's images/s with int8 kernels, int8 plain and
-     the bf16 kernels by "tail" and by "mega", in turns;
+     gate); the image tower's images/s with int8 kernels, with the int8-QK
+     kernels, int8 plain and the bf16 kernels by "tail" and by "mega", in
+     turns;
   6. three train steps: K2 and K9 launched 12 times and K13 24 times per
      micro-batch, finite loss and grad norm every step; kernel-path
      gradients within global cosine 0.999 of the plain path's at the same
@@ -153,10 +159,10 @@ The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
 prints no result.
 
-``python3 chip_smoke.py --digests`` prints only the SHA-256 of K14's and
-K15's outputs at C=768 on phase 3's seeded inputs (``chip_profile.py
---digests TREE`` compares them with another tree's K14 and K15 on the same
-inputs).
+``python3 chip_smoke.py --digests`` prints only the SHA-256 of the
+outputs of K2, K7, K8, K10, K11, K12, K14 and K15 at C=768 on phase 3's
+seeded inputs (``chip_profile.py --digests TREE`` compares them with
+another tree's on the same inputs).
 """
 
 from __future__ import annotations
@@ -254,6 +260,9 @@ GRAPH_LAUNCHES = 100
 # K7 at most 1.25 x the staged K1 -> K2 -> K3, K8 1.10 x K1 -> K2, K15 0.85
 # x K3, K14 0.8 x K1, at the same shapes, in the same run
 K7_BAR, K8_BAR, K15_BAR, K14_BAR = 1.25, 1.10, 0.85, 0.8
+# K12 at most 1.00 x K2 at the same shapes, in turns (printed, met or
+# missed): its int8 q·kᵀ halves the tensor-core term of K2's
+K12_BAR = 1.00
 # K11's device time at B=32, N=197 at most 0.045 ms; K10's at B=6 below
 # SDPA's on the same inputs (printed, met or missed)
 K11_BAR_MS = 0.045
@@ -600,11 +609,12 @@ def work(name: str, args) -> tuple:
 
 def _sdpa_args(qkv, bias, mask):
     """q, k, v (B, H, N, d) views of the packed qkv and the additive mask
-    (B, H, N, N) bf16: the bias with masked keys at -inf."""
+    (B, H, N, N) bf16: the bias with masked keys (mask <= 0, the kernels'
+    rule) at -inf."""
     B, heads = qkv.shape[0], bias.shape[0]
     q, k, v = qkv.view(B, N, 3, heads, 64).permute(2, 0, 3, 1, 4)
     am = bias[None] + torch.zeros_like(mask, dtype=torch.float32).masked_fill(
-        mask == 0, float("-inf"))[:, None, None, :]
+        mask <= 0, float("-inf"))[:, None, None, :]
     return q, k, v, am.to(qkv.dtype)
 
 
@@ -621,7 +631,7 @@ def library_call(name: str, args):
     if name in ("split_attention", "split_attention_bb"):
         q, k, v, bias, mask, scale = args
         am = (bias[None] + torch.zeros_like(mask, dtype=torch.float32)
-              .masked_fill(mask == 0, float("-inf"))[:, None, None, :])
+              .masked_fill(mask <= 0, float("-inf"))[:, None, None, :])
         am = am.to(q.dtype)
         return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am,
                                                       scale=scale)
@@ -644,7 +654,7 @@ KERNELS = {
                   "vl_merging_tpu/ops/fused_block.py:86"),
     "packed_attention": (attn_ops.packed_attention,
                          attn_ops.packed_attention_reference,
-                         "vl_merging_tpu_torch/csrc/packed_attention.cu",
+                         "vl_merging_tpu_torch/csrc/packed_attention_fwd.cu",
                          "vl_merging_tpu/ops/attention.py:234"),
     "proj_mlp_tail": (fb_ops.proj_mlp_tail, fb_ops.proj_mlp_tail_reference,
                       "vl_merging_tpu_torch/csrc/proj_mlp_tail.cu",
@@ -666,7 +676,8 @@ KERNELS = {
                          "vl_merging_tpu/ops/int8.py:164"),
     "packed_attention_i8qk": (attn_ops.packed_attention_i8qk,
                               attn_ops.packed_attention_i8qk_reference,
-                              "vl_merging_tpu_torch/csrc/packed_attention.cu",
+                              "vl_merging_tpu_torch/csrc/"
+                              "packed_attention_i8qk.cu",
                               "vl_merging_tpu/ops/attention.py:271"),
     "linear_residual": (fb_ops.linear_residual,
                         fb_ops.linear_residual_reference,
@@ -845,6 +856,22 @@ def linear_yardstick_ms(args) -> float:
     return time_ms(lambda: F.linear(xn, w))
 
 
+# the kernels whose output bits ``--digests`` prints (K2, K7, K8, K10, K11,
+# K12, K14, K15): ``chip_profile.py --digests TREE`` sets them beside
+# another tree's
+DIGESTED = ("packed_attention", "block_eval", "ln_qkv_attention",
+            "split_attention", "split_attention_bb", "packed_attention_i8qk",
+            "ln_linear_i8", "proj_mlp_tail_i8")
+
+
+def digest_inputs(dev) -> dict:
+    """Phase 3's seeded inputs, the fused kernels' among them."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    inputs = kernel_inputs(dev, gen)
+    inputs.update(fusion_inputs(inputs))
+    return inputs
+
+
 def digest(kernel, args) -> str:
     """The SHA-256 of the bits of ``kernel``'s output on ``args``."""
     y = kernel(*args)
@@ -867,6 +894,17 @@ def check_k14(args) -> None:
           f"on phase 3's seeded inputs {got}")
     if digest(i8_ops.ln_linear_i8, args) != got:
         fail("ln_linear_i8: two launches differ")
+
+
+def k12_against_k2(args) -> tuple:
+    """K12 and K2 on the same inputs, in turns (K12, K2, K2, K12, the best
+    of each): K12's time as printed, K2's, and K12's bar, met or
+    missed."""
+    k12, k2 = in_turns(lambda: attn_ops.packed_attention_i8qk(*args),
+                       lambda: attn_ops.packed_attention(*args))
+    return (f" (in turns: {k12:.4f})", k2,
+            f"; {k12 / k2:.3f} x (bar {K12_BAR:.2f}: "
+            f"{'met' if k12 <= K12_BAR * k2 else 'missed'})")
 
 
 def check_i8_gelus(args) -> None:
@@ -937,6 +975,10 @@ def check_kernels(dev, card: str, usage: dict) -> dict:
             if name == "proj_mlp_tail_i8":
                 bar = (f"; {ms / twin_ms:.3f} x (bar {K15_BAR}: "
                        f"{'met' if ms <= K15_BAR * twin_ms else 'missed'})")
+            if name == "packed_attention_i8qk":
+                turns, twin_ms, bar = k12_against_k2(inputs["packed_attention"])
+                print(f"packed_attention_i8qk: output sha256 on phase 3's "
+                      f"seeded inputs {digest(kernel, args)}")
             print(f"{name}: {ms:.4f} ms{turns} against {BF16_TWIN[name]} "
                   f"{twin_ms:.4f} ms at the same shapes{bar} [{card}]")
         if name == "proj_mlp_tail_i8":
@@ -1094,7 +1136,8 @@ def check_wide_kernels(dev, gen, rows, card: str) -> None:
 def check_wide_attention(dev, gen, rows, card: str) -> None:
     """K2 at the ViT-L eval shape (B=32, N=577, 16 heads) against its
     twin, with its 4 ulps; eval and training launch timed beside SDPA and
-    the bound."""
+    the bound; K12 on the same inputs against its twin, timed in turns
+    with K2 (its bar) and beside its bound."""
     qkv = torch.randn(IMAGE_BATCH, N, 3 * C_L, device=dev,
                       generator=gen).bfloat16()
     bias = torch.randn(HEADS_L, N, N, device=dev, generator=gen)
@@ -1123,6 +1166,29 @@ def check_wide_attention(dev, gen, rows, card: str) -> None:
     rows["packed_attention"][f"at_{C_L}"] = {
         "max_abs_err": max_err, "ms": ms, "train_ms": train_ms,
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    # K12 on the same inputs: against its twin, and in turns with K2
+    name = "packed_attention_i8qk"
+    got = attn_ops.packed_attention_i8qk(*args)
+    want = attn_ops.packed_attention_i8qk_reference(*args)
+    torch.cuda.synchronize()
+    max_err, worst, differ = ulp_check(name, got, want)
+    ms = time_ms(lambda: attn_ops.packed_attention_i8qk(*args))
+    plain_ms = time_ms(lambda: attn_ops.packed_attention_i8qk_reference(
+        *args), iters=TIMED_ITERS // 2)
+    bound_ms, bound_by = bound(*work(name, args))
+    turns, k2_ms, bar = k12_against_k2(args)
+    print(f"{name} at {HEADS_L} heads (C={C_L}): max |kernel - twin| = "
+          f"{max_err:.6g}, worst err/bound = {worst:.3f} (bound {ULPS[name]} "
+          f"bf16 ulps), {differ:.3e} of the elements differ; kernel "
+          f"{ms:.4f} ms{turns} against packed_attention {k2_ms:.4f} ms at the "
+          f"same shapes{bar}; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms ({bound_by}) [{card}]")
+    if not bool(torch.isfinite(got).all()) or worst > 1.0:
+        fail(f"{name} disagrees with its plain twin at {HEADS_L} heads")
+    rows[name]["widths"].append(C_L)
+    rows[name][f"at_{C_L}"] = {
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def check_wide_k8(dev, gen, rows, card: str) -> None:
@@ -1335,11 +1401,11 @@ def synthetic_eval_set(spec, dev, gen, n_images: int = N_IMAGES):
 
 
 def images_per_sec(params, spec, image_batches, kernels: bool,
-                   fusion: str = "tail") -> float:
+                   fusion: str = "tail", qk_int8: bool = False) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     extract_features(params, spec, image_batches, "image", kernels=kernels,
-                     fusion=fusion)
+                     fusion=fusion, qk_int8=qk_int8)
     torch.cuda.synchronize()
     return sum(b["image"].shape[0] for b in image_batches) / (
         time.perf_counter() - t0)
@@ -1576,19 +1642,21 @@ def run_eval_int8(dev, card: str) -> dict:
           f"min cosine {min_cosine(img_k, img_bf16):.6f}; int8-QK "
           f"{min_cosine(img_qk, img_bf16):.6f}")
 
-    # int8 kernels, int8 plain, the bf16 kernels by "tail" and by "mega",
-    # and back: compare only here
-    paths = {"int8 kernels": (params, False, "tail"),
-             "int8 plain": (params, True, "tail"),
-             "bf16 kernels 'tail'": (params_bf16, False, "tail"),
-             "bf16 kernels 'mega'": (params_bf16, False, "mega")}
+    # int8 kernels, int8-QK kernels (K12 for K2), int8 plain, the bf16
+    # kernels by "tail" and by "mega", and back: compare only here
+    paths = {"int8 kernels": (params, False, "tail", False),
+             "int8-QK kernels": (params, False, "tail", True),
+             "int8 plain": (params, True, "tail", False),
+             "bf16 kernels 'tail'": (params_bf16, False, "tail", False),
+             "bf16 kernels 'mega'": (params_bf16, False, "mega", False)}
     rates = {k: [] for k in paths}
     order = list(paths) + list(paths)[::-1]
     for which in order:
-        p, plain, fusion = paths[which]
+        p, plain, fusion, qk_int8 = paths[which]
         with int8_plain_path() if plain else contextlib.nullcontext():
             rates[which].append(images_per_sec(p, spec, image_batches,
-                                               kernels=True, fusion=fusion))
+                                               kernels=True, fusion=fusion,
+                                               qk_int8=qk_int8))
     print(f"image tower (ViT-B/16 @384, batch {IMAGE_BATCH}): "
           + ", ".join(f"{k} {max(v):.1f} img/s" for k, v in rates.items())
           + f" (best of 2, {N_IMAGES} images each) [{card}]")
@@ -2123,7 +2191,8 @@ def run_tiny(dev, card: str) -> dict:
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
 # of their entry functions in the library's SASS (K7, K14 and K15 by
 # width: their instantiations at C=768 and 1024).
-# The wgmma instruction each counts: HGMMA (bf16), IGMMA (K14's, K15's s8).
+# The wgmma instruction each counts: HGMMA (bf16), IGMMA (K14's, K15's and
+# K12's s8).
 WGMMA_KERNELS = {"K1": "16ln_linear_kernel", "K2": "27packed_attention_fwd_kernel",
                  "K3": "20proj_mlp_tail_kernel", "K4": "22linear_residual_kernel",
                  "K5": "15mlp_tail_kernel", "K6": "17tail_train_kernel",
@@ -2136,11 +2205,12 @@ WGMMA_KERNELS = {"K1": "16ln_linear_kernel", "K2": "27packed_attention_fwd_kerne
                  "K15": "23proj_mlp_tail_i8_kernelILi768E",
                  "K15 C=1024": "23proj_mlp_tail_i8_kernelILi1024E",
                  "K10": "22split_attention_kernel",
-                 "K11": "22split_attention_kernel"}
+                 "K11": "22split_attention_kernel",
+                 "K12": "28packed_attention_i8qk_kernel"}
 WGMMA_OP = {"K14": "IGMMA", "K14 C=1024": "IGMMA", "K15": "IGMMA",
-            "K15 C=1024": "IGMMA"}
-# The Hopper K1, K2, K7, K8, K14, K15, K10 and K11, whose ptxas report is
-# printed and must show no spill (K7: its kernel and every function it
+            "K15 C=1024": "IGMMA", "K12": "IGMMA"}
+# The Hopper K1, K2, K7, K8, K14, K15, K10, K11 and K12, whose ptxas report
+# is printed and must show no spill (K7: its kernel and every function it
 # calls), K7, K14 and K15 at both widths.  K10 and K11 launch one kernel:
 # both names match it.
 SPILL_FREE = {"ln_linear": "16ln_linear_kernel",
@@ -2150,12 +2220,14 @@ SPILL_FREE = {"ln_linear": "16ln_linear_kernel",
               "ln_linear_i8": "19ln_linear_i8_kernel",
               "proj_mlp_tail_i8": "23proj_mlp_tail_i8_kernel",
               "split_attention": "22split_attention_kernel",
-              "split_attention_bb": "22split_attention_kernel"}
+              "split_attention_bb": "22split_attention_kernel",
+              "packed_attention_i8qk": "28packed_attention_i8qk_kernel"}
 # The sources whose kernels ptxas must not serialise the wgmma of (its
 # "wgmma.mma_async instructions are serialized" warning in build/nvcc.log):
-# K8, K14, K10/K11, and K7 and K15 at both widths
+# K8, K14, K10/K11, K7 and K15 at both widths, and K12
 UNSERIALISED = ("ln_qkv_attention.cu", "ln_linear_i8.cu", "split_attention.cu",
-                "block_eval.cu", "proj_mlp_tail_i8.cu")
+                "block_eval.cu", "proj_mlp_tail_i8.cu",
+                "packed_attention_i8qk.cu")
 # the kernels whose instantiation at C=1024 the spill check must find
 BUILT_AT_1024 = ("block_eval", "ln_linear_i8", "proj_mlp_tail_i8")
 
@@ -2163,21 +2235,32 @@ BUILT_AT_1024 = ("block_eval", "ln_linear_i8", "proj_mlp_tail_i8")
 def check_wgmma(lib) -> None:
     """The redesigned kernels run wgmma: count the HGMMA instructions of
     each in the built library's SASS (``cuobjdump``, from the toolkit that
-    built it); fail where one has none."""
+    built it), IGMMA for the int8 ones; fail where one has none, or where
+    K12 has more I2F than K2."""
     out = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
                           "-sass", str(lib)], capture_output=True, text=True,
                          check=True).stdout
     counts, fns = dict.fromkeys(WGMMA_KERNELS, 0), []
+    # K12 converts its s32 logits on the integer and FP32 pipes: its SASS
+    # has no more I2F than K2's, whose come from the integer divisions that
+    # decode an item
+    i2f = {"K12": 0, "K2": 0}
     for line in out.splitlines():
         if "Function :" in line:
             fns = [k for k, m in WGMMA_KERNELS.items() if m in line]
         else:
             for fn in fns:
                 counts[fn] += WGMMA_OP.get(fn, "HGMMA") in line
-    print("wgmma (HGMMA; K14, K15: IGMMA) instructions in the SASS: "
-          + ", ".join(f"{k} {v}" for k, v in counts.items()))
+                if fn in i2f:
+                    i2f[fn] += "I2F" in line
+    print("wgmma (HGMMA; K14, K15, K12: IGMMA) instructions in the SASS: "
+          + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + "; I2F instructions: "
+          + ", ".join(f"{k} {v}" for k, v in i2f.items()))
     if not all(counts.values()):
         fail(f"a redesigned kernel has no wgmma in its SASS: {counts}")
+    if i2f["K12"] > i2f["K2"]:
+        fail(f"more I2F in the SASS of K12 than of K2: {i2f}")
 
 
 def check_spills() -> dict:
@@ -2225,7 +2308,7 @@ def check_spills() -> dict:
     if not all(any(r is not None for r, _, _ in fns.values())
                for fns in found.values()) or \
             any(st or ld for fns in found.values() for _, st, ld in fns.values()):
-        fail(f"K1, K2, K7, K8, K14, K15, K10 or K11 spills, or ptxas "
+        fail(f"K1, K2, K7, K8, K14, K15, K10, K11 or K12 spills, or ptxas "
              f"reported none of them: {found}")
     missing = [n for n in BUILT_AT_1024
                if not any("ILi1024E" in fn and r is not None
@@ -2250,15 +2333,15 @@ def check_serialisation() -> None:
                       n in UNSERIALISED))
     bad = {n: warned.get(n) for n in UNSERIALISED if warned.get(n)}
     if bad or not all(n in warned for n in UNSERIALISED):
-        fail(f"ptxas serialised the wgmma of K8, K14, K10/K11, K7 or K15, "
-             f"or built one of them not: {bad}")
+        fail(f"ptxas serialised the wgmma of K8, K14, K10/K11, K7, K15 or "
+             f"K12, or built one of them not: {bad}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--digests", action="store_true",
-                        help="print only the SHA-256 of K14's and K15's "
-                             "outputs on phase 3's seeded inputs")
+                        help="print only the SHA-256 of the outputs of "
+                             "DIGESTED on phase 3's seeded inputs")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2267,11 +2350,10 @@ def main() -> int:
     card = card_line()
     print(card)
     if opts.digests:
-        inputs = kernel_inputs(dev, torch.Generator(device=dev).manual_seed(
-            SEED))
-        for name in ("ln_linear_i8", "proj_mlp_tail_i8"):
+        inputs = digest_inputs(dev)
+        for name in DIGESTED:
             print(f"{name} output sha256 on phase 3's seeded inputs "
-                  f"{digest(getattr(i8_ops, name), inputs[name])} [{card}]")
+                  f"{digest(KERNELS[name][0], inputs[name])} [{card}]")
         return 0
 
     prebuilt = _build.library_path().exists()

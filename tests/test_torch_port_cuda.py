@@ -363,25 +363,87 @@ def test_proj_mlp_tail_i8_at_the_amax_floors_on_card(cuda_device, B, N):
     _bf16_close(got, TI.ref_proj_mlp_tail_i8(*args), ulps=4)
 
 
-@pytest.mark.cuda
-def test_packed_attention_i8qk_kernel_matches_twin_on_card(cuda_device):
-    g = torch.Generator(device=cuda_device).manual_seed(8)
-    B, N, H = 3, 577, 12
+def _i8qk_inputs(dev, seed, B, N, H):
+    """K12's qkv (B, N, 3·64H) bf16 with the quantizer's edge rows, and an
+    (H, N, N) bias.  Token 0's q and k rows of head 0 are (k + 1/2)·2⁻⁶
+    with an amax of 127·2⁻⁶, so that the scale is 2⁻⁶ exactly and every
+    x / scale lands on a rounding tie; the last token's q row of the last
+    head and token N // 2's k row of head 1 are zeros (amax 0: the scale
+    1e-8/127)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     C = 64 * H
-    qkv = torch.randn(B, N, 3 * C, device=cuda_device, generator=g).bfloat16()
-    bias = torch.randn(H, N, N, device=cuda_device, generator=g)
+    qkv = torch.randn(B, N, 3 * C, device=dev, generator=g)
+    ties = torch.randint(-60, 61, (2, 64), device=dev, generator=g) + 0.5
+    ties[:, 0] = 127
+    qkv[:, 0, :64] = ties[0] / 64
+    qkv[:, 0, C:C + 64] = ties[1] / 64
+    qkv[:, -1, C - 64:C] = 0
+    qkv[:, N // 2, C + 64:C + 128] = 0
+    return qkv.bfloat16(), torch.randn(H, N, N, device=dev, generator=g)
+
+
+def _close_where_defined(got, want, ulps):
+    """NaN exactly where the twin is NaN (0/0: a sample with no valid key),
+    within ``ulps`` bf16 ulps elsewhere."""
+    nan = want.float().isnan()
+    assert torch.equal(got.float().isnan(), nan)
+    _bf16_close(got[~nan], want[~nan], ulps=ulps)
+
+
+# K12's card cases: every last-key-tile width (N = 1, 16, 17, 64, 65,
+# 197, 577, 901: 16, 16, 32, 64, 16, 16, 16, 64 keys, and 1-row tails),
+# head counts 3, 12, 16, batches 1, 6, 32
+I8QK_N = [1, 16, 17, 64, 65, 197, 577, 901]
+I8QK_H = [3, 12, 16]
+I8QK_B = [1, 6, 32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", I8QK_B)
+@pytest.mark.parametrize("H", I8QK_H)
+@pytest.mark.parametrize("N", I8QK_N)
+def test_packed_attention_i8qk_kernel_matches_twin_on_card(cuda_device, N, H,
+                                                           B):
+    """K12 (K2's device code, int8 q·kᵀ) within 4 ulps of its twin: a
+    ragged mask on element 0, no valid key on the last element (B > 1),
+    rows on the quantizer's rounding ties and rows of zeros."""
+    qkv, bias = _i8qk_inputs(cuda_device, 1000 * N + 10 * H + B, B, N, H)
     mask = torch.ones(B, N, dtype=torch.int32, device=cuda_device)
-    mask[-1, 500:] = 0
+    mask[0, N - N // 3:] = 0
+    if B > 1:
+        mask[-1] = 0
     n = TA.packed_attention_i8qk.launches
     got = TA.packed_attention_i8qk(qkv, bias, mask, 0.125, H)
     assert TA.packed_attention_i8qk.launches == n + 1
     want = TA.packed_attention_i8qk_reference(qkv, bias, mask, 0.125, H)
-    _bf16_close(got, want, ulps=4)
+    _close_where_defined(got, want, ulps=4)
+
+
+@pytest.mark.cuda
+def test_packed_attention_i8qk_is_deterministic_on_card(cuda_device):
+    """Two launches of K12 on the same inputs agree bit for bit."""
+    B, N, H = 32, 577, 12
+    qkv, bias = _i8qk_inputs(cuda_device, 8, B, N, H)
+    mask = torch.ones(B, N, dtype=torch.int32, device=cuda_device)
+    mask[-1, 500:] = 0
+    got = TA.packed_attention_i8qk(qkv, bias, mask, 0.125, H)
     assert torch.equal(TA.packed_attention_i8qk(qkv, bias, mask, 0.125, H),
                        got)
+
+
+@pytest.mark.cuda
+def test_packed_attention_i8qk_raises_on_a_qkv_requiring_grad_on_card(
+        cuda_device):
+    """K12 is eval only: a qkv that requires grad raises before any
+    launch."""
+    B, N, H = 2, 65, 12
+    qkv, bias = _i8qk_inputs(cuda_device, 9, B, N, H)
+    mask = torch.ones(B, N, dtype=torch.int32, device=cuda_device)
+    n = TA.packed_attention_i8qk.launches
     with pytest.raises(ValueError, match="eval only"):
         TA.packed_attention_i8qk(qkv.clone().requires_grad_(), bias, mask,
                                  0.125, H)
+    assert TA.packed_attention_i8qk.launches == n
 
 
 def _block_args(dev, g, B, N, C=768, H=12, Hd=3072):
@@ -995,16 +1057,21 @@ def test_packed_attention_bwd_counts_only_positive_mask_entries_on_card(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", I8QK_B)
+@pytest.mark.parametrize("H", I8QK_H)
+@pytest.mark.parametrize("N", I8QK_N)
 def test_packed_attention_i8qk_counts_only_positive_mask_entries_on_card(
-        cuda_device):
+        cuda_device, N, H, B):
     """Fault C7: K12 treats a key whose mask entry is -1 as masked and one
-    of 2 as valid, as its twin does: within 4 ulps."""
-    g = torch.Generator(device=cuda_device).manual_seed(35)
-    B, N, H = 3, 577, 12
-    C = 64 * H
-    qkv = torch.randn(B, N, 3 * C, device=cuda_device, generator=g).bfloat16()
-    bias = torch.randn(H, N, N, device=cuda_device, generator=g)
-    mask = _mask_beyond_0_1(cuda_device, B, N)
+    of 2 as valid, as its twin does: within 4 ulps (NaN where a sample has
+    no valid key, as the twin)."""
+    qkv, bias = _i8qk_inputs(cuda_device, 35 + 1000 * N + 10 * H + B, B, N,
+                             H)
+    mask = torch.ones(B, N, dtype=torch.int32, device=cuda_device)
+    mask[0, N // 6:N // 3] = -1
+    mask[0, N // 3:N // 2] = 2
+    mask[-1, N - N // 4:] = 0
+    mask[-1, :N // 8] = -1
     got = TA.packed_attention_i8qk(qkv, bias, mask, 0.125, H)
     want = TA.packed_attention_i8qk_reference(qkv, bias, mask, 0.125, H)
-    _bf16_close(got, want, ulps=4)
+    _close_where_defined(got, want, ulps=4)

@@ -5,12 +5,10 @@
 //     LayerScale gammas are f32; every product accumulates in f32;
 //   * weights stay in torch layout W (out, in), row-major, so a tile of W
 //     rows is the column-major B operand of x·Wᵀ;
-//   * shared-memory rows of the mma.sync kernels carry kPad bf16 of
-//     padding, so that consecutive rows start in different banks;
-//   * the attention helpers (K12, and K9's products along a tile) use
-//     mma.sync directly, for its documented register layout; K1, K2, K7,
-//     K8, K10, K11, K14, K15, the MLP body of K3, K4, K5, K6, K7 and K13
-//     (mlp_body.cuh) and K9's q·kᵀ-type products use wgmma (hopper.cuh).
+//   * the mma.sync helpers serve K9's products along a tile, for their
+//     documented register layout; K1, K2, K7, K8, K10, K11, K12, K14, K15,
+//     the MLP body of K3, K4, K5, K6, K7 and K13 (mlp_body.cuh) and K9's
+//     q·kᵀ-type products use wgmma (hopper.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,8 +18,6 @@
 namespace vlm {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int kPad = 8;          // bf16 elements of padding per smem row
 
 // Eight bf16 values packed for one 16-byte load or store.
 struct Pack8 {
@@ -175,7 +171,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// mma.sync helpers of the attention kernels (K2, K9).
+// mma.sync helpers of K9, and bf16 pair packing.
 
 // d += a · b for one m16n8k16 tile (a: 16 x 16 row-major, b: 16 x 8 col-major).
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -204,132 +200,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
-}
-
-// One warp's step of the flash-style attention of K12 over
-// one 64-key tile (kAttnKeys keys of kAttnDim values, rows kAttnLdt apart in
-// shared memory).  s holds the warp's 16 x 64 f32 logits in the m16n8
-// accumulator layout (rows g and g + 8 of the thread's group); m and l are
-// the running row maxima and sums, o the running 16 x 64 output.  The
-// softmax is online: exp(s - running max) is rounded to bf16 and
-// contracted with the V tile at once; the division by l comes at the end
-// (store_ctx_rows).
-constexpr int kAttnDim = 64, kAttnKeys = 64, kAttnLdt = kAttnDim + kPad;
-
-// The logits of a 64-key tile before q·kᵀ: the f32 bias of the thread's
-// rows (brow0, brow1: the bias rows at the tile's first key) or -inf for a
-// key that is masked or past N (kv[c] == 0).
-__device__ __forceinline__ void logits_from_bias(float (&s)[kAttnKeys / 8][4],
-                                                 const int* kv, const float* brow0,
-                                                 const float* brow1) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < kAttnKeys / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    const bool v0 = kv[c], v1 = kv[c + 1];
-    s[j][0] = v0 ? __ldg(brow0 + c) : -INFINITY;
-    s[j][1] = v1 ? __ldg(brow0 + c + 1) : -INFINITY;
-    s[j][2] = v0 ? __ldg(brow1 + c) : -INFINITY;
-    s[j][3] = v1 ? __ldg(brow1 + c + 1) : -INFINITY;
-  }
-}
-
-// s += q·kᵀ for the warp's 16 query rows (A fragments qa, bf16, scaled)
-// against a 64-key tile Kt in shared memory (rows kAttnLdt apart).
-__device__ __forceinline__ void add_qk_bf16(float (&s)[kAttnKeys / 8][4],
-                                            const uint32_t (&qa)[kAttnDim / 16][4],
-                                            const bf16* Kt) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < kAttnKeys / 8; ++j) {
-    const bf16* krow = Kt + (j * 8 + g) * kAttnLdt + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < kAttnDim / 16; ++kk)
-      mma16816(s[j], qa[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-  }
-}
-
-__device__ __forceinline__ void online_softmax_pv(float (&s)[kAttnKeys / 8][4],
-                                                  float (&o)[kAttnDim / 8][4], float& m0,
-                                                  float& m1, float& l0, float& l1,
-                                                  const bf16* Vt) {
-  const int lane = threadIdx.x & 31;
-  // a row's 64 keys are spread over the 4 threads of a group
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kAttnKeys / 8; ++j) {
-    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-  }
-#pragma unroll
-  for (int sh = 1; sh <= 2; sh <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
-  }
-  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-  const float u0 = mn0 == -INFINITY ? 0.f : mn0;  // no valid key yet
-  const float u1 = mn1 == -INFINITY ? 0.f : mn1;
-  const float a0 = expf(m0 - u0), a1 = expf(m1 - u1);
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < kAttnKeys / 8; ++j) {
-    s[j][0] = expf(s[j][0] - u0);
-    s[j][1] = expf(s[j][1] - u0);
-    s[j][2] = expf(s[j][2] - u1);
-    s[j][3] = expf(s[j][3] - u1);
-    sum0 += s[j][0] + s[j][1];
-    sum1 += s[j][2] + s[j][3];
-  }
-#pragma unroll
-  for (int sh = 1; sh <= 2; sh <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, sh);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, sh);
-  }
-  l0 = l0 * a0 + sum0;
-  l1 = l1 * a1 + sum1;
-  m0 = mn0;
-  m1 = mn1;
-#pragma unroll
-  for (int n = 0; n < kAttnDim / 8; ++n) {
-    o[n][0] *= a0;
-    o[n][1] *= a0;
-    o[n][2] *= a1;
-    o[n][3] *= a1;
-  }
-
-  // o += bf16(p) · v; the accumulator layout of s is the A layout of p
-#pragma unroll
-  for (int kc = 0; kc < kAttnKeys / 16; ++kc) {
-    const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                            pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                            pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                            pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-    for (int np = 0; np < kAttnDim / 16; ++np) {
-      uint32_t vb[4];
-      ldsm_x4_trans(vb, Vt + (kc * 16 + (lane & 15)) * kAttnLdt + np * 16 + (lane >> 4) * 8);
-      mma16816(o[2 * np], pa, vb[0], vb[1]);
-      mma16816(o[2 * np + 1], pa, vb[2], vb[3]);
-    }
-  }
-}
-
-// The context of the thread's query rows qrow0 and qrow0 + 8 (rows past N
-// are not stored): o / l rounded to bf16, at out_row0 = the context's
-// column of this head (+ 2t) in row 0, rows ld apart.
-__device__ __forceinline__ void store_ctx_rows(const float (&o)[kAttnDim / 8][4], float l0,
-                                               float l1, bf16* out_row0, size_t ld, int qrow0,
-                                               int N) {
-  const int qrow1 = qrow0 + 8;
-#pragma unroll
-  for (int n = 0; n < kAttnDim / 8; ++n) {
-    if (qrow0 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out_row0 + (size_t)qrow0 * ld + n * 8) =
-          __floats2bfloat162_rn(o[n][0] / l0, o[n][1] / l0);
-    if (qrow1 < N)
-      *reinterpret_cast<__nv_bfloat162*>(out_row0 + (size_t)qrow1 * ld + n * 8) =
-          __floats2bfloat162_rn(o[n][2] / l1, o[n][3] / l1);
-  }
 }
 
 // gelu with exact erf through CUDA's erff (max error 2 ulp): K3's, and so

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's redesigned kernels: the
 // shared MLP body (mlp_body.cuh: K3, K4, K5, K6, K7, K13), K9, K1
-// (ln_linear.cuh), K2 (packed_attention_fwd.cuh), K7 (block_eval.cu), K8
-// (ln_qkv_attention.cu), K14 (ln_linear_i8.cu) and K15 (proj_mlp_tail_i8.cu).
+// (ln_linear.cuh), K2 (packed_attention_fwd.cuh, also K10, K11 and K12), K7
+// (block_eval.cu), K8 (ln_qkv_attention.cu), K14 (ln_linear_i8.cu) and K15
+// (proj_mlp_tail_i8.cu).
 //
 //   * mbarriers (init, arrive, expect_tx, parity waits) in shared memory,
 //     local and, through mapa, in another CTA of the cluster;
@@ -13,7 +14,7 @@
 //   * wgmma: shared-memory descriptors of 128-byte-swizzled tiles (K-major,
 //     and MN-major with the transpose bit), the m64nNk16 bf16 products
 //     with f32 accumulators and the m64nNk32 s8 products with s32
-//     accumulators (K14, K15);
+//     accumulators (K14, K15; A from registers: K12);
 //   * counters in global memory with release/acquire semantics at GPU
 //     scope (K8's handoff between its two roles).
 //
@@ -1020,6 +1021,110 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t da, uint64_t 
       wgmma_s8_m64n192(d, da, db, 1);
     else
       wgmma_s8_m64n256(d, da, db, 1);
+  }
+}
+// d = A·Bᵀ for one k32 step of int8 operands with A from registers (K12's
+// q·kᵀ): a is the s8 A fragment of the warp's 16 rows in mma.m16n8k32's
+// layout (a[0] row g at bytes 4t.., a[1] row g + 8, a[2] and a[3] the same
+// rows at 16 + 4t..), B as in the shared-memory forms (K-major, 64B- or
+// 128B-swizzled), s32 accumulators in the f32 forms' layout.  _first
+// overwrites d (write-only, as the f32 _first forms); the other
+// accumulates.  Widths 16, 32 and 64: K2's key tiles.
+__device__ __forceinline__ void wgmma_s8_m64n16_rs_first(int (&d)[8], const uint32_t (&a)[4],
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      :
+        "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n16_rs(int (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n32_rs_first(int (&d)[16], const uint32_t (&a)[4],
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      :
+        "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]), "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n32_rs(int (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n64_rs_first(int (&d)[32], const uint32_t (&a)[4],
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      :
+        "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3]), "=r"(d[4]), "=r"(d[5]), "=r"(d[6]), "=r"(d[7]),
+        "=r"(d[8]), "=r"(d[9]), "=r"(d[10]), "=r"(d[11]), "=r"(d[12]), "=r"(d[13]), "=r"(d[14]), "=r"(d[15]),
+        "=r"(d[16]), "=r"(d[17]), "=r"(d[18]), "=r"(d[19]), "=r"(d[20]), "=r"(d[21]), "=r"(d[22]), "=r"(d[23]),
+        "=r"(d[24]), "=r"(d[25]), "=r"(d[26]), "=r"(d[27]), "=r"(d[28]), "=r"(d[29]), "=r"(d[30]), "=r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n64_rs(int (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The register-A integer form at a width N of 16, 32 or 64 (first: as
+// wgmma_ss).
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                            bool first) {
+  if (first) {
+    if constexpr (N == 16)
+      wgmma_s8_m64n16_rs_first(d, a, db);
+    else if constexpr (N == 32)
+      wgmma_s8_m64n32_rs_first(d, a, db);
+    else
+      wgmma_s8_m64n64_rs_first(d, a, db);
+  } else {
+    if constexpr (N == 16)
+      wgmma_s8_m64n16_rs(d, a, db);
+    else if constexpr (N == 32)
+      wgmma_s8_m64n32_rs(d, a, db);
+    else
+      wgmma_s8_m64n64_rs(d, a, db);
   }
 }
 template <int R>

@@ -1,6 +1,6 @@
 // Shared pieces of the port's W8A8 int8 kernels (K12, K14, K15; sm_90a):
-// the quantizers (all three) and K12's mma.sync product (K14 and K15 run
-// theirs on wgmma, hopper.cuh).
+// the quantizers (all three) and the s32 -> f32 conversion of K12's
+// logits.  The products run on wgmma (hopper.cuh).
 //
 // Quantization follows vl_merging_tpu/ops/int8.py exactly, with one
 // rounding per operation (the __f*_rn intrinsics keep nvcc from
@@ -10,40 +10,13 @@
 //     (IEEE division) and q = round-half-even(x · (1/scale)) with the
 //     reciprocal correctly rounded; no clip, |x/scale| ≤ 127 by
 //     construction (int8.py:100-109);
-//   * s8·s8 products accumulate exactly in s32 (mma.sync m16n8k32 in K12,
-//     wgmma m64nNk32 in K14 and K15), and dequantise as
-//     ((float(acc) · s) · ws) + b (int8.py:128-129).
-//
-// K12's shared-memory int8 rows carry kPad8 bytes of padding: a row stride
-// of K + 16 bytes (K a multiple of 64) puts the 32-bit fragment loads of 8
-// rows x 4 threads in 32 distinct banks and keeps 16-byte alignment for
-// cp.async.
+//   * s8·s8 products accumulate exactly in s32 (wgmma m64nNk32), and
+//     dequantise as ((float(acc) · s) · ws) + b (int8.py:128-129).
 #pragma once
 
 #include "common.cuh"
 
 namespace vlm {
-
-constexpr int kPad8 = 16;
-
-// d += a · b for one m16n8k32 tile of int8 (a: 16 x 32 row-major, b: 32 x 8
-// col-major, d: s32).  Fragment layouts (PTX ISA, mma.m16n8k32): a[0]/a[1]
-// are rows g / g+8 at k 4t..4t+3, a[2]/a[3] the same rows at k 16+4t..;
-// b0/b1 are column g at k 4t.. and 16+4t..; d[0..1] row g, columns 2t,
-// 2t+1, d[2..3] row g+8.  Byte for byte these are the bf16 m16n8k16
-// layouts, so ld32 at the same byte offsets feeds them.
-__device__ __forceinline__ void mma16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // scale = max(amax, 1e-8) / 127; the 1e-8 is the f32 rounding of the
 // double 1e-8, as the twins' Python literal becomes.
@@ -54,6 +27,13 @@ __device__ __forceinline__ float quant_scale(float amax) {
 // round-half-even(x · inv) as an int8 value in an int (|x · inv| ≤ 127)
 __device__ __forceinline__ int quantize(float x, float inv) {
   return __float2int_rn(__fmul_rn(x, inv));
+}
+
+// quantize() on the FP32 and integer pipes (F2I runs at a quarter of the
+// FP32 rate): x·inv + 1.5·2^23 rounds to an integer, ties to even, since
+// its ulp is 1; exact for |x·inv| < 2^22.  K12's quantizers.
+__device__ __forceinline__ int quantize_alu(float x, float inv) {
+  return __float_as_int(__fadd_rn(__fmul_rn(x, inv), 12582912.f)) - 0x4B400000;
 }
 
 __device__ __forceinline__ uint32_t pack_s8x4(int a, int b, int c, int d) {
@@ -70,6 +50,14 @@ __device__ __forceinline__ float warp_max(float v) {
 // ((float(acc) · s) · ws) + b, one rounding per operation
 __device__ __forceinline__ float dequant(int acc, float s, float ws, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), s), ws), b);
+}
+
+// float(x) for |x| < 2^22, exactly, on the integer and FP32 pipes: the bits
+// of x + 1.5·2^23 as a float, less 1.5·2^23.  (I2F runs at a quarter of
+// the FP32 rate on sm_90, as MUFU does.)  K12's s32 logits, |q·k| ≤
+// 127²·64 < 2^20, take it; K14's and K15's sums over C may not.
+__device__ __forceinline__ float s32_to_f32(int x) {
+  return __fsub_rn(__int_as_float(x + 0x4B400000), 12582912.f);
 }
 
 // One warp LayerNorms R rows of C = NV * 256 bf16 values (global or shared

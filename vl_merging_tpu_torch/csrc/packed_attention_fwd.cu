@@ -54,7 +54,8 @@
 // tile run together and a head's K/V rows stay in L2 across its query
 // tiles.  K10 and K11 (split_attention.cu) run the same device code over
 // split q, k and v: only the producer's TMA maps differ (the layout
-// policy, Maps here, SplitMaps there).
+// policy, Maps here, SplitMaps there).  K12 (packed_attention_i8qk.cu)
+// runs it with its q·kᵀ in int8 (the Int8Qk policy, Bf16Qk here).
 //
 // L2 traffic per launch at B=32, N=577, 12 heads (arithmetic from the
 // tiles): 1920 items; K and V 1920 x 148 KB = 284 MB (the 64-query-row
@@ -83,23 +84,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   consume(a, raw);
 }
 
-// CTAs of the persistent grid: one per SM, as many as fit.
-int max_ctas() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, packed_attention_fwd_kernel,
-                                                      THREADS, SMEM) != cudaSuccess ||
-        per_sm <= 0) {
-      cudaGetLastError();
-      per_sm = 1;
-    }
-    n = sms * per_sm;
-  }
-  return n;
-}
+int ctas = 0;  // CTAs of the persistent grid
 
 }  // namespace
 
@@ -110,22 +95,6 @@ int max_ctas() {
 extern "C" int vlm_packed_attention(const void* qkv, const void* bias, const void* mask,
                                     void* out, void* stats, int B, int N, int H, float scale,
                                     void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(packed_attention_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const uint64_t C3 = 3ull * H * D;
-  Maps maps;
-  if (!hop::make_tensor_map_3d(&maps.q, qkv, {C3, (uint64_t)N, (uint64_t)B}, C3 * 2, C3 * 2 * N,
-                               {D, BQ, 1}) ||
-      !hop::make_tensor_map_3d(&maps.kv, qkv, {C3, (uint64_t)N, (uint64_t)B}, C3 * 2, C3 * 2 * N,
-                               {D, BKV, 1}))
-    return (int)cudaErrorNotSupported;
-  const int nqt = (N + BQ - 1) / BQ, items = B * H * nqt;
-  const Args a{static_cast<const float*>(bias), static_cast<const int*>(mask),
-               static_cast<bf16*>(out), static_cast<float*>(stats), B, N, H, nqt, items, scale};
-  const int grid = items < max_ctas() ? items : max_ctas();
-  packed_attention_fwd_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(maps,
-                                                                                           a);
-  return (int)cudaGetLastError();
+  return launch_packed(packed_attention_fwd_kernel, SMEM, ctas, qkv, bias, mask, out, stats, B, N,
+                       H, scale, stream);
 }

@@ -3,13 +3,14 @@
 // by K7's phase B (block_eval.cu), by K8's second role
 // (ln_qkv_attention.cu) and, over split q, k and v (the SplitMaps layout
 // policy), by K10 and K11 (split_attention.cu), so that all five compute
-// every element with the same instructions.
+// every element with the same instructions; and, with its q·kᵀ in int8
+// (the Int8Qk policy), by K12 (packed_attention_i8qk.cu).
 #pragma once
 
 #include <type_traits>
 
-#include "common.cuh"
 #include "hopper.cuh"
+#include "int8.cuh"
 
 namespace vlm {
 namespace k2 {
@@ -24,9 +25,39 @@ constexpr int KV_BYTES = BKV * D * 2;
 constexpr int BIAS_CHUNKS = BKV / 4 + 1, BIAS_LD = 72;
 constexpr int kBarriers = 2 * STAGES + 2;
 
+// The q·kᵀ policy of a launch.
+//
+// Bf16Qk, K2's, K7's, K8's, K10's and K11's: s = bias + (q·scale)·kᵀ in f32,
+// q scaled in bf16 in the consumers' A fragments, k the bf16 tile TMA
+// wrote, the bias the initial value of the accumulator.
+//
+// Int8Qk, K12's: q and k quantized per (token, head) row of 64 as the
+// int8 twins quantize (int8.cuh), and s = ((f32(q_i8·k_i8ᵀ) · (sq·scale))
+// · sk) + bias in f32, one rounding per operation.  The producer warpgroup
+// quantizes each landed k tile in place (quant_k): the int8 K-major tile,
+// 64B-swizzled, in the first I8_K_BYTES of the stage's K buffer and the
+// 64 keys' scales after it, at I8_SCALES.  A barrier of its own per stage
+// (kfull) says when the bf16 k tile has landed, and the stage's full
+// barrier counts the quantizers' arrivals beside the bias copiers'.  The
+// consumers quantize their q rows once per item (quant_q), run s8 wgmma
+// into a fresh s32 accumulator and dequantize it (logits_i8).
+struct Bf16Qk {
+  static constexpr bool kInt8 = false;
+  static constexpr int BARRIERS = 0;  // beyond kBarriers
+};
+struct Int8Qk {
+  static constexpr bool kInt8 = true;
+  static constexpr int BARRIERS = STAGES;  // kfull
+};
+constexpr int I8_K_BYTES = BKV * D, I8_SCALES = I8_K_BYTES;
+static_assert(I8_SCALES + BKV * 4 <= KV_BYTES, "the int8 k tile and its scales fill a K buffer");
+// the named barrier of the producer's quantizers (1 and 2: the consumers' turns)
+constexpr int kQuantBarrier = 3;
+
 // The shapes of a CTA with NC consumer warpgroups of 64 query rows each
-// (K2: 2, in ping-pong; K7: 1) and the producer warpgroup.
-template <int NC>
+// (K2: 2, in ping-pong; K7: 1) and the producer warpgroup, under the q·kᵀ
+// policy Qk.
+template <int NC, class Qk = Bf16Qk>
 struct Cfg {
   static constexpr int BQ = 64 * NC, CONSUMERS = 128 * NC, THREADS = CONSUMERS + PRODUCERS;
   static constexpr int CONSUMER_WARPS = CONSUMERS / 32;
@@ -35,7 +66,7 @@ struct Cfg {
   static constexpr int BIAS_BYTES = BQ * BIAS_LD * 4;
   static constexpr int STAGE = 2 * KV_BYTES + BIAS_BYTES;
   static constexpr int RING = Q_BYTES, BAR = RING + STAGES * STAGE;
-  static constexpr int SMEM = 1024 + BAR + kBarriers * 8;
+  static constexpr int SMEM = 1024 + BAR + (kBarriers + Qk::BARRIERS) * 8;
   static_assert(SMEM <= 232448, "over the H100's shared memory per block");
 };
 // K2's own kernel
@@ -43,7 +74,7 @@ constexpr int BQ = Cfg<2>::BQ, CONSUMERS = Cfg<2>::CONSUMERS, THREADS = Cfg<2>::
 constexpr int SMEM = Cfg<2>::SMEM;
 
 // Where the producer's TMA loads find an item's q tile and a key tile's k
-// and v: the layout policy of the launch.
+// and v (completing on k_bar and v_bar): the layout policy of the launch.
 //
 // Maps, K2's, K7's and K8's: q, k and v in place in a packed qkv, one 3-D
 // map over (B, N, 3C) (q at column 0, k at C, v at 2C, head h at h·64).
@@ -54,9 +85,9 @@ struct Maps {
     hop::tma_load_3d(dst, &q, h * D, row, b, bar);
   }
   __device__ __forceinline__ void load_kv(void* k_dst, void* v_dst, int b, int h, int k0, int C,
-                                          uint64_t* bar) const {
-    hop::tma_load_3d(k_dst, &kv, C + h * D, k0, b, bar);
-    hop::tma_load_3d(v_dst, &kv, 2 * C + h * D, k0, b, bar);
+                                          uint64_t* k_bar, uint64_t* v_bar) const {
+    hop::tma_load_3d(k_dst, &kv, C + h * D, k0, b, k_bar);
+    hop::tma_load_3d(v_dst, &kv, 2 * C + h * D, k0, b, v_bar);
   }
 };
 
@@ -72,9 +103,9 @@ struct SplitMaps {
     hop::tma_load_4d(dst, &q, 0, row, h, b, bar);
   }
   __device__ __forceinline__ void load_kv(void* k_dst, void* v_dst, int b, int h, int k0, int,
-                                          uint64_t* bar) const {
-    hop::tma_load_4d(k_dst, &k, 0, k0, h, b, bar);
-    hop::tma_load_4d(v_dst, &v, 0, k0, h, b, bar);
+                                          uint64_t* k_bar, uint64_t* v_bar) const {
+    hop::tma_load_4d(k_dst, &k, 0, k0, h, b, k_bar);
+    hop::tma_load_4d(v_dst, &v, 0, k0, h, b, v_bar);
   }
 };
 
@@ -216,6 +247,129 @@ __device__ __forceinline__ void issue_qk(float (&s)[32], const uint32_t (&qa)[4]
   }
 }
 
+// Int8Qk: si = q_i8·k_i8ᵀ (s8 wgmma, A from registers: the two k32 steps
+// of d = 64, the first overwriting si; K the stage's int8 K-major tile,
+// 64B-swizzled), issued.
+template <int W>
+__device__ __forceinline__ void issue_qk_i8(int (&si)[W / 2], const uint32_t (&qa)[4][4],
+                                            const uint8_t* kt) {
+  const uint64_t dk = hop::sw64_desc(kt);
+  hop::wgmma_s8_rs<W>(si, qa[0], dk, true);
+  hop::wgmma_s8_rs<W>(si, qa[1], hop::desc_add(dk, 32), false);
+}
+
+// Int8Qk: the logits of a tile of W keys from its landed s32 products si
+// (the accumulator layout: si[4j + e] is key 8j + 2t + (e & 1) of row
+// g + 8(e >> 1)), ((f32(si) · sq) · sk) + bias with one rounding per
+// operation, or -inf for a key that is masked or past N.  sq0, sq1: the
+// thread's two rows' scales times the softmax scale; ks: the stage's key
+// scales; b0, b1, lo, hi as init_logits takes them.
+template <int W>
+__device__ __forceinline__ void logits_i8(float (&s)[32], const int (&si)[W / 2], float sq0,
+                                          float sq1, const float* ks, const float* b0,
+                                          const float* b1, uint32_t lo, uint32_t hi) {
+  const int t = threadIdx.x & 3;
+  auto dq = [](int x, float sq, float sk, float b) {
+    return __fadd_rn(__fmul_rn(__fmul_rn(s32_to_f32(x), sq), sk), b);
+  };
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    const bool v0 = (lo >> (4 * j + t)) & 1, v1 = (hi >> (4 * j + t)) & 1;
+    const float2 k = *reinterpret_cast<const float2*>(ks + 8 * j + 2 * t);
+    s[4 * j] = v0 ? dq(si[4 * j], sq0, k.x, b0[8 * j]) : -INFINITY;
+    s[4 * j + 1] = v1 ? dq(si[4 * j + 1], sq0, k.y, b0[8 * j + 1]) : -INFINITY;
+    s[4 * j + 2] = v0 ? dq(si[4 * j + 2], sq1, k.x, b1[8 * j]) : -INFINITY;
+    s[4 * j + 3] = v1 ? dq(si[4 * j + 3], sq1, k.y, b1[8 * j + 1]) : -INFINITY;
+  }
+}
+
+// Int8Qk: the warp's 16 query rows (this thread's g and g + 8 of them) from
+// the swizzled q tile, quantized per row as quant_rows quantizes them
+// (quantize_alu: no F2I), as the s8 A fragments of the two k32 steps
+// (qa[kk][0]: row g at columns 32kk + 4t.., [1] row g + 8, [2] and [3] the
+// same at 32kk + 16 + 4t..), and the rows' scales times the softmax scale.
+// A row's 64 columns are spread over the 4 threads of a group.
+__device__ __forceinline__ void quant_q(uint32_t (&qa)[4][4], float& sq0, float& sq1,
+                                        const uint8_t* qs, int wr, float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float v[2][16], sc[2], inv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = wr + g + 8 * e;
+    float amax = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {  // columns 16c + 4t..: 8 bytes of one 16-byte chunk
+      const int col = 16 * c + 4 * t;
+      const uint2 raw = *reinterpret_cast<const uint2*>(
+          qs + row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2);
+      const bf16* h = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        v[e][4 * c + x] = __bfloat162float(h[x]);
+        amax = fmaxf(amax, fabsf(v[e][4 * c + x]));
+      }
+    }
+#pragma unroll
+    for (int sh = 1; sh <= 2; sh <<= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, sh));
+    sc[e] = quant_scale(amax);
+    inv[e] = __frcp_rn(sc[e]);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      qa[c >> 1][e + 2 * (c & 1)] = pack_s8x4(
+          quantize_alu(v[e][4 * c], inv[e]), quantize_alu(v[e][4 * c + 1], inv[e]),
+          quantize_alu(v[e][4 * c + 2], inv[e]), quantize_alu(v[e][4 * c + 3], inv[e]));
+  sq0 = __fmul_rn(sc[0], scale);
+  sq1 = __fmul_rn(sc[1], scale);
+}
+
+// Int8Qk, run by the producer's 128 threads once a stage's bf16 k tile has
+// landed (kfull): the tile quantized in place, key r = pt / 2 by threads 2r
+// and 2r + 1 (32 columns each, read twice: for the row's amax, then to
+// quantize, so that few registers hold them), into the int8 K-major tile
+// at its start, 64B-swizzled for sw64_desc, and the keys' scales at
+// I8_SCALES (quantize_alu: no F2I); then those writes ordered before the
+// consumers' wgmma reads them (async proxy), and an arrival on the stage's
+// full barrier.
+__device__ __forceinline__ void quant_k(uint8_t* kt, uint64_t* kfull, uint32_t parity,
+                                        uint64_t* full, int pt) {
+  hop::mbar_wait(kfull, parity);
+  const int r = pt >> 1, half = pt & 1;
+  auto chunk = [&](int c) {  // 16-byte chunk 4·half + c of row r, 128B-swizzled
+    Pack8 p;
+    p.u = *reinterpret_cast<const uint4*>(kt + r * 128 + (((4 * half + c) ^ (r & 7)) << 4));
+    return p;
+  };
+  float amax = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const Pack8 p = chunk(c);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) amax = fmaxf(amax, fabsf(p.f(e)));
+  }
+  amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+  const float sc = quant_scale(amax), inv = __frcp_rn(sc);
+  uint32_t w[8];  // the row's 32 int8 values, 4 a word
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const Pack8 p = chunk(c);
+    w[2 * c] = pack_s8x4(quantize_alu(p.f(0), inv), quantize_alu(p.f(1), inv),
+                         quantize_alu(p.f(2), inv), quantize_alu(p.f(3), inv));
+    w[2 * c + 1] = pack_s8x4(quantize_alu(p.f(4), inv), quantize_alu(p.f(5), inv),
+                             quantize_alu(p.f(6), inv), quantize_alu(p.f(7), inv));
+  }
+  hop::named_sync(kQuantBarrier, PRODUCERS);  // every thread's reads of the bf16 tile are done
+#pragma unroll
+  for (int j = 0; j < 2; ++j)  // int8 chunk 2·half + j of row r
+    *reinterpret_cast<uint4*>(kt + r * 64 + (((2 * half + j) ^ ((r >> 1) & 3)) << 4)) =
+        make_uint4(w[4 * j], w[4 * j + 1], w[4 * j + 2], w[4 * j + 3]);
+  if (half == 0) reinterpret_cast<float*>(kt + I8_SCALES)[r] = sc;
+  hop::fence_proxy_async();
+  hop::mbar_arrive(full);
+}
+
 // o += bf16(p)·v (wgmma, P from registers, V an MN-major tile), issued.
 template <int W>
 __device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[4][4],
@@ -286,21 +440,30 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4], const float (&s)[32
 // P·V (when there is one, a whole 64-key tile: only the last tile is
 // narrower), so that this tile's softmax runs while that P·V does; then,
 // once the P·V is done, the rescale of the output and this tile's P.
-// `retire` releases the previous tile's stage.
-template <int NC, int W, bool kPrev, class Retire>
+// `retire` releases the previous tile's stage.  Int8Qk: the s32 product
+// is dequantized into the logits once it has landed (sq0, sq1: the rows'
+// scales; Bf16Qk ignores them).
+template <class Qk, int NC, int W, bool kPrev, class Retire>
 __device__ __forceinline__ void key_tile(Rows& r, uint32_t (&pa)[4][4], const uint32_t (&qa)[4][4],
-                                         const uint8_t* st, const uint8_t* v_prev, uint32_t lo,
-                                         uint32_t hi, int b0, int b1, Retire retire) {
+                                         float sq0, float sq1, const uint8_t* st,
+                                         const uint8_t* v_prev, uint32_t lo, uint32_t hi, int b0,
+                                         int b1, Retire retire) {
   float s[32];
   // the W/2 logits of this tile (a narrow last tile leaves the rest of s
   // unwritten: naming them here would keep them live from tile to tile)
-  float(&sw)[W / 2] = reinterpret_cast<float(&)[W / 2]>(s);
+  [[maybe_unused]] float(&sw)[W / 2] = reinterpret_cast<float(&)[W / 2]>(s);
   const float* bt = reinterpret_cast<const float*>(st + 2 * KV_BYTES);
-  init_logits<W>(s, bt + b0, bt + b1, lo, hi);
-  hop::fence_regs(sw);
+  [[maybe_unused]] int si[W / 2];  // Int8Qk's s32 products
+  if constexpr (!Qk::kInt8) {
+    init_logits<W>(s, bt + b0, bt + b1, lo, hi);
+    hop::fence_regs(sw);
+  }
   tensor_turn_begin<NC>();
   hop::wgmma_fence();
-  issue_qk<W>(s, qa, st);
+  if constexpr (Qk::kInt8)
+    issue_qk_i8<W>(si, qa, st);
+  else
+    issue_qk<W>(s, qa, st);
   hop::wgmma_commit();
   if constexpr (kPrev) {
     issue_pv<64>(r.o, pa, v_prev);
@@ -311,7 +474,13 @@ __device__ __forceinline__ void key_tile(Rows& r, uint32_t (&pa)[4][4], const ui
     hop::wgmma_wait<1>();  // q·kᵀ done; the P·V may still run
   else
     hop::wgmma_wait<0>();
-  hop::fence_regs(sw);
+  if constexpr (Qk::kInt8) {
+    hop::fence_regs(si);
+    logits_i8<W>(s, si, sq0, sq1, reinterpret_cast<const float*>(st + I8_SCALES), bt + b0,
+                 bt + b1, lo, hi);
+  } else {
+    hop::fence_regs(sw);
+  }
   float a0, a1;
   softmax<W>(s, r, a0, a1);
   hop::wgmma_wait<0>();
@@ -331,7 +500,7 @@ __device__ __forceinline__ void key_tile(Rows& r, uint32_t (&pa)[4][4], const ui
 template <int NC>
 struct Smem {
   uint8_t *qs, *ring;
-  uint64_t *full, *empty, *q_full, *q_empty;
+  uint64_t *full, *empty, *q_full, *q_empty, *kfull;  // kfull: Int8Qk's alone
   __device__ __forceinline__ explicit Smem(unsigned char* raw) {
     uint8_t* base = raw + ((1024u - (hop::smem_u32(raw) & 1023u)) & 1023u);
     qs = base;
@@ -340,17 +509,20 @@ struct Smem {
     empty = full + STAGES;
     q_full = empty + STAGES;
     q_empty = q_full + 1;
+    kfull = q_empty + 1;
   }
 };
 
 // Run by every thread of the CTA (THREADS) before its roles: the barriers.
-template <int NC = 2>
+template <int NC = 2, class Qk = Bf16Qk>
 __device__ __forceinline__ void setup(unsigned char* raw) {
   const Smem<NC> sm(raw);
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      hop::mbar_init(&sm.full[s], 1 + PRODUCERS);  // the K/V loads' arrival, the bias copiers'
+      // the K/V loads' arrival, the bias copiers' (and Int8Qk's quantizers')
+      hop::mbar_init(&sm.full[s], 1 + PRODUCERS * (Qk::kInt8 ? 2 : 1));
       hop::mbar_init(&sm.empty[s], Cfg<NC>::CONSUMER_WARPS);
+      if constexpr (Qk::kInt8) hop::mbar_init(&sm.kfull[s], 1);
     }
     hop::mbar_init(sm.q_full, 1);
     hop::mbar_init(sm.q_empty, Cfg<NC>::CONSUMER_WARPS);
@@ -361,13 +533,14 @@ __device__ __forceinline__ void setup(unsigned char* raw) {
 
 // The items `its` deals this CTA: the producer role (warpgroup NC) and the
 // consumer role (warpgroups 0 .. NC - 1).
-template <int NC = 2, class It = Items, class M = Maps>
+template <int NC = 2, class It = Items, class M = Maps, class Qk = Bf16Qk>
 __device__ __forceinline__ void produce(const M& maps, const Args& a, unsigned char* raw,
                                         const It& its = It()) {
   using K = Cfg<NC>;
   const Smem<NC> sm(raw);
   uint8_t *qs = sm.qs, *ring = sm.ring;
-  uint64_t *full = sm.full, *empty = sm.empty, *q_full = sm.q_full, *q_empty = sm.q_empty;
+  uint64_t *full = sm.full, *empty = sm.empty, *q_full = sm.q_full, *q_empty = sm.q_empty,
+           *kfull = sm.kfull;
   const int N = a.N, C = a.H * D, nkt = (N + BKV - 1) / BKV;
   // ---- producer, warpgroup NC: its first thread loads the Q tile and the
   // K/V tiles by TMA (where the layout policy M finds them); its 128
@@ -377,7 +550,10 @@ __device__ __forceinline__ void produce(const M& maps, const Args& a, unsigned c
   // have landed.  Chunks past a row's last key, and the rows past N, are
   // not copied: no consumer reads them into a stored row or a valid key.
   // A row's last chunk may reach 12 bytes past its last key, inside the
-  // 16-byte granule that holds that key.
+  // 16-byte granule that holds that key.  Int8Qk: k lands on its own
+  // barrier, and the 128 threads quantize each key tile once it has landed
+  // (one tile behind its loads measured slower: chip_profile.py --variants
+  // K12).
   const int pt = threadIdx.x - K::CONSUMERS;
   int it = 0;
   for (int i = 0, item = its.first; item < a.items; ++i, item += its.stride) {
@@ -406,8 +582,14 @@ __device__ __forceinline__ void produce(const M& maps, const Args& a, unsigned c
       if (it >= STAGES) hop::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
       uint8_t* st = ring + s * K::STAGE;
       if (pt == 0) {
-        hop::mbar_arrive_expect_tx(&full[s], 2 * KV_BYTES);
-        maps.load_kv(st, st + KV_BYTES, b, h, k0, C, &full[s]);
+        if constexpr (Qk::kInt8) {
+          hop::mbar_arrive_expect_tx(&kfull[s], KV_BYTES);
+          hop::mbar_arrive_expect_tx(&full[s], KV_BYTES);
+          maps.load_kv(st, st + KV_BYTES, b, h, k0, C, &kfull[s], &full[s]);
+        } else {
+          hop::mbar_arrive_expect_tx(&full[s], 2 * KV_BYTES);
+          maps.load_kv(st, st + KV_BYTES, b, h, k0, C, &full[s], &full[s]);
+        }
       }
       float* bt = reinterpret_cast<float*>(st + 2 * KV_BYTES);
 #pragma unroll
@@ -417,11 +599,12 @@ __device__ __forceinline__ void produce(const M& maps, const Args& a, unsigned c
         if (f[m] != ~(size_t)0 && at < f[m] + N) cp_async16(bt + dst[m], a.bias + at);
       }
       cp_async_arrive(&full[s]);
+      if constexpr (Qk::kInt8) quant_k(st, &kfull[s], (it / STAGES) & 1, &full[s], pt);
     }
   }
 }
 
-template <int NC = 2, class It = Items>
+template <int NC = 2, class It = Items, class Qk = Bf16Qk>
 __device__ __forceinline__ void consume(const Args& a, unsigned char* raw, const It& its = It()) {
   using K = Cfg<NC>;
   const Smem<NC> sm(raw);
@@ -443,19 +626,25 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* raw, const
     its.decode(a, item, b, qt, h);
     const int q0 = qt * K::BQ;
 
-    // the warp's 16 query rows, scaled in bf16, as A fragments for every key tile
+    // the warp's 16 query rows as A fragments for every key tile: scaled in
+    // bf16, or (Int8Qk) quantized, with their rows' scales sq0, sq1
     uint32_t qa[4][4];
+    float sq0 = 0.f, sq1 = 0.f;
     hop::mbar_wait(q_full, i & 1);
+    if constexpr (Qk::kInt8) {
+      quant_q(qa, sq0, sq1, qs, wr, a.scale);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = wr + g + 8 * (e & 1), col = 16 * kk + 2 * t + 8 * (e >> 1);
-        const uint32_t v = *reinterpret_cast<const uint32_t*>(
-            qs + row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2);
-        const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&v);
-        qa[kk][e] = pack_bf16(__low2float(h2) * qscale, __high2float(h2) * qscale);
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int row = wr + g + 8 * (e & 1), col = 16 * kk + 2 * t + 8 * (e >> 1);
+          const uint32_t v = *reinterpret_cast<const uint32_t*>(
+              qs + row * 128 + (((col >> 3) ^ (row & 7)) << 4) + (col & 7) * 2);
+          const __nv_bfloat162 h2 = *reinterpret_cast<const __nv_bfloat162*>(&v);
+          qa[kk][e] = pack_bf16(__low2float(h2) * qscale, __high2float(h2) * qscale);
+        }
+    }
     __syncwarp();
     if (lane == 0) hop::mbar_arrive(q_empty);
 
@@ -492,8 +681,8 @@ __device__ __forceinline__ void consume(const Args& a, unsigned char* raw, const
         if (decltype(after_first)::value && lane == 0) hop::mbar_arrive(&empty[prev]);
         prev = s;
       };
-      key_tile<NC, decltype(width)::value, decltype(after_first)::value>(r, pa, qa, st, v_prev, lo, hi,
-                                                                     boff0, boff1, retire);
+      key_tile<Qk, NC, decltype(width)::value, decltype(after_first)::value>(
+          r, pa, qa, sq0, sq1, st, v_prev, lo, hi, boff0, boff1, retire);
       ++it;
     };
     // The tiles before the last are 64 keys wide; the last one's products
@@ -576,6 +765,46 @@ template <int NC = 2>
 __device__ __forceinline__ void invalidate(unsigned char* raw) {
   uint64_t* bars = Smem<NC>(raw).full;
   for (int i = 0; i < kBarriers; ++i) hop::mbar_inval(&bars[i]);
+}
+
+// The host side of a launch of a kernel that runs these roles over a
+// packed qkv with the Maps layout, `smem` bytes of shared memory a CTA (K2's
+// own, K12's): the tensor maps, the items, and a persistent grid of one CTA
+// per SM, as many as fit (counted once into `ctas`).  stats: as
+// vlm_packed_attention takes it, or null.
+template <class Kernel>
+int launch_packed(Kernel kernel, int smem, int& ctas, const void* qkv, const void* bias,
+                  const void* mask, void* out, void* stats, int B, int N, int H, float scale,
+                  void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (ctas == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem) !=
+            cudaSuccess ||
+        per_sm <= 0) {
+      cudaGetLastError();
+      per_sm = 1;
+    }
+    ctas = sms * per_sm;
+  }
+  const uint64_t C3 = 3ull * H * D;
+  Maps maps;
+  if (!hop::make_tensor_map_3d(&maps.q, qkv, {C3, (uint64_t)N, (uint64_t)B}, C3 * 2, C3 * 2 * N,
+                               {D, BQ, 1}) ||
+      !hop::make_tensor_map_3d(&maps.kv, qkv, {C3, (uint64_t)N, (uint64_t)B}, C3 * 2, C3 * 2 * N,
+                               {D, BKV, 1}))
+    return (int)cudaErrorNotSupported;
+  const int nqt = (N + BQ - 1) / BQ, items = B * H * nqt;
+  const Args a{static_cast<const float*>(bias), static_cast<const int*>(mask),
+               static_cast<bf16*>(out), static_cast<float*>(stats), B, N, H, nqt, items, scale};
+  const int grid = items < ctas ? items : ctas;
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(maps, a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace k2

@@ -9,8 +9,8 @@ off the kernel route use it).  ``packed_attention`` is kernel K2,
 its backward, (dqkv, dbias summed over the batch).
 ``packed_fused_attention`` joins them into one differentiable function
 (the JAX package's ``_packed_attention_diff``).  ``packed_attention_i8qk``
-is kernel K12, ``csrc/packed_attention.cu`` (the first-slice design of
-K2, in its int8 variant): QKᵀ as s8·s8→s32 on
+is kernel K12, ``csrc/packed_attention_i8qk.cu`` (K2's device code with
+its int8 q·kᵀ policy): QKᵀ as s8·s8→s32 on
 per-(token, head) int8 q and k (``quant_rows``, the quantizer of every
 int8 kernel), for the int8 eval's opt-in int8-QK mode; eval only.  On
 CPU tensors each wrapper runs its plain twin (``packed_attention_reference``,
@@ -178,7 +178,9 @@ def quant_rows(x32: torch.Tensor):
     ``attention.py:_quant_last_i8``).  The quantizer of K12, K14 and
     K15."""
     amax = x32.abs().amax(dim=-1, keepdim=True)
-    scale = amax.clamp_min(1e-8) / 127.0
+    # divided by a tensor: PyTorch's CUDA kernels divide by a CPU scalar as a
+    # multiply by its f32 reciprocal, which can round the scale differently
+    scale = amax.clamp_min(1e-8) / amax.new_tensor(127.0)
     return torch.round(x32 * (1.0 / scale)).to(torch.int8), scale
 
 
