@@ -24,6 +24,9 @@ and captions are synthetic.
     "tail": K6 for every block's post-attention half; "full": K1 for its
     LN1 + qkv too).
 
+The merging phase starts from the same config with ``all_moe`` (the
+experts the merges fold into ufo).
+
 The Flickr30k @224 retrieval eval runs
 ``task_finetune_irtr_f30k_square_randaug_base`` + ``ufo`` at the same
 width: ViT-B/16 @224, 197 image tokens, whose attention takes the split
@@ -149,7 +152,37 @@ Phases, each fatal on failure:
  10. the vit-tiny width (C=192): its image and text towers and two irtr
      steps at its width (``train_fusion`` "0" and "full") on the card
      launch no K1, K3, K13 or K6 (no kernel of theirs is built for 192;
-     the routing takes the plain ops, as the JAX package takes XLA).
+     the routing takes the plain ops, as the JAX package takes XLA);
+ 11. the merging suite over ``task_finetune_irtr_coco_square_randaug_base_
+     image384`` + ``all_moe`` at full width and depth (381 tensors, 210.5 M
+     parameters): a seeded all_moe checkpoint and a seeded ufo "central"
+     one written (``ckpt/io.save_torch_checkpoint``, Lightning envelope)
+     and read back bit for bit; the gram pass (``train/gram.
+     cache_gram_matrices``, irtr, f32 masters on the card) in
+     ``f32_device`` over 64 pairs in batches of 32, and in ``f64_host``
+     and ``f32_device`` over the first 8 pairs alone (K2 12 launches per
+     image batch, nothing else: the taps turn off the fused eval block
+     and K13), the irtr v/l key set, each gram symmetric and the two
+     precisions within rows·2^-24 of the largest entry, with the host
+     seconds and FLOP of the f64 products; ``merge.py`` by
+     ``merge_weights`` (ratio 0.5), ``sum_task_vectors`` (λ 0.5, the
+     central checkpoint) and ``regmean`` (the f64 grams, non-diagonal
+     scaling 0.9), each ``merged.ckpt`` through ``ckpt/pipeline.
+     load_params`` into ufo (``test_only``; no key missing or
+     unexpected) and scored by ``compute_irtr_recall`` over 64 images
+     and 320 captions (K1-K3 12 per image batch, K13 12 per text batch;
+     features within cosine 0.999 of the plain path's; recall printed);
+     device merging (``merging/device.py``): a fleet of 8 seeded all_moe
+     checkpoints by ``merge_weights_device`` (a ratio per member) and
+     ``sum_task_vectors_device``, a ``ratio_sweep`` of 11 ratios, every
+     member within 4 ulp at operand scale of the host path
+     (``merging/core.py``), checkpoints merged per second end to end
+     (the copies to and from the card included) and by the merge alone
+     beside the host seconds per checkpoint; ``regmean_device`` on the
+     f64 grams cast to f32 against the host f64 regmean, each merged
+     weight within ``regmean_bound`` of its summed grams' printed
+     condition number and within ``REGMEAN_MEASURED_SHARE`` (0.1) of
+     that bound, the limit set from the drift measured on an H100.
 
 Each row of the ``{"kernels": ...}`` line carries the widths it was held
 at (``widths``) and, for the kernels built for 1024, its figures there
@@ -174,6 +207,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -181,21 +215,30 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vl_merging_tpu_torch import merge
 from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, \
     master_params, params_from_numpy
+from vl_merging_tpu_torch.ckpt.io import load_torch_checkpoint, \
+    params_to_state_dict, save_torch_checkpoint
+from vl_merging_tpu_torch.ckpt.pipeline import load_params
 from vl_merging_tpu_torch.config import build_config
 from vl_merging_tpu_torch.device import require_cuda
 from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall, \
     extract_features
+from vl_merging_tpu_torch.merging import core as merging
+from vl_merging_tpu_torch.merging import device as merging_device
 from vl_merging_tpu_torch.models import mome
 from vl_merging_tpu_torch.models.layers import layer_norm
 from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
+from vl_merging_tpu_torch.models.taps import MOE_GRAM_SUFFIXES
 from vl_merging_tpu_torch.ops import _build
 from vl_merging_tpu_torch.ops import attention as attn_ops
 from vl_merging_tpu_torch.ops import fused_block as fb_ops
 from vl_merging_tpu_torch.ops import int8 as i8_ops
 from vl_merging_tpu_torch.ops import mlp as mlp_ops
 from vl_merging_tpu_torch.train import train_step
+from vl_merging_tpu_torch.train.gram import cache_gram_matrices, \
+    make_capture_step, make_gram_step, save_gram_matrices
 from vl_merging_tpu_torch.train.loop import accum_steps, build_train_step
 
 SEED = 0
@@ -1362,11 +1405,11 @@ def want_launches(**counts) -> dict:
 # Phase 4: the retrieval eval
 # --------------------------------------------------------------------------
 
-def seeded_params(spec, dev):
+def seeded_params(spec, dev, seed: int = SEED):
     """f32 params from the seed; the reference starts the rel-pos table and
     the q/v biases at zero: non-zero values exercise the kernels' bias
     paths (the rel-pos bias in K2/K9, the q/v bias in K1)."""
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator().manual_seed(seed)
     params = init_params(spec, gen)
     table = params["relative_position_bias_table"]
     params["relative_position_bias_table"] = 0.5 * torch.randn(
@@ -2188,6 +2231,444 @@ def run_tiny(dev, card: str) -> dict:
     return {k: eval_counts[k] + train_counts[k] for k in KERNELS}
 
 
+# --------------------------------------------------------------------------
+# Phase 11: the merging suite
+# --------------------------------------------------------------------------
+
+# the all_moe checkpoint the merging suite starts from: the COCO @384
+# config at full width and depth, with its v, l (and, in layers 10-11, vl)
+# experts (381 tensors, 210.5 M parameters)
+CONFIG_MOE = (CONFIG[0], "all_moe")
+# the gram pass: f32_device over 64 image/caption pairs in batches of 32;
+# f64_host (about 1.2 TFLOP of f64 xᵀx on the host per 8 pairs at this
+# width) and f32_device again over the first 8 pairs alone
+GRAM_PAIRS, GRAM_BATCH, GRAM_F64_PAIRS = 64, 32, 8
+MERGE_RATIO, SUM_LAMBDA, NON_DIAG = 0.5, 0.5, 0.9
+# device merging: a fleet of 8 all_moe checkpoints (~6.3 GiB f32 on the
+# card) and a sweep of 11 ratios over one
+FLEET, SWEEP = 8, 11
+F32_EPS, F64_EPS = 2.0 ** -24, 2.0 ** -53
+
+
+def regmean_bound(dim: int, kappa: float) -> float:
+    """The least relative drift regmean_device (f32 products Σ w·G, an f32
+    LU solve) may show from the host f64 regmean, max |Δ| over max |w|:
+    each f32 stage rounds with an error that grows as √D·u over its
+    D-term sums (u = 2^-24), and the solve amplifies the error by at most
+    the condition number κ of the summed grams; 2 for the two stages.
+    (A CPU model of these grams, f32 against f64, drifted by 0.24 of
+    √D·κ·u at κ 4.3, D 768, and by 0.003 of it at κ 1945, D 3072.)"""
+    return 2.0 * dim ** 0.5 * kappa * F32_EPS
+
+
+# the second, tighter regmean_device limit, as a share of regmean_bound:
+# the worst-case bound alone lets a ~9% drift through at proj (κ ≈ 2.6e4,
+# D = 768), where an H100 measured at most 0.0165 of it for any weight;
+# 0.1 keeps six times that reading as room
+REGMEAN_MEASURED_SHARE = 0.1
+
+
+def seeded_state(spec, seed: int) -> dict:
+    """A seeded checkpoint of ``spec``'s schema as a host numpy dict."""
+    return params_to_state_dict(seeded_params(spec, "cpu", seed))
+
+
+def bit_equal(a: np.ndarray, b: np.ndarray) -> bool:
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+        a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
+
+
+def gram_keys(spec) -> set:
+    """The irtr gram pass's tapped modules over all_moe: the v (image) and l
+    (text) experts' attention input, proj input, fc1 and fc2 inputs."""
+    keys = {f"transformer.blocks.{i}.{m.format(e)}"
+            for i in range(spec.num_layers) for e in "vl"
+            for m in ("attn.{}", "attn.{}.proj", "mlp.{}.fc1", "mlp.{}.fc2")}
+    if not all(k.endswith(MOE_GRAM_SUFFIXES) for k in keys):
+        fail("gram keys outside MOE_GRAM_SUFFIXES")
+    return keys
+
+
+def gram_rows(spec, key: str, pairs: int) -> int:
+    """Rows summed into a gram over ``pairs`` pairs: image tokens for a v
+    expert, text tokens for an l expert."""
+    expert = key.split(".")[4]
+    return pairs * (spec.image_len if expert == "v" else spec.max_text_len)
+
+
+def run_gram_pass(params, spec, cfg, batches, precision: str, label: str):
+    """One ``cache_gram_matrices`` call with its launches gated: K2 once
+    per layer and image batch, nothing else (the taps turn off the fused
+    eval block and K13)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grams = cache_gram_matrices(params, spec, cfg, batches,
+                                precision=precision)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    want = want_launches(packed_attention=spec.num_layers * len(batches))
+    if launches != want:
+        fail(f"gram pass {label}: launches {launches}, want {want}")
+    if set(grams) != gram_keys(spec):
+        fail(f"gram pass {label}: keys {sorted(set(grams) ^ gram_keys(spec))}"
+             f" differ from the irtr v/l set")
+    eps = F64_EPS if precision == "f64_host" else F32_EPS
+    pairs = sum(b["image"].shape[0] for b in batches)
+    for k, g in grams.items():
+        # g_ij and g_ji each within γ_rows = rows·eps of the exact sum
+        # (any summation order), so |g - gᵀ| within 2·rows·eps·max|g|
+        sym = float(np.abs(g - g.T).max())
+        if g.dtype != np.float64 or not np.isfinite(g).all() or \
+                sym > 2 * gram_rows(spec, k, pairs) * eps * np.abs(g).max():
+            fail(f"gram {k} ({label}): dtype {g.dtype}, finite "
+                 f"{np.isfinite(g).all()}, asymmetry {sym}")
+    return grams, seconds, launches
+
+
+def check_merged_eval(params, spec, cfg, dev, label: str, eval_set):
+    """``compute_irtr_recall`` on merged params: K1-K3 12 per image batch,
+    K13 12 per text batch; image and text features finite and within
+    cosine 0.999 of the plain path's on the same params."""
+    text_batches, image_batches, tiids, iids = eval_set
+    params = eval_cast_params(params_from_numpy(params, dev), spec, cfg)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recall = compute_irtr_recall(params, spec, text_batches, image_batches,
+                                 tiids, iids)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    per_image = spec.num_layers * len(image_batches)
+    want = want_launches(ln_linear=per_image, packed_attention=per_image,
+                         proj_mlp_tail=per_image,
+                         mlp=spec.num_layers * len(text_batches))
+    if launches != want:
+        fail(f"{label} eval launches {launches}, want {want}")
+    cosines = {}
+    with torch.no_grad():
+        for kind, batches in (("image", image_batches),
+                              ("text", text_batches)):
+            k = extract_features(params, spec, batches, kind)
+            p = extract_features(params, spec, batches, kind, kernels=False)
+            if not (bool(torch.isfinite(k).all())
+                    and bool(torch.isfinite(p).all())):
+                fail(f"{label} {kind} features not finite")
+            cosines[kind] = float(F.cosine_similarity(
+                k.float(), p.float(), dim=-1).min())
+    print(f"merged checkpoint ({label}): compute_irtr_recall {seconds:.3f} s "
+          f"for {len(iids)} images and {len(tiids)} captions, launches as "
+          f"wanted; min cosine to the plain path image "
+          f"{cosines['image']:.6f}, text {cosines['text']:.6f} (need >= "
+          f"{MIN_COSINE}); recall {json.dumps(recall)}")
+    if min(cosines.values()) < MIN_COSINE:
+        fail(f"{label}: kernel-path features disagree with the plain path")
+    if not all(0.0 <= v <= 1.0 for v in recall.values()):
+        fail(f"{label}: recall out of range: {recall}")
+    return launches
+
+
+def fleet_within_4_ulp(fleet: dict, hosts: list, dev, label: str) -> None:
+    """Every member of a device fleet within 4 f32 ulp at operand scale of
+    the host result (the pin of the JAX package's device merging)."""
+    for j, host in enumerate(hosts):
+        if set(host) != set(fleet):
+            fail(f"{label} member {j}: keys differ from the host path's")
+        for k, h in host.items():
+            want = torch.from_numpy(np.asarray(h)).to(dev).double()
+            err = float((fleet[k][j].double() - want).abs().max())
+            tol = 4 * float(np.spacing(np.float32(max(
+                float(want.abs().max()), 1.0))))
+            if err > tol:
+                fail(f"{label} member {j} {k}: max |Δ| {err} > 4 ulp {tol}")
+
+
+def run_device_merging(sd_moe, central, grams64, host_regmean, spec, dev,
+                       card: str) -> None:
+    """A fleet of seeded all_moe checkpoints merged on the card by
+    ``merge_weights_device`` (a ratio per member) and
+    ``sum_task_vectors_device``, a ratio sweep of one checkpoint, each
+    member within 4 ulp of the host path; ``regmean_device`` on the f64
+    grams cast to f32 against the host f64 regmean within
+    ``REGMEAN_MEASURED_SHARE`` of ``regmean_bound`` at each summed gram's
+    condition number.  The fleet's rate is printed end to end (copies to
+    and from the card included) beside the merge alone."""
+    kw = dict(num_layers=spec.num_layers,
+              vlffn_start_layer_index=spec.vlffn_start_layer_index,
+              loss_names=build_config(*CONFIG_MOE)["loss_names"])
+    members = []
+    for j in range(FLEET):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30 + j)
+        members.append({k: (torch.from_numpy(v).to(dev) + 0.01 * torch.randn(
+            v.shape, device=dev, generator=gen)).cpu().numpy()
+            for k, v in sd_moe.items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fleet = merging_device.stack_checkpoints(members)
+    torch.cuda.synchronize()
+    stack_s = time.perf_counter() - t0
+    ratios = np.linspace(0.2, 0.9, FLEET).astype(np.float32)
+    merge_s = []
+    for _ in range(2):   # the first call warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merged = merging_device.merge_weights_device(
+            fleet, merge_ratio=ratios, **kw)
+        torch.cuda.synchronize()
+        merge_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    merged_host = {k: v.cpu() for k, v in merged.items()}
+    unstack_s = time.perf_counter() - t0
+    del merged_host
+    # all the work over all the time: the fleet's copy to the card, its
+    # merge, the merged fleet's copy back to the host
+    end_to_end_s = stack_s + merge_s[1] + unstack_s
+    host_s = []
+    hosts = []
+    for j, sd in enumerate(members):
+        t0 = time.perf_counter()
+        hosts.append(merging.merge_weights(sd, merge_ratio=float(ratios[j]),
+                                           **kw))
+        host_s.append(time.perf_counter() - t0)
+    fleet_within_4_ulp(merged, hosts, dev, "merge_weights_device")
+    del merged, hosts
+    cfleet = {k: v.expand(FLEET, *v.shape[1:]) for k, v in
+              merging_device.stack_checkpoints([central]).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tv = merging_device.sum_task_vectors_device(fleet, cfleet,
+                                                sum_lambda=SUM_LAMBDA, **kw)
+    torch.cuda.synchronize()
+    tv_s = time.perf_counter() - t0
+    fleet_within_4_ulp(tv, [merging.sum_task_vectors(
+        sd, dict(central), sum_lambda=SUM_LAMBDA, **kw) for sd in members],
+        dev, "sum_task_vectors_device")
+    del tv, fleet, cfleet, members
+    sweep = np.linspace(0.0, 1.0, SWEEP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    swept = merging_device.ratio_sweep(sd_moe, sweep, **kw)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    fleet_within_4_ulp(swept, [merging.merge_weights(
+        sd_moe, merge_ratio=float(r), **kw) for r in sweep], dev,
+        "ratio_sweep")
+    del swept
+    print(f"device merging (fleet of {FLEET} all_moe checkpoints, "
+          f"{sum(v.size for v in sd_moe.values()) / 1e6:.1f} M parameters "
+          f"each, f32): merge_weights_device end to end "
+          f"{FLEET / end_to_end_s:.4f} checkpoints/s ({end_to_end_s:.3f} s: "
+          f"the fleet's copy to the card {stack_s:.3f} s, the merge "
+          f"{merge_s[1]:.4f} s, the copy back {unstack_s:.3f} s), the merge "
+          f"alone on the resident fleet {FLEET / merge_s[1]:.2f} "
+          f"checkpoints/s (first call {merge_s[0]:.4f} s); "
+          f"sum_task_vectors_device on the resident fleet "
+          f"{FLEET / tv_s:.2f} checkpoints/s; ratio_sweep of {SWEEP} "
+          f"{SWEEP / sweep_s:.2f} checkpoints/s (the copy to the card "
+          f"included); host merge_weights {float(np.mean(host_s)):.4f} s "
+          f"per checkpoint ({1 / float(np.mean(host_s)):.4f} "
+          f"checkpoints/s); every member within 4 ulp of the host path "
+          f"[{card}]")
+
+    state = merging_device.stack_checkpoints([sd_moe])
+    grams32 = {k: torch.from_numpy(v).to(dev).float()
+               for k, v in grams64.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = merging_device.regmean_device(state, grams32,
+                                        scaling_for_non_diag=NON_DIAG, **kw)
+    torch.cuda.synchronize()
+    regmean_s = time.perf_counter() - t0
+    if set(got) != set(host_regmean):
+        fail("regmean_device: keys differ from the host regmean's")
+    worst = {}
+    for k, h in host_regmean.items():
+        want = torch.from_numpy(h).to(dev).double()
+        err = float((got[k][0].double() - want).abs().max())
+        m = re.match(r"(transformer\.blocks\.(\d+)\.(attn|mlp))\."
+                     r"(qkv|proj|fc1|fc2)\.weight$", k)
+        if m is None:   # averaged or passed through: f32 sums and divisions
+            tol = 4 * float(np.spacing(np.float32(max(
+                float(want.abs().max()), 1.0))))
+            if err > tol:
+                fail(f"regmean_device {k}: max |Δ| {err} > 4 ulp {tol}")
+            continue
+        # the v and l grams: the attention input for qkv, else the module's
+        names = [f"{m.group(1)}.{e}" + ("" if m.group(4) == "qkv" else
+                                         f".{m.group(4)}") for e in "vl"]
+        summed = sum(NON_DIAG * torch.from_numpy(grams64[n]).to(dev)
+                     + (1 - NON_DIAG) * torch.diag(torch.diag(
+                         torch.from_numpy(grams64[n]).to(dev)))
+                     for n in names)
+        ev = torch.linalg.eigvalsh(summed)
+        if float(ev[0]) <= 0.0:
+            fail(f"regmean {k}: summed gram not positive definite")
+        kappa = float(ev[-1] / ev[0])
+        rel = err / float(want.abs().max())
+        bound = regmean_bound(summed.shape[0], kappa)
+        limit = REGMEAN_MEASURED_SHARE * bound
+        print(f"regmean_device {k}: gram dim {summed.shape[0]}, condition "
+              f"number {kappa:.4e}, relative drift {rel:.4e} (bound "
+              f"{bound:.4e}, limit {limit:.4e})")
+        kind = m.group(4)
+        worst[kind] = max(worst.get(kind, (0.0,)), (rel / bound, kappa, rel))
+        if rel > bound:
+            fail(f"regmean_device {k}: relative drift {rel} > {bound} "
+                 f"(κ {kappa})")
+        if rel > limit:
+            fail(f"regmean_device {k}: relative drift {rel} > "
+                 f"{REGMEAN_MEASURED_SHARE} of its bound, {limit} "
+                 f"(κ {kappa})")
+    print(f"regmean_device (one all_moe checkpoint, f32 solve): "
+          f"{regmean_s:.3f} s; limit {REGMEAN_MEASURED_SHARE} of the bound; "
+          f"worst drift / bound by weight "
+          + ", ".join(f"{k} {v[0]:.4f} (κ {v[1]:.4e}, drift {v[2]:.4e})"
+                      for k, v in sorted(worst.items())) + f" [{card}]")
+
+
+def run_merging(dev, card: str) -> dict:
+    """The merging suite at full width over the COCO @384 all_moe
+    checkpoint: write and read back, the gram pass, merge.py (three
+    methods), ``load_params`` into ufo and the retrieval eval of each
+    merged checkpoint, device merging."""
+    cfg = build_config(*CONFIG_MOE)
+    spec = make_model_spec(cfg)
+    ucfg = build_config(*CONFIG)
+    uspec = make_model_spec(ucfg)
+    t0 = time.perf_counter()
+    sd_moe = seeded_state(spec, SEED + 20)
+    central = seeded_state(uspec, SEED + 21)
+    print(f"seeded all_moe checkpoint: {len(sd_moe)} tensors, "
+          f"{sum(v.size for v in sd_moe.values()) / 1e6:.1f} M parameters; "
+          f"ufo central: {len(central)} tensors, "
+          f"{sum(v.size for v in central.values()) / 1e6:.1f} M "
+          f"({time.perf_counter() - t0:.1f} s on the host)")
+    counts = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        moe_path, central_path = str(tmp / "moe.ckpt"), str(
+            tmp / "central.ckpt")
+        t0 = time.perf_counter()
+        save_torch_checkpoint(sd_moe, moe_path)
+        save_torch_checkpoint(central, central_path)
+        back = (load_torch_checkpoint(moe_path),
+                load_torch_checkpoint(central_path))
+        io_s = time.perf_counter() - t0
+        for name, sd, got in (("all_moe", sd_moe, back[0]),
+                              ("central", central, back[1])):
+            if set(got) != set(sd) or not all(bit_equal(got[k], sd[k])
+                                              for k in sd):
+                fail(f"the {name} checkpoint did not read back bit for bit")
+        del back
+        print(f"checkpoints written and read back bit for bit "
+              f"(Lightning envelope): {io_s:.2f} s")
+
+        # the gram pass over the all_moe model, f32 masters on the card
+        params = params_from_numpy(sd_moe, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+        images = torch.randn(GRAM_PAIRS, 3, spec.image_size, spec.image_size,
+                             device=dev, generator=gen)
+        ids, masks = synthetic_captions(spec, GRAM_PAIRS, dev, gen)
+        batches = [{"image": images[i:i + GRAM_BATCH],
+                    "text_ids": ids[i:i + GRAM_BATCH],
+                    "text_masks": masks[i:i + GRAM_BATCH]}
+                   for i in range(0, GRAM_PAIRS, GRAM_BATCH)]
+        small = [{k: v[:GRAM_F64_PAIRS] for k, v in batches[0].items()}]
+        _, f32_s, n1 = run_gram_pass(params, spec, cfg, batches,
+                                     "f32_device", "f32_device, 64 pairs")
+        g64, f64_s, n2 = run_gram_pass(params, spec, cfg, small, "f64_host",
+                                       "f64_host, 8 pairs")
+        g32, f32_8_s, n3 = run_gram_pass(params, spec, cfg, small,
+                                         "f32_device", "f32_device, 8 pairs")
+        # the forward with its taps alone (the card's share of each pass):
+        # one batch of 32 under the f32 gram tap, 8 pairs under capture
+        split = {}
+        for name, make, batch in (("f32_device", make_gram_step, batches[0]),
+                                  ("f64_host", make_capture_step, small[0])):
+            step = make(cfg, spec)
+            step(params, batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(params, batch)
+            torch.cuda.synchronize()
+            split[name] = time.perf_counter() - t0
+        del params
+        for n in (n1, n2, n3):
+            counts = {k: counts[k] + n[k] for k in KERNELS}
+        flops = sum(2.0 * gram_rows(spec, k, GRAM_F64_PAIRS) * g.shape[0] ** 2
+                    for k, g in g64.items())
+        worst = 0.0
+        for k, g in g64.items():
+            # an f32 sum of rows products is within γ_rows·Σ|x_i x_j| of
+            # the exact gram, and Σ|x_i x_j| ≤ max diag = max |g|
+            bound = gram_rows(spec, k, GRAM_F64_PAIRS) * F32_EPS * \
+                np.abs(g).max()
+            err = np.abs(g32[k] - g).max()
+            worst = max(worst, err / bound)
+            if err > bound:
+                fail(f"gram {k}: f32_device and f64_host differ by {err} > "
+                     f"rows·2^-24·max|g| = {bound}")
+        print(f"gram pass (irtr, all_moe, {len(g64)} grams, K2 "
+              f"{spec.num_layers} per image batch, no K1/K3/K13): "
+              f"f32_device {f32_s:.3f} s for {GRAM_PAIRS} pairs in batches "
+              f"of {GRAM_BATCH}, {f32_8_s:.3f} s for {GRAM_F64_PAIRS}; "
+              f"f64_host {f64_s:.3f} s for {GRAM_F64_PAIRS} pairs "
+              f"({flops / 1e12:.3f} TFLOP of f64 xᵀx on the host, "
+              f"{flops / f64_s / 1e9:.1f} GFLOP/s); the forward with its "
+              f"taps alone {split['f32_device']:.3f} s per batch of "
+              f"{GRAM_BATCH} (f32 grams on the card), "
+              f"{split['f64_host']:.3f} s for {GRAM_F64_PAIRS} pairs "
+              f"(capture), the rest copies and sums on the host; "
+              f"f32_device vs f64_host "
+              f"on the same pairs: worst |Δ| {worst:.4f} of its bound "
+              f"rows·2^-24·max|g| [{card}]")
+        del g32
+        gram_path = str(tmp / "G.pth")
+        save_gram_matrices(g64, gram_path)
+
+        # host merging through the CLI, then ingest into ufo and score
+        eval_set = synthetic_eval_set(uspec, dev, torch.Generator(
+            device=dev).manual_seed(SEED + 23))
+        methods = {"merge_weights": ["merge_weights=True",
+                                     f"merge_ratio={MERGE_RATIO}"],
+                   "sum_task_vectors": ["sum_task_vectors=True",
+                                        f"sum_lambda={SUM_LAMBDA}",
+                                        f"central_weight={central_path!r}"],
+                   "regmean": ["regmean=True",
+                               f"scaling_for_non_diag={NON_DIAG}",
+                               f"gram_matrices={gram_path!r}"]}
+        host_regmean = None
+        for method, extra in methods.items():
+            log_dir = str(tmp / method)
+            t0 = time.perf_counter()
+            out = merge.main(["with", *CONFIG_MOE, f"load_path={moe_path!r}",
+                              f"log_dir={log_dir!r}", *extra])
+            merge_s = time.perf_counter() - t0
+            if method == "regmean":
+                host_regmean = load_torch_checkpoint(out)
+            lcfg = build_config(*CONFIG, overrides=dict(load_path=out,
+                                                        test_only=True))
+            t0 = time.perf_counter()
+            merged, missing, unexpected = load_params(lcfg, uspec)
+            load_s = time.perf_counter() - t0
+            Path(out).unlink()
+            print(f"merge.py {method}: {merge_s:.2f} s on the host (read, "
+                  f"merge, write); load_params into ufo {load_s:.2f} s, "
+                  f"missing {missing}, unexpected {unexpected}")
+            if missing or unexpected:
+                fail(f"{method}: the merged checkpoint does not fill the ufo "
+                     f"schema")
+            n = check_merged_eval(merged, uspec, ucfg, dev, method, eval_set)
+            counts = {k: counts[k] + n[k] for k in KERNELS}
+        del eval_set
+    run_device_merging(sd_moe, central, g64, host_regmean, spec, dev, card)
+    return counts
+
+
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
 # of their entry functions in the library's SASS (K7, K14 and K15 by
 # width: their instantiations at C=768 and 1024).
@@ -2372,7 +2853,8 @@ def main() -> int:
              "eval_224": run_eval_224(dev, card),
              "train_fusion": run_train_fusion(dev, card),
              "large": run_large(dev, card),
-             "tiny": run_tiny(dev, card)}
+             "tiny": run_tiny(dev, card),
+             "merging": run_merging(dev, card)}
     for name, row in rows.items():
         for path, launches in paths.items():
             row[f"launches_{path}"] = launches[name]

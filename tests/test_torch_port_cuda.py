@@ -33,6 +33,12 @@ every element's gammas are K3's.  A @224 image tower layer takes K11 or
 K10; a training block under ``train_fusion`` takes K6 (and K1 under
 "full").
 
+Fault C10: ``ops/int8.quantize_weight`` gives on the card the CPU's int8
+weights and scales bit for bit.  The merging suite on the card:
+``merging/device.py`` against the port's host merging (4 ulp, and the
+JAX package's 5e-5 pin for ``regmean_device``), and towers under a gram
+tap launching K2 alone.
+
 This file imports no JAX (the machine with the card has none), so it runs
 without tests/conftest.py:
 
@@ -1075,3 +1081,169 @@ def test_packed_attention_i8qk_counts_only_positive_mask_entries_on_card(
     got = TA.packed_attention_i8qk(qkv, bias, mask, 0.125, H)
     want = TA.packed_attention_i8qk_reference(qkv, bias, mask, 0.125, H)
     _close_where_defined(got, want, ulps=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [
+    "task_finetune_irtr_coco_square_randaug_base_image384",
+    "task_finetune_irtr_f30k_square_randaug_large_image384"])
+def test_quantize_weight_on_card_is_bit_equal_to_cpu(cuda_device, config):
+    """Fault C10: every qkv, proj, fc1 and fc2 weight of the seeded ViT-B
+    and ViT-L towers quantizes on the card to the CPU's int8 values and
+    scales, bit for bit (the scale is amax / 127 divided as IEEE, not a
+    multiply by f32(1/127))."""
+    from vl_merging_tpu_torch.config import build_config
+    from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
+
+    spec = make_model_spec(build_config(config, "ufo"))
+    params = init_params(spec, torch.Generator().manual_seed(40))
+    keys = [k for k in params if TI._QUANT_KEY_RE.match(k)]
+    assert len(keys) == 4 * spec.num_layers
+    for k in keys:
+        q, s = TI.quantize_weight(params[k])
+        qd, sd = TI.quantize_weight(params[k].to(cuda_device))
+        assert torch.equal(qd.cpu(), q), k
+        assert torch.equal(sd.cpu().view(torch.int32), s.view(torch.int32)), k
+
+
+def _expert_state(seed, hs=16, mlp=32, layers=4, vl_from=2):
+    """A synthetic all_moe state dict with the reference key layout."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    f32 = lambda *s: rng.randn(*s).astype(np.float32)   # noqa: E731
+    sd = {"transformer.norm.weight": f32(hs)}
+    for i in range(layers):
+        p = f"transformer.blocks.{i}"
+        for t in ("v", "l", "vl") if i >= vl_from else ("v", "l"):
+            sd.update({f"{p}.attn.{t}.qkv.weight": f32(3 * hs, hs),
+                       f"{p}.attn.{t}.q_bias": f32(hs),
+                       f"{p}.attn.{t}.v_bias": f32(hs),
+                       f"{p}.attn.{t}.proj.weight": f32(hs, hs),
+                       f"{p}.attn.{t}.proj.bias": f32(hs),
+                       f"{p}.mlp.{t}.fc1.weight": f32(mlp, hs),
+                       f"{p}.mlp.{t}.fc1.bias": f32(mlp),
+                       f"{p}.mlp.{t}.fc2.weight": f32(hs, mlp),
+                       f"{p}.mlp.{t}.fc2.bias": f32(hs)})
+            for norm in ("norm1", "norm2"):
+                sd[f"{p}.{norm}.{t}.weight"] = f32(hs)
+                sd[f"{p}.{norm}.{t}.bias"] = f32(hs)
+        sd[f"{p}.gamma_1"] = f32(hs)
+    return sd
+
+
+@pytest.mark.cuda
+def test_device_merging_on_card_matches_host(cuda_device):
+    """merging/device.py on the card against the port's host merging:
+    every fleet member of merge_weights_device (every expert-set rule),
+    sum_task_vectors_device and ratio_sweep within 4 f32 ulp at operand
+    scale; regmean_device within the JAX package's pin of 5e-5 relative
+    drift from the host f64 regmean (well-conditioned grams)."""
+    import numpy as np
+
+    from vl_merging_tpu_torch.merging import core, device
+
+    kw = dict(num_layers=4, vlffn_start_layer_index=2)
+    sds = [_expert_state(s) for s in range(3)]
+    central = core.merge_weights(_expert_state(9), loss_names={"itm": 1},
+                                 **kw)
+
+    def close(fleet, hosts):
+        assert set(fleet) == set(hosts[0])
+        for k, v in fleet.items():
+            got = v.cpu().double().numpy()
+            for j, h in enumerate(hosts):
+                tol = 4 * np.spacing(np.float32(max(np.abs(h[k]).max(), 1)))
+                assert np.abs(got[j] - h[k]).max() <= tol, (k, j)
+
+    fleet = device.stack_checkpoints(sds)
+    assert fleet["transformer.norm.weight"].is_cuda
+    for loss, used in (({"itm": 1}, False), ({"irtr": 1}, True),
+                       ({"vqa": 1}, True)):
+        close(device.merge_weights_device(
+            fleet, loss_names=loss, merge_ratio=0.3,
+            only_activate_used_experts=used, **kw),
+            [core.merge_weights(sd, loss_names=loss, merge_ratio=0.3,
+                                only_activate_used_experts=used, **kw)
+             for sd in sds])
+    close(device.sum_task_vectors_device(
+        fleet, device.stack_checkpoints([central] * 3), loss_names={"itm": 1},
+        sum_lambda=0.4, **kw),
+        [core.sum_task_vectors(sd, dict(central), loss_names={"itm": 1},
+                               sum_lambda=0.4, **kw) for sd in sds])
+    ratios = [0.0, 0.3, 2 / 3, 1.0]
+    close(device.ratio_sweep(sds[0], ratios, loss_names={"itm": 1}, **kw),
+          [core.merge_weights(sds[0], loss_names={"itm": 1}, merge_ratio=r,
+                              **kw) for r in ratios])
+    rng = np.random.RandomState(7)
+    grams = {}
+    for i in range(4):
+        for t in ("v", "l", "vl") if i >= 2 else ("v", "l"):
+            for mod, d in ((f"attn.{t}", 16), (f"attn.{t}.proj", 16),
+                           (f"mlp.{t}.fc1", 16), (f"mlp.{t}.fc2", 32)):
+                X = rng.randn(64, d)
+                grams[f"transformer.blocks.{i}.{mod}"] = X.T @ X
+    host = core.regmean(sds[0], grams, loss_names={"itm": 1},
+                        scaling_for_non_diag=0.9, **kw)
+    got = device.regmean_device(
+        device.stack_checkpoints(sds[:1]),
+        {k: torch.from_numpy(v).float().to(cuda_device)
+         for k, v in grams.items()},
+        loss_names={"itm": 1}, scaling_for_non_diag=0.9, **kw)
+    for k, h in host.items():
+        rel = np.abs(got[k][0].cpu().double().numpy() - h).max() / max(
+            np.abs(h).max(), 1.0)
+        assert rel < 5e-5, (k, rel)
+
+
+@pytest.mark.cuda
+def test_tapped_towers_launch_k2_only_on_card(cuda_device):
+    """One all_moe ViT-B/16 @384 layer, two images and 64 captions: untapped,
+    the image block launches K1, K2, K3 and the text block K13; under a gram
+    tap, the image block K2 alone and the text block nothing, the taps see
+    every module input, and the features stay within cosine 0.999 of the
+    untapped towers'."""
+    from vl_merging_tpu_torch.ckpt.convert import params_from_numpy
+    from vl_merging_tpu_torch.config import build_config
+    from vl_merging_tpu_torch.models import model, taps
+    from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
+
+    cfg = build_config("task_finetune_irtr_coco_square_randaug_base_image384",
+                       "all_moe", overrides=dict(num_layers=1))
+    spec = make_model_spec(cfg)
+    gen = torch.Generator().manual_seed(41)
+    params = params_from_numpy(init_params(spec, gen), cuda_device)
+    batch = {"image": torch.randn(2, 3, 384, 384, generator=gen).to(
+                 cuda_device),
+             "text_ids": torch.randint(1000, spec.vocab_size, (64, 40),
+                                       generator=gen).to(cuda_device),
+             "text_masks": torch.ones(64, 40, dtype=torch.int32,
+                                      device=cuda_device)}
+    kernels = {"ln_linear": TF.ln_linear, "packed_attention":
+               TA.packed_attention, "proj_mlp_tail": TF.proj_mlp_tail,
+               "mlp": TM.mlp_kernel}
+
+    def towers():
+        before = {k: f.launches for k, f in kernels.items()}
+        with torch.no_grad():
+            img = model.infer_image_ft(params, spec, batch)["cls_feats"]
+            txt = model.infer_text_ft(params, spec, batch)["cls_feats"]
+        return img, txt, {k: f.launches - before[k]
+                          for k, f in kernels.items()}
+
+    img, txt, launched = towers()
+    assert launched == {"ln_linear": 1, "packed_attention": 1,
+                        "proj_mlp_tail": 1, "mlp": 1}
+    tap = taps.GramTap(taps.MOE_GRAM_SUFFIXES)
+    with taps.active_tap(tap):
+        timg, ttxt, tlaunched = towers()
+    assert tlaunched == {"ln_linear": 0, "packed_attention": 1,
+                         "proj_mlp_tail": 0, "mlp": 0}
+    assert set(tap.grams) == {f"transformer.blocks.0.{m.format(e)}"
+                              for e in "vl" for m in (
+                                  "attn.{}", "attn.{}.proj", "mlp.{}.fc1",
+                                  "mlp.{}.fc2")}
+    for a, b in ((timg, img), (ttxt, txt)):
+        cos = torch.nn.functional.cosine_similarity(a.float(), b.float(),
+                                                    dim=-1)
+        assert float(cos.min()) >= 0.999, float(cos.min())

@@ -3,7 +3,10 @@
 The machine with the GPU has no JAX, so importing and running the port
 (the retrieval eval, the image tower under each eval-block route and
 through the split attention, the int8 retrieval eval, and one irtr train
-step without and one with the training fusion)
+step without and one with the training fusion; the merging suite:
+checkpoint I/O and surgery, the gram pass in both precisions, host and
+device merging, the ``merge.py`` and ``convert.py`` CLIs and the merged
+checkpoint's ``load_params``)
 must leave ``jax`` (and
 ``vl_merging_tpu``, whose subpackages import jax) out of
 ``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
@@ -107,6 +110,62 @@ SCRIPT = textwrap.dedent("""
     state, metrics = step(state, {"image": images, "text_ids": ids[:4],
                                   "text_masks": masks[:4]})
     assert state.step == 1 and bool(torch.isfinite(metrics["total_loss"]))
+
+    # the merging suite: checkpoints in and out, the gram pass through the
+    # taps, host and device merging, the CLIs and the merged checkpoint's
+    # ingest
+    import contextlib
+    import tempfile
+    from vl_merging_tpu_torch import convert, merge
+    from vl_merging_tpu_torch.ckpt import bicubic, io, pipeline, surgery
+    from vl_merging_tpu_torch.merging import core, device as mdevice
+    from vl_merging_tpu_torch.models import taps
+    from vl_merging_tpu_torch.train import gram
+
+    shape = dict(hidden_size=128, num_heads=2, num_layers=2, image_size=64,
+                 patch_size=16, max_text_len=8, max_text_len_of_initckpt=16,
+                 vlffn_start_layer_index=1, loss_names={"irtr": 1})
+    task = "task_finetune_irtr_coco_square_randaug_base_image384"
+    moe_cfg = build_config(task, "all_moe", overrides=shape)
+    moe_spec = make_model_spec(moe_cfg)
+    moe = init_params(moe_spec, g)
+    batch = {"image": images[:2], "text_ids": ids[:2],
+             "text_masks": masks[:2]}
+    grams = {p: gram.cache_gram_matrices(moe, moe_spec, moe_cfg, [batch],
+                                         precision=p)
+             for p in ("f64_host", "f32_device")}
+    assert set(grams["f64_host"]) == set(grams["f32_device"])
+    sd = io.params_to_state_dict(moe)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "moe.ckpt")
+        io.save_torch_checkpoint(sd, ckpt)
+        gpath = os.path.join(tmp, "G.pth")
+        gram.save_gram_matrices(grams["f64_host"], gpath)
+        args = ["with", task, "all_moe"] + [
+            f"{k}={v!r}" for k, v in shape.items()] + [
+            f"load_path={ckpt!r}", f"log_dir={tmp!r}"]
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):   # the CLIs' reports
+            out = merge.main(args + ["regmean=True",
+                                     f"gram_matrices={gpath!r}"])
+            convert.main(args)
+        ufo_cfg = build_config(task, "ufo", overrides=dict(
+            shape, load_path=out, test_only=True))
+        merged, missing, _ = pipeline.load_params(
+            ufo_cfg, make_model_spec(ufo_cfg))
+        assert missing == [], missing
+    kw = dict(num_layers=2, vlffn_start_layer_index=1,
+              loss_names={"irtr": 1})
+    fleet = mdevice.stack_checkpoints([sd, sd], "cpu")
+    mdevice.merge_weights_device(fleet, merge_ratio=[0.3, 0.7], **kw)
+    mdevice.sum_task_vectors_device(fleet, mdevice.stack_checkpoints(
+        [core.merge_weights(sd, **kw)] * 2, "cpu"), **kw)
+    mdevice.ratio_sweep(sd, [0.0, 0.5], device="cpu", **kw)
+    mdevice.regmean_device(fleet, {k: torch.from_numpy(v).float() for k, v
+                                   in grams["f64_host"].items()}, **kw)
+    bicubic.bicubic_resize(np.ones((2, 3, 3), np.float32), (5, 5))
+    assert surgery.INDEX_BUFFER_KEYS and taps.MOE_GRAM_SUFFIXES
+
     assert not touched, touched
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "vl_merging_tpu"))

@@ -360,7 +360,7 @@ def test_train_step_contracts():
     from the generator with keep/rate semantics; the kernel switch is on
     at @384."""
     cfg = _tiny_cfg(build_config, loss_names={"irtr": 1, "itm": 1})
-    with pytest.raises(NotImplementedError, match="itm objective.*A6"):
+    with pytest.raises(NotImplementedError, match="itm objective.*Pretrain objectives"):
         train_step.compute_losses({}, make_model_spec(cfg), cfg, {}, None)
     full = build_config("task_finetune_irtr_coco_square_randaug_base_image384")
     assert train_step._resolve_kernels(full, make_model_spec(full))

@@ -15,7 +15,10 @@ Ported so far: the COCO/Flickr retrieval eval (``evaluation.retrieval``)
 over the single-modality towers (``models.model.infer_image_ft`` /
 ``infer_text_ft``), in bf16 and in the W8A8 int8 mode (``eval_int8``,
 ``ops.int8``), and the irtr fine-tune step over the same towers
-(``train.loop.build_train_step``).
+(``train.loop.build_train_step``), and the merging suite: checkpoint I/O,
+surgery and ingest (``ckpt``), host and fleet merging (``merging``), the
+RegMean gram pass through activation taps (``train.gram``,
+``models.taps``) and the ``merge`` / ``convert`` CLIs.
 """
 
 __version__ = "0.1.0"

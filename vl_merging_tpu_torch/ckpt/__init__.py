@@ -1,1 +1,2 @@
-"""Parameter loading and eval-time casts."""
+"""Checkpoints: torch file I/O, surgery, the ingest pipeline, parameter
+loading and eval-time casts."""

@@ -35,7 +35,10 @@ package's non-Pallas path) except under the training fusion.  A
 width-specific kernel (K1, K3–K8, K13–K15) is taken only at a width it is
 built for (``ops.fused_block.kernel_takes``): the default route and the
 training fusion fall back to the plain ops elsewhere, an opt-in route
-raises (``eval_route_built``), as a pure function of shapes.  Type VL
+raises (``eval_route_built``), as a pure function of shapes.  Under a
+gram tap (``models/taps.py``) the blocks take the composed path, the
+attention kernels included, and tap the module inputs the JAX package
+taps; the eval and training fusions and K13 stay off.  Type VL
 (the fused VL pass, with its split-per-modality recursion and per-half
 experts) comes with ROADMAP A4.
 """
@@ -55,6 +58,7 @@ from ..ops.int8 import INT8_SUFFIX, SCALE_SUFFIX, fused_eval_block_i8
 from ..ops.mlp import fused_mlp, reference_mlp
 from .layers import layer_norm, linear
 from .spec import BlockSpec, ModelSpec, Params, L, V
+from .taps import tap_add, tapping
 
 LN_EPS = 1e-6  # partial(nn.LayerNorm, eps=1e-6); vision_transformer.py:831
 
@@ -155,10 +159,14 @@ def attention(params: Params, spec: ModelSpec, prefix: str, x: torch.Tensor,
     """Multi-head self-attention with fp32 logits, differentiable.
 
     x: (B, N, C); mask: (B, N) 1=valid; rel_bias: (heads, N, N) fp32.
-    reference: vision_transformer.py:329-363."""
+    reference: vision_transformer.py:329-363.  Gram taps: the module input
+    (post-LN) as ``prefix``, the context as ``prefix.proj``
+    (``vl_merging_tpu/models/mome.py:64, :97``)."""
+    tap_add(prefix, x)
     qkv = linear(x, params[f"{prefix}.qkv.weight"], _qkv_bias(params, prefix),
                  dtype=x.dtype)
     out = _attend(spec, qkv, mask, rel_bias, kernels=kernels)
+    tap_add(f"{prefix}.proj", out)
     return linear(out, params[f"{prefix}.proj.weight"],
                   params[f"{prefix}.proj.bias"], dtype=x.dtype)
 
@@ -168,9 +176,15 @@ def mlp(params: Params, prefix: str, x: torch.Tensor, *,
     """fc1 → GELU → fc2 (dropout rate is 0 in every reference config):
     through K13 under the kernel flag when the block has at least
     MLP_MIN_ROWS rows and K13 is built for its width and hidden
-    (mome.py:103-116 with ops/mlp.py:209-225, ``_mlp_kernel_ok``)."""
+    (mome.py:103-116 with ops/mlp.py:209-225, ``_mlp_kernel_ok``).  Under
+    a gram tap it is ``reference_mlp`` with the fc1 input and the GELU
+    output tapped as ``prefix.fc1`` and ``prefix.fc2`` (mome.py:112-120)."""
     args = (x, params[f"{prefix}.fc1.weight"], params[f"{prefix}.fc1.bias"],
             params[f"{prefix}.fc2.weight"], params[f"{prefix}.fc2.bias"])
+    if tapping():
+        tap_add(f"{prefix}.fc1", x)
+        return reference_mlp(
+            *args, on_hidden=lambda h: tap_add(f"{prefix}.fc2", h))
     if _mlp_kernel_ok(x.shape[-1], args[1].shape[0], x.shape[0] * x.shape[1],
                       kernels):
         return fused_mlp(*args)
@@ -189,6 +203,7 @@ def _expert(b: BlockSpec, type_id: int, which: str) -> str:
 
 
 def _ln(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    tap_add(name, x)  # gram tap: the norm's input (mome.py:129)
     return layer_norm(x, params[f"{name}.weight"], params[f"{name}.bias"],
                       eps=LN_EPS)
 
@@ -333,14 +348,17 @@ def block_forward(params: Params, spec: ModelSpec, b: BlockSpec,
         raise NotImplementedError(
             "type-VL blocks (the fused VL pass) are not ported yet: "
             "ROADMAP A4")
-    if train and train_fusion != "0":
+    # a gram tap needs the tapped inputs: no whole-block fusion under it
+    # (mome.py:235, :310); the attention kernels stay
+    fuse = not tapping()
+    if train and train_fusion != "0" and fuse:
         return _block_fast_train(params, spec, b, x, mask, rel_bias, type_id,
                                  dp_scale, kernels=kernels,
                                  train_fusion=train_fusion)
     if not train:
         fast = _block_fast(params, spec, b, x, mask, rel_bias, type_id,
                            kernels=kernels, int8_gelu=int8_gelu,
-                           qk_int8=qk_int8, fusion=fusion)
+                           qk_int8=qk_int8, fusion=fusion) if fuse else None
         if fast is not None:
             return fast
         dp_scale = None

@@ -61,7 +61,10 @@ def quantize_weight(w) -> Tuple[torch.Tensor, torch.Tensor]:
     even, clipped to ±127."""
     w32 = torch.as_tensor(w).float()
     amax = w32.abs().amax(dim=1)
-    scale = amax.clamp_min(1e-12) / 127.0
+    # divided by a tensor: PyTorch's CUDA kernels divide by a Python scalar
+    # as a multiply by its f32 reciprocal, which can round a scale one ulp
+    # off the IEEE quotient the JAX package takes (fault C10)
+    scale = amax.clamp_min(1e-12) / amax.new_tensor(127.0)
     q = torch.clamp(torch.round(w32 / scale[:, None]), -127, 127)
     return q.to(torch.int8), scale
 

@@ -27,12 +27,15 @@ from .attention import recompute_vjp
 from .fused_block import require_kernel  # K13 runs K3's MLP body
 
 
-def reference_mlp(x, w1, b1, w2, b2):
+def reference_mlp(x, w1, b1, w2, b2, on_hidden=None):
     """Plain path; x: (..., C).  fc1 is rounded to x's dtype before its
     bias, the exact-erf GELU runs in x's dtype, fc2 likewise
-    (``vl_merging_tpu/ops/mlp.py:reference_mlp``)."""
+    (``vl_merging_tpu/ops/mlp.py:reference_mlp``).  ``on_hidden``, when
+    given, is called with the GELU output (fc2's input)."""
     dt = x.dtype
     h = F.gelu(F.linear(x, w1.to(dt)) + b1.to(dt))
+    if on_hidden is not None:
+        on_hidden(h)
     return F.linear(h, w2.to(dt)) + b2.to(dt)
 
 

@@ -1,1 +1,2 @@
-"""Training: the irtr fine-tune step (objectives, optimizer, schedule)."""
+"""Training: the irtr fine-tune step (objectives, optimizer, schedule) and
+the RegMean gram pass."""

@@ -18,13 +18,14 @@ micro-batches, as the JAX package's ``lax.scan`` does.
 Randomness (text dropout, stochastic depth) comes from the state's
 ``torch.Generator``.  Not carried over from the JAX package: the TPU's
 ``unsafe_rbg`` PRNG (``_fast_rng``), and the in-graph augmentation and MLM
-masking hooks (``device_augment``, ``device_mlm``: ROADMAP A9).
+masking hooks (``device_augment``, ``device_mlm``: the ROADMAP item
+"In-graph preprocessing").
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -33,17 +34,19 @@ from . import objectives
 from .optimizer import AdamW, OptState
 
 # the tasks of the JAX package's compute_losses that the port does not
-# run yet, with the ROADMAP item that brings each
+# run yet, with the ROADMAP item (by its title) that brings each
+_PRETRAIN = '"Pretrain objectives, the other fine-tunes and the dVAE"'
+_VL_PASS = '"The fused VL pass and the downstream eval"'
 _NOT_PORTED = {
-    "mlm": "A6 (@224 pretrain objectives)",
-    "mim": "A6 (@224 pretrain objectives) and A10 (dVAE)",
-    "ifm": "A6 (@224 pretrain objectives)",
-    "itm": "A6 (@224 pretrain objectives)",
-    "image_only_mim": "A6 and A10 (dVAE)",
-    "text_only_mlm": "A6 (@224 pretrain objectives)",
-    "vqa": "A4 (fused VL pass) and A6",
-    "nlvr2": "A4 (fused VL pass) and A6",
-    "img_cls": "A6",
+    "mlm": _PRETRAIN,
+    "mim": _PRETRAIN,
+    "ifm": _PRETRAIN,
+    "itm": _PRETRAIN,
+    "image_only_mim": _PRETRAIN,
+    "text_only_mlm": _PRETRAIN,
+    "vqa": f"{_VL_PASS} and {_PRETRAIN}",
+    "nlvr2": f"{_VL_PASS} and {_PRETRAIN}",
+    "img_cls": _PRETRAIN,
 }
 
 
@@ -71,24 +74,28 @@ def active_tasks(cfg: Dict) -> Tuple[str, ...]:
 
 
 def compute_losses(params: Params, spec: ModelSpec, cfg: Dict, batch: Dict,
-                   generator: torch.Generator, *,
-                   kernels: bool = True, train_fusion: str = "0") -> Dict:
-    """Training-mode task dispatch in reference order
-    (vilt_module.py:1467-1523); the port runs irtr and raises for every
-    other task.  ``train_fusion`` is the training fusion level of every
-    block ("0", "tail" or "full"; ``mome._block_fast_train``)."""
+                   generator: Optional[torch.Generator], *,
+                   train: bool = True, kernels: bool = True,
+                   train_fusion: str = "0") -> Dict:
+    """Task dispatch in reference order (vilt_module.py:1467-1523); the
+    port runs irtr and raises for every other task.  ``train=False`` is
+    the eval-mode forward of the gram pass (``train/gram.py``; the JAX
+    package's gram.py:36-58): no dropout, no stochastic depth, the eval
+    blocks.  ``train_fusion`` is the training fusion level of every block
+    ("0", "tail" or "full"; ``mome._block_fast_train``)."""
     if cfg["tasks"] is not None and any(k in batch for k in ("v", "l", "vl")):
         raise NotImplementedError(
-            "mixed single/multi-modal batches are not ported yet: ROADMAP A6")
+            "mixed single/multi-modal batches are not ported yet: ROADMAP "
+            f"item {_PRETRAIN}")
     tasks = active_tasks(cfg)
     for task in tasks:
         if task in _NOT_PORTED:
             raise NotImplementedError(
-                f"the {task} objective is not ported yet: ROADMAP "
+                f"the {task} objective is not ported yet: ROADMAP item "
                 f"{_NOT_PORTED[task]}")
     out: Dict = {}
     if "irtr" in tasks:
-        out.update(objectives.compute_irtr(params, spec, batch, train=True,
+        out.update(objectives.compute_irtr(params, spec, batch, train=train,
                                            generator=generator,
                                            kernels=kernels,
                                            train_fusion=train_fusion))
