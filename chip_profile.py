@@ -37,6 +37,12 @@ union of the device kernels' intervals), the idle share (1 − busy / wall)
 and the kernels with the most device time.
 
 ``python3 chip_profile.py --int8`` runs only the three int8 windows.
+Last come the fused VL pass's windows (``python3 chip_profile.py --vl``
+runs them alone): ``VQA @480 bf16`` and ``VQA @480 W8A8``,
+``vqa_predictions`` over 2 batches of 32 questions (ufo; 40 text and 901
+image tokens, the joint 941 in layers 10-11); ``NLVR2 @384 ufo``, the
+paired pass over 32 pairs; and the @384 eval with the ITM rerank (top 4,
+64 pairs a fused pass).
 
 ``python3 chip_profile.py --variants`` runs only this: K1, K2, K7, K8, K14,
 K15 and K12 beside design variants that their sources rejected, each built from a
@@ -127,6 +133,7 @@ import chip_smoke as smoke
 from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, master_params
 from vl_merging_tpu_torch.config import build_config
 from vl_merging_tpu_torch.device import require_cuda
+from vl_merging_tpu_torch.evaluation import downstream
 from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall, \
     extract_features
 from vl_merging_tpu_torch.models.spec import make_model_spec
@@ -1056,6 +1063,44 @@ def int8_windows(base, text_b, image_b, tiids, iids, card: str) -> None:
             params8, spec8, image_b, "image", qk_int8=qk_int8), card)
 
 
+def vl_windows(dev, card: str) -> None:
+    """The fused VL pass at ``chip_smoke.py`` phase 12's shapes and seeds:
+    VQA @480 through ``vqa_predictions`` (2 batches of 32 questions, bf16
+    "tail" and W8A8), the NLVR2 @384 paired pass over 32 pairs, and the
+    COCO @384 eval with the ITM rerank (top 4)."""
+    cfg = build_config(*smoke.CONFIG_VQA,
+                       overrides=dict(image_size=smoke.VQA_SIZE))
+    spec = make_model_spec(cfg)
+    base = smoke.seeded_params(spec, dev)
+    batches = smoke.vqa_batches(spec, dev)
+    for label, over in (("bf16", {}), ("W8A8", dict(eval_int8=True))):
+        c = dict(cfg, **over)
+        s = make_model_spec(c)
+        p = eval_cast_params(base, s, c)
+        trace(f"VQA @480 {label}, {len(batches)} x {smoke.VQA_BATCH}",
+              lambda p=p, s=s: downstream.vqa_predictions(p, s, batches, {}),
+              card)
+        del p
+    del base
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 31)
+    cfg = build_config(smoke.CONFIG_NLVR2, "ufo")
+    spec = make_model_spec(cfg)
+    params = eval_cast_params(smoke.seeded_params(spec, dev), spec, cfg)
+    batch = smoke.nlvr2_batch(spec, dev, gen, smoke.NLVR2_PAIRS)
+    trace(f"NLVR2 @384 ufo, {smoke.NLVR2_PAIRS} pairs",
+          lambda: downstream.nlvr2_predictions(params, spec, [batch]), card)
+    cfg = build_config(*smoke.CONFIG, overrides=dict(
+        loss_names={"irtr": 1, "itm": 1}))
+    spec = make_model_spec(cfg)
+    params = eval_cast_params(smoke.seeded_params(spec, dev), spec, cfg)
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 1)
+    eval_set = smoke.synthetic_eval_set(spec, dev, gen)
+    trace(f"eval @384 with the ITM rerank (top {smoke.RERANK_TOPK})",
+          lambda: compute_irtr_recall(params, spec, *eval_set,
+                                      itm_rerank_topk=smoke.RERANK_TOPK),
+          card)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k7", action="store_true",
@@ -1068,6 +1113,8 @@ def main() -> None:
                         help="fault C8's two repairs side by side alone")
     parser.add_argument("--int8", action="store_true",
                         help="the int8 windows alone")
+    parser.add_argument("--vl", action="store_true",
+                        help="the fused VL pass's windows alone")
     parser.add_argument("--parent", type=Path, metavar="TREE",
                         help="with --variants: K10 and K11 beside those of "
                              "the tree at TREE (another checkout's root)")
@@ -1088,6 +1135,9 @@ def main() -> None:
     if opts.variants is not None:
         variants(dev, card, opts.variants or [k for k in SOURCES if k != "K9b"],
                  opts.parent)
+        return
+    if opts.vl:
+        vl_windows(dev, card)
         return
     if not opts.int8:
         k7_phases(dev, card)
@@ -1188,6 +1238,8 @@ def main() -> None:
     def one_step_l():
         holder[0] = step(holder[0], mb)[0]
     trace("train ViT-L (kernels)", one_step_l, card)
+    del state, step, holder, base_l
+    vl_windows(dev, card)
 
 
 if __name__ == "__main__":

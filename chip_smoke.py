@@ -182,7 +182,35 @@ Phases, each fatal on failure:
      f64 grams cast to f32 against the host f64 regmean, each merged
      weight within ``regmean_bound`` of its summed grams' printed
      condition number and within ``REGMEAN_MEASURED_SHARE`` (0.1) of
-     that bound, the limit set from the drift measured on an H100.
+     that bound, the limit set from the drift measured on an H100;
+ 12. the fused VL pass and the downstream eval (``model.infer``, seeded
+     weights, captions of 5 to 40 valid tokens, so the joint key mask has
+     zeros inside): VQA @480
+     (``task_finetune_vqa_square_randaug_base_image384_ufo`` + ``ufo``,
+     ``image_size`` 480: layers 0-9 split into the 40 text tokens and 901
+     image tokens, layers 10-11 run the joint 941) through
+     ``evaluation/downstream.vqa_predictions`` over 2 batches of 32
+     questions: per batch K1, K2, K3 12 and K13 10 (the text halves'
+     MLP), ``scan_k`` 2 giving scan_k 1's answers, a submission json
+     written, logits within cosine 0.999 of the plain path's; in W8A8
+     (``eval_int8``: K14, K2, K15 12 and K13 10 per batch, within cosine
+     0.999 of the int8 plain path); questions/s, bf16 plain and kernels
+     and W8A8, in turns; NLVR2 @384
+     (``task_finetune_nlvr2_square_randaug_base_image384``) in ufo and
+     all_moe over 32 pairs through ``train_step.compute_losses(...,
+     train=False)`` (the paired pass: K1, K2, K3 24 and K13 20),
+     ``nlvr2_correct`` through ``nlvr2_split_update`` and
+     ``MetricAccumulator`` into ``the_metric``, the paired cls features
+     within cosine 0.999 of the plain path's, pairs/s in turns; NLVR2 @224
+     in ufo (197 image and 237 joint tokens, below ``KERNEL_MIN_N``: K11
+     24 and K13 44, no K1, K2 or K3); the @384 fused pass by each
+     ``fusion`` (K7 and K8 at N=617 in the deep layers), bit-equal to
+     "tail"; the ITM rerank of phase 4's eval (the config with its ITM
+     head; top 4, 64 pairs a fused pass: 24 passes, each K1-K3 12 and K13
+     10) with its recall and wall seconds, the reranked log-probabilities
+     within cosine 0.999 of the plain path's; K2 alone at N = 577 (a mask
+     of ones), 617 and 941 (the joint mask) against its twin, timed beside
+     SDPA and its bound (K2's row: ``at_577``, ``at_617``, ``at_941``).
 
 Each row of the ``{"kernels": ...}`` line carries the widths it was held
 at (``widths``) and, for the kernels built for 1024, its figures there
@@ -223,13 +251,15 @@ from vl_merging_tpu_torch.ckpt.io import load_torch_checkpoint, \
 from vl_merging_tpu_torch.ckpt.pipeline import load_params
 from vl_merging_tpu_torch.config import build_config
 from vl_merging_tpu_torch.device import require_cuda
+from vl_merging_tpu_torch.evaluation import downstream, metrics
 from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall, \
-    extract_features
+    extract_features, itm_rerank_scores
 from vl_merging_tpu_torch.merging import core as merging
 from vl_merging_tpu_torch.merging import device as merging_device
-from vl_merging_tpu_torch.models import mome
+from vl_merging_tpu_torch.models import model, mome
 from vl_merging_tpu_torch.models.layers import layer_norm
-from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
+from vl_merging_tpu_torch.models.spec import VL, init_params, \
+    make_model_spec
 from vl_merging_tpu_torch.models.taps import MOE_GRAM_SUFFIXES
 from vl_merging_tpu_torch.ops import _build
 from vl_merging_tpu_torch.ops import attention as attn_ops
@@ -599,7 +629,7 @@ def work(name: str, args) -> tuple:
         return 2 * M * x.shape[-1] * O, nbytes(x, lw, lb, w, b) + M * O * 2
     if name == "packed_attention":
         qkv, bias, mask, _, heads = args
-        flops = 4 * 64 * N * heads * _valid_keys(mask)
+        flops = 4 * 64 * qkv.shape[1] * heads * _valid_keys(mask)
         return flops, nbytes(qkv, bias, mask) + qkv.numel() // 3 * 2
     if name in ("split_attention", "split_attention_bb"):
         q, k, v, bias, mask = args[:5]
@@ -654,8 +684,8 @@ def _sdpa_args(qkv, bias, mask):
     """q, k, v (B, H, N, d) views of the packed qkv and the additive mask
     (B, H, N, N) bf16: the bias with masked keys (mask <= 0, the kernels'
     rule) at -inf."""
-    B, heads = qkv.shape[0], bias.shape[0]
-    q, k, v = qkv.view(B, N, 3, heads, 64).permute(2, 0, 3, 1, 4)
+    B, n, heads = qkv.shape[0], qkv.shape[1], bias.shape[0]
+    q, k, v = qkv.view(B, n, 3, heads, 64).permute(2, 0, 3, 1, 4)
     am = bias[None] + torch.zeros_like(mask, dtype=torch.float32).masked_fill(
         mask <= 0, float("-inf"))[:, None, None, :]
     return q, k, v, am.to(qkv.dtype)
@@ -2669,6 +2699,400 @@ def run_merging(dev, card: str) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the fused VL pass and the downstream eval
+# --------------------------------------------------------------------------
+
+# VQA @480: the published fine-tune's eval size, which the task config
+# (image_size 224) reaches by this override (bench.py:503-506), composed
+# with ufo: layers 0-9 split per modality (40 text, 901 image tokens),
+# layers 10-11 run the joint 941
+CONFIG_VQA = ("task_finetune_vqa_square_randaug_base_image384_ufo", "ufo")
+VQA_SIZE, VQA_BATCH, VQA_BATCHES = 480, 32, 2
+CONFIG_NLVR2 = "task_finetune_nlvr2_square_randaug_base_image384"
+CONFIG_NLVR2_224 = "task_finetune_nlvr2_square_randaug_base"
+NLVR2_PAIRS = 32
+# the ITM rerank of phase 4's COCO eval: each query's top 4, 64 pairs a
+# fused pass (16 queries a chunk)
+RERANK_TOPK, RERANK_PAIR_BATCH = 4, 64
+# K2 alone at the image tower's and the fused passes' lengths
+K2_LENGTHS = (577, 617, 941)
+
+
+def vl_captions(spec, n, dev, gen):
+    """n captions of 5 to 40 valid tokens (bench.py:514-518): caption
+    padding leaves zeros inside a fused pass's key range."""
+    T = spec.max_text_len
+    ids = torch.randint(1000, spec.vocab_size, (n, T), device=dev,
+                        generator=gen)
+    lengths = torch.randint(5, T + 1, (n, 1), device=dev, generator=gen)
+    return ids, (torch.arange(T, device=dev)[None] < lengths).to(torch.int32)
+
+
+def fused_launches(spec, passes: int, fusion: str = "tail",
+                   int8: bool = False) -> dict:
+    """The launches of ``passes`` fused passes at @384 or @480: every layer
+    runs its eval block's kernels once (a split layer's image half, a deep
+    layer's joint sequence), every split layer K13 once more (its text
+    half's MLP; the text half's 40 tokens take the plain attention)."""
+    L = spec.num_layers
+    split = sum(mome.splits(b, VL) for b in spec.blocks)
+    names = ("ln_linear_i8", "packed_attention", "proj_mlp_tail_i8") if \
+        int8 else ROUTE_KERNELS[fusion]
+    return want_launches(mlp=split * passes,
+                         **dict.fromkeys(names, L * passes))
+
+
+def check_launches(label: str, got: dict, want: dict) -> None:
+    print(f"{label}: kernel launches "
+          f"{ {k: v for k, v in got.items() if v} } (want "
+          f"{ {k: v for k, v in want.items() if v} }, nothing else)")
+    if got != want:
+        fail(f"{label}: kernel launches {got}, want {want}")
+
+
+def check_cosine(label: str, got, want) -> float:
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label}: not finite")
+    cos = min_cosine(got, want)
+    print(f"{label}, kernels vs plain path: min cosine {cos:.6f} (need >= "
+          f"{MIN_COSINE})")
+    if cos < MIN_COSINE:
+        fail(f"{label}: the kernel path disagrees with the plain path")
+    return cos
+
+
+def per_sec(fn, n: int) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def rates_in_turns(paths: dict, n: int) -> dict:
+    """Each path's best rate of two, taken in the order a, b, ..., b, a."""
+    rates = {k: [] for k in paths}
+    for k in list(paths) + list(paths)[::-1]:
+        rates[k].append(per_sec(paths[k], n))
+    return {k: max(v) for k, v in rates.items()}
+
+
+def vqa_batches(spec, dev) -> list:
+    """The seeded VQA feeds: batches of questions (captions of 5 to 40
+    valid tokens), images and question ids."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+    out = []
+    for i in range(VQA_BATCHES):
+        ids, masks = vl_captions(spec, VQA_BATCH, dev, gen)
+        out.append({"text_ids": ids, "text_masks": masks,
+                    "image": torch.randn(VQA_BATCH, 3, spec.image_size,
+                                         spec.image_size, device=dev,
+                                         generator=gen),
+                    "qid": list(range(i * VQA_BATCH, (i + 1) * VQA_BATCH))})
+    return out
+
+
+def run_vqa(dev, card: str) -> dict:
+    """VQA @480 through ``vqa_predictions`` in bf16 ("tail") and in W8A8."""
+    cfg = build_config(*CONFIG_VQA, overrides=dict(image_size=VQA_SIZE))
+    spec = make_model_spec(cfg)
+    if spec.max_text_len + spec.image_len != 941:
+        fail(f"VQA @480 fuses {spec.max_text_len + spec.image_len} tokens, "
+             f"expected 941")
+    base = seeded_params(spec, dev)
+    params = eval_cast_params(base, spec, cfg)
+    batches = vqa_batches(spec, dev)
+    n_q = VQA_BATCH * VQA_BATCHES
+    id2answer = {i: f"answer {i}" for i in range(spec.vqav2_label_size)}
+    launches = dict.fromkeys(KERNELS, 0)
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rets = downstream.vqa_predictions(params, spec, batches, id2answer)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = read_launches()
+    check_launches(f"VQA @480 bf16 'tail', {VQA_BATCHES} batches of "
+                   f"{VQA_BATCH}", got, fused_launches(spec, VQA_BATCHES))
+    launches = {k: launches[k] + got[k] for k in KERNELS}
+    print(f"vqa_predictions (VQA @480, bf16): {seconds:.3f} s for {n_q} "
+          f"questions (the first call: the bias gather of ten split and two "
+          f"joint layers included)")
+    if downstream.vqa_predictions(params, spec, batches, id2answer,
+                                  scan_k=2) != rets:
+        fail("vqa_predictions: scan_k 2 and 1 give different answers")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = downstream.write_vqa_submission(rets, "chip_smoke", tmp)
+        records = json.loads(Path(path).read_text())
+    if [r["question_id"] for r in records] != list(range(n_q)):
+        fail(f"the VQA submission holds {len(records)} records")
+    print(f"VQA submission: {len(records)} records written, scan_k 2 gives "
+          f"scan_k 1's answers")
+    logits_k = torch.cat([downstream.vqa_logits(params, spec, b)
+                          for b in batches])
+    logits_p = torch.cat([downstream.vqa_logits(params, spec, b,
+                                                kernels=False)
+                          for b in batches])
+    if logits_k.shape != (n_q, spec.vqav2_label_size):
+        fail(f"VQA logits of shape {tuple(logits_k.shape)}")
+    check_cosine("VQA @480 bf16 logits", logits_k, logits_p)
+
+    cfg8 = build_config(*CONFIG_VQA, overrides=dict(image_size=VQA_SIZE,
+                                                    eval_int8=True))
+    spec8 = make_model_spec(cfg8)
+    params8 = eval_cast_params(base, spec8, cfg8)
+    del base
+    reset_launches()
+    rets8 = downstream.vqa_predictions(params8, spec8, batches, id2answer)
+    got = read_launches()
+    check_launches(f"VQA @480 W8A8, {VQA_BATCHES} batches of {VQA_BATCH}",
+                   got, fused_launches(spec8, VQA_BATCHES, int8=True))
+    launches = {k: launches[k] + got[k] for k in KERNELS}
+    logits8 = torch.cat([downstream.vqa_logits(params8, spec8, b)
+                         for b in batches])
+    with int8_plain_path():
+        logits8_p = torch.cat([downstream.vqa_logits(params8, spec8, b)
+                               for b in batches])
+    check_cosine("VQA @480 W8A8 logits (the int8 plain path)", logits8,
+                 logits8_p)
+    same = sum(a == b for a, b in zip(rets8, rets))
+    print(f"VQA @480 W8A8 against bf16 (no gate): {same} of {n_q} answers "
+          f"equal, logits min cosine {min_cosine(logits8, logits_k):.6f}")
+
+    def answers(p, s, kernels=True):
+        return lambda: downstream.vqa_predictions(p, s, batches, id2answer,
+                                                  kernels=kernels)
+
+    rates = rates_in_turns({"bf16 plain": answers(params, spec, False),
+                            "bf16 kernels": answers(params, spec),
+                            "W8A8 kernels": answers(params8, spec8)}, n_q)
+    print(f"VQA @480 (ViT-B/16, batch {VQA_BATCH}, {n_q} questions a call, "
+          f"the bias gather included): "
+          + ", ".join(f"{k} {v:.1f} questions/s" for k, v in rates.items())
+          + f" (best of 2, in turns) [{card}]")
+    return launches
+
+
+def nlvr2_batch(spec, dev, gen, n: int) -> dict:
+    ids, masks = vl_captions(spec, n, dev, gen)
+    size = spec.image_size
+    return {"text_ids": ids, "text_masks": masks,
+            "image_0": torch.randn(n, 3, size, size, device=dev,
+                                   generator=gen),
+            "image_1": torch.randn(n, 3, size, size, device=dev,
+                                   generator=gen),
+            "answers": torch.randint(0, 2, (n,), device=dev, generator=gen)}
+
+
+@torch.no_grad()
+def pair_feats(params, spec, batch, **route):
+    """The paired pass's concatenated cls features (B, 2C)."""
+    return torch.cat([model.infer(params, spec, batch,
+                                  image_token_type_idx=i, **route)
+                      ["cls_feats"] for i in (1, 2)], dim=-1)
+
+
+def run_nlvr2(dev, card: str) -> dict:
+    """NLVR2 @384 (ufo and all_moe) and @224 through ``compute_losses(...,
+    train=False)``, the split and metrics; the @384 fused pass by each
+    ``fusion``."""
+    launches = dict.fromkeys(KERNELS, 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    tables = [f"{'dev' if i % 2 else 'test1'}-{i}" for i in range(NLVR2_PAIRS)]
+    for name, mode in ((CONFIG_NLVR2, "ufo"), (CONFIG_NLVR2, "all_moe"),
+                       (CONFIG_NLVR2_224, "ufo")):
+        cfg = build_config(name, mode)
+        spec = make_model_spec(cfg)
+        params = eval_cast_params(seeded_params(spec, dev), spec, cfg)
+        batch = nlvr2_batch(spec, dev, gen, NLVR2_PAIRS)
+        at = f"NLVR2 @{spec.image_size} {mode}, {NLVR2_PAIRS} pairs"
+        reset_launches()
+        with torch.no_grad():
+            out = train_step.compute_losses(params, spec, cfg, batch, None,
+                                            train=False)
+        got = read_launches()
+        if name == CONFIG_NLVR2:
+            want = fused_launches(spec, 2)
+        else:
+            # @224 every block is below KERNEL_MIN_N (197 image, 237 joint
+            # tokens): the composed path, its attention through K11 (B=32)
+            # and its MLP through K13 (the text half's too)
+            split = sum(mome.splits(b, VL) for b in spec.blocks)
+            want = want_launches(
+                split_attention_bb=2 * spec.num_layers,
+                mlp=2 * (2 * split + spec.num_layers - split))
+        check_launches(at, got, want)
+        launches = {k: launches[k] + got[k] for k in KERNELS}
+        acc = metrics.MetricAccumulator()
+        acc.update({k: out[k] for k in ("nlvr2_correct", "nlvr2_count",
+                                         "nlvr2_loss")})
+        downstream.nlvr2_split_update(acc, out["nlvr2_logits"],
+                                      batch["answers"], tables)
+        computed = acc.compute()
+        print(f"{at}: nlvr2_correct {int(out['nlvr2_correct'])} of "
+              f"{out['nlvr2_count']}, loss {float(out['nlvr2_loss']):.4f}; "
+              f"metrics {json.dumps(computed)}; the_metric "
+              f"{metrics.the_metric({'nlvr2': 1}, computed):.4f}")
+        split = acc.sums["dev_nlvr2_correct"] + acc.sums["test_nlvr2_correct"]
+        if not np.isfinite(float(out["nlvr2_loss"])) or \
+                split != float(out["nlvr2_correct"]):
+            fail(f"{at}: the loss is not finite or the dev/test split "
+                 f"({split}) disagrees with nlvr2_correct")
+        check_cosine(f"{at}: paired cls features",
+                     pair_feats(params, spec, batch),
+                     pair_feats(params, spec, batch, kernels=False))
+
+        def preds(kernels):
+            return lambda: downstream.nlvr2_predictions(
+                params, spec, [batch], kernels=kernels)
+
+        rates = rates_in_turns({"plain": preds(False),
+                                "kernels": preds(True)}, NLVR2_PAIRS)
+        print(f"{at}: " + ", ".join(f"{k} {v:.1f} pairs/s"
+                                    for k, v in rates.items())
+              + f" (best of 2, in turns) [{card}]")
+        if (name, mode) == (CONFIG_NLVR2, "ufo"):
+            launches = run_fused_routes(params, spec, batch, launches)
+    return launches
+
+
+def run_fused_routes(params, spec, batch, launches: dict) -> dict:
+    """The @384 fused pass (N = 617 in the deep layers) by each ``fusion``:
+    its launches, and every route's hidden states bit-equal to "tail"'s."""
+    out = {}
+    for fusion in fb_ops.FUSIONS:
+        reset_launches()
+        with torch.no_grad():
+            o = model.infer(params, spec, batch, fusion=fusion)
+        got = read_launches()
+        check_launches(f"fused pass @384 by {fusion!r}", got,
+                       fused_launches(spec, 1, fusion))
+        launches = {k: launches[k] + got[k] for k in KERNELS}
+        out[fusion] = torch.cat([o["text_feats"], o["image_feats"]], dim=1)
+    equal = {f: torch.equal(out[f], out["tail"]) for f in fb_ops.FUSIONS}
+    print(f"fused pass @384: hidden states bit-equal to 'tail': {equal} "
+          f"(K7 and K8 at N=617 in the deep layers)")
+    if not all(equal.values()):
+        fail(f"a fusion route of the fused pass differs from 'tail': {equal}")
+    return launches
+
+
+def run_rerank(dev, card: str) -> dict:
+    """The ITM rerank of phase 4's COCO @384 eval (the config with its ITM
+    head): ``compute_irtr_recall(itm_rerank_topk=4)``."""
+    cfg = build_config(*CONFIG, overrides=dict(loss_names={"irtr": 1,
+                                                           "itm": 1}))
+    spec = make_model_spec(cfg)
+    params = eval_cast_params(seeded_params(spec, dev), spec, cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    text_batches, image_batches, tiids, iids = synthetic_eval_set(
+        spec, dev, gen)
+    chunk = RERANK_PAIR_BATCH // RERANK_TOPK
+    chunks = -(-len(iids) // chunk) + -(-len(tiids) // chunk)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recall = compute_irtr_recall(params, spec, text_batches, image_batches,
+                                 tiids, iids, itm_rerank_topk=RERANK_TOPK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = read_launches()
+    per_chunk = fused_launches(spec, 1)
+    L = spec.num_layers
+    towers = want_launches(mlp=L * len(text_batches), **dict.fromkeys(
+        ROUTE_KERNELS["tail"], L * len(image_batches)))
+    check_launches(f"ITM rerank (top {RERANK_TOPK}, {chunks} chunks of "
+                   f"{chunk} queries: {per_chunk['ln_linear']} K1-K3 and "
+                   f"{per_chunk['mlp']} K13 a chunk, beside the towers)", got,
+                   {k: towers[k] + chunks * per_chunk[k] for k in KERNELS})
+    print(f"compute_irtr_recall with the ITM rerank: {seconds:.3f} s wall for "
+          f"{len(iids)} images, {len(tiids)} captions, {chunks} fused passes "
+          f"of {RERANK_PAIR_BATCH} pairs [{card}]; recall "
+          + json.dumps(recall))
+    if not all(0.0 <= v <= 1.0 for v in recall.values()):
+        fail(f"rerank recall out of range: {recall}")
+
+    with torch.no_grad():
+        img = extract_features(params, spec, image_batches, "image")
+        txt = extract_features(params, spec, text_batches, "text")
+    ids = torch.cat([b["text_ids"] for b in text_batches])
+    masks = torch.cat([b["text_masks"] for b in text_batches])
+    images = torch.cat([b["image"] for b in image_batches])
+    scores = img.float() @ txt.float().T
+    for axis, label in ((1, "text retrieval"), (0, "image retrieval")):
+        s_k, s_p = (itm_rerank_scores(params, spec, ids, masks, images,
+                                      scores, RERANK_TOPK, axis=axis,
+                                      kernels=kernels)
+                    for kernels in (True, False))
+        picked = s_k > -1e7
+        if not torch.equal(picked, s_p > -1e7):
+            fail(f"rerank ({label}): the candidates differ between paths")
+        k, p = s_k[picked] / 1e4, s_p[picked] / 1e4
+        cos = float(F.cosine_similarity(k, p, dim=0))
+        print(f"rerank ({label}): {int(picked.sum())} ITM log-probabilities, "
+              f"kernels vs plain path: cosine {cos:.6f} (need >= "
+              f"{MIN_COSINE}), max |Δ| {float((k - p).abs().max()):.3e}")
+        if cos < MIN_COSINE or not bool(torch.isfinite(k).all()):
+            fail(f"rerank ({label}): the kernel path disagrees")
+    return got
+
+
+def check_joint_attention(dev, rows, card: str) -> None:
+    """K2 alone at the image tower's length (577, a mask of ones) and the
+    fused passes' (617, 941; the joint mask, zeros inside): against its
+    twin, timed beside SDPA and its bound; K2's row of the kernels line
+    takes them under ``at_n``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    out = {}
+    for n in K2_LENGTHS:
+        qkv = torch.randn(IMAGE_BATCH, n, 3 * C, device=dev,
+                          generator=gen).bfloat16()
+        bias = torch.randn(HEADS, n, n, device=dev, generator=gen)
+        mask = torch.ones(IMAGE_BATCH, n, dtype=torch.int32, device=dev)
+        if n != N:
+            lengths = torch.randint(5, 41, (IMAGE_BATCH, 1), device=dev,
+                                    generator=gen)
+            mask[:, :40] = (torch.arange(40, device=dev)[None] <
+                            lengths).to(torch.int32)
+        args = (qkv, bias, mask, 64 ** -0.5, HEADS)
+        got = attn_ops.packed_attention(*args)
+        want = attn_ops.packed_attention_reference(*args)
+        torch.cuda.synchronize()
+        max_err, worst, differ = ulp_check("packed_attention", got, want)
+        ms = time_ms(lambda: attn_ops.packed_attention(*args))
+        plain_ms = time_ms(lambda: attn_ops.packed_attention_reference(
+            *args), iters=TIMED_ITERS // 2)
+        library_ms = time_ms(library_call("packed_attention", args))
+        bound_ms, bound_by = bound(*work("packed_attention", args))
+        out[n] = ms
+        print(f"packed_attention at N={n} (B={IMAGE_BATCH}, "
+              f"{'ones' if n == N else 'joint mask, ' + str(int((mask == 0).sum())) + ' zeros inside'}): "
+              f"max |kernel - twin| = {max_err:.6g}, worst err/bound = "
+              f"{worst:.3f}, {differ:.3e} of the elements differ; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
+        if not bool(torch.isfinite(got).all()) or worst > 1.0:
+            fail(f"packed_attention disagrees with its twin at N={n}")
+        rows["packed_attention"][f"at_{n}"] = {
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+    first = K2_LENGTHS[0]
+    print("packed_attention against N=" + str(first) + ": " + ", ".join(
+        f"N={n} {out[n] / out[first]:.3f} x" for n in K2_LENGTHS[1:])
+        + f" [{card}]")
+
+
+def run_vl(dev, card: str, rows: dict) -> dict:
+    """Phase 12: VQA @480 (bf16, W8A8), NLVR2 @384 and @224, the fused
+    pass by route, the ITM rerank, K2 at the joint lengths."""
+    counts = [run_vqa(dev, card), run_nlvr2(dev, card), run_rerank(dev, card)]
+    check_joint_attention(dev, rows, card)
+    return {k: sum(c[k] for c in counts) for k in KERNELS}
+
+
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
 # of their entry functions in the library's SASS (K7, K14 and K15 by
 # width: their instantiations at C=768 and 1024).
@@ -2838,7 +3262,7 @@ def main() -> int:
         return 0
 
     prebuilt = _build.library_path().exists()
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
     _build.library()
     print(f"kernels ready in {time.perf_counter() - t0:.1f} s ("
           + ("library already built" if prebuilt else "built by nvcc") + ")")
@@ -2854,13 +3278,16 @@ def main() -> int:
              "train_fusion": run_train_fusion(dev, card),
              "large": run_large(dev, card),
              "tiny": run_tiny(dev, card),
-             "merging": run_merging(dev, card)}
+             "merging": run_merging(dev, card),
+             "vl": run_vl(dev, card, rows)}
     for name, row in rows.items():
         for path, launches in paths.items():
             row[f"launches_{path}"] = launches[name]
         row["launches"] = sum(launches[name] for launches in paths.values())
         if row["launches"] == 0:
             fail(f"{name} was launched no time on the main paths")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - start:.1f} s, the build included [{card}]")
     print(json.dumps({"kernels": list(rows.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

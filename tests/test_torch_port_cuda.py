@@ -33,6 +33,10 @@ every element's gammas are K3's.  A @224 image tower layer takes K11 or
 K10; a training block under ``train_fusion`` takes K6 (and K1 under
 "full").
 
+The fused VL pass: K2 over joint text + image lengths (N = 617, 941)
+with caption padding inside the key range, K7 and K8 at N = 617, and one
+full-width VL block, split and joint, against the plain path.
+
 Fault C10: ``ops/int8.quantize_weight`` gives on the card the CPU's int8
 weights and scales bit for bit.  The merging suite on the card:
 ``merging/device.py`` against the port's host merging (4 ulp, and the
@@ -1247,3 +1251,91 @@ def test_tapped_towers_launch_k2_only_on_card(cuda_device):
         cos = torch.nn.functional.cosine_similarity(a.float(), b.float(),
                                                     dim=-1)
         assert float(cos.min()) >= 0.999, float(cos.min())
+
+
+def _joint_mask(dev, g, B, N, T=40):
+    """The fused pass's key mask, [text_masks, ones]: captions of 5 to T
+    valid tokens, so caption padding leaves zeros inside the key range."""
+    lengths = torch.randint(5, T + 1, (B, 1), device=dev, generator=g)
+    text = (torch.arange(T, device=dev)[None] < lengths).to(torch.int32)
+    return torch.cat([text, torch.ones(B, N - T, dtype=torch.int32,
+                                       device=dev)], dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [617, 941])
+def test_packed_attention_with_a_joint_mask_on_card(cuda_device, N):
+    """K2 over a joint text + image sequence (40 + 577 at @384, 40 + 901 at
+    VQA @480) whose key mask has zeros inside the sequence: within 4 ulps
+    of its twin, and two launches agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(50 + N)
+    B, H = 4, 12
+    qkv = torch.randn(B, N, 3 * 64 * H, device=cuda_device,
+                      generator=g).bfloat16()
+    bias = torch.randn(H, N, N, device=cuda_device, generator=g)
+    mask = _joint_mask(cuda_device, g, B, N)
+    assert bool((mask[:, :40] == 0).any())
+    got = TA.packed_attention(qkv, bias, mask, 0.125, H)
+    _bf16_close(got, TA.packed_attention_reference(qkv, bias, mask, 0.125, H),
+                ulps=4)
+    assert torch.equal(TA.packed_attention(qkv, bias, mask, 0.125, H), got)
+
+
+@pytest.mark.cuda
+def test_k7_and_k8_at_the_joint_length_on_card(cuda_device):
+    """At N = 617 with the joint mask: K8 bit-equal to K1 → K2 and K7 to
+    K1 → K2 → K3, whose device code they run."""
+    g = torch.Generator(device=cuda_device).manual_seed(52)
+    args = list(_block_args(cuda_device, g, 3, 617))
+    args[6] = _joint_mask(cuda_device, g, 3, 617)
+    assert torch.equal(_bits(TF.ln_qkv_attention(*args[:9])),
+                       _bits(_staged_k1_k2(args[:9])))
+    assert torch.equal(_bits(TF.block_eval(*args)),
+                       _bits(TF.fused_eval_block(*args, fusion="tail")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 1])
+def test_vl_block_on_card(cuda_device, layer):
+    """One full-width NLVR2 @384 ufo block over a fused sequence of 8
+    pairs (40 + 577 tokens, caption padding inside): layer 0 splits into
+    its text half (plain attention, K13 over 8·40 rows) and its image half
+    (K1, K2, K3), layer 1 (a deep block) runs the 617 joint tokens through
+    K1, K2, K3; within cosine 0.9999 of the plain path per token."""
+    from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, \
+        params_from_numpy
+    from vl_merging_tpu_torch.config import build_config
+    from vl_merging_tpu_torch.models import model, mome
+    from vl_merging_tpu_torch.models.spec import VL, init_params, \
+        make_model_spec
+
+    cfg = build_config("task_finetune_nlvr2_square_randaug_base_image384",
+                       "ufo", overrides=dict(num_layers=2,
+                                             vlffn_start_layer_index=1))
+    spec = make_model_spec(cfg)
+    gen = torch.Generator().manual_seed(53)
+    host = init_params(spec, gen)
+    host["relative_position_bias_table"] = torch.randn(
+        host["relative_position_bias_table"].shape, generator=gen)
+    params = eval_cast_params(params_from_numpy(host, cuda_device), spec, cfg)
+    g = torch.Generator(device=cuda_device).manual_seed(54)
+    x = torch.randn(8, 617, 768, device=cuda_device, generator=g).bfloat16()
+    mask = _joint_mask(cuda_device, g, 8, 617)
+    bias = model.fused_layer_biases(params, spec, 40)[layer]
+    b = spec.blocks[layer]
+    assert mome.splits(b, VL) == (layer == 0)
+    kernels = {"ln_linear": TF.ln_linear, "packed_attention":
+               TA.packed_attention, "proj_mlp_tail": TF.proj_mlp_tail,
+               "mlp": TM.mlp_kernel}
+    before = {k: f.launches for k, f in kernels.items()}
+    with torch.no_grad():
+        got = mome.block_forward(params, spec, b, x, mask, bias, VL)
+        want = mome.block_forward(params, spec, b, x, mask, bias, VL,
+                                  kernels=False)
+    launched = {k: f.launches - before[k] for k, f in kernels.items()}
+    assert launched == {"ln_linear": 1, "packed_attention": 1,
+                        "proj_mlp_tail": 1, "mlp": int(layer == 0)}
+    cos = torch.nn.functional.cosine_similarity(got.float(), want.float(),
+                                                dim=-1)
+    assert bool(torch.isfinite(got).all())
+    assert float(cos.min()) >= 0.9999, float(cos.min())

@@ -259,10 +259,6 @@ def test_compute_irtr_recall_matches_jax(tiny, routing):
         params, spec, ttext, [{"image": torch.from_numpy(images)}], tiids,
         iids)
     assert got == want
-    with pytest.raises(NotImplementedError, match="A4"):
-        retrieval.compute_irtr_recall(
-            params, spec, ttext, [{"image": torch.from_numpy(images)}],
-            tiids, iids, itm_rerank_topk=5)
 
 
 def test_recall_ties_break_like_jax_top_k():
@@ -326,8 +322,27 @@ def test_text_mlp_takes_the_mlp_kernel(tiny, monkeypatch):
     assert calls == []
 
 
-def test_vl_block_is_not_ported(tiny):
+def test_vl_block_matches_jax(tiny, routing):
+    """One type-VL block over a fused sequence with caption padding inside
+    the key range: block 0 splits into its text and image halves, block 1
+    (a deep block) runs the joint sequence."""
+    from vl_merging_tpu.models import mome as jmome
+
     jspec, spec, arrays, jparams, params = tiny
-    x = torch.zeros(1, spec.max_text_len + spec.image_len, 128)
-    with pytest.raises(NotImplementedError, match="A4"):
-        mome.block_forward(params, spec, spec.blocks[0], x, None, None, 2)
+    rng = np.random.RandomState(2)
+    n = spec.max_text_len + spec.image_len
+    x = rng.randn(3, n, 128).astype(np.float32)
+    mask = np.ones((3, n), np.int32)
+    mask[0, 3:spec.max_text_len] = 0
+    jbias = jmodel.precompute_bias(jparams, jspec, "fused")
+    bias = model.precompute_bias(params, spec, "fused")
+    assert [mome.splits(b, 2) for b in spec.blocks] == [True, False]
+    for i in range(spec.num_layers):
+        want, _ = jmome.block_forward(jparams, jspec, jspec.blocks[i],
+                                      jnp.asarray(x), jnp.asarray(mask),
+                                      jbias[i], 2)
+        got = mome.block_forward(params, spec, spec.blocks[i],
+                                 torch.from_numpy(x), torch.from_numpy(mask),
+                                 bias[i], 2)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **TOWER_TOL, err_msg=f"block {i}")

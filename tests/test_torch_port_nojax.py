@@ -6,7 +6,10 @@ through the split attention, the int8 retrieval eval, and one irtr train
 step without and one with the training fusion; the merging suite:
 checkpoint I/O and surgery, the gram pass in both precisions, host and
 device merging, the ``merge.py`` and ``convert.py`` CLIs and the merged
-checkpoint's ``load_params``)
+checkpoint's ``load_params``; the fused VL pass: VQA answers and their
+submission, the NLVR2 paired pass, split and metrics
+(``evaluation/downstream.py``, ``evaluation/metrics.py``), the NLVR2 gram
+pass over the vl experts and the ITM rerank)
 must leave ``jax`` (and
 ``vl_merging_tpu``, whose subpackages import jax) out of
 ``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
@@ -165,6 +168,48 @@ SCRIPT = textwrap.dedent("""
                                    in grams["f64_host"].items()}, **kw)
     bicubic.bicubic_resize(np.ones((2, 3, 3), np.float32), (5, 5))
     assert surgery.INDEX_BUFFER_KEYS and taps.MOE_GRAM_SUFFIXES
+
+    # the fused VL pass and the downstream eval: VQA answers and their
+    # submission, the NLVR2 paired pass, its split and metrics, the ITM
+    # rerank, and the NLVR2 gram pass over the vl experts
+    from vl_merging_tpu_torch.evaluation import downstream, metrics
+    from vl_merging_tpu_torch.models import model as tmodel
+    mome.KERNEL_MIN_N = 0
+    vqa_cfg = build_config(
+        "task_finetune_vqa_square_randaug_base_image384_ufo", "ufo",
+        overrides=dict(shape, loss_names={"vqa": 1}))
+    vqa_spec = make_model_spec(vqa_cfg)
+    vqa = init_params(vqa_spec, g)
+    feed = {"text_ids": ids[:4], "text_masks": masks[:4], "image": images,
+            "qid": [1, 2, 3, 4]}
+    rets = downstream.vqa_predictions(vqa, vqa_spec, [feed, feed], {},
+                                      scan_k=2)
+    assert [r["question_id"] for r in rets] == [1, 2, 3, 4] * 2
+    with tempfile.TemporaryDirectory() as tmp:
+        downstream.write_vqa_submission(rets, "m", tmp)
+    nlvr2_cfg = build_config(
+        "task_finetune_nlvr2_square_randaug_base_image384", "all_moe",
+        overrides=dict(shape, loss_names={"nlvr2": 1}))
+    nlvr2_spec = make_model_spec(nlvr2_cfg)
+    nlvr2 = init_params(nlvr2_spec, g)
+    pair = {"text_ids": ids[:4], "text_masks": masks[:4], "image_0": images,
+            "image_1": images.flip(0), "answers": torch.tensor([0, 1, 1, 0])}
+    acc = metrics.MetricAccumulator()
+    downstream.nlvr2_split_update(
+        acc, downstream.nlvr2_logits(nlvr2, nlvr2_spec, pair),
+        pair["answers"], ["dev", "test", "dev", "test"])
+    assert metrics.the_metric({"nlvr2": 1}, acc.compute()) >= 0.0
+    vl_grams = gram.cache_gram_matrices(nlvr2, nlvr2_spec, nlvr2_cfg, [pair])
+    assert any(".vl." in k for k in vl_grams)
+    itm_cfg = build_config(task, "ufo", overrides=dict(
+        shape, loss_names={"irtr": 1, "itm": 1}))
+    itm_spec = make_model_spec(itm_cfg)
+    out = compute_irtr_recall(
+        init_params(itm_spec, g), itm_spec,
+        [{"text_ids": ids, "text_masks": masks}], [{"image": images}],
+        np.repeat(np.arange(4), 2), np.arange(4), itm_rerank_topk=2)
+    assert all(0.0 <= v <= 1.0 for v in out.values())
+    assert tmodel.precompute_bias(nlvr2, nlvr2_spec, "fused").ndim == 4
 
     assert not touched, touched
     leaked = sorted(m for m in sys.modules

@@ -4,17 +4,20 @@
 Ranking is pure ITC cosine, as in the reference
 (src/vilt/modules/objectives.py:572-710): both towers run over their
 batches, the (images x texts) score matrix is formed in f32, and top-k
-recall is taken both ways, all on the features' device.
+recall is taken both ways, all on the features' device.  An opt-in ITM
+rerank (``itm_rerank_topk``) rescores each query's top-k ITC candidates
+with the ITM head over the fused VL pass (``model.infer``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..models import model
+from ..models.mome import LayerBias
 from ..models.spec import ModelSpec, Params
 
 
@@ -100,6 +103,68 @@ def retrieval_recall(img_feats: torch.Tensor, txt_feats: torch.Tensor,
     return {k: float(v) for k, v in out.items()}
 
 
+@torch.no_grad()
+def itm_rerank_scores(params: Params, spec: ModelSpec,
+                      text_ids: torch.Tensor, text_masks: torch.Tensor,
+                      images: torch.Tensor, itc_scores: torch.Tensor,
+                      topk: int, *, axis: int, pair_batch: int = 64,
+                      rel_bias: Optional[Sequence[LayerBias]] = None,
+                      kernels: bool = True, int8_gelu: str = "poly",
+                      qk_int8: bool = False,
+                      fusion: str = "tail") -> torch.Tensor:
+    """Rescore the top-k ITC candidates with the ITM head
+    (``vl_merging_tpu/evaluation/retrieval.py:itm_rerank_scores``).
+
+    axis=1: per image, rerank its top-k texts (text retrieval); axis=0:
+    per text, rerank its top-k images (image retrieval).  Returns the
+    scores with each query's candidates at 1e4·(ITM log-probability of a
+    match), every other entry at its ITC score − 1e8, so reranked
+    candidates strictly dominate.  Candidates are the top k with ties to
+    the lower index (``_top_indices``, as ``jax.lax.top_k``); the queries
+    are padded to whole chunks of ``max(1, pair_batch // topk)`` (the pad
+    reranks query 0's first candidate and is dropped); each chunk is one
+    fused pass over chunk·topk pairs (the JAX package's ``lax.scan``
+    step).  ``rel_bias``: ``model.fused_layer_biases`` for the texts'
+    length, gathered here when None; the routing arguments reach every
+    block."""
+    qsc = itc_scores.float()
+    if axis == 0:
+        qsc = qsc.T
+    elif axis != 1:
+        raise ValueError(f"axis {axis}")
+    chunk = max(1, pair_batch // topk)
+    cand = _top_indices(qsc, topk)                            # (Q, k)
+    n_query = qsc.shape[0]
+    pad = (-n_query) % chunk
+    dev = cand.device
+    cand_p = torch.cat([cand, cand.new_zeros((pad, topk))])
+    qids = torch.cat([torch.arange(n_query, device=dev),
+                      torch.zeros(pad, dtype=torch.long, device=dev)])
+    if rel_bias is None:
+        rel_bias = model.fused_layer_biases(params, spec, text_ids.shape[1])
+    s = []
+    for q_idx, flat in zip(qids.split(chunk), cand_p.split(chunk)):
+        flat = flat.reshape(-1)                               # (chunk·k,)
+        if axis == 1:                                         # texts
+            ti, tm = text_ids[flat], text_masks[flat]
+            im = images[q_idx].repeat_interleave(topk, dim=0)
+        else:                                                 # images
+            ti = text_ids[q_idx].repeat_interleave(topk, dim=0)
+            tm = text_masks[q_idx].repeat_interleave(topk, dim=0)
+            im = images[flat]
+        out = model.infer(params, spec, {"text_ids": ti, "text_masks": tm},
+                          image=im, rel_bias=rel_bias, kernels=kernels,
+                          int8_gelu=int8_gelu, qk_int8=qk_int8,
+                          fusion=fusion)
+        logits = model.itm_head(params, out["cls_feats"])
+        s.append(torch.log_softmax(logits.float(), dim=-1)[:, 1])
+    s = torch.cat(s).reshape(-1, topk)[:n_query]              # (Q, k)
+    new = torch.full_like(qsc, float("-inf"))
+    new[torch.arange(n_query, device=dev)[:, None], cand] = 1e4 * s
+    new = torch.where(torch.isfinite(new), new, qsc - 1e8)
+    return new if axis == 1 else new.T
+
+
 def compute_irtr_recall(params: Params, spec: ModelSpec,
                         text_batches: List[Dict], image_batches: List[Dict],
                         tiids: np.ndarray, iids: np.ndarray, *,
@@ -109,16 +174,35 @@ def compute_irtr_recall(params: Params, spec: ModelSpec,
                         fusion: str = "tail") -> Dict[str, float]:
     """Full recall pipeline over preloaded batches.
 
-    Batches may be padded past the true counts; features are sliced back
-    to ``len(tiids)`` / ``len(iids)`` rows here."""
-    if itm_rerank_topk:
-        raise NotImplementedError(
-            "ITM reranking needs the fused VL pass, not ported yet: "
-            "ROADMAP A4")
+    ``itm_rerank_topk > 0`` reranks each direction's top-k ITC candidates
+    with the ITM head (``itm_rerank_scores``; the fused pass's bias is
+    gathered once for both directions); 0 keeps the reference's pure ITC
+    ranking.  Batches may be padded past the true counts; features are
+    sliced back to ``len(tiids)`` / ``len(iids)`` rows here."""
+    n_txt, n_img = len(tiids), len(iids)
+    route = dict(kernels=kernels, int8_gelu=int8_gelu, qk_int8=qk_int8,
+                 fusion=fusion)
     txt = extract_features(params, spec, text_batches, "text",
-                           kernels=kernels, int8_gelu=int8_gelu,
-                           qk_int8=qk_int8, fusion=fusion)[:len(tiids)]
+                           **route)[:n_txt]
     img = extract_features(params, spec, image_batches, "image",
-                           kernels=kernels, int8_gelu=int8_gelu,
-                           qk_int8=qk_int8, fusion=fusion)[:len(iids)]
-    return retrieval_recall(img, txt, iids, tiids)
+                           **route)[:n_img]
+    if not itm_rerank_topk:
+        return retrieval_recall(img, txt, iids, tiids)
+    scores = _itc_scores(img, txt)
+    text_ids = torch.cat([b["text_ids"] for b in text_batches])[:n_txt]
+    text_masks = torch.cat([b["text_masks"] for b in text_batches])[:n_txt]
+    images = torch.cat([b["image"] for b in image_batches])[:n_img]
+    bias = model.fused_layer_biases(params, spec, text_ids.shape[1])
+    dev = scores.device
+    ids_i = torch.as_tensor(np.asarray(iids), device=dev)
+    ids_t = torch.as_tensor(np.asarray(tiids), device=dev)
+    out = {}
+    for axis, prefix in ((1, "tr"), (0, "ir")):
+        reranked = itm_rerank_scores(
+            params, spec, text_ids, text_masks, images, scores,
+            itm_rerank_topk, axis=axis, rel_bias=bias, **route)
+        hits = _topk_ids(reranked, ids_i, ids_t)
+        out.update({k: float(v) for k, v in hits.items()
+                    if k.startswith(prefix)})
+    return {f"{d}_r{k}": out[f"{d}_r{k}"] for k in (1, 5, 10)
+            for d in ("tr", "ir")}

@@ -1,4 +1,4 @@
-"""Primitive layers: torch-layout linear, layernorm, dropout, drop_path
+"""Primitive layers: torch-layout linear, layernorm, gelu, dropout, drop_path
 (port of ``vl_merging_tpu/models/layers.py``).
 
 Rounding follows the JAX package: ``linear`` rounds the product to the
@@ -36,6 +36,12 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     y = (x32 - mean) * torch.rsqrt(var + eps)
     y = y * weight.float() + bias.float()
     return y.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, torch nn.GELU's default (the JAX package's
+    ``layers.gelu``)."""
+    return F.gelu(x)
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -10,7 +10,15 @@ per-sample (2, B) scale.
 
 Ported: block types V and L (single-modality sequences), for which every
 routing mode (plain, separate_plain, moe) reduces to one expert per
-module.  Routing follows the JAX package under its kernel flag
+module, and type VL (the fused [text; image] sequence of ``model.infer``,
+``vl_merging_tpu/models/mome.py:125-221, :401-427``): a block without a vl
+expert that attends per modality (separate_plain, moe with
+self_attn_for_single_mode) runs its text half as a type-L block and its
+image half as a type-V block; a deep block with vl experts (or shared
+modules) runs the joint sequence through one expert per module, like a
+type-V block; the rest (ln_moe's per-half LayerNorms, moe's "both
+attention experts over all tokens") take the composed path with their
+per-half experts.  Routing follows the JAX package under its kernel flag
 (``kernels``):
   * eval: a block whose sequence is long enough goes through the fused
     eval kernels (``_block_fast``: by the route ``fusion`` names, "pair"
@@ -38,14 +46,15 @@ training fusion fall back to the plain ops elsewhere, an opt-in route
 raises (``eval_route_built``), as a pure function of shapes.  Under a
 gram tap (``models/taps.py``) the blocks take the composed path, the
 attention kernels included, and tap the module inputs the JAX package
-taps; the eval and training fusions and K13 stay off.  Type VL
-(the fused VL pass, with its split-per-modality recursion and per-half
-experts) comes with ROADMAP A4.
+taps; the eval and training fusions and K13 stay off.  The port does not
+pad a fused sequence per segment (the JAX package's TPU sublane pad): a
+split block's halves are the text and image tokens themselves, each
+routed by its own length.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -57,7 +66,7 @@ from ..ops.fused_block import check_fusion, check_train_fusion, \
 from ..ops.int8 import INT8_SUFFIX, SCALE_SUFFIX, fused_eval_block_i8
 from ..ops.mlp import fused_mlp, reference_mlp
 from .layers import layer_norm, linear
-from .spec import BlockSpec, ModelSpec, Params, L, V
+from .spec import BlockSpec, ModelSpec, Params, L, V, VL
 from .taps import tap_add, tapping
 
 LN_EPS = 1e-6  # partial(nn.LayerNorm, eps=1e-6); vision_transformer.py:831
@@ -191,21 +200,58 @@ def mlp(params: Params, prefix: str, x: torch.Tensor, *,
     return reference_mlp(*args)
 
 
-_TASK_OF_TYPE = {V: "v", L: "l"}
+_TASK_OF_TYPE = {V: "v", L: "l", VL: "vl"}
 
 
-def _expert(b: BlockSpec, type_id: int, which: str) -> str:
-    """Name suffix of the expert a type-V or type-L sequence routes
-    through ("" for a shared module): one attention, MLP or LN call."""
+def _expert(b: BlockSpec, type_id: int, which: str) -> Optional[str]:
+    """Name suffix of the expert a sequence of ``type_id`` routes through
+    in one attention, MLP or LN call ("" for a shared module); None when a
+    fused (VL) sequence without a vl expert needs the per-modality experts
+    of both halves (``vl_merging_tpu/models/mome.py:_single_expert_suffix``)."""
     experts = {"attn": b.attn_experts, "mlp": b.mlp_experts,
                "norm1": b.norm1_experts, "norm2": b.norm2_experts}[which]
-    return f".{_TASK_OF_TYPE[type_id]}" if experts else ""
+    if not experts:
+        return ""
+    if type_id in (V, L) or b.has_vl:
+        return f".{_TASK_OF_TYPE[type_id]}"
+    return None
+
+
+def _block_names(b: BlockSpec, type_id: int) -> Optional[Tuple[str, ...]]:
+    """The block's prefix and the names of its attention, MLP, norm1 and
+    norm2 experts for a whole-block fusion, or None when a fused sequence
+    needs per-half experts (``_expert``)."""
+    sfx = [_expert(b, type_id, w) for w in ("attn", "mlp", "norm1", "norm2")]
+    if None in sfx:
+        return None
+    p = f"transformer.blocks.{b.index}"
+    return (p,) + tuple(f"{p}.{w}{x}" for w, x in zip(
+        ("attn", "mlp", "norm1", "norm2"), sfx))
 
 
 def _ln(params: Params, name: str, x: torch.Tensor) -> torch.Tensor:
     tap_add(name, x)  # gram tap: the norm's input (mome.py:129)
     return layer_norm(x, params[f"{name}.weight"], params[f"{name}.bias"],
                       eps=LN_EPS)
+
+
+def _halves(x: torch.Tensor, text_len: int):
+    """The text and image halves of a fused (B, N, ...) sequence, each
+    contiguous, as the kernels take their operands."""
+    return x[:, :text_len].contiguous(), x[:, text_len:].contiguous()
+
+
+def apply_ln(params: Params, p: str, base: str, b: BlockSpec, type_id: int,
+             x: torch.Tensor, text_len: int) -> torch.Tensor:
+    """The block's LayerNorm ``base`` ("norm1" or "norm2"): shared, one
+    expert, or, on a fused input without a vl expert, the l and v experts
+    each over its half (mome.py:134-146), each half tapped by its own
+    name."""
+    sfx = _expert(b, type_id, base)
+    if sfx is not None:
+        return _ln(params, f"{p}.{base}{sfx}", x)
+    return torch.cat([_ln(params, f"{p}.{base}.l", x[:, :text_len]),
+                      _ln(params, f"{p}.{base}.v", x[:, text_len:])], dim=1)
 
 
 def _block_fast(params, spec, b, x, mask, rel_bias, type_id, *,
@@ -221,16 +267,16 @@ def _block_fast(params, spec, b, x, mask, rel_bias, type_id, *,
     activation is ``int8_gelu`` and whose attention is K12 when
     ``qk_int8``; it has one route, so ``fusion`` must be "tail" there.
     Returns None when the attention does not take the kernels
-    (``_attention_kernel_ok``), or when the default route's kernels are not
+    (``_attention_kernel_ok``), when a fused sequence needs per-half
+    experts (``_expert``), or when the default route's kernels are not
     built for the block's width (``eval_route_built``, which raises for an
     opt-in route)."""
     if not _attention_kernel_ok(spec, x.shape[1], mask, rel_bias, kernels):
         return None
-    p = f"transformer.blocks.{b.index}"
-    ap = f"{p}.attn{_expert(b, type_id, 'attn')}"
-    mp = f"{p}.mlp{_expert(b, type_id, 'mlp')}"
-    n1 = f"{p}.norm1{_expert(b, type_id, 'norm1')}"
-    n2 = f"{p}.norm2{_expert(b, type_id, 'norm2')}"
+    names = _block_names(b, type_id)
+    if names is None:
+        return None
+    p, ap, mp, n1, n2 = names
     scale = spec.head_dim ** -0.5
     int8 = spec.eval_int8 and f"{ap}.qkv.weight{INT8_SUFFIX}" in params
     if int8 and fusion != "tail":
@@ -279,12 +325,12 @@ def _block_fast_train(params, spec, b, x, mask, rel_bias, type_id, dp_scale,
     built for (``kernel_takes``), that step is its plain composition
     (``tail_reference``: the function K6's backward differentiates), as
     the JAX package's ``proj_mlp_tail_train`` takes ``_tail_reference``
-    where its shape gate fails."""
-    p = f"transformer.blocks.{b.index}"
-    ap = f"{p}.attn{_expert(b, type_id, 'attn')}"
-    mp = f"{p}.mlp{_expert(b, type_id, 'mlp')}"
-    n1 = f"{p}.norm1{_expert(b, type_id, 'norm1')}"
-    n2 = f"{p}.norm2{_expert(b, type_id, 'norm2')}"
+    where its shape gate fails.  Returns None where a fused sequence needs
+    per-half experts (``_expert``)."""
+    names = _block_names(b, type_id)
+    if names is None:
+        return None
+    p, ap, mp, n1, n2 = names
     if dp_scale is None:
         dp_scale = torch.ones((2, x.shape[0]), dtype=torch.float32,
                               device=x.device)
@@ -322,39 +368,116 @@ def _residual(x: torch.Tensor, branch: torch.Tensor, gamma: torch.Tensor,
     return x + branch * (dp_scale[:, None, None].to(branch.dtype) * g)
 
 
+def _attn_part(params: Params, spec: ModelSpec, p: str, b: BlockSpec,
+               x: torch.Tensor, mask, rel_bias, type_id: int, text_len: int,
+               *, kernels: bool) -> torch.Tensor:
+    """LN1 + attention, the branch before its residual (mome.py:150-183):
+    one attention expert (or the shared one) over the sequence; for a
+    fused sequence without a vl expert, both the l and v experts over all
+    tokens, the text half of the first and the image half of the second
+    (moe without self_attn_for_single_mode, vision_transformer.py:
+    639-649)."""
+    x_ = apply_ln(params, p, "norm1", b, type_id, x, text_len)
+    sfx = _expert(b, type_id, "attn")
+    if sfx is not None:
+        return attention(params, spec, f"{p}.attn{sfx}", x_, mask, rel_bias,
+                         kernels=kernels)
+    ot = attention(params, spec, f"{p}.attn.l", x_, mask, rel_bias,
+                   kernels=kernels)
+    oi = attention(params, spec, f"{p}.attn.v", x_, mask, rel_bias,
+                   kernels=kernels)
+    return torch.cat([ot[:, :text_len], oi[:, text_len:]], dim=1)
+
+
+def _mlp_part(params: Params, p: str, b: BlockSpec, x: torch.Tensor,
+              type_id: int, text_len: int, *, kernels: bool) -> torch.Tensor:
+    """LN2 + MLP, the branch before its residual (mome.py:186-208): one MLP
+    expert (or the shared one), or, for a fused sequence without a vl
+    expert, the l and v experts each over its half."""
+    x_ = apply_ln(params, p, "norm2", b, type_id, x, text_len)
+    sfx = _expert(b, type_id, "mlp")
+    if sfx is not None:
+        return mlp(params, f"{p}.mlp{sfx}", x_, kernels=kernels)
+    xt, xi = _halves(x_, text_len)
+    return torch.cat([mlp(params, f"{p}.mlp.l", xt, kernels=kernels),
+                      mlp(params, f"{p}.mlp.v", xi, kernels=kernels)], dim=1)
+
+
+# A layer's rel-pos bias: one (H, N, N) tensor over the block's sequence,
+# or, for a split VL block, the (text, image) pair of its sub-blocks,
+# gathered apart (``model.fused_layer_biases``) so that each is contiguous.
+LayerBias = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+
+def splits(b: BlockSpec, type_id: int) -> bool:
+    """Whether a block runs a fused sequence as its text half (type L) and
+    image half (type V): a block without a vl expert that attends per
+    modality (separate_plain, moe self_attn_for_single_mode, moe without
+    attention experts under separate_inference; mome.py:406-427)."""
+    return type_id == VL and not b.has_vl and b.self_attn_single
+
+
+def _split_bias(rel_bias: Optional[LayerBias], text_len: int):
+    if rel_bias is None:
+        return None, None
+    if isinstance(rel_bias, tuple):
+        return rel_bias
+    return (rel_bias[:, :text_len, :text_len].contiguous(),
+            rel_bias[:, text_len:, text_len:].contiguous())
+
+
 def block_forward(params: Params, spec: ModelSpec, b: BlockSpec,
                   x: torch.Tensor, mask: Optional[torch.Tensor],
-                  rel_bias: Optional[torch.Tensor], type_id: int, *,
+                  rel_bias: Optional[LayerBias], type_id: int, *,
                   kernels: bool = True, train: bool = False,
                   dp_scale: Optional[torch.Tensor] = None,
                   int8_gelu: str = "poly",
                   qk_int8: bool = False,
                   fusion: str = "tail",
-                  train_fusion: str = "0") -> torch.Tensor:
-    """One MoME block over a single-modality sequence, type V or L
-    (vision_transformer.py:683-691 dispatch; plain :525-530,
-    separate_plain and moe experts :560-654 reduce to one expert per
-    module for one modality).  ``dp_scale``: the block's (2, B)
-    stochastic-depth scales in training (``model._dp_scale_table``), or
-    None.  ``int8_gelu`` and ``qk_int8`` reach the int8 eval block,
-    ``fusion`` (one of ``ops.fused_block.FUSIONS``) the eval block's
-    route (``_block_fast``), ``train_fusion`` (one of
-    ``ops.fused_block.TRAIN_FUSIONS``) the training block's
-    (``_block_fast_train`` unless "0"; the JAX package reads it from
-    ``VLM_TPU_TRAIN_FUSION``)."""
+                  train_fusion: str = "0",
+                  text_len: Optional[int] = None) -> torch.Tensor:
+    """One MoME block (vision_transformer.py:683-691 dispatch; plain
+    :525-530, separate_plain :560-605 and moe :607-654).  ``dp_scale``:
+    the block's (2, B) stochastic-depth scales in training
+    (``model._dp_scale_table``), or None.  ``int8_gelu`` and ``qk_int8``
+    reach the int8 eval block, ``fusion`` (one of
+    ``ops.fused_block.FUSIONS``) the eval block's route (``_block_fast``),
+    ``train_fusion`` (one of ``ops.fused_block.TRAIN_FUSIONS``) the
+    training block's (``_block_fast_train`` unless "0"; the JAX package
+    reads it from ``VLM_TPU_TRAIN_FUSION``).
+
+    Type VL: the text tokens lead; ``text_len`` is inferred from the shape
+    when not given (``spec.max_text_len``, or what the image leaves of a
+    vl-truncated sequence; mome.py:401-404).  ``rel_bias`` of a split
+    block (``splits``) may be the (text, image) pair of its sub-blocks
+    (``LayerBias``); a (H, N, N) tensor is sliced and copied here."""
     check_fusion(fusion)
     check_train_fusion(train_fusion)
-    if type_id not in _TASK_OF_TYPE:
-        raise NotImplementedError(
-            "type-VL blocks (the fused VL pass) are not ported yet: "
-            "ROADMAP A4")
+    if type_id == VL and text_len is None:
+        text_len = spec.max_text_len
+        if x.shape[1] != text_len + spec.image_len:
+            text_len = x.shape[1] - spec.image_len
+    kw = dict(kernels=kernels, train=train, dp_scale=dp_scale,
+              int8_gelu=int8_gelu, qk_int8=qk_int8, fusion=fusion,
+              train_fusion=train_fusion)
+    if splits(b, type_id):
+        # the text half as a type-L block, the image half as a type-V one:
+        # modality-local attention, the same γ and stochastic-depth scales
+        bt, bi = _split_bias(rel_bias, text_len)
+        (xt, xi), (mt, mi) = _halves(x, text_len), (
+            (None, None) if mask is None else _halves(mask, text_len))
+        return torch.cat([block_forward(params, spec, b, xt, mt, bt, L, **kw),
+                          block_forward(params, spec, b, xi, mi, bi, V, **kw)],
+                         dim=1)
     # a gram tap needs the tapped inputs: no whole-block fusion under it
     # (mome.py:235, :310); the attention kernels stay
     fuse = not tapping()
     if train and train_fusion != "0" and fuse:
-        return _block_fast_train(params, spec, b, x, mask, rel_bias, type_id,
+        fast = _block_fast_train(params, spec, b, x, mask, rel_bias, type_id,
                                  dp_scale, kernels=kernels,
                                  train_fusion=train_fusion)
+        if fast is not None:
+            return fast
     if not train:
         fast = _block_fast(params, spec, b, x, mask, rel_bias, type_id,
                            kernels=kernels, int8_gelu=int8_gelu,
@@ -363,13 +486,10 @@ def block_forward(params: Params, spec: ModelSpec, b: BlockSpec,
             return fast
         dp_scale = None
     p = f"transformer.blocks.{b.index}"
-    x_ = _ln(params, f"{p}.norm1{_expert(b, type_id, 'norm1')}", x)
-    branch = attention(params, spec, f"{p}.attn{_expert(b, type_id, 'attn')}",
-                       x_, mask, rel_bias, kernels=kernels)
+    branch = _attn_part(params, spec, p, b, x, mask, rel_bias, type_id,
+                        text_len, kernels=kernels)
     x = _residual(x, branch, params[f"{p}.gamma_1"],
                   None if dp_scale is None else dp_scale[0])
-    x_ = _ln(params, f"{p}.norm2{_expert(b, type_id, 'norm2')}", x)
-    branch = mlp(params, f"{p}.mlp{_expert(b, type_id, 'mlp')}", x_,
-                 kernels=kernels)
+    branch = _mlp_part(params, p, b, x, type_id, text_len, kernels=kernels)
     return _residual(x, branch, params[f"{p}.gamma_2"],
                      None if dp_scale is None else dp_scale[1])

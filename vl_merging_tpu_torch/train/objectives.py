@@ -1,10 +1,11 @@
-"""Training objectives (port of ``vl_merging_tpu/train/objectives.py``,
-the irtr fine-tune loss).
+"""Training objectives (port of ``vl_merging_tpu/train/objectives.py``:
+the irtr fine-tune loss, and the VQA and NLVR2 objectives in eval mode).
 
 The JAX package writes each loss over the global batch under ``jit`` and
 lets XLA insert the cross-replica gathers; the port runs on one device, so
 the batch it is given is the global batch.  A multi-device step will need
-autograd-aware gathers of the contrastive features (ROADMAP A7).
+autograd-aware gathers of the contrastive features (ROADMAP item
+"Trainer, CLI, data and distribution").
 
 Gradient-scale parity note (as in the JAX package): the reference
 backprops the full-batch contrastive loss only through local features and
@@ -19,6 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..evaluation.downstream import nlvr2_logits
 from ..models import model
 from ..models.spec import ModelSpec, Params
 
@@ -65,3 +67,32 @@ def compute_irtr(params: Params, spec: ModelSpec, batch: Dict, *,
         "irtr_t2i_count": n,
         "irtr_logit_scale": scale,
     }
+
+
+def compute_vqa(params: Params, spec: ModelSpec, batch: Dict, *,
+                kernels: bool = True) -> Dict:
+    """VQA (objectives.py:446-489), eval mode: BCE-with-logits × label_size
+    against the dense soft targets ``vqa_targets`` (B, label_size), and
+    the VQA score sum, the soft score of each argmax answer
+    (gadgets/my_metrics.py VQAScore)."""
+    out = model.infer(params, spec, batch, kernels=kernels)
+    logits = model.vqa_head(params, out["cls_feats"]).float()
+    targets = batch["vqa_targets"].float()
+    bce = logits.clamp_min(0) - logits * targets + \
+        torch.log1p(torch.exp(-logits.abs()))
+    score = targets.gather(1, logits.argmax(-1)[:, None]).sum()
+    return {"vqa_loss": bce.mean() * targets.shape[1],
+            "vqa_score_sum": score, "vqa_count": logits.shape[0],
+            "vqa_logits": logits}
+
+
+def compute_nlvr2(params: Params, spec: ModelSpec, batch: Dict, *,
+                  kernels: bool = True) -> Dict:
+    """NLVR2 (objectives.py:543-567), eval mode: cross-entropy of the
+    paired pass's logits (``evaluation/downstream.nlvr2_logits``) against
+    ``answers``."""
+    logits = nlvr2_logits(params, spec, batch, kernels=kernels)
+    labels = batch["answers"].long()
+    return {"nlvr2_loss": _ce_dense(logits, labels),
+            "nlvr2_correct": (logits.argmax(-1) == labels).sum(),
+            "nlvr2_count": labels.shape[0], "nlvr2_logits": logits}

@@ -36,7 +36,6 @@ from .optimizer import AdamW, OptState
 # the tasks of the JAX package's compute_losses that the port does not
 # run yet, with the ROADMAP item (by its title) that brings each
 _PRETRAIN = '"Pretrain objectives, the other fine-tunes and the dVAE"'
-_VL_PASS = '"The fused VL pass and the downstream eval"'
 _NOT_PORTED = {
     "mlm": _PRETRAIN,
     "mim": _PRETRAIN,
@@ -44,10 +43,12 @@ _NOT_PORTED = {
     "itm": _PRETRAIN,
     "image_only_mim": _PRETRAIN,
     "text_only_mlm": _PRETRAIN,
-    "vqa": f"{_VL_PASS} and {_PRETRAIN}",
-    "nlvr2": f"{_VL_PASS} and {_PRETRAIN}",
     "img_cls": _PRETRAIN,
 }
+# the tasks the port runs in eval mode only (the gram pass, the eval step):
+# their training forward and backward through the fused VL pass come with
+# the fine-tunes
+_EVAL_ONLY = {"vqa": _PRETRAIN, "nlvr2": _PRETRAIN}
 
 
 @dataclasses.dataclass
@@ -78,11 +79,12 @@ def compute_losses(params: Params, spec: ModelSpec, cfg: Dict, batch: Dict,
                    train: bool = True, kernels: bool = True,
                    train_fusion: str = "0") -> Dict:
     """Task dispatch in reference order (vilt_module.py:1467-1523); the
-    port runs irtr and raises for every other task.  ``train=False`` is
-    the eval-mode forward of the gram pass (``train/gram.py``; the JAX
-    package's gram.py:36-58): no dropout, no stochastic depth, the eval
-    blocks.  ``train_fusion`` is the training fusion level of every block
-    ("0", "tail" or "full"; ``mome._block_fast_train``)."""
+    port runs irtr, and vqa and nlvr2 at ``train=False``, and raises for
+    every other task.  ``train=False`` is the eval-mode forward of the
+    eval step and the gram pass (``train/gram.py``; the JAX package's
+    gram.py:36-58): no dropout, no stochastic depth, the eval blocks.
+    ``train_fusion`` is the training fusion level of every block ("0",
+    "tail" or "full"; ``mome._block_fast_train``)."""
     if cfg["tasks"] is not None and any(k in batch for k in ("v", "l", "vl")):
         raise NotImplementedError(
             "mixed single/multi-modal batches are not ported yet: ROADMAP "
@@ -93,12 +95,23 @@ def compute_losses(params: Params, spec: ModelSpec, cfg: Dict, batch: Dict,
             raise NotImplementedError(
                 f"the {task} objective is not ported yet: ROADMAP item "
                 f"{_NOT_PORTED[task]}")
+        if train and task in _EVAL_ONLY:
+            raise NotImplementedError(
+                f"the {task} objective runs in eval mode only (train=False);"
+                f" its training step is not ported yet: ROADMAP item "
+                f"{_EVAL_ONLY[task]}")
     out: Dict = {}
     if "irtr" in tasks:
         out.update(objectives.compute_irtr(params, spec, batch, train=train,
                                            generator=generator,
                                            kernels=kernels,
                                            train_fusion=train_fusion))
+    if "vqa" in tasks:
+        out.update(objectives.compute_vqa(params, spec, batch,
+                                          kernels=kernels))
+    if "nlvr2" in tasks:
+        out.update(objectives.compute_nlvr2(params, spec, batch,
+                                            kernels=kernels))
     return out
 
 
