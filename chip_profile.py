@@ -42,7 +42,11 @@ runs them alone): ``VQA @480 bf16`` and ``VQA @480 W8A8``,
 ``vqa_predictions`` over 2 batches of 32 questions (ufo; 40 text and 901
 image tokens, the joint 941 in layers 10-11); ``NLVR2 @384 ufo``, the
 paired pass over 32 pairs; and the @384 eval with the ITM rerank (top 4,
-64 pairs a fused pass).
+64 pairs a fused pass).  ``python3 chip_profile.py --objectives`` runs
+the training objectives' windows alone: one optimizer step each of the
+NLVR2 @384 fine-tune (2 x 16 pairs) and the VLMo pretrain @224 (32
+pairs), kernel and plain path, and of the all-in-one pretrain (16 images,
+texts and pairs; kernel path).
 
 ``python3 chip_profile.py --variants`` runs only this: K1, K2, K7, K8, K14,
 K15 and K12 beside design variants that their sources rejected, each built from a
@@ -122,6 +126,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -130,6 +135,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as smoke
+from vl_merging_tpu_torch import dvae
 from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, master_params
 from vl_merging_tpu_torch.config import build_config
 from vl_merging_tpu_torch.device import require_cuda
@@ -1101,6 +1107,57 @@ def vl_windows(dev, card: str) -> None:
           card)
 
 
+def objective_windows(dev, card: str) -> None:
+    """One optimizer step of ``chip_smoke.py`` phase 13's paths, kernel and
+    plain path: the NLVR2 @384 fine-tune (ufo, 2 x 16 pairs), the VLMo
+    pretrain @224 (all_moe, 32 pairs: mlm, ifm, itm) and the all-in-one
+    pretrain (16 images, 16 texts, 16 pairs; MIM labels from the dVAE
+    encoder on the card)."""
+    over = dict(per_device_batch_size=smoke.NLVR2_MICRO,
+                batch_size=smoke.NLVR2_MICRO * smoke.NLVR2_ACCUM)
+    cfg = build_config(*smoke.CONFIG_NLVR2_TRAIN, overrides=over)
+    spec = make_model_spec(cfg)
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 42)
+    accum = accum_steps(cfg)
+    pairs = smoke.nlvr2_batch(spec, dev, gen, smoke.NLVR2_MICRO * accum)
+    batch = {k: v.reshape(accum, smoke.NLVR2_MICRO, *v.shape[1:])
+             for k, v in pairs.items()}
+    runs = smoke.objective_runs(smoke.CONFIG_NLVR2_TRAIN, spec,
+                                smoke.seeded_params(spec, dev), 10, **over)
+    for which, (state, step) in runs.items():
+        trace(f"NLVR2 @384 fine-tune step, {which} path, {accum} x "
+              f"{smoke.NLVR2_MICRO} pairs", lambda: step(state, batch), card)
+    del runs
+    n = smoke.PRETRAIN_PAIRS
+    over = dict(per_device_batch_size=n, batch_size=n)
+    cfg = build_config(*smoke.CONFIG_PRETRAIN, overrides=over)
+    spec = make_model_spec(cfg)
+    batch = smoke.pretrain_batch(spec, cfg, n, dev, gen)
+    runs = smoke.objective_runs(smoke.CONFIG_PRETRAIN, spec,
+                                smoke.seeded_params(spec, dev), 10, **over)
+    for which, (state, step) in runs.items():
+        trace(f"VLMo pretrain @224 step, {which} path, {n} pairs",
+              lambda: step(state, batch), card)
+    del runs
+    n = smoke.MIXED_BATCH
+    over = dict(per_device_batch_size=n, batch_size=n)
+    cfg = build_config(*smoke.CONFIG_ALL_IN_ONE, overrides=over)
+    spec = make_model_spec(cfg)
+    batch = {k: smoke.pretrain_batch(spec, cfg, n, dev, gen)
+             for k in ("v", "l", "vl")}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "encoder.pkl")
+        torch.save(dvae.init_encoder_params(
+            torch.Generator().manual_seed(smoke.SEED + 45)), path)
+        label_fn = dvae.make_mim_label_fn(path)
+    runs = smoke.objective_runs(smoke.CONFIG_ALL_IN_ONE, spec,
+                                smoke.seeded_params(spec, dev), 10,
+                                plain=False, mim_label_fn=label_fn, **over)
+    state, step = runs["kernels"]
+    trace(f"all-in-one pretrain step, kernel path, {n} images, texts and "
+          f"pairs", lambda: step(state, batch), card)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k7", action="store_true",
@@ -1115,6 +1172,8 @@ def main() -> None:
                         help="the int8 windows alone")
     parser.add_argument("--vl", action="store_true",
                         help="the fused VL pass's windows alone")
+    parser.add_argument("--objectives", action="store_true",
+                        help="the training objectives' step windows alone")
     parser.add_argument("--parent", type=Path, metavar="TREE",
                         help="with --variants: K10 and K11 beside those of "
                              "the tree at TREE (another checkout's root)")
@@ -1138,6 +1197,9 @@ def main() -> None:
         return
     if opts.vl:
         vl_windows(dev, card)
+        return
+    if opts.objectives:
+        objective_windows(dev, card)
         return
     if not opts.int8:
         k7_phases(dev, card)

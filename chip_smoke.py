@@ -90,7 +90,10 @@ Phases, each fatal on failure:
      with and without a sample of no valid key: its context bit-equal to
      the eval launch's, its statistics against the plain ones, and K9 on
      the batch with that sample against its twin; timed beside its eval
-     launch; K1, K3, K13, K6, K4 and K5 also at the
+     launch; K2's training launch and K9 again at B=32, N=617 under the
+     joint mask of a fused pass (zeros inside the key range), K9 timed
+     beside its twin, its bound and SDPA's autograd backward there (K9's
+     row: ``at_617``); K1, K3, K13, K6, K4 and K5 also at the
      ViT-L width (C=1024) against their twins, timed beside their bound,
      and K4 -> K5 and K6 at uniform gammas bit-equal to K3 there; K8 at
      C=1024 (16 heads) and at N=901 (the @480 image tower) against its
@@ -119,24 +122,25 @@ Phases, each fatal on failure:
      gate); the image tower's images/s with int8 kernels, with the int8-QK
      kernels, int8 plain and the bf16 kernels by "tail" and by "mega", in
      turns;
-  6. three train steps: K2 and K9 launched 12 times and K13 24 times per
-     micro-batch, finite loss and grad norm every step; kernel-path
+  6. the irtr step: kernel-path losses within 5e-3 relative and
      gradients within global cosine 0.999 of the plain path's at the same
-     params, batch and random draws; step time, pairs/s and peak memory on
-     both paths;
+     params, micro-batch and random draws; a warm-up step and 2 steps of
+     each path in turns: K2 and K9 launched 12 times and K13 24 times per
+     micro-batch, finite loss and grad norm every step; step time, pairs/s
+     and peak memory on both paths (best of 2);
   7. the Flickr30k @224 eval: ``compute_irtr_recall`` over 70 images
      (batches of 32, 32 and 6) and 350 captions (batches of 64): K11 12
      launches per full image batch, K10 12 for the batch of 6, K13 12 per
      image batch and per text batch, no other kernel; finite features,
      image cls_feats within cosine 0.999 of the plain path's; R@{1,5,10};
      the @224 image tower's images/s, kernels and plain path in turns;
-  8. the training fusion: the irtr @384 step at ``train_fusion`` "tail"
-     and "full", a warm-up step and 2 steps each: per micro-batch K6 24
-     (12 image and 12 text blocks), K2 12, K9 12, no K13, and K1 24 under
-     "full" only; finite loss and grad norm; gradients within global
-     cosine 0.999 of level "0" (the kernel path) at the same params, batch
-     and random draws; step time, pairs/s and peak memory beside level
-     "0", in turns;
+  8. the training fusion: gradients of the irtr @384 step at
+     ``train_fusion`` "tail" and "full" within global cosine 0.999 of
+     level "0" (the kernel path) at the same params, batch and random
+     draws; a warm-up step and 2 steps of each level in turns: per
+     micro-batch K6 24 (12 image and 12 text blocks), K2 12, K9 12, no
+     K13, and K1 24 under "full" only ("0": K2, K9 12, K13 24); finite
+     loss and grad norm; step time, pairs/s and peak memory;
   9. ViT-L @384 (C=1024): the image tower over 32 images (K1, K2, K3
      launched 24 times, nothing else) and the text tower over 64 captions
      (K13 24 times), finite features within cosine 0.999 of the plain
@@ -210,7 +214,41 @@ Phases, each fatal on failure:
      10) with its recall and wall seconds, the reranked log-probabilities
      within cosine 0.999 of the plain path's; K2 alone at N = 577 (a mask
      of ones), 617 and 941 (the joint mask) against its twin, timed beside
-     SDPA and its bound (K2's row: ``at_577``, ``at_617``, ``at_941``).
+     SDPA and its bound (K2's row: ``at_577``, ``at_617``, ``at_941``);
+     K11 at B=32 and K10 at B=30 on the (B, 12, 237, 64) views of a packed
+     qkv under the joint mask (the @224 fused pass of phase 13's pretrain
+     and VQA steps) against their twin, 4 ulps, timed the same way (their
+     rows: ``at_237``);
+ 13. the training objectives at full width (ViT-B/16, bf16 over f32
+     masters; seeded weights, synthetic batches, captions of 5 to 40
+     valid tokens): (a) the NLVR2 @384 fine-tune
+     (``task_finetune_nlvr2_square_randaug_base_image384`` + ``ufo``, 2
+     micro-batches of 16 pairs a step: per step K2 and K9 40 at N=577 (the
+     split layers' image halves) and 8 at N=617 (the joint layers), K13
+     88), the kernel path at ``train_fusion`` "0", "tail" (K6 88 instead
+     of K13) and "full" (and K1 88) and the plain path; then in
+     ``all_moe`` (every vl-expert weight moves); (b) the VLMo pretrain
+     @224 (``task_mlm_itm_ifm_square_randaug_base``, ``pallas_attention``
+     on: the JAX package's automatic setting turns the kernels off below
+     577 image tokens) of 32 pairs, mlm, ifm with both vlffn re-runs and
+     itm with hard negatives (per step K11 62, K13 116), in ``all_moe`` and
+     in ``ufo``; (c) the all-in-one pretrain
+     (``task_all_in_one_pretraining``) on a mixed batch of 16 images, 16
+     texts and 16 pairs (K11 86, K13 112), the MIM labels
+     from the port's dVAE encoder (seeded weights written to a file and
+     read back by ``dvae.make_mim_label_fn``; 112-px targets), its
+     codebook ids on the card against the CPU f32 encoder's (at least 99%
+     equal, each other one a near tie: top-2 gap below 1e-3 of the logit
+     scale); (d) the VQA fine-tune @224 (30 questions: K10 12, K13 22) and
+     the ImageNet @384 fine-tune (32 images: K2 and K9 12 at N=577, K13
+     12) with ``optim_type`` "adamw", "adam" and "sgd".  Each path's
+     losses and gradients against the plain path's on the same
+     micro-batch, params, draws and ITM negatives (each loss within 5e-3
+     relative, the gradients' global cosine >= 0.999; "tail" and "full"
+     too); then a warm-up step and 2 steps of each compared path in turns
+     (3 optimizer steps each): its launches as the routing gives them (K2
+     and K9 counted by N too), every loss and the grad norm finite, step
+     ms, pairs/s and peak memory (best of 2).
 
 Each row of the ``{"kernels": ...}`` line carries the widths it was held
 at (``widths``) and, for the kernels built for 1024, its figures there
@@ -229,6 +267,7 @@ another tree's on the same inputs).
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import hashlib
 import json
@@ -243,7 +282,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vl_merging_tpu_torch import merge
+from vl_merging_tpu_torch import dvae, merge
 from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, \
     master_params, params_from_numpy
 from vl_merging_tpu_torch.ckpt.io import load_torch_checkpoint, \
@@ -266,7 +305,7 @@ from vl_merging_tpu_torch.ops import attention as attn_ops
 from vl_merging_tpu_torch.ops import fused_block as fb_ops
 from vl_merging_tpu_torch.ops import int8 as i8_ops
 from vl_merging_tpu_torch.ops import mlp as mlp_ops
-from vl_merging_tpu_torch.train import train_step
+from vl_merging_tpu_torch.train import objectives, train_step
 from vl_merging_tpu_torch.train.gram import cache_gram_matrices, \
     make_capture_step, make_gram_step, save_gram_matrices
 from vl_merging_tpu_torch.train.loop import accum_steps, build_train_step
@@ -275,13 +314,19 @@ SEED = 0
 CONFIG = ("task_finetune_irtr_coco_square_randaug_base_image384", "ufo")
 IMAGE_BATCH, N_IMAGES = 32, 64
 CAPTIONS_PER_IMAGE, TEXT_BATCH = 5, 64
-MICRO_BATCH, TRAIN_STEPS = 32, 3
+MICRO_BATCH = 32
+# a training path's steps: one warm-up step, then TIMED_STEPS steps timed in
+# turns with the paths it is compared with
+TIMED_STEPS = 2
+TRAIN_STEPS = 1 + TIMED_STEPS
 N, C, HEADS, HIDDEN = 577, 768, 12, 3072
+# the joint layers of the @384 fused pass: 40 text and 577 image tokens;
+# of the @224 one: 40 and 197
+JOINT_N, JOINT_N_224 = 617, 237
 # the Flickr30k @224 eval (ViT-B/16 @224: 197 image tokens): full image
 # batches of 32 take K11, the ragged last batch of 6 K10
 CONFIG_224 = ("task_finetune_irtr_f30k_square_randaug_base", "ufo")
 N_224, N_IMAGES_224, K10_BATCH = 197, 70, 6
-TRAIN_FUSION_STEPS = 2
 # ViT-L @384 (C=1024, 16 heads, MLP 4096, 577 image tokens, 24 layers):
 # the image tower over 32 images, the text tower over 64 captions, and
 # fine-tune steps at micro-batch 8, all at full depth
@@ -326,6 +371,10 @@ DBIAS_REL = 1e-3
 # exponentials taken in steps of the running max), relative error 1e-5
 STATS_REL = 1e-5
 MIN_COSINE = 0.999
+# a training path's losses against the plain path's on the same step: each
+# within LOSS_REL relative (the sound runs on the H100 read at most 5.7e-4,
+# bf16 activations against the plain path's f32 logits)
+LOSS_REL = 5e-3
 TIMED_ITERS = 20
 # launches per CUDA graph when a kernel's device time is taken alone
 GRAPH_LAUNCHES = 100
@@ -582,6 +631,58 @@ def check_training_attention(args, card: str) -> float:
     return train_ms
 
 
+def check_joint_backward(dev, gen, rows, card: str) -> None:
+    """K2's training launch and K9 at a fused pass's joint layers (B=32,
+    N=617, the joint mask: zeros inside the key range) as at N=577: the
+    context bit-equal to the eval launch's, the statistics within
+    STATS_REL of the plain ones, K9 against its twin fed the plain
+    forward (dqkv within its ulps, dbias within DBIAS_REL); K9 timed beside
+    its twin, its bound and SDPA's autograd backward (K9's row: ``at_617``;
+    the training launch in K2's: ``train_at_617``)."""
+    n, scale = JOINT_N, 64 ** -0.5
+    qkv = torch.randn(IMAGE_BATCH, n, 3 * C, device=dev,
+                      generator=gen).bfloat16()
+    bias = torch.randn(HEADS, n, n, device=dev, generator=gen)
+    mask = joint_mask(n, dev, gen)
+    g = torch.randn(IMAGE_BATCH, n, C, device=dev, generator=gen).bfloat16()
+    ctx, stats = attn_ops.packed_attention(qkv, bias, mask, scale, HEADS,
+                                           with_stats=True)
+    ctx_eval = attn_ops.packed_attention(qkv, bias, mask, scale, HEADS)
+    ref = attn_ops.packed_attention_stats_reference(qkv, bias, mask, scale,
+                                                    HEADS)
+    torch.cuda.synchronize()
+    same = torch.equal(ctx, ctx_eval)
+    err = float(((stats - ref).abs() / (1.0 + ref.abs())).max())
+    label = f" at N={n} (B={IMAGE_BATCH}, joint mask, " \
+        f"{int((mask == 0).sum())} zeros inside)"
+    print(f"packed_attention training launch{label}: context bit-equal to "
+          f"the eval launch {same}; statistics (m, l) worst |kernel - plain|"
+          f" / (1 + |plain|) = {err:.3e} (bound {STATS_REL})")
+    if not same or not bool(torch.isfinite(stats).all()) or err > STATS_REL:
+        fail(f"packed_attention training launch{label} disagrees with its "
+             f"eval launch or the plain statistics")
+    args = (qkv, bias, mask, g, stats, scale, HEADS)
+    twin_args = plain_args("packed_attention_bwd", args)
+    max_err = check_backward(
+        args, attn_ops.packed_attention_bwd_reference(*twin_args), label)
+    ms = time_ms(lambda: attn_ops.packed_attention_bwd(*args))
+    plain_ms = time_ms(lambda: attn_ops.packed_attention_bwd_reference(
+        *twin_args), iters=TIMED_ITERS // 2)
+    library_ms = time_ms(library_call("packed_attention_bwd", args))
+    train_ms = time_ms(lambda: attn_ops.packed_attention(
+        qkv, bias, mask, scale, HEADS, with_stats=True))
+    bound_ms, bound_by = bound(*work("packed_attention_bwd", args))
+    print(f"packed_attention_bwd{label}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); K2's training launch there "
+          f"{train_ms:.4f} ms [{card}]")
+    rows["packed_attention_bwd"][f"at_{n}"] = {
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    rows["packed_attention"][f"train_at_{n}"] = {"ms": train_ms,
+                                                 "stats_rel_err": err}
+
+
 def fusion_inputs(inputs):
     """The fusion kernels' inputs, made of K1-K3's (no new draws): K4 and
     K5 take K3's two halves (K5 fed K4's twin's x'), K8 K1's x, LN and
@@ -642,7 +743,7 @@ def work(name: str, args) -> tuple:
         return 2 * M * c * c + 4 * M * c * h, nbytes(*args) + M * c * 2
     if name == "packed_attention_bwd":
         qkv, bias, mask, g, stats = args[:5]
-        flops = 10 * 64 * N * HEADS * _valid_keys(mask)
+        flops = 10 * 64 * qkv.shape[1] * bias.shape[0] * _valid_keys(mask)
         return flops, 2 * nbytes(qkv, bias) + nbytes(mask, g, stats)
     if name == "mlp":
         M, c, h = args[0].shape[0] * args[0].shape[1], args[0].shape[-1], \
@@ -714,7 +815,7 @@ def library_call(name: str, args):
                        for t in _sdpa_args(qkv, bias, mask))
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=am,
                                              scale=args[5])
-        gh = g.view(g.shape[0], N, bias.shape[0], 64).transpose(1, 2)
+        gh = g.view(*g.shape[:2], bias.shape[0], 64).transpose(1, 2)
         return lambda: torch.autograd.grad(out, (q, k, v, am), gh,
                                            retain_graph=True)
     return None
@@ -1109,6 +1210,7 @@ def check_kernels(dev, card: str, usage: dict) -> dict:
     # K2's training launch stores each query row's softmax statistics for K9
     rows["packed_attention"]["train_ms"] = check_training_attention(
         inputs["packed_attention_bwd"], card)
+    check_joint_backward(dev, gen, rows, card)
     for row in rows.values():
         row["widths"] = [C]
     check_wide_kernels(dev, gen, rows, card)
@@ -1420,15 +1522,118 @@ def check_wide_fused(dev, gen, rows, card: str) -> None:
 def reset_launches() -> None:
     for kernel, *_ in KERNELS.values():
         kernel.launches = 0
+    for kernel in BY_LENGTH.values():
+        kernel.launches_at.clear()
 
 
 def read_launches() -> dict:
     return {name: k.launches for name, (k, *_r) in KERNELS.items()}
 
 
+# the wrappers that also count their launches by sequence length
+BY_LENGTH = {"packed_attention": attn_ops.packed_attention,
+             "packed_attention_bwd": attn_ops.packed_attention_bwd}
+
+
+def read_launches_at() -> dict:
+    """K2's and K9's launches by sequence length: {(name, N): count}."""
+    return {(name, n): c for name, k in BY_LENGTH.items()
+            for n, c in sorted(k.launches_at.items()) if c}
+
+
 def want_launches(**counts) -> dict:
     """Every kernel's expected launches: the given counts, 0 elsewhere."""
     return {name: counts.get(name, 0) for name in KERNELS}
+
+
+def block_launches(tokens: int, batch: int, blocks: int, fusion: str = "0",
+                   train: bool = True,
+                   int8: bool = False) -> collections.Counter:
+    """The launches of ``blocks`` blocks over ``batch`` sequences of
+    ``tokens`` tokens as the routing gives them, K2's and K9's also by
+    length ((name, tokens)).  Training: K2 forward and K9 backward at
+    KERNEL_MIN_N tokens or more, else K11 (batch a multiple of SPLIT_BB)
+    or K10 forward at SPLIT_MIN_N or more; the MLP through K13 at "0"
+    (MLP_MIN_ROWS rows or more), the post-attention half through K6 under
+    "tail" and "full", LN1 + qkv through K1 under "full".  Eval: at
+    KERNEL_MIN_N tokens or more the kernels of ``ROUTE_KERNELS[fusion]``
+    (K14, K2, K15 with ``int8``), below it the attention as in training
+    and the MLP through K13."""
+    out = collections.Counter()
+    if tokens >= mome.KERNEL_MIN_N:
+        names = ("packed_attention", "packed_attention_bwd") if train else \
+            ("ln_linear_i8", "packed_attention", "proj_mlp_tail_i8") if \
+            int8 else ROUTE_KERNELS[fusion]
+        for name in names:
+            out[name] += blocks
+            if name in BY_LENGTH:
+                out[(name, tokens)] += blocks
+        if not train:
+            return out
+    elif tokens >= attn_ops.SPLIT_MIN_N:
+        out["split_attention_bb" if batch % attn_ops.SPLIT_BB == 0
+            else "split_attention"] += blocks
+    if fusion == "0" or not train:
+        out["mlp"] += blocks if batch * tokens >= mome.MLP_MIN_ROWS else 0
+    else:
+        out["tail_train"] += blocks
+        out["ln_linear"] += blocks if fusion == "full" else 0
+    return out
+
+
+def fused_pass_launches(spec, batch: int, fusion: str = "0",
+                        train: bool = True, int8: bool = False):
+    """One fused pass: each split layer's text half (40 tokens) and image
+    half, each deep layer's joint sequence."""
+    split = sum(mome.splits(b, VL) for b in spec.blocks)
+    T, I = spec.max_text_len, spec.image_len
+    route = dict(fusion=fusion, train=train, int8=int8)
+    return (block_launches(T, batch, split, **route)
+            + block_launches(I, batch, split, **route)
+            + block_launches(T + I, batch, spec.num_layers - split, **route))
+
+
+def tower_launches(spec, tokens: int, batch: int, rerun: bool = False,
+                   **route):
+    """A tower over ``tokens`` tokens, with its vlffn re-run of the deep
+    layers when ``rerun``."""
+    deep = spec.num_layers - spec.vlffn_start_layer_index
+    return block_launches(tokens, batch, spec.num_layers
+                          + (deep if rerun else 0), **route)
+
+
+def scaled(counts: collections.Counter, k: int) -> collections.Counter:
+    return collections.Counter({n: c * k for n, c in counts.items()})
+
+
+def launches_now() -> collections.Counter:
+    """The launches since ``reset_launches``, by kernel and K2's and K9's
+    also by length, as ``block_launches`` gives them."""
+    out = collections.Counter(read_launches())
+    out.update(read_launches_at())
+    return +out
+
+
+def check_launches(label: str, want: collections.Counter,
+                   got: collections.Counter = None) -> dict:
+    """``got`` (the launches since ``reset_launches`` when None) against
+    ``want``, by kernel and K2's and K9's by length; returns them by
+    kernel."""
+    got = launches_now() if got is None else +got
+    want = +collections.Counter(want)
+
+    def show(c):
+        return ({k: v for k, v in c.items() if isinstance(k, str)},
+                {f"{k[0]}@{k[1]}": v for k, v in c.items()
+                 if isinstance(k, tuple)})
+
+    (got_k, got_n), (want_k, want_n) = show(got), show(want)
+    print(f"{label}: kernel launches {got_k}, K2/K9 by N {got_n} (want "
+          f"{want_k}, {want_n}, nothing else)")
+    if got != want:
+        fail(f"{label}: kernel launches {got_k} {got_n}, want {want_k} "
+             f"{want_n}")
+    return {name: got[name] for name in KERNELS}
 
 
 # --------------------------------------------------------------------------
@@ -1773,79 +1978,28 @@ def global_cosine(a: dict, b: dict) -> float:
 
 
 def run_training(dev, card: str) -> dict:
+    """The irtr fine-tune step: the kernel path's losses and gradients
+    against the plain path's on one micro-batch; a warm-up step and
+    TIMED_STEPS steps of each path in turns, K2, K9 and K13 launched as
+    the routing gives them (the image tower's 577 tokens take K2/K9, both
+    towers' MLPs K13)."""
     cfg = train_config(kernels=True)
     spec = make_model_spec(cfg)
     accum = accum_steps(cfg)
     base = seeded_params(spec, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     batch = synthetic_train_batch(spec, accum, dev, gen)
-    state, step = build_train_step(cfg, spec, master_params(base),
-                                   TRAIN_STEPS)
-
-    reset_launches()
-    step_ms = []
-    for i in range(TRAIN_STEPS):
-        state, metrics, ms = timed_step(step, state, batch)
-        step_ms.append(ms)
-        loss, gnorm = float(metrics["total_loss"]), float(metrics["grad_norm"])
-        print(f"train step {i + 1}: loss {loss:.6f}, grad norm {gnorm:.6f}, "
-              f"{ms:.1f} ms")
-        if not (np.isfinite(loss) and np.isfinite(gnorm)):
-            fail(f"train step {i + 1}: loss or grad norm not finite")
-    launches = read_launches()
-    micro = TRAIN_STEPS * accum
+    label = f"irtr fine-tune @384 ({accum} x {MICRO_BATCH} pairs)"
+    against_plain(label, cfg, spec, base, {k: v[0] for k, v in batch.items()},
+                  dev)
+    runs = {which: build_train_step(train_config(which == "kernels"), spec,
+                                    master_params(base), TRAIN_STEPS)
+            for which in ("kernels", "plain")}
     L = spec.num_layers
-    want = want_launches(packed_attention=L * micro,
-                         packed_attention_bwd=L * micro, mlp=2 * L * micro)
-    print(f"train: kernel launches {launches} over {micro} micro-batches "
-          f"(want {want}: K2 {L}, K9 {L}, K13 {2 * L} per micro-batch)")
-    if launches != want:
-        fail(f"train kernel launches {launches}, want {want}")
-
-    # kernel path vs plain path: the same params, micro-batch and draws
-    params = master_params(base)
-    mb = {k: v[0] for k, v in batch.items()}
-    grads = {}
-    for kernels in (True, False):
-        g = torch.Generator(device=dev).manual_seed(SEED + 3)
-        loss, _, grads[kernels] = train_step.loss_and_grads(
-            params, spec, cfg, mb, g, kernels=kernels)
-        print(f"micro-batch loss, {'kernel' if kernels else 'plain'} path: "
-              f"{float(loss):.6f}")
-    cos = global_cosine(grads[True], grads[False])
-    worst = min((float(F.cosine_similarity(
-        grads[True][k].flatten().double(), grads[False][k].flatten().double(),
-        dim=0)), k) for k in grads[True] if grads[False][k].any())
-    print(f"gradients, kernel vs plain path: global cosine {cos:.6f} (need "
-          f">= {MIN_COSINE}), worst leaf {worst[0]:.6f} ({worst[1]})")
-    if cos < MIN_COSINE:
-        fail("kernel-path gradients disagree with the plain path")
-    del grads, params
-
-    # step time, pairs/s and peak memory: plain, kernels, kernels, plain
-    plain_state, plain_step = build_train_step(
-        train_config(kernels=False), spec, master_params(base), TRAIN_STEPS)
-    runs = {True: (state, step), False: (plain_state, plain_step)}
-    times = {True: [], False: []}
-    peak = {True: 0, False: 0}
-    for kernels in (False, True):
-        st, fn = runs[kernels]
-        runs[kernels] = (fn(st, batch)[0], fn)   # warm-up step
-    for kernels in (False, True, True, False):
-        st, fn = runs[kernels]
-        torch.cuda.reset_peak_memory_stats()
-        st, _, ms = timed_step(fn, st, batch)
-        peak[kernels] = max(peak[kernels], torch.cuda.max_memory_allocated())
-        runs[kernels] = (st, fn)
-        times[kernels].append(ms)
-    pairs = accum * MICRO_BATCH
-    for kernels in (True, False):
-        ms = min(times[kernels])
-        print(f"train step ({'kernel' if kernels else 'plain'} path, "
-              f"micro-batch {MICRO_BATCH} x {accum}): {ms:.1f} ms, "
-              f"{1e3 * pairs / ms:.1f} pairs/s, peak memory "
-              f"{peak[kernels] / 2**30:.2f} GiB (best of 2) [{card}]")
-    return launches
+    want = scaled(block_launches(N, MICRO_BATCH, L)
+                  + block_launches(spec.max_text_len, MICRO_BATCH, L), accum)
+    return train_in_turns(label, runs, batch, accum * MICRO_BATCH,
+                          {"kernels": want}, card)
 
 
 # --------------------------------------------------------------------------
@@ -1919,6 +2073,10 @@ def run_eval_224(dev, card: str) -> dict:
 # --------------------------------------------------------------------------
 
 def run_train_fusion(dev, card: str) -> dict:
+    """The irtr fine-tune step under each ``train_fusion``: "tail"'s and
+    "full"'s gradients against "0"'s on one micro-batch; a warm-up step
+    and TIMED_STEPS steps of each level in turns, K6 (and K1 under
+    "full") in place of K13."""
     cfg = train_config(kernels=True)
     spec = make_model_spec(cfg)
     accum = accum_steps(cfg)
@@ -1927,42 +2085,6 @@ def run_train_fusion(dev, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     batch = synthetic_train_batch(spec, accum, dev, gen)
     levels = ("0", "tail", "full")
-    launches = dict.fromkeys(KERNELS, 0)
-
-    runs = {}
-    for level in levels:
-        state, step = build_train_step(cfg, spec, master_params(base),
-                                       TRAIN_STEPS, train_fusion=level)
-        runs[level] = (step(state, batch)[0], step)   # warm-up step
-    for level in levels[1:]:
-        state, step = runs[level]
-        reset_launches()
-        for i in range(TRAIN_FUSION_STEPS):
-            state, metrics, ms = timed_step(step, state, batch)
-            loss = float(metrics["total_loss"])
-            gnorm = float(metrics["grad_norm"])
-            print(f"train_fusion {level!r} step {i + 1}: loss {loss:.6f}, "
-                  f"grad norm {gnorm:.6f}, {ms:.1f} ms")
-            if not (np.isfinite(loss) and np.isfinite(gnorm)):
-                fail(f"train_fusion {level!r}: loss or grad norm not finite")
-        runs[level] = (state, step)
-        got = read_launches()
-        micro = TRAIN_FUSION_STEPS * accum
-        want = want_launches(tail_train=2 * L * micro,
-                             packed_attention=L * micro,
-                             packed_attention_bwd=L * micro,
-                             ln_linear=2 * L * micro if level == "full"
-                             else 0)
-        print(f"train_fusion {level!r}: kernel launches "
-              f"{ {k: v for k, v in got.items() if v} } over {micro} "
-              f"micro-batches (want per micro-batch K6 {2 * L}, K2 {L}, "
-              f"K9 {L}" + (f", K1 {2 * L}" if level == "full" else "")
-              + ", nothing else)")
-        if got != want:
-            fail(f"train_fusion {level!r}: kernel launches {got}, want "
-                 f"{want}")
-        for k, v in got.items():
-            launches[k] += v
 
     # each level's gradients against level "0": same params, micro-batch
     # and random draws
@@ -1983,24 +2105,16 @@ def run_train_fusion(dev, card: str) -> dict:
                  f"'0'")
     del grads, params
 
-    # step time, pairs/s and peak memory, in turns
-    times = {lv: [] for lv in levels}
-    peak = dict.fromkeys(levels, 0)
-    for level in levels + levels[::-1]:
-        state, step = runs[level]
-        torch.cuda.reset_peak_memory_stats()
-        state, _, ms = timed_step(step, state, batch)
-        peak[level] = max(peak[level], torch.cuda.max_memory_allocated())
-        runs[level] = (state, step)
-        times[level].append(ms)
-    pairs = accum * MICRO_BATCH
-    for level in levels:
-        ms = min(times[level])
-        print(f"train step, train_fusion {level!r} (kernel path, micro-batch "
-              f"{MICRO_BATCH} x {accum}): {ms:.1f} ms, "
-              f"{1e3 * pairs / ms:.1f} pairs/s, peak memory "
-              f"{peak[level] / 2**30:.2f} GiB (best of 2, in turns) [{card}]")
-    return launches
+    runs = {level: build_train_step(cfg, spec, master_params(base),
+                                    TRAIN_STEPS, train_fusion=level)
+            for level in levels}
+    want = {level: scaled(block_launches(N, MICRO_BATCH, L, level)
+                          + block_launches(spec.max_text_len, MICRO_BATCH, L,
+                                           level), accum)
+            for level in levels}
+    return train_in_turns(f"irtr fine-tune @384 ({accum} x {MICRO_BATCH} "
+                          f"pairs), train_fusion", runs, batch,
+                          accum * MICRO_BATCH, want, card)
 
 
 # --------------------------------------------------------------------------
@@ -2729,28 +2843,6 @@ def vl_captions(spec, n, dev, gen):
     return ids, (torch.arange(T, device=dev)[None] < lengths).to(torch.int32)
 
 
-def fused_launches(spec, passes: int, fusion: str = "tail",
-                   int8: bool = False) -> dict:
-    """The launches of ``passes`` fused passes at @384 or @480: every layer
-    runs its eval block's kernels once (a split layer's image half, a deep
-    layer's joint sequence), every split layer K13 once more (its text
-    half's MLP; the text half's 40 tokens take the plain attention)."""
-    L = spec.num_layers
-    split = sum(mome.splits(b, VL) for b in spec.blocks)
-    names = ("ln_linear_i8", "packed_attention", "proj_mlp_tail_i8") if \
-        int8 else ROUTE_KERNELS[fusion]
-    return want_launches(mlp=split * passes,
-                         **dict.fromkeys(names, L * passes))
-
-
-def check_launches(label: str, got: dict, want: dict) -> None:
-    print(f"{label}: kernel launches "
-          f"{ {k: v for k, v in got.items() if v} } (want "
-          f"{ {k: v for k, v in want.items() if v} }, nothing else)")
-    if got != want:
-        fail(f"{label}: kernel launches {got}, want {want}")
-
-
 def check_cosine(label: str, got, want) -> float:
     if not bool(torch.isfinite(got).all()):
         fail(f"{label}: not finite")
@@ -2813,9 +2905,10 @@ def run_vqa(dev, card: str) -> dict:
     rets = downstream.vqa_predictions(params, spec, batches, id2answer)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    got = read_launches()
-    check_launches(f"VQA @480 bf16 'tail', {VQA_BATCHES} batches of "
-                   f"{VQA_BATCH}", got, fused_launches(spec, VQA_BATCHES))
+    got = check_launches(
+        f"VQA @480 bf16 'tail', {VQA_BATCHES} batches of {VQA_BATCH}",
+        scaled(fused_pass_launches(spec, VQA_BATCH, "tail", train=False),
+               VQA_BATCHES))
     launches = {k: launches[k] + got[k] for k in KERNELS}
     print(f"vqa_predictions (VQA @480, bf16): {seconds:.3f} s for {n_q} "
           f"questions (the first call: the bias gather of ten split and two "
@@ -2846,9 +2939,10 @@ def run_vqa(dev, card: str) -> dict:
     del base
     reset_launches()
     rets8 = downstream.vqa_predictions(params8, spec8, batches, id2answer)
-    got = read_launches()
-    check_launches(f"VQA @480 W8A8, {VQA_BATCHES} batches of {VQA_BATCH}",
-                   got, fused_launches(spec8, VQA_BATCHES, int8=True))
+    got = check_launches(
+        f"VQA @480 W8A8, {VQA_BATCHES} batches of {VQA_BATCH}",
+        scaled(fused_pass_launches(spec8, VQA_BATCH, train=False, int8=True),
+               VQA_BATCHES))
     launches = {k: launches[k] + got[k] for k in KERNELS}
     logits8 = torch.cat([downstream.vqa_logits(params8, spec8, b)
                          for b in batches])
@@ -2912,18 +3006,11 @@ def run_nlvr2(dev, card: str) -> dict:
         with torch.no_grad():
             out = train_step.compute_losses(params, spec, cfg, batch, None,
                                             train=False)
-        got = read_launches()
-        if name == CONFIG_NLVR2:
-            want = fused_launches(spec, 2)
-        else:
-            # @224 every block is below KERNEL_MIN_N (197 image, 237 joint
-            # tokens): the composed path, its attention through K11 (B=32)
-            # and its MLP through K13 (the text half's too)
-            split = sum(mome.splits(b, VL) for b in spec.blocks)
-            want = want_launches(
-                split_attention_bb=2 * spec.num_layers,
-                mlp=2 * (2 * split + spec.num_layers - split))
-        check_launches(at, got, want)
+        # two fused passes; @224 every block is below KERNEL_MIN_N (197
+        # image, 237 joint tokens): the composed path, its attention
+        # through K11 (B=32) and its MLP through K13 (the text half's too)
+        got = check_launches(at, scaled(fused_pass_launches(
+            spec, NLVR2_PAIRS, "tail", train=False), 2))
         launches = {k: launches[k] + got[k] for k in KERNELS}
         acc = metrics.MetricAccumulator()
         acc.update({k: out[k] for k in ("nlvr2_correct", "nlvr2_count",
@@ -2966,9 +3053,10 @@ def run_fused_routes(params, spec, batch, launches: dict) -> dict:
         reset_launches()
         with torch.no_grad():
             o = model.infer(params, spec, batch, fusion=fusion)
-        got = read_launches()
-        check_launches(f"fused pass @384 by {fusion!r}", got,
-                       fused_launches(spec, 1, fusion))
+        got = check_launches(f"fused pass @384 by {fusion!r}",
+                             fused_pass_launches(spec, batch["text_ids"]
+                                                 .shape[0], fusion,
+                                                 train=False))
         launches = {k: launches[k] + got[k] for k in KERNELS}
         out[fusion] = torch.cat([o["text_feats"], o["image_feats"]], dim=1)
     equal = {f: torch.equal(out[f], out["tail"]) for f in fb_ops.FUSIONS}
@@ -2998,15 +3086,20 @@ def run_rerank(dev, card: str) -> dict:
                                  tiids, iids, itm_rerank_topk=RERANK_TOPK)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    got = read_launches()
-    per_chunk = fused_launches(spec, 1)
+    per_chunk = fused_pass_launches(spec, RERANK_PAIR_BATCH, "tail",
+                                    train=False)
     L = spec.num_layers
-    towers = want_launches(mlp=L * len(text_batches), **dict.fromkeys(
-        ROUTE_KERNELS["tail"], L * len(image_batches)))
-    check_launches(f"ITM rerank (top {RERANK_TOPK}, {chunks} chunks of "
-                   f"{chunk} queries: {per_chunk['ln_linear']} K1-K3 and "
-                   f"{per_chunk['mlp']} K13 a chunk, beside the towers)", got,
-                   {k: towers[k] + chunks * per_chunk[k] for k in KERNELS})
+    towers = sum((block_launches(N, b["image"].shape[0], L, "tail",
+                                 train=False) for b in image_batches),
+                 collections.Counter()) + sum(
+        (block_launches(spec.max_text_len, b["text_ids"].shape[0], L,
+                        train=False) for b in text_batches),
+        collections.Counter())
+    got = check_launches(
+        f"ITM rerank (top {RERANK_TOPK}, {chunks} chunks of {chunk} "
+        f"queries: {per_chunk['ln_linear']} K1-K3 and {per_chunk['mlp']} "
+        f"K13 a chunk, beside the towers)",
+        towers + scaled(per_chunk, chunks))
     print(f"compute_irtr_recall with the ITM rerank: {seconds:.3f} s wall for "
           f"{len(iids)} images, {len(tiids)} captions, {chunks} fused passes "
           f"of {RERANK_PAIR_BATCH} pairs [{card}]; recall "
@@ -3039,23 +3132,31 @@ def run_rerank(dev, card: str) -> dict:
     return got
 
 
+def joint_mask(n: int, dev, gen, batch: int = IMAGE_BATCH):
+    """A fused pass's key mask over n tokens: 40 caption tokens of which 5
+    to 40 are valid (zeros inside the key range), then the image's
+    ones."""
+    mask = torch.ones(batch, n, dtype=torch.int32, device=dev)
+    lengths = torch.randint(5, 41, (batch, 1), device=dev, generator=gen)
+    mask[:, :40] = (torch.arange(40, device=dev)[None] < lengths).to(
+        torch.int32)
+    return mask
+
+
 def check_joint_attention(dev, rows, card: str) -> None:
     """K2 alone at the image tower's length (577, a mask of ones) and the
-    fused passes' (617, 941; the joint mask, zeros inside): against its
-    twin, timed beside SDPA and its bound; K2's row of the kernels line
-    takes them under ``at_n``."""
+    fused passes' (617, 941; the joint mask, zeros inside), K11 and K10 at
+    the @224 fused pass's (237, the joint mask): against their twin, timed
+    beside SDPA and their bound; their rows of the kernels line take them
+    under ``at_n``."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 32)
     out = {}
     for n in K2_LENGTHS:
         qkv = torch.randn(IMAGE_BATCH, n, 3 * C, device=dev,
                           generator=gen).bfloat16()
         bias = torch.randn(HEADS, n, n, device=dev, generator=gen)
-        mask = torch.ones(IMAGE_BATCH, n, dtype=torch.int32, device=dev)
-        if n != N:
-            lengths = torch.randint(5, 41, (IMAGE_BATCH, 1), device=dev,
-                                    generator=gen)
-            mask[:, :40] = (torch.arange(40, device=dev)[None] <
-                            lengths).to(torch.int32)
+        mask = torch.ones(IMAGE_BATCH, n, dtype=torch.int32, device=dev) \
+            if n == N else joint_mask(n, dev, gen)
         args = (qkv, bias, mask, 64 ** -0.5, HEADS)
         got = attn_ops.packed_attention(*args)
         want = attn_ops.packed_attention_reference(*args)
@@ -3083,6 +3184,38 @@ def check_joint_attention(dev, rows, card: str) -> None:
     print("packed_attention against N=" + str(first) + ": " + ", ".join(
         f"N={n} {out[n] / out[first]:.3f} x" for n in K2_LENGTHS[1:])
         + f" [{card}]")
+    # K11 and K10 at the @224 fused pass's joint length: the pretrain's 32
+    # pairs and the VQA fine-tune's 30 questions
+    n = JOINT_N_224
+    for name, b in (("split_attention_bb", PRETRAIN_PAIRS),
+                    ("split_attention", VQA_TRAIN_BATCH)):
+        qkv = torch.randn(b, n, 3 * C, device=dev, generator=gen).bfloat16()
+        q, k, v = qkv.view(b, n, 3, HEADS, 64).permute(2, 0, 3, 1, 4)
+        mask = joint_mask(n, dev, gen, batch=b)
+        args = (q, k, v, torch.randn(HEADS, n, n, device=dev, generator=gen),
+                mask, 64 ** -0.5)
+        kernel, twin = KERNELS[name][:2]
+        got, want = kernel(*args), twin(*args)
+        torch.cuda.synchronize()
+        max_err, worst, differ = ulp_check(name, got, want)
+        ms = time_ms(lambda: kernel(*args))
+        plain_ms = time_ms(lambda: twin(*args), iters=TIMED_ITERS // 2)
+        library_ms = time_ms(library_call(name, args))
+        bound_ms, bound_by = bound(*work(name, args))
+        print(f"{name} at N={n} (B={b}, joint mask, "
+              f"{int((mask == 0).sum())} zeros inside): max |kernel - twin| "
+              f"= {max_err:.6g}, worst err/bound = {worst:.3f} (bound "
+              f"{ULPS[name]} bf16 ulps), {differ:.3e} of the elements "
+              f"differ; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+              f"[{card}]")
+        if not bool(torch.isfinite(got).all()) or worst > 1.0:
+            fail(f"{name} disagrees with its twin at N={n} under the joint "
+                 f"mask")
+        rows[name][f"at_{n}"] = {
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
 def run_vl(dev, card: str, rows: dict) -> dict:
@@ -3091,6 +3224,416 @@ def run_vl(dev, card: str, rows: dict) -> dict:
     counts = [run_vqa(dev, card), run_nlvr2(dev, card), run_rerank(dev, card)]
     check_joint_attention(dev, rows, card)
     return {k: sum(c[k] for c in counts) for k in KERNELS}
+
+
+# --------------------------------------------------------------------------
+# Phase 13: the training objectives
+# --------------------------------------------------------------------------
+
+# (a) the NLVR2 @384 fine-tune: micro-batches of 16 pairs, 2 a step (its
+# two fused passes of 617 tokens a pair)
+CONFIG_NLVR2_TRAIN = (CONFIG_NLVR2, "ufo")
+NLVR2_MICRO, NLVR2_ACCUM = 16, 2
+# (b) the VLMo pretrain @224: mlm, ifm (both towers, both vlffn re-runs)
+# and itm (three fused passes of 40 + 197 = 237 tokens)
+CONFIG_PRETRAIN = ("task_mlm_itm_ifm_square_randaug_base", "all_moe")
+PRETRAIN_PAIRS = 32
+# (c) the all-in-one pretrain: 16 images, 16 texts and 16 pairs a step
+CONFIG_ALL_IN_ONE = ("task_all_in_one_pretraining",)
+MIXED_BATCH = 16
+# (d) the VQA fine-tune at its config's own 224 (a batch of 30: a ragged
+# batch takes K10), the ImageNet @384 fine-tune (32 images), and "adam"
+# and "sgd" on the latter
+CONFIG_IMAGENET = ("task_finetune_imagenet_square_randaug_base_image384",)
+VQA_TRAIN_BATCH, IMAGENET_BATCH = 30, 32
+# the MIM targets' masked share (BEiT's 75 of 196 patches)
+MIM_MASKED = 0.4
+# the dVAE gate: the card's codebook ids against the CPU f32 encoder's on
+# DVAE_CPU_IMAGES targets: at least DVAE_MIN_EQUAL equal, and every id
+# that differs a near tie, its CPU top-2 logit gap below DVAE_TIE of the
+# logit scale (the largest |logit|): cuDNN sums in another order
+DVAE_CPU_IMAGES, DVAE_MIN_EQUAL, DVAE_TIE = 4, 0.99, 1e-3
+
+
+class Negatives:
+    """``objectives.sample_hard_negatives`` that draws (the generator
+    advances as always) and, after ``rewind``, returns the draws of the
+    first run in their order: two paths whose ifm logits differ in the
+    last bits train on the same negatives."""
+
+    def __init__(self):
+        self.real = objectives.sample_hard_negatives
+        self.drawn, self.at, self.replaying = [], 0, False
+
+    def __call__(self, sim_i2t, sim_t2i, generator):
+        out = self.real(sim_i2t, sim_t2i, generator)
+        if not self.replaying:
+            self.drawn.append(out)
+            return out
+        self.at += 1
+        return self.drawn[self.at - 1]
+
+    def rewind(self) -> None:
+        self.replaying, self.at = True, 0
+
+
+@contextlib.contextmanager
+def replayed_negatives():
+    negatives = Negatives()
+    objectives.sample_hard_negatives = negatives
+    try:
+        yield negatives
+    finally:
+        objectives.sample_hard_negatives = negatives.real
+
+
+def against_plain(label: str, cfg, spec, base, mb, dev, *,
+                  fusions=("0",), mim_label_fn=None) -> None:
+    """The kernel path's losses and gradients (each training fusion in
+    ``fusions``) against the plain path's on one micro-batch, the same
+    params, draws and ITM negatives: each loss within LOSS_REL relative,
+    the loss vector's and the gradients' global cosines at least
+    MIN_COSINE, every loss and gradient finite (dbias of rows whose keys
+    are all masked included)."""
+    params = master_params(base)
+    runs = {}
+    with replayed_negatives() as negatives:
+        for key in fusions + ("plain",):
+            g = torch.Generator(device=dev).manual_seed(SEED + 40)
+            _, metrics, grads = train_step.loss_and_grads(
+                params, spec, cfg, mb, g, kernels=key != "plain",
+                train_fusion="0" if key == "plain" else key,
+                mim_label_fn=mim_label_fn)
+            losses = {k: float(v) for k, v in metrics.items()
+                      if k.endswith("_loss")}
+            bad = [k for k, v in grads.items()
+                   if not bool(torch.isfinite(v).all())]
+            if bad or not all(np.isfinite(v) for v in losses.values()):
+                fail(f"{label} ({key}): a loss or the gradients of "
+                     f"{bad[:4]} not finite: {losses}")
+            runs[key] = (losses, grads)
+            negatives.rewind()
+    plain_losses, plain_grads = runs.pop("plain")
+    for key, (losses, grads) in runs.items():
+        a = torch.tensor([losses[k] for k in plain_losses], dtype=torch.float64)
+        b = torch.tensor(list(plain_losses.values()), dtype=torch.float64)
+        loss_cos = float(F.cosine_similarity(a, b, dim=0))
+        rel = float(((a - b).abs() / b.abs()).max())
+        cos = global_cosine(grads, plain_grads)
+        leaf = min((float(F.cosine_similarity(
+            grads[k].flatten().double(), plain_grads[k].flatten().double(),
+            dim=0)), k) for k in grads if plain_grads[k].any())
+        print(f"{label}, {'kernel path' if key == '0' else repr(key)} vs "
+              f"plain path: losses {losses} (plain {plain_losses}), loss "
+              f"cosine {loss_cos:.6f}, worst relative difference {rel:.2e} "
+              f"(need <= {LOSS_REL}); gradients global cosine {cos:.6f} "
+              f"(need >= {MIN_COSINE}), worst leaf {leaf[0]:.6f} "
+              f"({leaf[1]})")
+        if rel > LOSS_REL or loss_cos < MIN_COSINE or cos < MIN_COSINE:
+            fail(f"{label} ({key}): the kernel path disagrees with the "
+                 f"plain path")
+
+
+def train_in_turns(label: str, runs: dict, batch, examples: int,
+                   want: dict, card: str, unit: str = "pairs") -> dict:
+    """One warm-up step of each run ({key: (state, step)}, updated in
+    place), then TIMED_STEPS steps of each in turns (a, b, ..., b, a),
+    every loss and the grad norm finite; each run's launches over its
+    TRAIN_STEPS steps against ``want[key]`` a step (a run not in ``want``,
+    the plain path, launches none); each run's best timed step ms,
+    examples/s and peak memory.  Returns every run's launches, by kernel."""
+    keys = list(runs)
+    order = keys + [k for i in range(TIMED_STEPS)
+                    for k in (keys if i % 2 else keys[::-1])]
+    times = {k: [] for k in keys}
+    peak = dict.fromkeys(keys, 0)
+    got = {k: collections.Counter() for k in keys}
+    for i, which in enumerate(order):
+        state, step = runs[which]
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        state, metrics, ms = timed_step(step, state, batch)
+        got[which] += launches_now()
+        runs[which] = (state, step)
+        warm_up = i < len(keys)
+        if not warm_up:
+            times[which].append(ms)
+            peak[which] = max(peak[which], torch.cuda.max_memory_allocated())
+        losses = {k: float(v) for k, v in metrics.items()
+                  if k.endswith("_loss") or k == "grad_norm"}
+        print(f"{label}, {which} path, "
+              + ("warm-up step" if warm_up else f"step {len(times[which])}")
+              + ": " + ", ".join(f"{k} {v:.6f}" for k, v in losses.items())
+              + f", {ms:.1f} ms")
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"{label} ({which}): a loss or the grad norm not finite")
+    total = dict.fromkeys(KERNELS, 0)
+    for which in keys:
+        counts = check_launches(
+            f"{label}, {which} path, {TRAIN_STEPS} steps",
+            scaled(want.get(which, collections.Counter()), TRAIN_STEPS),
+            got[which])
+        total = {k: total[k] + counts[k] for k in KERNELS}
+    for which in keys:
+        ms = min(times[which])
+        print(f"{label} ({which} path): {ms:.1f} ms a step, "
+              f"{1e3 * examples / ms:.1f} {unit}/s, peak memory "
+              f"{peak[which] / 2**30:.2f} GiB (best of {TIMED_STEPS} after a "
+              f"warm-up step, in turns) [{card}]")
+    return total
+
+
+def objective_runs(names, spec, base, steps: int, *, plain: bool = True,
+                   fusions=("0",), mim_label_fn=None, **over) -> dict:
+    """{"kernels": (state, step), "tail": ..., "full": ..., "plain": ...}:
+    ``build_train_step`` of the config from the same masters, with the
+    kernel switch (``pallas_attention``) on under each training fusion in
+    ``fusions`` ("kernels" is "0"), and off."""
+    out = {}
+    for fusion in fusions + (("plain",) if plain else ()):
+        kernels = fusion != "plain"
+        cfg = build_config(*names, overrides=dict(
+            over, warmup_steps=0, pallas_attention=kernels))
+        out["kernels" if fusion == "0" else fusion] = build_train_step(
+            cfg, spec, master_params(base), steps,
+            train_fusion=fusion if kernels else "0",
+            mim_label_fn=mim_label_fn)
+    return out
+
+
+def masked_captions(spec, n: int, dev, gen) -> dict:
+    """n captions of 5 to 40 valid tokens with their MLM ids and labels:
+    15% of the valid tokens and token 1 masked (id 103), -100 elsewhere."""
+    ids, masks = vl_captions(spec, n, dev, gen)
+    picked = (torch.rand(ids.shape, device=dev, generator=gen) < 0.15) & \
+        (masks > 0)
+    picked[:, 1] = True
+    return {"text_ids": ids, "text_masks": masks,
+            "text_ids_mlm": torch.where(picked, 103, ids),
+            "text_labels_mlm": torch.where(picked, ids, -100)}
+
+
+def pretrain_batch(spec, cfg, n: int, dev, gen) -> dict:
+    """n pairs for the pretrain objectives: masked captions, images, the
+    MIM targets (``dvae_image_size`` pixels) and masked patches."""
+    b = masked_captions(spec, n, dev, gen)
+    size, target = spec.image_size, cfg["dvae_image_size"]
+    b["image"] = torch.randn(n, 3, size, size, device=dev, generator=gen)
+    b["image_target"] = 0.1 + 0.8 * torch.rand(n, 3, target, target,
+                                                device=dev, generator=gen)
+    b["image_masked_pos"] = torch.rand(n, spec.num_patches, device=dev,
+                                       generator=gen) < MIM_MASKED
+    return b
+
+
+def run_nlvr2_train(dev, card: str) -> dict:
+    """(a) the NLVR2 @384 fine-tune, steps of 2 x 16 pairs: in ufo the
+    kernel path under "0", "tail" and "full" and the plain path in turns;
+    in all_moe the kernel and plain paths in turns, the vl experts taking
+    gradients."""
+    over = dict(per_device_batch_size=NLVR2_MICRO,
+                batch_size=NLVR2_MICRO * NLVR2_ACCUM)
+    cfg = build_config(*CONFIG_NLVR2_TRAIN, overrides=over)
+    spec = make_model_spec(cfg)
+    if spec.max_text_len + spec.image_len != JOINT_N:
+        fail(f"NLVR2 @384 joint length {spec.max_text_len + spec.image_len}"
+             f", expected {JOINT_N}")
+    accum = accum_steps(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    pairs = nlvr2_batch(spec, dev, gen, NLVR2_MICRO * accum)
+    batch = {k: v.reshape(accum, NLVR2_MICRO, *v.shape[1:])
+             for k, v in pairs.items()}
+    mb = {k: v[0] for k, v in batch.items()}
+    launches = collections.Counter()
+    passes = 2 * accum   # a step: two fused passes a pair per micro-batch
+    label = f"NLVR2 @384 fine-tune ({accum} x {NLVR2_MICRO} pairs)"
+    fusions = ("0", "tail", "full")
+    base = seeded_params(spec, dev)
+    against_plain(f"{label}, ufo", cfg, spec, base, mb, dev, fusions=fusions)
+    launches += train_in_turns(
+        f"{label}, ufo", objective_runs(CONFIG_NLVR2_TRAIN, spec, base,
+                                        TRAIN_STEPS, fusions=fusions, **over),
+        batch, NLVR2_MICRO * accum,
+        {"kernels" if f == "0" else f: scaled(
+            fused_pass_launches(spec, NLVR2_MICRO, f), passes)
+         for f in fusions}, card)
+    del base
+    moe = (CONFIG_NLVR2, "all_moe")
+    spec = make_model_spec(build_config(*moe, overrides=over))
+    base = seeded_params(spec, dev)
+    against_plain(f"{label}, all_moe", build_config(*moe, overrides=over),
+                  spec, base, mb, dev)
+    runs = objective_runs(moe, spec, base, TRAIN_STEPS, **over)
+    launches += train_in_turns(
+        f"{label}, all_moe", runs, batch, NLVR2_MICRO * accum,
+        {"kernels": scaled(fused_pass_launches(spec, NLVR2_MICRO), passes)},
+        card)
+    vl = [k for k in base if ".vl." in k and k.endswith(".weight")]
+    moved = sum(not torch.equal(runs["kernels"][0].params[k], base[k])
+                for k in vl)
+    print(f"{label}, all_moe: {moved} of the {len(vl)} vl-expert weights "
+          f"moved in the steps")
+    if moved != len(vl):
+        fail(f"{label}, all_moe: the vl experts took no gradient")
+    return dict(launches)
+
+
+def run_pretrain(dev, card: str) -> dict:
+    """(b) the VLMo pretrain @224 (mlm, ifm, itm) of 32 pairs, in all_moe
+    and in ufo: the kernel and plain paths in turns."""
+    launches = collections.Counter()
+    for mode in ("all_moe", "ufo"):
+        names = (CONFIG_PRETRAIN[0], mode)
+        over = dict(per_device_batch_size=PRETRAIN_PAIRS,
+                    batch_size=PRETRAIN_PAIRS)
+        cfg = build_config(*names, overrides=dict(over,
+                                                  pallas_attention=True))
+        spec = make_model_spec(cfg)
+        if spec.max_text_len + spec.image_len != JOINT_N_224:
+            fail(f"the pretrain's joint length "
+                 f"{spec.max_text_len + spec.image_len}, expected "
+                 f"{JOINT_N_224}")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+        batch = pretrain_batch(spec, cfg, PRETRAIN_PAIRS, dev, gen)
+        base = seeded_params(spec, dev)
+        label = (f"VLMo pretrain @{spec.image_size} {mode} (mlm, ifm, itm; "
+                 f"{PRETRAIN_PAIRS} pairs)")
+        against_plain(label, cfg, spec, base, batch, dev)
+        b, T, I = PRETRAIN_PAIRS, spec.max_text_len, spec.image_len
+        want = (fused_pass_launches(spec, b)                     # mlm
+                + tower_launches(spec, I, b, rerun=True)          # ifm
+                + tower_launches(spec, T, b, rerun=True)
+                + scaled(fused_pass_launches(spec, b), 3))        # itm
+        launches += train_in_turns(
+            label, objective_runs(names, spec, base, TRAIN_STEPS, **over),
+            batch, PRETRAIN_PAIRS, {"kernels": want}, card)
+        del base
+    return dict(launches)
+
+
+def check_dvae(enc_path: str, label_fn, targets, card: str) -> None:
+    """The card's codebook ids (``label_fn``, the encoder read from
+    ``enc_path``) against the CPU f32 encoder's on the first
+    DVAE_CPU_IMAGES targets."""
+    host = dvae.load_encoder_params(enc_path)
+    x = targets[:DVAE_CPU_IMAGES]
+    t0 = time.perf_counter()
+    got = label_fn({"image_target": x}).cpu()
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits = dvae.encoder_logits(host, x.cpu())
+    cpu_s = time.perf_counter() - t0
+    want = logits.argmax(dim=1).reshape(x.shape[0], -1)
+    top2 = logits.topk(2, dim=1).values
+    gap = (top2[:, 0] - top2[:, 1]).reshape(x.shape[0], -1)
+    scale = float(logits.abs().max())
+    differ = got != want
+    share = 1.0 - float(differ.float().mean())
+    gaps = gap[differ]
+    print(f"dVAE codebook ids on the card vs the CPU f32 encoder "
+          f"({x.shape[0]} targets of {x.shape[-1]} px, {want.numel()} ids, "
+          f"vocabulary {logits.shape[1]}): {share:.4%} equal (need >= "
+          f"{DVAE_MIN_EQUAL:.0%}); {int(differ.sum())} differ, their CPU "
+          f"top-2 gaps {[f'{v:.3g}' for v in gaps.tolist()]} against "
+          f"{DVAE_TIE} x the logit scale {scale:.4g}; card {card_s:.3f} s, "
+          f"CPU {cpu_s:.3f} s [{card}]")
+    if share < DVAE_MIN_EQUAL or bool((gaps >= DVAE_TIE * scale).any()):
+        fail("the dVAE's codebook ids on the card disagree with the CPU "
+             "f32 encoder's beyond near ties")
+
+
+def run_all_in_one(dev, card: str) -> dict:
+    """(c) the all-in-one pretrain: one step of a mixed batch (16 images:
+    image_only_mim; 16 texts: text_only_mlm; 16 pairs: mlm, mim, ifm, itm),
+    the MIM labels from the port's dVAE encoder, its seeded weights
+    written to a file and read back; the dVAE gate."""
+    b = MIXED_BATCH
+    over = dict(per_device_batch_size=b, batch_size=b)
+    cfg = build_config(*CONFIG_ALL_IN_ONE, overrides=dict(
+        over, pallas_attention=True))
+    spec = make_model_spec(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 44)
+    batch = {k: pretrain_batch(spec, cfg, b, dev, gen)
+             for k in ("v", "l", "vl")}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "encoder.pkl")
+        torch.save(dvae.init_encoder_params(
+            torch.Generator().manual_seed(SEED + 45)), path)
+        label_fn = dvae.make_mim_label_fn(path)
+        check_dvae(path, label_fn, batch["v"]["image_target"], card)
+    label = (f"all-in-one pretrain @{spec.image_size} ({b} images, {b} "
+             f"texts, {b} pairs)")
+    base = seeded_params(spec, dev)
+    against_plain(label, cfg, spec, base, batch, dev, mim_label_fn=label_fn)
+    T, I = spec.max_text_len, spec.image_len
+    want = (tower_launches(spec, I, b)                          # v: mim
+            + tower_launches(spec, T, b)                        # l: mlm
+            + scaled(fused_pass_launches(spec, b), 2)           # mlm, mim
+            + tower_launches(spec, I, b, rerun=True)            # ifm
+            + tower_launches(spec, T, b, rerun=True)
+            + scaled(fused_pass_launches(spec, b), 3))          # itm
+    return train_in_turns(
+        label, objective_runs(CONFIG_ALL_IN_ONE, spec, base, TRAIN_STEPS,
+                              mim_label_fn=label_fn, **over),
+        batch, 3 * b, {"kernels": want}, card, unit="examples")
+
+
+def run_finetunes(dev, card: str) -> dict:
+    """(d) the VQA fine-tune @224 (30 questions), kernel and plain paths in
+    turns; the ImageNet @384 fine-tune (32 images), the kernel path with
+    "adamw", "adam" and "sgd" and the plain path with "adamw" in turns."""
+    launches = collections.Counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+    n = VQA_TRAIN_BATCH
+    over = dict(per_device_batch_size=n, batch_size=n)
+    cfg = build_config(*CONFIG_VQA, overrides=dict(
+        over, pallas_attention=True))
+    spec = make_model_spec(cfg)
+    batch = masked_captions(spec, n, dev, gen)
+    batch["image"] = torch.randn(n, 3, spec.image_size, spec.image_size,
+                                 device=dev, generator=gen)
+    batch["vqa_targets"] = torch.rand(n, spec.vqav2_label_size, device=dev,
+                                      generator=gen) * (torch.rand(
+        n, spec.vqav2_label_size, device=dev, generator=gen) < 0.002)
+    label = f"VQA fine-tune @{spec.image_size} ({n} questions)"
+    base = seeded_params(spec, dev)
+    against_plain(label, cfg, spec, base, batch, dev)
+    launches += train_in_turns(
+        label, objective_runs(CONFIG_VQA, spec, base, TRAIN_STEPS, **over),
+        batch, n, {"kernels": fused_pass_launches(spec, n)}, card,
+        unit="questions")
+    del base
+
+    n = IMAGENET_BATCH
+    over = dict(per_device_batch_size=n, batch_size=n)
+    cfg = build_config(*CONFIG_IMAGENET, overrides=over)
+    spec = make_model_spec(cfg)
+    batch = {"image": torch.randn(n, 3, spec.image_size, spec.image_size,
+                                  device=dev, generator=gen),
+             "class_label": torch.randint(0, spec.img_cls_label_size, (n,),
+                                          device=dev, generator=gen)}
+    base = seeded_params(spec, dev)
+    label = f"ImageNet fine-tune @{spec.image_size} ({n} images)"
+    against_plain(f"{label}, adamw", cfg, spec, base, batch, dev)
+    runs = {}
+    for optim in ("adamw", "adam", "sgd"):
+        r = objective_runs(CONFIG_IMAGENET, spec, base, TRAIN_STEPS,
+                           plain=optim == "adamw", optim_type=optim, **over)
+        runs[optim] = r.pop("kernels")
+        runs.update({f"plain {optim}": v for v in r.values()})
+    want = tower_launches(spec, spec.image_len, n)
+    launches += train_in_turns(
+        label, runs, batch, n, dict.fromkeys(("adamw", "adam", "sgd"), want),
+        card, unit="images")
+    return dict(launches)
+
+
+def run_objectives(dev, card: str) -> dict:
+    """Phase 13: (a)-(d); the launches of every kernel-path step."""
+    counts = [run_nlvr2_train(dev, card), run_pretrain(dev, card),
+              run_all_in_one(dev, card), run_finetunes(dev, card)]
+    return {k: sum(c.get(k, 0) for c in counts) for k in KERNELS}
 
 
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
@@ -3279,7 +3822,8 @@ def main() -> int:
              "large": run_large(dev, card),
              "tiny": run_tiny(dev, card),
              "merging": run_merging(dev, card),
-             "vl": run_vl(dev, card, rows)}
+             "vl": run_vl(dev, card, rows),
+             "objectives": run_objectives(dev, card)}
     for name, row in rows.items():
         for path, launches in paths.items():
             row[f"launches_{path}"] = launches[name]

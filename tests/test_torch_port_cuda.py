@@ -633,38 +633,48 @@ def test_image_tower_routes_launch_their_kernels_on_card(cuda_device):
         assert float(cos.min()) >= 0.9999, (fusion, float(cos.min()))
 
 
-def _split_args(dev, g, B, N, H=12, dead=False):
+def _split_args(dev, g, B, N, H=12, dead=False, joint=False):
     """q, k, v as the (B, H, N, 64) views of a packed qkv (as the towers
-    hand them to the split kernels), an f32 bias and a ragged key mask
-    (with ``dead``, element 0 has no valid key)."""
+    hand them to the split kernels), an f32 bias and a ragged key mask, or
+    with ``joint`` the fused pass's joint mask (zeros inside the key
+    range); with ``dead``, element 0 has no valid key."""
     qkv = torch.randn(B, N, 3 * H * 64, device=dev, generator=g).bfloat16()
     q, k, v = qkv.view(B, N, 3, H, 64).permute(2, 0, 3, 1, 4)
     bias = torch.randn(H, N, N, device=dev, generator=g)
-    mask = torch.ones(B, N, dtype=torch.int32, device=dev)
-    mask[-1, N // 2:] = 0
+    if joint:
+        mask = _joint_mask(dev, g, B, N)
+    else:
+        mask = torch.ones(B, N, dtype=torch.int32, device=dev)
+        mask[-1, N // 2:] = 0
     if dead:
         mask[0] = 0
     return q, k, v, bias, mask, 0.125
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,H,dead", [(8, 197, 12, False),
-                                        (4, 577, 12, False),
-                                        (4, 130, 12, False),
-                                        (6, 197, 12, False),
-                                        (32, 197, 12, False),
-                                        (8, 197, 16, False),
-                                        (4, 197, 12, True)])
+@pytest.mark.parametrize("B,N,H,dead,joint", [(8, 197, 12, False, False),
+                                              (4, 577, 12, False, False),
+                                              (4, 130, 12, False, False),
+                                              (6, 197, 12, False, False),
+                                              (32, 197, 12, False, False),
+                                              (8, 197, 16, False, False),
+                                              (4, 197, 12, True, False),
+                                              (32, 237, 12, False, True),
+                                              (30, 237, 12, False, True)])
 def test_split_attention_kernels_match_twin_on_card(cuda_device, B, N, H,
-                                                    dead):
+                                                    dead, joint):
     """K10 and K11 on strided views of a packed qkv against their twin
     (4 ulps: K2's softmax rounding), equal to each other bit for bit (the
     same kernel); contiguous inputs give the same bits; a sample with no
     valid key stores 0/0, as K2 does; K11 refuses a batch that is not a
-    multiple of 4.  At B = 6 (the @224 eval's ragged batch), K10's rows
-    equal K11's over a batch of 8 whose first 6 elements they are."""
+    multiple of 4.  At a ragged batch (6: the @224 eval's last), K10's
+    rows equal K11's over the next multiple of 4 whose first elements they
+    are.  ``joint``: the @224 fused pass's 40 + 197 tokens under the joint
+    mask, at the pretrain's 32 pairs (K11) and the VQA step's 30 (K10)."""
     g = torch.Generator(device=cuda_device).manual_seed(13)
-    args = _split_args(cuda_device, g, B, N, H, dead)
+    args = _split_args(cuda_device, g, B, N, H, dead, joint)
+    if joint:
+        assert bool((args[4][:, :40] == 0).any())
     n = (TA.split_attention.launches, TA.split_attention_bb.launches)
     k10 = TA.split_attention(*args)
     assert k10.shape == args[0].shape
@@ -685,9 +695,10 @@ def test_split_attention_kernels_match_twin_on_card(cuda_device, B, N, H,
         assert (TA.split_attention.launches,
                 TA.split_attention_bb.launches) == (n[0] + 2, n[1] + 1)
     else:
-        wide = _split_args(cuda_device, g, 8, N, H)
-        six = (*(t[:B] for t in wide[:3]), wide[3], wide[4][:B], wide[5])
-        assert torch.equal(TA.split_attention(*six),
+        wide = _split_args(cuda_device, g, -(-B // 4) * 4, N, H,
+                           joint=joint)
+        head = (*(t[:B] for t in wide[:3]), wide[3], wide[4][:B], wide[5])
+        assert torch.equal(TA.split_attention(*head),
                            TA.split_attention_bb(*wide)[:B])
 
 
@@ -1279,6 +1290,46 @@ def test_packed_attention_with_a_joint_mask_on_card(cuda_device, N):
     _bf16_close(got, TA.packed_attention_reference(qkv, bias, mask, 0.125, H),
                 ulps=4)
     assert torch.equal(TA.packed_attention(qkv, bias, mask, 0.125, H), got)
+
+
+@pytest.mark.cuda
+def test_packed_attention_bwd_with_a_joint_mask_on_card(cuda_device):
+    """K2's training launch and K9 over a joint sequence of 40 + 577
+    tokens (the @384 fused pass's deep layers) under the joint mask, with
+    zeros inside the key range, and a sample whose keys are all masked:
+    the statistics within 1e-5 of the plain ones, K9 within 4 ulps of its
+    twin fed the plain forward's statistics, dbias within 1e-3 relative
+    and finite, the dead sample's gradient zero, and two launches bit for
+    bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(53)
+    B, N, H = 5, 617, 12
+    qkv = torch.randn(B, N, 3 * 64 * H, device=cuda_device,
+                      generator=g).bfloat16()
+    bias = torch.randn(H, N, N, device=cuda_device, generator=g)
+    gout = torch.randn(B, N, 64 * H, device=cuda_device,
+                       generator=g).bfloat16()
+    mask = _joint_mask(cuda_device, g, B, N)
+    mask[0] = 0
+    assert bool((mask[1:, :40] == 0).any())
+    o, stats = TA.packed_attention(qkv, bias, mask, 0.125, H,
+                                   with_stats=True)
+    assert torch.equal(o.nan_to_num(), TA.packed_attention(
+        qkv, bias, mask, 0.125, H).nan_to_num())
+    ref = TA.packed_attention_stats_reference(qkv, bias, mask, 0.125, H)
+    assert bool((stats[1, 0] == 0).all()) and bool((stats[1, 1:] > 0).all())
+    torch.testing.assert_close(stats[:, 1:], ref[:, 1:], rtol=1e-5,
+                               atol=1e-5)
+    dqkv, dbias = TA.packed_attention_bwd(qkv, bias, mask, gout, stats,
+                                          0.125, H)
+    want_dqkv, want_dbias = TA.packed_attention_bwd_reference(
+        qkv, bias, mask, gout, ref, 0.125, H)
+    assert not dqkv[0].float().any()
+    _bf16_close(dqkv, want_dqkv, ulps=4)
+    assert bool(torch.isfinite(dbias).all())
+    rel = float((dbias - want_dbias).norm() / want_dbias.norm())
+    assert rel < 1e-3, rel
+    again = TA.packed_attention_bwd(qkv, bias, mask, gout, stats, 0.125, H)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
 
 
 @pytest.mark.cuda

@@ -230,8 +230,9 @@ def test_nlvr2_paired_pass_split_and_metric_match_jax(routing):
 
 def test_vqa_and_nlvr2_objectives_match_jax_at_eval(routing):
     """compute_losses(train=False) runs vqa and nlvr2 (the eval step and
-    the gram pass); train=True names the ROADMAP item of their training
-    step."""
+    the gram pass) as the JAX package does; without a generator
+    train=True draws nothing and gives the same losses (the training step
+    against the JAX package: ``test_torch_port_finetune.py``)."""
     for task, loss in ((VQA, "vqa"), (NLVR2, "nlvr2")):
         cfg, jspec, spec, jparams, params = _tiny(task, (loss,))
         b = _nlvr2_batch()
@@ -248,11 +249,11 @@ def test_vqa_and_nlvr2_objectives_match_jax_at_eval(routing):
                 assert got[k] == int(w), k
             else:
                 assert_close(got[k].float(), np.asarray(w, np.float32), k)
-        with pytest.raises(NotImplementedError,
-                           match=f"{loss} objective runs in eval mode "
-                                 f"only.*Pretrain objectives"):
-            train_step.compute_losses(params, spec, cfg, tbatch(b), None,
-                                      train=True)
+        trained = train_step.compute_losses(params, spec, cfg, tbatch(b),
+                                            None, train=True, **routing)
+        assert_close(trained[f"{loss}_loss"].float(),
+                     np.asarray(want[f"{loss}_loss"], np.float32),
+                     f"{loss}_loss at train=True")
 
 
 def test_one_process_only(monkeypatch, tmp_path):

@@ -9,7 +9,10 @@ device merging, the ``merge.py`` and ``convert.py`` CLIs and the merged
 checkpoint's ``load_params``; the fused VL pass: VQA answers and their
 submission, the NLVR2 paired pass, split and metrics
 (``evaluation/downstream.py``, ``evaluation/metrics.py``), the NLVR2 gram
-pass over the vl experts and the ITM rerank)
+pass over the vl experts and the ITM rerank; the pretrain objectives and
+the dVAE: the encoder's weights written and read back as the MIM label
+function, an all-in-one pretrain step on a mixed batch, the decoder, the
+trainable DiscreteVAE, and steps with the adam and sgd optimizers)
 must leave ``jax`` (and
 ``vl_merging_tpu``, whose subpackages import jax) out of
 ``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
@@ -210,6 +213,60 @@ SCRIPT = textwrap.dedent("""
         np.repeat(np.arange(4), 2), np.arange(4), itm_rerank_topk=2)
     assert all(0.0 <= v <= 1.0 for v in out.values())
     assert tmodel.precompute_bias(nlvr2, nlvr2_spec, "fused").ndim == 4
+
+    # the pretrain objectives on a mixed batch, MIM labels from the dVAE
+    # encoder's weights written to a file and read back; the decoder, the
+    # trainable DiscreteVAE; adam and sgd
+    from vl_merging_tpu_torch import dvae
+    from vl_merging_tpu_torch.dvae import discrete
+    enc = dvae.init_encoder_params(g, n_hid=8, n_blk_per_group=1,
+                                   vocab_size=64)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(enc, os.path.join(tmp, "encoder.pkl"))
+        label_fn = dvae.make_mim_label_fn(tmp)
+    aio_cfg = build_config("task_all_in_one_pretraining", overrides=dict(
+        {k: v for k, v in shape.items() if k != "loss_names"},
+        per_device_batch_size=4, batch_size=4, warmup_steps=0))
+    aio_spec = make_model_spec(aio_cfg)
+    labels = torch.full((4, 8), -100)
+    labels[:, 1] = ids[:4, 1]
+    sub = {"text_ids": ids[:4], "text_ids_mlm": ids[:4],
+           "text_labels_mlm": labels, "text_masks": masks[:4],
+           "image": images, "image_target": torch.rand(4, 3, 32, 32,
+                                                       generator=g),
+           "image_masked_pos": torch.rand(4, 16, generator=g) < 0.4}
+    state, step = build_train_step(
+        aio_cfg, aio_spec, master_params(init_params(aio_spec, g)), 10,
+        mim_label_fn=label_fn)
+    state, metrics_ = step(state, {"v": sub, "l": sub, "vl": sub})
+    assert {"image_only_mim_loss", "text_only_mlm_loss", "mim_loss",
+            "itm_loss"} <= set(metrics_)
+    assert bool(torch.isfinite(metrics_["total_loss"]))
+    for opt in ("adam", "sgd"):
+        state, step = build_train_step(
+            dict(cfg, optim_type=opt), spec,
+            master_params(init_params(spec, g)), 10)
+        state, m = step(state, {"image": images, "text_ids": ids[:4],
+                                "text_masks": masks[:4]})
+        assert bool(torch.isfinite(m["total_loss"]))
+    dec = {"blocks.input.w": torch.zeros(8, 64, 1, 1),
+           "blocks.input.b": torch.zeros(8),
+           "blocks.output.conv.w": torch.zeros(6, 8, 1, 1),
+           "blocks.output.conv.b": torch.zeros(6)}
+    for i in range(1, 5):
+        for j, k in zip((1, 2, 3, 4), (1, 3, 3, 3)):
+            name = f"blocks.group_{i}.block_1.res_path.conv_{j}"
+            dec[f"{name}.w"] = torch.zeros(8, 8, k, k)
+            dec[f"{name}.b"] = torch.zeros(8)
+    px = dvae.decode_indices(dec, torch.zeros(1, 4, dtype=torch.long))
+    assert px.shape == (1, 3, 16, 16)
+    dcfg = discrete.DiscreteVAEConfig(image_size=16, num_tokens=12,
+                                      codebook_dim=6, num_layers=2,
+                                      hidden_dim=5)
+    loss = discrete.forward(discrete.init_discrete_vae_params(dcfg),
+                            torch.rand(2, 3, 16, 16, generator=g), dcfg,
+                            generator=g, return_loss=True)
+    assert bool(torch.isfinite(loss))
 
     assert not touched, touched
     leaked = sorted(m for m in sys.modules

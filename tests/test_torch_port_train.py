@@ -356,12 +356,21 @@ def test_kernel_route_twins_match_plain_route(monkeypatch):
 
 
 def test_train_step_contracts():
-    """Other tasks name their ROADMAP item; drop_path and dropout draw
-    from the generator with keep/rate semantics; the kernel switch is on
-    at @384."""
-    cfg = _tiny_cfg(build_config, loss_names={"irtr": 1, "itm": 1})
-    with pytest.raises(NotImplementedError, match="itm objective.*Pretrain objectives"):
+    """itm without ifm raises the JAX package's ValueError; every
+    optim_type of the JAX package builds; drop_path and dropout draw from
+    the generator with keep/rate semantics; the kernel switch is on at
+    @384."""
+    cfg = _tiny_cfg(build_config, loss_names={"itm": 1})
+    with pytest.raises(ValueError, match="itm requires ifm"):
         train_step.compute_losses({}, make_model_spec(cfg), cfg, {}, None)
+    for kind in ("adam", "sgd"):
+        opt = optimizer.make_optimizer({"w": torch.zeros(2)},
+                                       dict(cfg, optim_type=kind), 10,
+                                       schedule.make_schedule(cfg, 10))
+        assert opt.optim_type == kind
+    with pytest.raises(ValueError, match="unknown optim_type"):
+        optimizer.make_optimizer({}, dict(cfg, optim_type="lamb"), 10,
+                                 schedule.make_schedule(cfg, 10))
     full = build_config("task_finetune_irtr_coco_square_randaug_base_image384")
     assert train_step._resolve_kernels(full, make_model_spec(full))
     assert not train_step._resolve_kernels(cfg, make_model_spec(cfg))

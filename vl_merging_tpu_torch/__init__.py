@@ -18,7 +18,13 @@ over the single-modality towers (``models.model.infer_image_ft`` /
 (``train.loop.build_train_step``), and the merging suite: checkpoint I/O,
 surgery and ingest (``ckpt``), host and fleet merging (``merging``), the
 RegMean gram pass through activation taps (``train.gram``,
-``models.taps``) and the ``merge`` / ``convert`` CLIs.
+``models.taps``) and the ``merge`` / ``convert`` CLIs; the fused VL pass
+(``models.model.infer``) and the downstream eval
+(``evaluation.downstream``); every objective of the JAX package's
+``compute_losses`` in training (``train.objectives``: mlm, mim, ifm with
+the towers' vlffn re-runs, itm with hard negatives, irtr, vqa, nlvr2,
+img_cls; mixed single/multi-modal batches), the adamw, adam and sgd
+optimizers, and the dVAE that gives MIM its labels (``dvae``).
 """
 
 __version__ = "0.1.0"

@@ -147,14 +147,18 @@ def write_vqa_submission(rets: List[Dict], model_name: str,
 def nlvr2_logits(params: Params, spec: ModelSpec, batch: Dict, *,
                  rel_bias=None, kernels: bool = True,
                  int8_gelu: str = "poly", qk_int8: bool = False,
-                 fusion: str = "tail") -> torch.Tensor:
+                 fusion: str = "tail", train: bool = False,
+                 generator=None, train_fusion: str = "0") -> torch.Tensor:
     """The NLVR2 paired pass (JAX ``train/objectives.compute_nlvr2``,
     ``bench.py:run_nlvr2``): the fused pass over the caption with the
     first image (``image_0``, token type 1) and with the second
     (``image_1``, token type 2), their cls features concatenated, the
-    NLVR2 head; (B, 2) f32 logits."""
+    NLVR2 head; (B, 2) f32 logits.  ``train``, ``generator`` and
+    ``train_fusion`` make it the fine-tune's training forward (each pass
+    draws its own dropout and stochastic depth)."""
     route = dict(rel_bias=rel_bias, kernels=kernels, int8_gelu=int8_gelu,
-                 qk_int8=qk_int8, fusion=fusion)
+                 qk_int8=qk_int8, fusion=fusion, train=train,
+                 generator=generator, train_fusion=train_fusion)
     i1 = model.infer(params, spec, batch, image_token_type_idx=1, **route)
     i2 = model.infer(params, spec, batch, image_token_type_idx=2, **route)
     cls = torch.cat([i1["cls_feats"], i2["cls_feats"]], dim=-1)

@@ -32,6 +32,7 @@ K11 or K10 forward (``_pallas_dispatch``'s choice) and the autograd VJP of
 
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Callable, Optional, Sequence
 
@@ -164,10 +165,13 @@ def packed_attention(qkv: torch.Tensor, bias: torch.Tensor,
         0 if stats is None else stats.data_ptr(), B, N, num_heads,
         float(scale), _build.stream_handle(dev)), "packed_attention")
     packed_attention.launches += 1
+    packed_attention.launches_at[N] += 1
     return (out, stats) if with_stats else out
 
 
+# launches, in all and by sequence length
 packed_attention.launches = 0
+packed_attention.launches_at = collections.Counter()
 
 
 def quant_rows(x32: torch.Tensor):
@@ -329,10 +333,13 @@ def packed_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor,
         part.data_ptr(), B, N, num_heads, ldb, groups, float(scale),
         _build.stream_handle(dev)), "packed_attention_bwd")
     packed_attention_bwd.launches += 1
+    packed_attention_bwd.launches_at[N] += 1
     return dqkv, dbias
 
 
+# launches, in all and by sequence length
 packed_attention_bwd.launches = 0
+packed_attention_bwd.launches_at = collections.Counter()
 
 
 class _PackedFusedAttention(torch.autograd.Function):

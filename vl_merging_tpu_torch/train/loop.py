@@ -2,19 +2,22 @@
 ``vl_merging_tpu/train/loop.py:257-266``, as one function).
 
 The JAX package's ``Trainer.fit`` loop, its data modules, validation and
-checkpointing are not ported yet (ROADMAP A7).
+checkpointing are not ported yet (ROADMAP item "Trainer, CLI, data and
+distribution").
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from ..models.spec import ModelSpec, Params
 from . import train_step as ts
 from .optimizer import make_optimizer
 from .schedule import make_schedule
 
-WORLD_SIZE = 1  # the port trains on one device (multi-device: ROADMAP A7)
+# the port trains on one device (multi-device: ROADMAP item "Trainer, CLI,
+# data and distribution")
+WORLD_SIZE = 1
 
 
 def accum_steps(cfg: Dict) -> int:
@@ -29,13 +32,15 @@ def accum_steps(cfg: Dict) -> int:
 
 
 def build_train_step(cfg: Dict, spec: ModelSpec, params: Params,
-                     max_steps: int, *, train_fusion: str = "0"
+                     max_steps: int, *, train_fusion: str = "0",
+                     mim_label_fn: Optional[Callable] = None
                      ) -> Tuple[ts.TrainState, Callable]:
     """(state, step_fn) for ``max_steps`` optimizer steps over ``params``,
     which must be f32 masters (``ckpt/convert.master_params``); step_fn
     updates them in place.  Each step takes a batch with a leading
     ``accum_steps(cfg)`` micro-batch axis when that is above 1.
     ``train_fusion`` ("0", "tail" or "full") is the training fusion level
+    and ``mim_label_fn`` the MIM labels' source
     (``train_step.make_train_step``)."""
     sched = make_schedule(cfg, max_steps)
     optimizer = make_optimizer(params, cfg, max_steps, sched)
@@ -43,5 +48,6 @@ def build_train_step(cfg: Dict, spec: ModelSpec, params: Params,
     step_fn = ts.make_train_step(cfg, spec, optimizer,
                                  dp_scale=1.0 / WORLD_SIZE,
                                  accum_steps=accum_steps(cfg),
-                                 train_fusion=train_fusion)
+                                 train_fusion=train_fusion,
+                                 mim_label_fn=mim_label_fn)
     return state, step_fn

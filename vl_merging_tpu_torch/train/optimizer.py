@@ -8,9 +8,13 @@ classifiers plus optional expert subsets (all_{mlp,vl,v,l}_mult), with
 their own weight_decay_custom_modules.
 
 The update is a function over the param dict, the same chain as the JAX
-package's optax chain (torch AdamW's update):
-  p ← p − group_lr · (adam_dir + wd_group · p)
-``AdamW.update`` returns the updates and the new state and leaves the
+package's optax chain (optimizer.py:74-99), by ``optim_type``:
+  * "adamw" (torch AdamW's update): p ← p − group_lr · (adam_dir + wd_group · p);
+  * "adam": Adam (b2 0.999) without weight decay;
+  * "sgd": momentum 0.9 without dampening, not Nesterov (optax
+    ``trace(decay=0.9)``): t ← g + 0.9 t, p ← p − group_lr · t;
+each through the learning-rate schedule and the head lr multiplier.
+``Optimizer.update`` returns the updates and the new state and leaves the
 params alone; the train step adds the updates to its f32 masters in place.
 """
 
@@ -25,6 +29,9 @@ from ..models.spec import Params
 from .schedule import Schedule
 
 B1, EPS = 0.9, 1e-8  # Adam's first-moment decay and epsilon (optimizer.py:82)
+ADAM_B2 = 0.999      # "adam"'s second-moment decay (optimizer.py:84)
+MOMENTUM = 0.9       # "sgd"'s trace decay (optimizer.py:86)
+OPTIM_TYPES = ("adamw", "adam", "sgd")
 
 NO_DECAY_SUBSTRINGS = (
     "bias",
@@ -72,15 +79,18 @@ def param_masks(params: Params, cfg: Dict) -> Dict[str, Dict[str, bool]]:
 @dataclasses.dataclass
 class OptState:
     count: int                    # optimizer steps taken
-    mu: Dict[str, torch.Tensor]   # Adam's first moments
-    nu: Dict[str, torch.Tensor]   # Adam's second moments
+    mu: Dict[str, torch.Tensor]   # Adam's first moments; sgd's trace
+    nu: Dict[str, torch.Tensor]   # Adam's second moments (empty for sgd)
 
 
 @dataclasses.dataclass
-class AdamW:
-    """Adam, masked decoupled weight decay, the learning-rate schedule and
-    the head lr multiplier, in that order (optax.scale_by_adam,
-    add_decayed_weights ×2, scale_by_schedule, the lr_mult scale)."""
+class Optimizer:
+    """The direction of ``optim_type`` (Adam's, or sgd's momentum trace),
+    for "adamw" the masked decoupled weight decay, then the learning-rate
+    schedule and the head lr multiplier, in that order
+    (optax.scale_by_adam or trace, add_decayed_weights ×2,
+    scale_by_schedule, the lr_mult scale)."""
+    optim_type: str
     b2: float
     weight_decay: float
     weight_decay_head: float
@@ -92,16 +102,10 @@ class AdamW:
         def zeros():
             return {k: torch.zeros_like(v, dtype=torch.float32)
                     for k, v in params.items()}
-        return OptState(0, zeros(), zeros())
+        return OptState(0, zeros(), {} if self.optim_type == "sgd"
+                        else zeros())
 
-    def update(self, grads: Params, state: OptState, params: Params):
-        """(updates, new state) for one optimizer step; ``grads`` f32.  The
-        arithmetic runs as multi-tensor (``torch._foreach_*``) ops over all
-        leaves at once, in optax's order of operations."""
-        keys = list(grads)
-        g = [grads[k] for k in keys]
-        p = [params[k].detach() for k in keys]
-        count = state.count + 1
+    def _adam(self, g, state: OptState, keys, count: int):
         mu = torch._foreach_mul(g, 1 - B1)
         torch._foreach_add_(mu, torch._foreach_mul(
             [state.mu[k] for k in keys], B1))
@@ -109,22 +113,42 @@ class AdamW:
         torch._foreach_mul_(nu, 1 - self.b2)
         torch._foreach_add_(nu, torch._foreach_mul(
             [state.nu[k] for k in keys], self.b2))
-        # bias corrections and the learning rate as f32 scalars, as optax
+        # bias corrections as f32 scalars, as optax
         f32 = torch.float32
         c1 = float(1 - torch.tensor(B1, dtype=f32) ** count)
         c2 = float(1 - torch.tensor(self.b2, dtype=f32) ** count)
-        lr = float(torch.tensor(-self.schedule(state.count), dtype=f32))
         u = torch._foreach_div(mu, c1)
         den = torch._foreach_div(nu, c2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, EPS)
         torch._foreach_div_(u, den)
-        for mask, wd in (("decay_base", self.weight_decay),
-                         ("decay_head", self.weight_decay_head)):
-            idx = [i for i, k in enumerate(keys) if self.masks[mask][k]]
-            if idx:
-                torch._foreach_add_([u[i] for i in idx], torch._foreach_mul(
-                    [p[i] for i in idx], wd))
+        return u, mu, nu
+
+    def update(self, grads: Params, state: OptState, params: Params):
+        """(updates, new state) for one optimizer step; ``grads`` f32.  The
+        arithmetic runs as multi-tensor (``torch._foreach_*``) ops over all
+        leaves at once, in optax's order of operations."""
+        keys = list(grads)
+        g = [grads[k] for k in keys]
+        count = state.count + 1
+        if self.optim_type == "sgd":
+            mu = torch._foreach_mul([state.mu[k] for k in keys], MOMENTUM)
+            torch._foreach_add_(mu, g)
+            u, nu = [t.clone() for t in mu], []
+        else:
+            u, mu, nu = self._adam(g, state, keys, count)
+        if self.optim_type == "adamw":
+            p = [params[k].detach() for k in keys]
+            for mask, wd in (("decay_base", self.weight_decay),
+                             ("decay_head", self.weight_decay_head)):
+                idx = [i for i, k in enumerate(keys) if self.masks[mask][k]]
+                if idx:
+                    torch._foreach_add_([u[i] for i in idx],
+                                        torch._foreach_mul(
+                                            [p[i] for i in idx], wd))
+        # the learning rate as an f32 scalar, as optax
+        lr = float(torch.tensor(-self.schedule(state.count),
+                                dtype=torch.float32))
         torch._foreach_mul_(u, lr)
         heads = [u[i] for i, k in enumerate(keys) if self.masks["head"][k]]
         if self.lr_mult != 1.0 and heads:
@@ -134,16 +158,18 @@ class AdamW:
 
 
 def make_optimizer(params: Params, cfg: Dict, max_steps: int,
-                   schedule_fn: Schedule) -> AdamW:
-    """The reference's AdamW over its 4 param groups.  ``max_steps`` is
-    held by ``schedule_fn``; it stays in the signature of the JAX
-    package's make_optimizer."""
+                   schedule_fn: Schedule) -> Optimizer:
+    """The reference's optimizer (``optim_type`` "adamw", "adam" or
+    "sgd") over its 4 param groups.  ``max_steps`` is held by
+    ``schedule_fn``; it stays in the signature of the JAX package's
+    make_optimizer."""
     del max_steps
-    if cfg["optim_type"] != "adamw":
-        raise NotImplementedError(
-            f"optim_type {cfg['optim_type']!r}: only adamw (every reference "
-            f"config's) is ported; adam and sgd wait for ROADMAP A6")
-    return AdamW(b2=cfg["beta_2"], weight_decay=cfg["weight_decay"],
-                 weight_decay_head=cfg["weight_decay_custom_modules"],
-                 lr_mult=float(cfg["lr_mult"]), schedule=schedule_fn,
-                 masks=param_masks(params, cfg))
+    kind = cfg["optim_type"]
+    if kind not in OPTIM_TYPES:
+        raise ValueError(f"unknown optim_type {kind!r}")
+    return Optimizer(optim_type=kind,
+                     b2=cfg["beta_2"] if kind == "adamw" else ADAM_B2,
+                     weight_decay=cfg["weight_decay"],
+                     weight_decay_head=cfg["weight_decay_custom_modules"],
+                     lr_mult=float(cfg["lr_mult"]), schedule=schedule_fn,
+                     masks=param_masks(params, cfg))

@@ -15,11 +15,11 @@ run.py:210-212) is a Python loop over the leading micro-batch axis of the
 batch: gradients and losses are summed, then divided by the number of
 micro-batches, as the JAX package's ``lax.scan`` does.
 
-Randomness (text dropout, stochastic depth) comes from the state's
-``torch.Generator``.  Not carried over from the JAX package: the TPU's
-``unsafe_rbg`` PRNG (``_fast_rng``), and the in-graph augmentation and MLM
-masking hooks (``device_augment``, ``device_mlm``: the ROADMAP item
-"In-graph preprocessing").
+Randomness (text dropout, stochastic depth, ITM's hard negatives) comes
+from the state's ``torch.Generator``.  Not carried over from the JAX
+package: the TPU's ``unsafe_rbg`` PRNG (``_fast_rng``), and the in-graph
+augmentation and MLM masking hooks (``device_augment``, ``device_mlm``:
+the ROADMAP item "In-graph preprocessing").
 """
 
 from __future__ import annotations
@@ -31,24 +31,7 @@ import torch
 
 from ..models.spec import ModelSpec, Params
 from . import objectives
-from .optimizer import AdamW, OptState
-
-# the tasks of the JAX package's compute_losses that the port does not
-# run yet, with the ROADMAP item (by its title) that brings each
-_PRETRAIN = '"Pretrain objectives, the other fine-tunes and the dVAE"'
-_NOT_PORTED = {
-    "mlm": _PRETRAIN,
-    "mim": _PRETRAIN,
-    "ifm": _PRETRAIN,
-    "itm": _PRETRAIN,
-    "image_only_mim": _PRETRAIN,
-    "text_only_mlm": _PRETRAIN,
-    "img_cls": _PRETRAIN,
-}
-# the tasks the port runs in eval mode only (the gram pass, the eval step):
-# their training forward and backward through the fused VL pass come with
-# the fine-tunes
-_EVAL_ONLY = {"vqa": _PRETRAIN, "nlvr2": _PRETRAIN}
+from .optimizer import Optimizer, OptState
 
 
 @dataclasses.dataclass
@@ -77,41 +60,67 @@ def active_tasks(cfg: Dict) -> Tuple[str, ...]:
 def compute_losses(params: Params, spec: ModelSpec, cfg: Dict, batch: Dict,
                    generator: Optional[torch.Generator], *,
                    train: bool = True, kernels: bool = True,
-                   train_fusion: str = "0") -> Dict:
-    """Task dispatch in reference order (vilt_module.py:1467-1523); the
-    port runs irtr, and vqa and nlvr2 at ``train=False``, and raises for
-    every other task.  ``train=False`` is the eval-mode forward of the
-    eval step and the gram pass (``train/gram.py``; the JAX package's
+                   train_fusion: str = "0",
+                   mim_label_fn: Optional[Callable] = None) -> Dict:
+    """Task dispatch in reference order (vilt_module.py:1467-1523; the JAX
+    package's train_step.py:77-138).  A mixed single/multi-modal batch
+    (``cfg["tasks"]`` set, a dict of sub-batches ``{"v", "l", "vl"}``) runs
+    image_only_mim on "v", text_only_mlm on "l" and the rest on "vl".
+    MIM's labels are ``mim_label_fn(batch)`` (the dVAE's codebook ids of
+    ``image_target``: ``dvae.make_mim_label_fn``), else the batch's
+    ``mim_labels``.  ``train=False`` is the eval-mode forward of the eval
+    step and the gram pass (``train/gram.py``; the JAX package's
     gram.py:36-58): no dropout, no stochastic depth, the eval blocks.
     ``train_fusion`` is the training fusion level of every block ("0",
-    "tail" or "full"; ``mome._block_fast_train``)."""
-    if cfg["tasks"] is not None and any(k in batch for k in ("v", "l", "vl")):
-        raise NotImplementedError(
-            "mixed single/multi-modal batches are not ported yet: ROADMAP "
-            f"item {_PRETRAIN}")
+    "tail" or "full"; ``mome._block_fast_train``).  itm samples its hard
+    negatives from ifm's logits, so it needs ifm (``ValueError``)."""
     tasks = active_tasks(cfg)
-    for task in tasks:
-        if task in _NOT_PORTED:
-            raise NotImplementedError(
-                f"the {task} objective is not ported yet: ROADMAP item "
-                f"{_NOT_PORTED[task]}")
-        if train and task in _EVAL_ONLY:
-            raise NotImplementedError(
-                f"the {task} objective runs in eval mode only (train=False);"
-                f" its training step is not ported yet: ROADMAP item "
-                f"{_EVAL_ONLY[task]}")
+    route = dict(train=train, generator=generator, kernels=kernels,
+                 train_fusion=train_fusion)
     out: Dict = {}
+
+    def mim_labels(b):
+        return mim_label_fn(b) if mim_label_fn is not None \
+            else b["mim_labels"]
+
+    if cfg["tasks"] is not None and any(k in batch for k in ("v", "l", "vl")):
+        if "v" in batch and "image_only_mim" in tasks:
+            out.update(objectives.compute_mim_image_only(
+                params, spec, batch["v"], mim_labels=mim_labels(batch["v"]),
+                **route))
+        if "l" in batch and "text_only_mlm" in tasks:
+            out.update(objectives.compute_mlm_text_only(
+                params, spec, batch["l"], **route))
+        if "vl" not in batch:
+            return out
+        batch = batch["vl"]
+
+    if "mlm" in tasks:
+        out.update(objectives.compute_mlm(
+            params, spec, batch, vl_mlm_weight=cfg["vl_mlm_weight"], **route))
+    if "mim" in tasks:
+        out.update(objectives.compute_mim(
+            params, spec, batch, mim_labels=mim_labels(batch), **route))
+    if "ifm" in tasks:
+        out.update(objectives.compute_ifm(
+            params, spec, batch, ifm_weight=cfg["ifm_weight"], **route))
     if "irtr" in tasks:
-        out.update(objectives.compute_irtr(params, spec, batch, train=train,
-                                           generator=generator,
-                                           kernels=kernels,
-                                           train_fusion=train_fusion))
+        out.update(objectives.compute_irtr(params, spec, batch, **route))
+    if "itm" in tasks:
+        if "ifm_i2t_logits" not in out:
+            raise ValueError(
+                "itm requires ifm in loss_names: hard negatives are sampled "
+                "from ifm's similarity logits (reference "
+                "vilt_module.py:1509-1510)")
+        out.update(objectives.compute_itm_hardneg(
+            params, spec, batch, out["ifm_i2t_logits"], out["ifm_t2i_logits"],
+            **route))
     if "vqa" in tasks:
-        out.update(objectives.compute_vqa(params, spec, batch,
-                                          kernels=kernels))
+        out.update(objectives.compute_vqa(params, spec, batch, **route))
+    if "img_cls" in tasks:
+        out.update(objectives.compute_img_cls(params, spec, batch, **route))
     if "nlvr2" in tasks:
-        out.update(objectives.compute_nlvr2(params, spec, batch,
-                                            kernels=kernels))
+        out.update(objectives.compute_nlvr2(params, spec, batch, **route))
     return out
 
 
@@ -138,11 +147,13 @@ def scalar_metrics(out: Dict) -> Dict[str, torch.Tensor]:
 
 def loss_and_grads(params: Params, spec: ModelSpec, cfg: Dict, batch: Dict,
                    generator: torch.Generator, *, kernels: bool,
-                   dp_scale: float = 1.0, train_fusion: str = "0"):
+                   dp_scale: float = 1.0, train_fusion: str = "0",
+                   mim_label_fn: Optional[Callable] = None):
     """(loss, scalar metrics, f32 grads) of one micro-batch.  A param that
     the loss does not reach gets a zero gradient, as under jax.grad."""
     out = compute_losses(params, spec, cfg, batch, generator,
-                         kernels=kernels, train_fusion=train_fusion)
+                         kernels=kernels, train_fusion=train_fusion,
+                         mim_label_fn=mim_label_fn)
     loss = total_loss(out, dp_scale)
     names = list(params)
     grads = torch.autograd.grad(loss, [params[k] for k in names],
@@ -158,9 +169,17 @@ def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
         torch._foreach_norm(list(tree.values()))))
 
 
-def make_train_step(cfg: Dict, spec: ModelSpec, optimizer: AdamW, *,
+def micro_batch(batch: Dict, i: int) -> Dict:
+    """Micro-batch ``i`` of a batch with a leading micro-batch axis; a
+    mixed batch's sub-batches each by theirs."""
+    return {k: micro_batch(v, i) if isinstance(v, dict) else v[i]
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: Dict, spec: ModelSpec, optimizer: Optimizer, *,
                     dp_scale: float = 1.0, accum_steps: int = 1,
-                    train_fusion: str = "0"
+                    train_fusion: str = "0",
+                    mim_label_fn: Optional[Callable] = None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """Build the train step.
 
@@ -169,13 +188,15 @@ def make_train_step(cfg: Dict, spec: ModelSpec, optimizer: AdamW, *,
     optimizer update — semantics of Lightning's accumulate_grad_batches.
     The kernel switch is ``_resolve_kernels(cfg, spec)``; ``train_fusion``
     ("0", "tail" or "full") is the training fusion level, the JAX
-    package's ``VLM_TPU_TRAIN_FUSION``."""
+    package's ``VLM_TPU_TRAIN_FUSION``; ``mim_label_fn`` gives MIM its
+    labels (``compute_losses``)."""
     kernels = _resolve_kernels(cfg, spec)
 
     def micro(state: TrainState, batch: Dict):
         return loss_and_grads(state.params, spec, cfg, batch,
                               state.generator, kernels=kernels,
-                              dp_scale=dp_scale, train_fusion=train_fusion)
+                              dp_scale=dp_scale, train_fusion=train_fusion,
+                              mim_label_fn=mim_label_fn)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         if accum_steps == 1:
@@ -184,7 +205,7 @@ def make_train_step(cfg: Dict, spec: ModelSpec, optimizer: AdamW, *,
             loss, grads = 0.0, None
             for i in range(accum_steps):
                 mb_loss, metrics, mb_grads = micro(
-                    state, {k: v[i] for k, v in batch.items()})
+                    state, micro_batch(batch, i))
                 loss = loss + mb_loss
                 if grads is None:
                     grads = mb_grads
@@ -205,7 +226,7 @@ def make_train_step(cfg: Dict, spec: ModelSpec, optimizer: AdamW, *,
     return step
 
 
-def init_train_state(params: Params, optimizer: AdamW,
+def init_train_state(params: Params, optimizer: Optimizer,
                      seed: int = 0) -> TrainState:
     """The state of step 0 over ``params``, which must be the f32 masters
     (``ckpt/convert.master_params``): the step updates them in place.
