@@ -22,7 +22,10 @@ and captions are synthetic.
     K8 → K3, "mega" K7), and the retrieval eval under "mega";
   * the irtr fine-tune step under the training fusion (``train_fusion``
     "tail": K6 for every block's post-attention half; "full": K1 for its
-    LN1 + qkv too).
+    LN1 + qkv too);
+  * the Trainer (``train/loop.Trainer``: fit, validate, recall,
+    checkpoints and resume), ``run.main`` and ``cache_gram_matrices.main``
+    over arrows the script writes, read by the port's ``data/``.
 
 The merging phase starts from the same config with ``all_moe`` (the
 experts the merges fold into ufo).
@@ -250,6 +253,32 @@ Phases, each fatal on failure:
      and K9 counted by N too), every loss and the grad norm finite, step
      ms, pairs/s and peak memory (best of 2).
 
+ 14. the Trainer, the CLIs and the data pipeline
+     (``train/loop.Trainer``, ``run.main``, ``cache_gram_matrices.main``,
+     ``data/``), the COCO irtr @384 config + ``ufo`` at full width and
+     depth over COCO karpathy arrows the phase writes (train, val and test
+     each 32 random-noise JPEGs at 384 px with 5 captions, a vocabulary of
+     its words): ``Trainer.fit`` for 3 steps of 2 micro-batches of 16
+     (``_stack_micro``), validating after step 2 and at the end with the
+     recall of both splits (launches as ``block_launches`` /
+     ``tower_launches`` derive them: per micro-batch K2 and K9 12 at 577
+     tokens and K13 24; per validation the eval step over the val loader's
+     10 batches and both splits' recall, K1-K3 and K13 12 a batch), the
+     metrics it logs, ``checkpoints/last`` (``weights.ckpt`` read back bit
+     for bit, ``meta.json``, the full state ``state.pt``) and ``best``;
+     ``validate`` and ``recall`` alone, timed; a second Trainer resumed
+     from "last" (``resume_during_pretraining``) for step 4 against a third
+     that takes 4 steps uninterrupted: each loss within 5e-3 relative, the
+     params at cosine 0.999 (bit-equal or not, printed); the Trainer's
+     step timed as phase 6 times its own; ``run.main`` through a fit on the
+     config's RandAugment and through ``validation_only``; and
+     ``cache_gram_matrices.main`` on ``all_moe`` (2 batches of 16,
+     ``f32_device``: K2 12 a batch) held against phase 11's gram pass on
+     the same batches and params (rows·2^-24·max|g|).  It prints the fit's
+     wall, the host's wait per step on the loader and on ``device_feed``,
+     peak memory and the validation and recall walls, with the card's name
+     and power limit.
+
 Each row of the ``{"kernels": ...}`` line carries the widths it was held
 at (``widths``) and, for the kernels built for 1024, its figures there
 (``at_1024``).
@@ -308,7 +337,8 @@ from vl_merging_tpu_torch.ops import mlp as mlp_ops
 from vl_merging_tpu_torch.train import objectives, train_step
 from vl_merging_tpu_torch.train.gram import cache_gram_matrices, \
     make_capture_step, make_gram_step, save_gram_matrices
-from vl_merging_tpu_torch.train.loop import accum_steps, build_train_step
+from vl_merging_tpu_torch.train.loop import Trainer, accum_steps, \
+    build_train_step
 
 SEED = 0
 CONFIG = ("task_finetune_irtr_coco_square_randaug_base_image384", "ufo")
@@ -3636,6 +3666,361 @@ def run_objectives(dev, card: str) -> dict:
     return {k: sum(c.get(k, 0) for c in counts) for k in KERNELS}
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the Trainer, the CLIs and the data pipeline
+# --------------------------------------------------------------------------
+
+# COCO-style arrows at ARROW_PX, written here: train, val and test each of
+# ARROW_IMAGES random-noise JPEGs with ARROW_CAPTIONS captions of 3 to 12
+# words from CAPTION_WORDS (the vocabulary the phase writes)
+ARROW_PX, ARROW_IMAGES, ARROW_CAPTIONS = 384, 32, 5
+CAPTION_WORDS = ("a", "an", "the", "dog", "cat", "man", "woman", "child",
+                 "plays", "sits", "runs", "eats", "holds", "with", "on",
+                 "in", "near", "under", "red", "blue", "green", "small",
+                 "large", "ball", "table", "street", "field", "water",
+                 "bench", "kite", "bus", "train", "plate", "pizza", "horse",
+                 "bird", "tree", "road", "snow", "beach")
+# the Trainer: 2 micro-batches of 16 a step (_stack_micro), a validation
+# after step 2 (val_check_interval in loader batches) and one at the end
+TRAINER_MICRO, TRAINER_STEPS, TRAINER_VCI = 16, 3, 4
+# the gram CLI's batches (limit_val_batches over the val loader's 10)
+GRAM_CLI_BATCHES = 2
+
+
+def write_coco_arrows(root: Path) -> str:
+    """The vocabulary and the three COCO karpathy arrows under ``root``, in
+    the reference writers' schema (image bytes, caption list, image_id,
+    split); returns the vocabulary's path."""
+    import io
+
+    import pyarrow as pa
+    from PIL import Image
+
+    from vl_merging_tpu_torch.data import write_tiny_vocab
+
+    vocab = write_tiny_vocab(str(root / "vocab.txt"), list(CAPTION_WORDS))
+    for k, split in enumerate(("train", "val", "test")):
+        rng = np.random.RandomState(SEED + 60 + k)
+        images, captions = [], []
+        for _ in range(ARROW_IMAGES):
+            pixels = (rng.rand(ARROW_PX, ARROW_PX, 3) * 255).astype(np.uint8)
+            buf = io.BytesIO()
+            Image.fromarray(pixels).save(buf, format="JPEG")
+            images.append(buf.getvalue())
+            captions.append([" ".join(rng.choice(CAPTION_WORDS,
+                                                 rng.randint(3, 13)))
+                             for _ in range(ARROW_CAPTIONS)])
+        table = pa.Table.from_arrays(
+            [pa.array(images), pa.array(captions),
+             pa.array([f"{split}_{i:012d}.jpg" for i in range(ARROW_IMAGES)]),
+             pa.array([split] * ARROW_IMAGES)],
+            names=["image", "caption", "image_id", "split"])
+        with pa.OSFile(str(root / f"coco_caption_karpathy_{split}.arrow"),
+                       "wb") as sink:
+            with pa.RecordBatchFileWriter(sink, table.schema) as w:
+                w.write_table(table)
+    return vocab
+
+
+
+def trainer_overrides(root: Path, vocab: str, log_dir, **over) -> dict:
+    """The phase's config: the COCO irtr @384 config with the phase's data,
+    2 micro-batches of TRAINER_MICRO a step, no warm-up.  The Trainer runs
+    (fit, resume, uninterrupted) train on the eval transform
+    (``square_transform``): the host's augmentation draws are no part of a
+    resumed run's state, and with them the resumed and uninterrupted runs
+    would see other pixels; ``run.main`` keeps the config's RandAugment."""
+    o = dict(data_root=str(root), tokenizer=vocab, log_dir=str(log_dir),
+             per_device_batch_size=TRAINER_MICRO,
+             batch_size=2 * TRAINER_MICRO, max_steps=TRAINER_STEPS,
+             val_check_interval=TRAINER_VCI, warmup_steps=0,
+             train_transform_keys=["square_transform"])
+    o.update(over)
+    return o
+
+
+def argv_of(names, over: dict) -> list:
+    return list(names) + [f"{k}={v!r}" for k, v in over.items()]
+
+
+class RecordingTrainer(Trainer):
+    """A Trainer that keeps each optimizer step's metrics, as floats."""
+
+    def _build_step(self, max_steps: int):
+        super()._build_step(max_steps)
+        step_fn, self.steps = self.step_fn, {}
+
+        def step(state, feed):
+            state, metrics = step_fn(state, feed)
+            self.steps[state.step] = {k: float(v)
+                                      for k, v in metrics.items()}
+            return state, metrics
+
+        self.step_fn = step
+
+
+def trainer_launches(spec, steps: int, validations: int,
+                     val_batches: int, with_recall: bool,
+                     micro: int = TRAINER_MICRO,
+                     accum: int = 2) -> collections.Counter:
+    """A fit's launches: per micro-batch both towers' training blocks (K2,
+    K9 at 577 tokens, K13 in every block); per validation the eval step
+    over the val loader's batches (both towers, "tail": K1-K3 and K13) and,
+    with the recall, both splits' recall (one text batch of every caption,
+    one image batch)."""
+    L, T = spec.num_layers, spec.max_text_len
+    train = block_launches(N, micro, L) + block_launches(T, micro, L)
+    eval_step = (block_launches(N, micro, L, fusion="tail", train=False)
+                 + block_launches(T, micro, L, fusion="tail", train=False))
+    out = scaled(train, steps * accum) + scaled(eval_step,
+                                                val_batches * validations)
+    if with_recall:
+        out += scaled(recall_launches(spec), 2 * validations)
+    return out
+
+
+def recall_launches(spec) -> collections.Counter:
+    """``Trainer.recall`` over one split: every caption in one text batch,
+    the ARROW_IMAGES images in one image batch."""
+    T = spec.max_text_len
+    return (tower_launches(spec, N, ARROW_IMAGES, fusion="tail", train=False)
+            + tower_launches(spec, T, ARROW_IMAGES * ARROW_CAPTIONS,
+                             fusion="tail", train=False))
+
+
+def run_trainer(dev, card: str) -> dict:
+    """Phase 14: ``Trainer.fit`` / ``validate`` / ``recall`` with
+    checkpoints and resume, ``run.main`` and ``cache_gram_matrices.main``
+    over arrows written here, at full width and depth."""
+    from vl_merging_tpu_torch import cache_gram_matrices as gram_cli
+    from vl_merging_tpu_torch import run, runtime
+    from vl_merging_tpu_torch.data.datamodule import MTDataModule
+    from vl_merging_tpu_torch.train.loop import device_feed
+
+    counts = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        vocab = write_coco_arrows(tmp)
+        print(f"arrows written: {3 * ARROW_IMAGES} images at "
+              f"{ARROW_PX} px, {ARROW_CAPTIONS} captions each "
+              f"({time.perf_counter() - t0:.1f} s); native JPEG decode "
+              f"{'built' if runtime.available() else 'not built: PIL'}")
+
+        # (1) a 3-step fit, validations after step 2 and at the end
+        cfg = build_config(*CONFIG, overrides=trainer_overrides(
+            tmp, vocab, tmp / "fit"))
+        spec = make_model_spec(cfg)
+        t0 = time.perf_counter()
+        trainer = RecordingTrainer(cfg)
+        print(f"Trainer built in {time.perf_counter() - t0:.1f} s "
+              f"(seeded weights, f32 masters on {trainer.device})")
+        dm = MTDataModule(cfg)
+        val_batches = len(dm.val_loader(TRAINER_MICRO))
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(dm)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts += check_launches(
+            f"Trainer.fit ({TRAINER_STEPS} steps of 2 x {TRAINER_MICRO}, 2 "
+            f"validations with recall)",
+            trainer_launches(spec, TRAINER_STEPS, 2, val_batches, True))
+        wait = trainer.host_wait
+        if wait["steps"] != TRAINER_STEPS or sorted(trainer.steps) != \
+                list(range(1, TRAINER_STEPS + 1)):
+            fail(f"Trainer.fit took steps {sorted(trainer.steps)}")
+        bad = {s: m for s, m in trainer.steps.items()
+               if not all(np.isfinite(v) for v in m.values())}
+        if bad:
+            fail(f"Trainer.fit: a metric not finite: {bad}")
+        print(f"Trainer.fit: {fit_s:.2f} s for {TRAINER_STEPS} steps and 2 "
+              f"validations; host wait per step on the loader "
+              f"{1e3 * wait['loader_s'] / wait['steps']:.1f} ms, on "
+              f"device_feed {1e3 * wait['feed_s'] / wait['steps']:.1f} ms; "
+              f"peak memory {peak:.2f} GiB; losses "
+              + ", ".join(f"{s}: {m['total_loss']:.6f}"
+                          for s, m in sorted(trainer.steps.items()))
+              + f" [{card}]")
+        lines = [json.loads(line) for line in open(trainer.logger.path)]
+        if [r["step"] for r in lines] != [2, TRAINER_STEPS] or not all(
+                "val/the_metric" in r and "recalls/test_avg" in r
+                for r in lines):
+            fail(f"Trainer.fit logged {lines}")
+        print("validation metrics: " + json.dumps(lines[-1]))
+
+        # the checkpoints: last and best, weights.ckpt bit for bit
+        ck = Path(trainer.log_dir) / "checkpoints"
+        for f in ("last/weights.ckpt", "last/meta.json", "last/state.pt",
+                  "best/weights.ckpt"):
+            if not (ck / f).exists():
+                fail(f"Trainer.fit wrote no {f}")
+        sd = load_torch_checkpoint(str(ck / "last" / "weights.ckpt"))
+        want = params_to_state_dict(trainer.params)
+        if set(sd) != set(want) or not all(bit_equal(sd[k], want[k])
+                                           for k in want):
+            fail("last/weights.ckpt differs from the trainer's params")
+        print(f"checkpoints: last (weights.ckpt, meta.json, state.pt) and "
+              f"best; last/weights.ckpt read back bit for bit ({len(sd)} "
+              f"tensors, step "
+              f"{json.load(open(ck / 'last' / 'meta.json'))['step']})")
+        del sd, want
+
+        # validate and recall alone, timed
+        for what, fn, want in (
+                ("Trainer.validate", lambda: trainer.validate(dm),
+                 trainer_launches(spec, 0, 1, val_batches, True)),
+                ("Trainer.recall (test split)", lambda: trainer.recall(dm),
+                 recall_launches(spec))):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts += check_launches(what, want)
+            print(f"{what}: {wall:.3f} s [{card}]: " + json.dumps(out))
+        del trainer
+
+        # (2) resumed from "last" for step 4; (3) 4 steps uninterrupted
+        runs = {}
+        for name, log_dir, over in (
+                ("resumed", tmp / "fit", dict(resume_during_pretraining=True)),
+                ("uninterrupted", tmp / "whole", {})):
+            cfg4 = build_config(*CONFIG, overrides=trainer_overrides(
+                tmp, vocab, log_dir, max_steps=TRAINER_STEPS + 1,
+                get_recall_metric=False, **over))
+            t = RecordingTrainer(cfg4)
+            reset_launches()
+            t.fit(dm)
+            steps = TRAINER_STEPS + 1 if name == "uninterrupted" else 1
+            validations = 2 if name == "uninterrupted" else 1
+            counts += check_launches(
+                f"Trainer.fit, {name} ({steps} step(s))",
+                trainer_launches(spec, steps, validations, val_batches,
+                                 False))
+            runs[name] = t
+        got, want = runs["resumed"], runs["uninterrupted"]
+        step = TRAINER_STEPS + 1
+        if sorted(got.steps) != [step] or got.state.step != step:
+            fail(f"the resumed fit took steps {sorted(got.steps)}")
+        losses = {k: v for k, v in got.steps[step].items()
+                  if k.endswith("_loss")}
+        rel = max(abs(v - want.steps[step][k]) / abs(want.steps[step][k])
+                  for k, v in losses.items())
+        cos = global_cosine({k: v.detach() for k, v in got.params.items()},
+                            want.params)
+        same = all(torch.equal(got.params[k], want.params[k])
+                   for k in got.params)
+        print(f"resume: step {step} resumed from last (step "
+              f"{TRAINER_STEPS}) against an uninterrupted fit: losses "
+              f"{losses} vs "
+              f"{ {k: want.steps[step][k] for k in losses} }, worst relative "
+              f"difference {rel:.2e} (need <= {LOSS_REL}); params global "
+              f"cosine {cos:.9f} (need >= {MIN_COSINE}); "
+              + ("bit-equal" if same else "not bit-equal: the first fit's "
+                 "learning rate decays over its 3 steps, the uninterrupted "
+                 "one's over 4"))
+        if rel > LOSS_REL or cos < MIN_COSINE:
+            fail("the resumed fit disagrees with the uninterrupted one")
+
+        # the step alone, timed as phases 6, 8 and 13 time theirs
+        t = runs.pop("uninterrupted")
+        del runs, got, want
+        loader = dm.train_loader(TRAINER_MICRO)
+        it = iter(loader)
+        feed = t._stack_micro([next(it), next(it)])
+        del it, loader
+        L, T = spec.num_layers, spec.max_text_len
+        counts += collections.Counter(train_in_turns(
+            f"Trainer step (irtr @384, 2 x {TRAINER_MICRO} pairs from the "
+            f"arrows)", {"trainer": (t.state, t.step_fn)}, feed,
+            2 * TRAINER_MICRO, {"trainer": scaled(
+                block_launches(N, TRAINER_MICRO, L)
+                + block_launches(T, TRAINER_MICRO, L), 2)}, card))
+        del t, feed
+        torch.cuda.empty_cache()
+
+        # run.main: a fit on the config's own RandAugment, validation_only
+        for label, over, want in (
+                ("run.main fit (RandAugment)", dict(
+                    max_steps=2, val_check_interval=1.0,
+                    train_transform_keys=["square_transform_randaug"]),
+                 trainer_launches(spec, 2, 1, val_batches, True)),
+                ("run.main validation_only", dict(validation_only=True),
+                 trainer_launches(spec, 0, 1, val_batches, True))):
+            args = argv_of(CONFIG, trainer_overrides(
+                tmp, vocab, tmp / "cli", **over))
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):  # the config dump
+                t = run.main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts += check_launches(label, want)
+            wait = t.host_wait
+            per = (f"; host wait per step on the loader "
+                   f"{1e3 * wait['loader_s'] / wait['steps']:.1f} ms, on "
+                   f"device_feed {1e3 * wait['feed_s'] / wait['steps']:.1f}"
+                   f" ms" if wait["steps"] else "")
+            print(f"{label}: {wall:.2f} s, the Trainer's build included"
+                  f"{per} [{card}]")
+            del t
+        torch.cuda.empty_cache()
+
+        # the gram CLI on all_moe, held against phase 11's gram pass over
+        # the same batches and params
+        gram_over = trainer_overrides(
+            tmp, vocab, tmp / "grams", representation_name="G",
+            gram_precision="f32_device",
+            limit_val_batches=GRAM_CLI_BATCHES / val_batches)
+        mcfg = build_config(*CONFIG_MOE, overrides=gram_over)
+        mspec = make_model_spec(mcfg)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            path = gram_cli.main(argv_of(CONFIG_MOE, gram_over))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gram_k2 = mspec.num_layers * GRAM_CLI_BATCHES
+        counts += check_launches(
+            "cache_gram_matrices.main", collections.Counter({
+                "packed_attention": gram_k2,
+                ("packed_attention", N): gram_k2}))
+        got = load_torch_checkpoint(path)
+        params = params_from_numpy(load_params(mcfg, mspec)[0], dev)
+        batches = [device_feed(b, dev) for _, b in zip(
+            range(GRAM_CLI_BATCHES), MTDataModule(mcfg).val_loader(
+                TRAINER_MICRO))]
+        want, _, n = run_gram_pass(params, mspec, mcfg, batches,
+                                   "f32_device", "phase 11's, same batches")
+        counts += collections.Counter(n)
+        if set(got) != set(want):
+            fail(f"gram CLI keys {sorted(set(got) ^ set(want))} differ")
+        pairs = GRAM_CLI_BATCHES * TRAINER_MICRO
+        worst, equal = 0.0, 0
+        for k, g in want.items():
+            limit = gram_rows(mspec, k, pairs) * F32_EPS * np.abs(g).max()
+            err = float(np.abs(got[k] - g).max())
+            worst = max(worst, err / limit)
+            equal += bit_equal(got[k], g)
+            if err > limit:
+                fail(f"gram CLI {k}: {err} from phase 11's pass, over "
+                     f"rows·2^-24·max|g| = {limit}")
+        print(f"cache_gram_matrices.main (all_moe, {GRAM_CLI_BATCHES} "
+              f"batches of {TRAINER_MICRO}, f32_device): {wall:.2f} s, the "
+              f"params' build included; {len(got)} grams, {equal} bit-equal "
+              f"to phase 11's pass on the same batches, the rest within "
+              f"{worst:.3f} of rows·2^-24·max|g| [{card}]")
+        del params, batches
+    return {k: counts[k] for k in KERNELS}
+
+
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
 # of their entry functions in the library's SASS (K7, K14 and K15 by
 # width: their instantiations at C=768 and 1024).
@@ -3823,7 +4208,8 @@ def main() -> int:
              "tiny": run_tiny(dev, card),
              "merging": run_merging(dev, card),
              "vl": run_vl(dev, card, rows),
-             "objectives": run_objectives(dev, card)}
+             "objectives": run_objectives(dev, card),
+             "trainer": run_trainer(dev, card)}
     for name, row in rows.items():
         for path, launches in paths.items():
             row[f"launches_{path}"] = launches[name]

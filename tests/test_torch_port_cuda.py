@@ -1390,3 +1390,66 @@ def test_vl_block_on_card(cuda_device, layer):
                                                 dim=-1)
     assert bool(torch.isfinite(got).all())
     assert float(cos.min()) >= 0.9999, float(cos.min())
+
+
+@pytest.mark.cuda
+def test_trainer_fit_step_on_card(cuda_device, tmp_path):
+    """One ``Trainer.fit`` step on the card (no ``use_cpu``), over COCO
+    arrows written here at 384 px, at the ViT-B/16 width (2 layers): the
+    step's image blocks take K2 and K9 and every block's MLP K13, the
+    final validation K1-K3 and K13; a finite loss; the checkpoints."""
+    import io
+    import json
+    import os
+
+    import numpy as np
+    import pyarrow as pa
+    from PIL import Image
+
+    from vl_merging_tpu_torch.config import build_config
+    from vl_merging_tpu_torch.data import MTDataModule, write_tiny_vocab
+    from vl_merging_tpu_torch.train.loop import Trainer
+
+    words = ["a", "dog", "cat", "plays", "on", "the", "red", "mat"]
+    vocab = write_tiny_vocab(str(tmp_path / "vocab.txt"), words)
+    rng = np.random.RandomState(0)
+    for split in ("train", "val", "test"):
+        images = []
+        for _ in range(8):
+            buf = io.BytesIO()
+            Image.fromarray((rng.rand(384, 384, 3) * 255).astype(np.uint8)
+                            ).save(buf, format="JPEG")
+            images.append(buf.getvalue())
+        caps = [[" ".join(rng.choice(words, 5)) for _ in range(2)]
+                for _ in images]
+        table = pa.Table.from_arrays(
+            [pa.array(images), pa.array(caps),
+             pa.array([str(i) for i in range(8)]), pa.array([split] * 8)],
+            names=["image", "caption", "image_id", "split"])
+        with pa.OSFile(str(tmp_path / f"coco_caption_karpathy_{split}.arrow"),
+                       "wb") as sink:
+            with pa.RecordBatchFileWriter(sink, table.schema) as w:
+                w.write_table(table)
+    cfg = build_config(
+        "task_finetune_irtr_coco_square_randaug_base_image384", "ufo",
+        overrides=dict(num_layers=2, vlffn_start_layer_index=1,
+                       data_root=str(tmp_path), tokenizer=vocab,
+                       log_dir=str(tmp_path / "logs"),
+                       per_device_batch_size=8, batch_size=8, max_steps=1,
+                       warmup_steps=0, num_workers=2))
+    trainer = Trainer(cfg)
+    assert trainer.device.type == "cuda"
+    kernels = (TA.packed_attention, TA.packed_attention_bwd, TM.mlp_kernel,
+               TF.ln_linear, TF.proj_mlp_tail)
+    for k in kernels:
+        k.launches = 0
+    trainer.fit(MTDataModule(cfg))
+    assert trainer.state.step == 1
+    assert [k.launches > 0 for k in kernels] == [True] * len(kernels)
+    assert TA.packed_attention_bwd.launches == 2    # 2 image blocks
+    with open(trainer.logger.path) as f:
+        last = [json.loads(line) for line in f][-1]
+    assert np.isfinite(last["val/irtr_loss"]) and "val/the_metric" in last
+    ck = os.path.join(trainer.log_dir, "checkpoints")
+    for f in ("last/weights.ckpt", "last/state.pt", "best/weights.ckpt"):
+        assert os.path.exists(os.path.join(ck, f))

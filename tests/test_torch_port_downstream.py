@@ -32,7 +32,7 @@ from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.train import train_step
 from test_torch_port_vl import TOWER_TOL, jbatch, setup, tbatch, vl_inputs
 
-DISTRIBUTION = "Trainer, CLI, data and distribution"
+DISTRIBUTION = "Distribution"
 
 
 @pytest.fixture(autouse=True)

@@ -12,8 +12,10 @@ submission, the NLVR2 paired pass, split and metrics
 pass over the vl experts and the ITM rerank; the pretrain objectives and
 the dVAE: the encoder's weights written and read back as the MIM label
 function, an all-in-one pretrain step on a mixed batch, the decoder, the
-trainable DiscreteVAE, and steps with the adam and sgd optimizers)
-must leave ``jax`` (and
+trainable DiscreteVAE, and steps with the adam and sgd optimizers; the
+Trainer, the CLIs and the data pipeline: arrow fixtures written by the
+test, one ``Trainer.fit`` step through ``run.py`` on the CPU, the gram CLI
+and the native JPEG decode) must leave ``jax`` (and
 ``vl_merging_tpu``, whose subpackages import jax) out of
 ``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
 opened (executing a file by path opens it) or imported.  The check runs in a fresh interpreter
@@ -267,6 +269,56 @@ SCRIPT = textwrap.dedent("""
                             torch.rand(2, 3, 16, 16, generator=g), dcfg,
                             generator=g, return_loss=True)
     assert bool(torch.isfinite(loss))
+
+    # the Trainer, the CLIs and the data pipeline: arrow fixtures written
+    # here (pyarrow, PIL, the port's tiny vocabulary), one Trainer.fit
+    # step through run.py on the CPU, the gram CLI, the native decode
+    import io as _io
+    import pyarrow as pa
+    from PIL import Image
+    from vl_merging_tpu_torch import cache_gram_matrices, run, runtime
+    from vl_merging_tpu_torch.data import datamodule, write_tiny_vocab
+    from vl_merging_tpu_torch.utils import write_arrows
+
+    def jpeg(seed):
+        buf = _io.BytesIO()
+        Image.fromarray((np.random.RandomState(seed).rand(64, 64, 3) * 255)
+                        .astype(np.uint8)).save(buf, format="JPEG")
+        return buf.getvalue()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        words = ["a", "dog", "cat", "plays", "on", "the", "mat"]
+        write_tiny_vocab(os.path.join(tmp, "vocab.txt"), words)
+        for split in ("train", "val", "test"):
+            n = 4
+            table = pa.Table.from_arrays(
+                [pa.array([jpeg(i) for i in range(n)]),
+                 pa.array([[" ".join(words[i:i + 3]), words[i]]
+                           for i in range(n)]),
+                 pa.array([f"{split}_{i}" for i in range(n)]),
+                 pa.array([split] * n)],
+                names=["image", "caption", "image_id", "split"])
+            write_arrows._write_table(
+                {k: table[k].to_pylist() for k in table.column_names},
+                os.path.join(tmp, f"coco_caption_karpathy_{split}.arrow"))
+        args = ["with", task, "ufo"] + [
+            f"{k}={v!r}" for k, v in shape.items()] + [
+            f"data_root={tmp!r}", f"log_dir={tmp!r}",
+            f"tokenizer={os.path.join(tmp, 'vocab.txt')!r}", "use_cpu=True",
+            "per_device_batch_size=4", "batch_size=4", "max_steps=1",
+            "num_workers=0", "warmup_steps=0", "get_recall_metric=True"]
+        with open(os.devnull, "w") as quiet, \
+                contextlib.redirect_stdout(quiet):
+            trainer = run.main(args)
+            grams_path = cache_gram_matrices.main(
+                ["with", task, "all_moe"] + args[3:] +
+                ["representation_name='G'", "gram_precision='f32_device'"])
+        assert trainer.state.step == 1 and trainer.device.type == "cpu"
+        assert os.path.exists(os.path.join(
+            trainer.log_dir, "checkpoints", "last", "state.pt"))
+        assert os.path.exists(grams_path)
+        assert datamodule.MTDataModule is not None
+    assert runtime.available()
 
     assert not touched, touched
     leaked = sorted(m for m in sys.modules

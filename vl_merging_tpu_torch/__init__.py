@@ -24,7 +24,10 @@ RegMean gram pass through activation taps (``train.gram``,
 ``compute_losses`` in training (``train.objectives``: mlm, mim, ifm with
 the towers' vlffn re-runs, itm with hard negatives, irtr, vqa, nlvr2,
 img_cls; mixed single/multi-modal batches), the adamw, adam and sgd
-optimizers, and the dVAE that gives MIM its labels (``dvae``).
+optimizers, and the dVAE that gives MIM its labels (``dvae``); the
+Trainer (``train.loop.Trainer``: fit, validate, recall, test, checkpoints
+and resume), the ``run`` and ``cache_gram_matrices`` CLIs, and the data
+pipeline (``data``, ``runtime``, ``utils``), in one process.
 """
 
 __version__ = "0.1.0"

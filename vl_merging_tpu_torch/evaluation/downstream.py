@@ -26,7 +26,7 @@ import torch
 from ..models import model
 from ..models.spec import ModelSpec, Params
 
-_DISTRIBUTION = '"Trainer, CLI, data and distribution"'
+_DISTRIBUTION = '"Distribution"'
 
 
 def require_single_process(what: str) -> None:

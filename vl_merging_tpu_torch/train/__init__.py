@@ -1,2 +1,3 @@
-"""Training: the irtr fine-tune step (objectives, optimizer, schedule) and
-the RegMean gram pass."""
+"""Training: the Trainer and its loops, the train and eval steps
+(objectives, optimizer, schedule), full-state checkpoints and the RegMean
+gram pass."""

@@ -7,7 +7,7 @@ The JAX package writes each loss over the global batch under ``jit`` and
 lets XLA insert the cross-replica gathers; the port runs on one device, so
 the batch it is given is the global batch.  A multi-device step will need
 autograd-aware gathers of the contrastive features and of the ITM
-negative pool (ROADMAP item "Trainer, CLI, data and distribution").
+negative pool (ROADMAP item "Distribution").
 
 Gradient-scale parity note (as in the JAX package): the reference
 backprops the full-batch contrastive loss only through local features and

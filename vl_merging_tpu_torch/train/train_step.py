@@ -226,6 +226,27 @@ def make_train_step(cfg: Dict, spec: ModelSpec, optimizer: Optimizer, *,
     return step
 
 
+def make_eval_step(cfg: Dict, spec: ModelSpec,
+                   mim_label_fn: Optional[Callable] = None
+                   ) -> Callable[[Params, Dict, Optional[torch.Generator]],
+                                 Dict[str, torch.Tensor]]:
+    """The validation step (the JAX package's ``make_eval_step``):
+    ``compute_losses(..., train=False)`` under the step's kernel switch
+    (``_resolve_kernels``), then ``scalar_metrics``; no gradient.  The
+    generator feeds ITM's hard-negative draws."""
+    kernels = _resolve_kernels(cfg, spec)
+
+    @torch.no_grad()
+    def eval_step(params: Params, batch: Dict,
+                  generator: Optional[torch.Generator]):
+        out = compute_losses(params, spec, cfg, batch, generator,
+                             train=False, kernels=kernels,
+                             mim_label_fn=mim_label_fn)
+        return scalar_metrics(out)
+
+    return eval_step
+
+
 def init_train_state(params: Params, optimizer: Optimizer,
                      seed: int = 0) -> TrainState:
     """The state of step 0 over ``params``, which must be the f32 masters
