@@ -278,10 +278,32 @@ Phases, each fatal on failure:
      wall, the host's wait per step on the loader and on ``device_feed``,
      peak memory and the validation and recall walls, with the card's name
      and power limit.
+ 15. distribution (``parallel/``), phase 14's step (the COCO irtr @384
+     config + ``ufo``, a global batch of 2 x 16 pairs): (a) at world 1
+     under NCCL (``parallel.initialize``, world size 1, rank 0; one NCCL
+     all-reduce probed), bit-equal to the same step without a process
+     group; (b) two ranks on cuda:0 under gloo, spawned by
+     ``torch.multiprocessing`` after the parent built the kernels (the
+     ranks load them): their step's loss and averaged gradients over 16
+     pairs each against one process's over the 32 at ``dp_scale`` 1/2
+     (LOSS_REL, global cosine 0.999); the data-parallel and the sharded
+     (``use_sharded_training``: an fsdp axis of 2, half of every large
+     param a rank) steps, a warm-up step and 2 timed, and one more with
+     the time inside the collectives, the sharded update at cosine 0.999
+     to the data-parallel one; the Trainer over the ranks (a fit of 2
+     steps with its validation and recall, checkpoints written by rank 0
+     alone, ``validate`` and ``recall`` alone, the recall equal to one
+     process's on the checkpoint rank 0 wrote with the towers fed the
+     ranks' row shares (and printed beside it fed whole batches), a fit
+     resumed from it on both ranks); each rank's launches as ``block_launches`` /
+     ``trainer_launches`` derive them.  It prints the step's wall at
+     world 1 and 2 and the time in collectives, with the card's name and
+     power limit.  A rank's failure fails the phase.
 
 Each row of the ``{"kernels": ...}`` line carries the widths it was held
 at (``widths``) and, for the kernels built for 1024, its figures there
-(``at_1024``).
+(``at_1024``), and its launches on each phase's path (``launches_<path>``;
+``launches_distribution`` counts phase 15's, both ranks' included).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -301,6 +323,7 @@ import contextlib
 import hashlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -4021,6 +4044,456 @@ def run_trainer(dev, card: str) -> dict:
     return {k: counts[k] for k in KERNELS}
 
 
+# --------------------------------------------------------------------------
+# Phase 15: distribution
+# --------------------------------------------------------------------------
+
+# phase 14's step over a global batch of DIST_WORLD x DIST_MICRO pairs: at
+# world 1 two micro-batches of DIST_MICRO, at world 2 one a rank; the two
+# ranks share the one card through gloo (NCCL refuses two ranks on one
+# device)
+DIST_WORLD, DIST_MICRO = 2, TRAINER_MICRO
+# the Trainer over the ranks: a fit of DIST_FIT_STEPS steps, resumed from
+# its checkpoint for one more
+DIST_FIT_STEPS = 2
+# the collectives whose time the phase takes (parallel/host.py)
+COLLECTIVES = ("all_reduce_", "broadcast_", "all_gather_rows",
+               "reduce_scatter_rows")
+
+
+def storage_bytes(trees) -> int:
+    """The bytes of the distinct storages behind the tensors of ``trees``
+    (a view counts its whole base)."""
+    held = {}
+    for tree in trees:
+        for v in tree.values():
+            st = v.untyped_storage()
+            held[st.data_ptr()] = st.nbytes()
+    return sum(held.values())
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dist_config(**over):
+    """Phase 14's step: the COCO irtr @384 config, DIST_MICRO pairs a
+    device, a global batch of DIST_WORLD x DIST_MICRO, no warm-up."""
+    return build_config(*CONFIG, overrides=dict(
+        per_device_batch_size=DIST_MICRO, batch_size=DIST_WORLD * DIST_MICRO,
+        warmup_steps=0, **over))
+
+
+def dist_batch(spec, dev) -> dict:
+    """The phase's DIST_WORLD x DIST_MICRO pairs, from a seed (every rank
+    draws them all and keeps its rows)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    return {k: v[0] for k, v in synthetic_train_batch(
+        spec, 1, dev, gen, micro=DIST_WORLD * DIST_MICRO).items()}
+
+
+def step_launches(spec, micro: int, micro_batches: int):
+    L = spec.num_layers
+    return scaled(block_launches(N, micro, L)
+                  + block_launches(spec.max_text_len, micro, L),
+                  micro_batches)
+
+
+@contextlib.contextmanager
+def collective_time(dev):
+    """The time (ms) spent inside the group's collectives
+    (``parallel/host.py``, each synchronised before and after) while the
+    block runs: yields {"ms", "calls"}."""
+    from vl_merging_tpu_torch.parallel import host
+
+    saved = {name: getattr(host, name) for name in COLLECTIVES}
+    spent = {"ms": 0.0, "calls": 0}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize(dev)
+            spent["ms"] += 1e3 * (time.perf_counter() - t0)
+            spent["calls"] += 1
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(host, name, timed(fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in saved.items():
+            setattr(host, name, fn)
+
+
+def timed_steps(label: str, state, step, batch, dev, card: str):
+    """A warm-up step, TIMED_STEPS timed steps and one step inside
+    ``collective_time``: every loss and the grad norm finite; prints the
+    best step ms and the collective share.  Returns (state, the params
+    after the warm-up step, best ms, collective ms)."""
+    times, after_first = [], None
+    for i in range(TRAIN_STEPS + 1):
+        if i < TRAIN_STEPS:
+            state, metrics, ms = timed_step(step, state, batch)
+        else:
+            with collective_time(dev) as spent:
+                state, metrics, ms = timed_step(step, state, batch)
+        if i == 0:
+            after_first = {k: v.detach().clone()
+                           for k, v in state.full_params().items()}
+        elif i < TRAIN_STEPS:
+            times.append(ms)
+        losses = {k: float(v) for k, v in metrics.items()
+                  if k.endswith("_loss") or k == "grad_norm"}
+        if not all(np.isfinite(v) for v in losses.values()):
+            fail(f"{label}: a loss or the grad norm not finite: {losses}")
+    best = min(times)
+    print(f"{label}: {best:.1f} ms a step (best of {TIMED_STEPS} after a "
+          f"warm-up step); a step with its collectives timed: {ms:.1f} ms, "
+          f"{spent['ms']:.1f} ms in {spent['calls']} collectives "
+          f"({spent['ms'] / ms:.1%}) [{card}]")
+    return state, after_first, best, spent["ms"]
+
+
+def distribution_rank(rank: int, store: str, tmp: str) -> None:
+    """One rank of phase 15 (b), on cuda:0 in a gloo group of DIST_WORLD
+    (``torch.multiprocessing``): the step's gradients, the data-parallel
+    step timed, the sharded step, and the Trainer (fit, validate, recall,
+    a checkpoint written by rank 0 and resumed on every rank).  Saves its
+    results and launches to ``{tmp}/rank{rank}.pt``."""
+    from vl_merging_tpu_torch import parallel
+    from vl_merging_tpu_torch.ckpt import io as ckpt_io
+    from vl_merging_tpu_torch.data.datamodule import MTDataModule
+    from vl_merging_tpu_torch.device import rank_device
+    from vl_merging_tpu_torch.parallel import host
+    from vl_merging_tpu_torch.parallel.mesh import average_grads, make_mesh
+
+    dev = rank_device("cuda:0")
+    parallel.initialize("gloo", init_method=f"file://{store}",
+                        world_size=DIST_WORLD, rank=rank)
+    _build.library()          # built by the parent: loaded, not built
+    card = card_line()
+    tag = f"rank {rank}/{DIST_WORLD} (gloo, cuda:0)"
+    cfg = dist_config()
+    spec = make_model_spec(cfg)
+    base = seeded_params(spec, dev)
+    batch = {k: v[host.process_rows(DIST_WORLD * DIST_MICRO)]
+             for k, v in dist_batch(spec, dev).items()}
+    out, counts = {}, collections.Counter()
+
+    # (1) the step's loss and averaged gradients, for the parent to hold
+    reset_launches()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    _, metrics, grads = train_step.loss_and_grads(
+        master_params(base), spec, cfg, batch, gen, kernels=True,
+        dp_scale=1 / DIST_WORLD)
+    average_grads(grads, make_mesh())
+    metrics = train_step.reduce_metrics(metrics)
+    counts += check_launches(f"{tag}: the step's gradients",
+                             step_launches(spec, DIST_MICRO, 1))
+    if rank == 0:
+        torch.save({"grads": {k: v.cpu() for k, v in grads.items()},
+                    "losses": {k: float(v) for k, v in metrics.items()
+                               if k.endswith("_loss")}},
+                   f"{tmp}/grads.pt")
+    del grads
+
+    # (2) the data-parallel step; (3) the sharded step from the same params
+    reset_launches()
+    state, step = build_train_step(cfg, spec, master_params(base),
+                                   TRAIN_STEPS + 1)
+    if (step_accum := accum_steps(cfg)) != 1:
+        fail(f"{tag}: {step_accum} micro-batches a step, want 1")
+    state, dp_first, out["step_ms"], out["collective_ms"] = timed_steps(
+        f"{tag}: the data-parallel step ({DIST_MICRO} pairs a rank, a "
+        f"global batch of {DIST_WORLD * DIST_MICRO})", state, step, batch,
+        dev, card)
+    counts += check_launches(f"{tag}: the data-parallel step",
+                             step_launches(spec, DIST_MICRO,
+                                           TRAIN_STEPS + 1))
+    del state, step
+    reset_launches()
+    state, step = build_train_step(dist_config(use_sharded_training=True),
+                                   spec, master_params(base), TRAIN_STEPS + 1)
+    sharded = [k for k, v in state.params.items() if v.shape != base[k].shape]
+    if (state.mesh.data, state.mesh.fsdp) != (1, DIST_WORLD) or not sharded:
+        fail(f"{tag}: the sharded state is not sharded")
+    # the state holds its shards (params and both moments) in storage of
+    # their own: nothing keeps the full f32 masters alive
+    trees = (state.params, state.opt_state.mu, state.opt_state.nu)
+    held = storage_bytes(trees)
+    shards = sum(v.numel() * v.element_size() for t in trees
+                 for v in t.values())
+    full = 3 * sum(v.numel() * 4 for v in base.values())
+    print(f"{tag}: the sharded state holds {held / 2**20:.1f} MiB of "
+          f"params and moments, {held / full:.3f} of the full f32 state's "
+          f"{full / 2**20:.1f} MiB")
+    if held != shards:
+        fail(f"{tag}: the sharded state holds {held} bytes, its shards "
+             f"{shards}: a shard keeps a full tensor alive")
+    state, sh_first, out["sharded_step_ms"], out["sharded_collective_ms"] = \
+        timed_steps(f"{tag}: the sharded step ({len(sharded)} of "
+                    f"{len(base)} params in halves)", state, step, batch,
+                    dev, card)
+    counts += check_launches(f"{tag}: the sharded step",
+                             step_launches(spec, DIST_MICRO,
+                                           TRAIN_STEPS + 1))
+    cos = global_cosine({k: sh_first[k] - base[k] for k in base},
+                        {k: dp_first[k] - base[k] for k in base})
+    print(f"{tag}: the sharded step's update against the data-parallel "
+          f"step's: global cosine {cos:.6f} (need >= {MIN_COSINE})")
+    if cos < MIN_COSINE:
+        fail(f"{tag}: the sharded step disagrees with the data-parallel one")
+    del state, step, dp_first, sh_first
+    torch.cuda.empty_cache()
+
+    # (4) the Trainer over the ranks: fit, validate, recall; the checkpoint
+    root = Path(tmp)
+    vocab = str(root / "vocab.txt")
+    writes = []
+    save_ckpt, save = ckpt_io.save_torch_checkpoint, torch.save
+
+    def record_ckpt(sd, path):
+        writes.append(Path(path).name)
+        return save_ckpt(sd, path)
+
+    def record_save(obj, path, *args, **kwargs):
+        writes.append(Path(str(path)).name)
+        return save(obj, path, *args, **kwargs)
+
+    tcfg = build_config(*CONFIG, overrides=trainer_overrides(
+        root, vocab, root / "fit", max_steps=DIST_FIT_STEPS,
+        num_devices=DIST_WORLD))
+    dm = MTDataModule(tcfg)
+    val_batches = len(dm.val_loader(TRAINER_MICRO))
+    trainer = RecordingTrainer(tcfg, device="cuda:0")
+    ckpt_io.save_torch_checkpoint, torch.save = record_ckpt, record_save
+    reset_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.fit(dm)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        ckpt_io.save_torch_checkpoint, torch.save = save_ckpt, save
+    counts += check_launches(
+        f"{tag}: Trainer.fit ({DIST_FIT_STEPS} steps, 1 validation with "
+        f"recall over {val_batches} val batches a rank)",
+        trainer_launches(spec, DIST_FIT_STEPS, 1, val_batches, True,
+                         accum=1))
+    print(f"{tag}: Trainer.fit {fit_s:.2f} s; losses "
+          + ", ".join(f"{s}: {m['total_loss']:.6f}"
+                      for s, m in sorted(trainer.steps.items()))
+          + f"; files written {sorted(writes)} [{card}]")
+    out.update(fit_s=fit_s, writes=writes, steps=trainer.steps,
+               log_dir=trainer.log_dir)
+    for what, fn, want in (
+            ("Trainer.validate", lambda: trainer.validate(dm),
+             trainer_launches(spec, 0, 1, val_batches, True)),
+            ("Trainer.recall (test split)", lambda: trainer.recall(dm),
+             recall_launches(spec))):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out[what] = (got, time.perf_counter() - t0)
+        counts += check_launches(f"{tag}: {what}", want)
+    if rank == 0:   # the recalled params: the resume below moves "last" on
+        shutil.copy(Path(trainer.log_dir) / "checkpoints" / "last" /
+                    "weights.ckpt", root / "recalled.ckpt")
+    trainer.logger.close()
+    del trainer
+    torch.cuda.empty_cache()
+    rcfg = build_config(*CONFIG, overrides=trainer_overrides(
+        root, vocab, root / "fit", max_steps=DIST_FIT_STEPS + 1,
+        num_devices=DIST_WORLD, get_recall_metric=False,
+        resume_during_pretraining=True))
+    resumed = RecordingTrainer(rcfg, device="cuda:0")
+    reset_launches()
+    resumed.fit(dm)
+    counts += check_launches(
+        f"{tag}: Trainer.fit resumed from step {DIST_FIT_STEPS}",
+        trainer_launches(spec, 1, 1, val_batches, False, accum=1))
+    if sorted(resumed.steps) != [DIST_FIT_STEPS + 1]:
+        fail(f"{tag}: the resumed fit took steps {sorted(resumed.steps)}")
+    out["resumed"] = resumed.steps
+    resumed.logger.close()
+    out["counts"] = {k: counts[k] for k in KERNELS}
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def one_process_recall(cfg, spec, dev, root: Path, weights: Path,
+                       shares: int) -> dict:
+    """``Trainer.recall``'s R@k at world ``shares`` computed in this one
+    process (no group) from the params of ``weights`` (read as they are,
+    no surgery): the towers over the split's batches of the world's size,
+    each cut into its ``shares`` row shares fed as batches of their own,
+    then ``compute_irtr_recall``."""
+    from vl_merging_tpu_torch.ckpt.io import state_dict_to_params
+    from vl_merging_tpu_torch.data.datamodule import MTDataModule
+    from vl_merging_tpu_torch.train.loop import device_feed, pad_to_multiple
+
+    tcfg = build_config(*CONFIG, overrides=trainer_overrides(
+        root, str(root / "vocab.txt"), root / "one"))
+    params, _, _ = state_dict_to_params(
+        load_torch_checkpoint(str(weights)), spec)
+    params = eval_cast_params({k: v.to(dev) for k, v in params.items()},
+                              spec, cfg)
+    dm = MTDataModule(tcfg).dms[0]
+    text_dset = dm.make_no_false_test_dset()
+    image_dset = dm.make_no_false_test_dset(image_only=True)
+
+    def collect(dset):
+        bs = min(max(256 // DIST_WORLD * DIST_WORLD, DIST_WORLD),
+                 -(-len(dset) // DIST_WORLD) * DIST_WORLD)
+        batches, ids = [], []
+        for start in range(0, len(dset), bs):
+            idx = range(start, min(start + bs, len(dset)))
+            b = dset.collate([dset[i] for i in idx], dm.mlm_collator)
+            ids += list(b["img_index"])
+            feed = device_feed(pad_to_multiple(b, bs)[0], dev)
+            batches += [{k: v.chunk(shares)[r] for k, v in feed.items()}
+                        for r in range(shares)]
+        return batches, ids
+
+    text_batches, tiids = collect(text_dset)
+    image_batches, iids = collect(image_dset)
+    return compute_irtr_recall(params, spec, text_batches, image_batches,
+                               np.asarray(tiids), np.asarray(iids))
+
+
+def run_distribution(dev, card: str) -> dict:
+    """Phase 15: (a) phase 14's step at world 1 under NCCL against the
+    same step without a process group (bit-equal); (b) two ranks on the
+    one card under gloo (``distribution_rank``): their step's losses and
+    gradients against one process's over the global batch at dp_scale
+    1/2, the data-parallel and sharded steps timed with their collective
+    share, the Trainer over the ranks (its recall against one process's
+    on the checkpoint it wrote, ``one_process_recall``)."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from vl_merging_tpu_torch import parallel
+
+    cfg = dist_config()
+    spec = make_model_spec(cfg)
+    base = seeded_params(spec, dev)
+    batch = dist_batch(spec, dev)
+    counts = collections.Counter()
+
+    # (a) world 1 under NCCL, bit-equal to no group
+    accum = accum_steps(cfg)
+    feed = {k: v.reshape(accum, DIST_MICRO, *v.shape[1:])
+            for k, v in batch.items()}
+    runs = {}
+    for name in ("no group", "world 1 (NCCL)"):
+        if name != "no group":
+            parallel.initialize("nccl", init_method=f"tcp://localhost:"
+                                f"{free_port()}", world_size=1, rank=0)
+            probe = torch.ones(4, device=dev)
+            dist.all_reduce(probe)
+            if dist.get_backend() != "nccl" or probe.tolist() != [1.0] * 4:
+                fail("the world-1 group is not NCCL's")
+        state, step = build_train_step(cfg, spec, master_params(base), 10)
+        reset_launches()
+        with collective_time(dev) as spent:
+            state, metrics, ms = timed_step(step, state, feed)
+        if name != "no group":
+            counts += check_launches(f"phase 15 (a), {name}: one step",
+                                     step_launches(spec, DIST_MICRO, accum))
+        runs[name] = (state.params, metrics)
+        print(f"phase 15 (a), {name}: one step of {accum} x {DIST_MICRO} "
+              f"pairs {ms:.1f} ms, {spent['ms']:.2f} ms in "
+              f"{spent['calls']} collective calls [{card}]")
+        del state, step
+    dist.destroy_process_group()
+    (p0, m0), (p1, m1) = runs.values()
+    if not (all(torch.equal(p0[k], p1[k]) for k in p0)
+            and all(torch.equal(m0[k], m1[k]) for k in m0)):
+        fail("phase 15 (a): the world-1 step differs from the step without "
+             "a process group")
+    print("phase 15 (a): the world-1 NCCL step's params and metrics are "
+          "bit-equal to the step's without a process group")
+    del runs, p0, p1
+
+    # the one-process reference of (b): the step over the global batch at
+    # dp_scale 1/2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+    _, want_metrics, want_grads = train_step.loss_and_grads(
+        master_params(base), spec, cfg, batch, gen, kernels=True,
+        dp_scale=1 / DIST_WORLD)
+    want_losses = {k: float(v) for k, v in want_metrics.items()
+                   if k.endswith("_loss")}
+    del base, batch, feed
+    torch.cuda.empty_cache()
+
+    # (b) two ranks on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        write_coco_arrows(Path(tmp))
+        t0 = time.perf_counter()
+        mp.start_processes(distribution_rank,
+                           args=(f"{tmp}/store", tmp), nprocs=DIST_WORLD,
+                           join=True, start_method="spawn")
+        wall = time.perf_counter() - t0
+        got = torch.load(f"{tmp}/grads.pt", weights_only=True)
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                 for r in range(DIST_WORLD)]
+        rel = max(abs(got["losses"][k] - v) / abs(v)
+                  for k, v in want_losses.items())
+        cos = global_cosine({k: v.to(dev) for k, v in got["grads"].items()},
+                            want_grads)
+        print(f"phase 15 (b): the world-2 step's losses {got['losses']} "
+              f"against one process's over the {DIST_WORLD * DIST_MICRO} "
+              f"pairs at dp_scale 1/{DIST_WORLD} {want_losses}: worst "
+              f"relative difference {rel:.2e} (need <= {LOSS_REL}); "
+              f"averaged gradients global cosine {cos:.6f} (need >= "
+              f"{MIN_COSINE}); the two ranks' run {wall:.1f} s, their "
+              f"start included")
+        if rel > LOSS_REL or cos < MIN_COSINE:
+            fail("phase 15 (b): the world-2 step disagrees with one "
+                 "process's")
+        del got, want_grads
+        if ranks[1]["writes"] or "weights.ckpt" not in ranks[0]["writes"] \
+                or "state.pt.tmp" not in ranks[0]["writes"]:
+            fail(f"phase 15 (b): checkpoint writes by rank "
+                 f"{[r['writes'] for r in ranks]}; rank 0 alone writes")
+        recall = [r["Trainer.recall (test split)"][0] for r in ranks]
+        want_recall = {
+            split: one_process_recall(cfg, spec, dev, Path(tmp),
+                                      Path(tmp) / "recalled.ckpt",
+                                      shares=shares)
+            for split, shares in (("shares", DIST_WORLD), ("whole", 1))}
+        print(f"phase 15 (b): Trainer.recall at world {DIST_WORLD} "
+              f"{recall[0]}; one process on the fit's checkpoint (step "
+              f"{DIST_FIT_STEPS}, the recalled params) rank 0 wrote, "
+              f"its towers fed the ranks' row shares as batches "
+              f"{want_recall['shares']}, fed whole batches "
+              f"{want_recall['whole']}")
+        if recall[0] != recall[1] or any(recall[0] != v
+                                         for v in want_recall.values()):
+            fail("phase 15 (b): the world-2 recall differs from one "
+                 "process's")
+        for r in ranks:
+            counts.update(r["counts"])
+    print(f"phase 15: step ms a rank at world {DIST_WORLD} (data-parallel) "
+          f"{[round(r['step_ms'], 1) for r in ranks]}, collectives "
+          f"{[round(r['collective_ms'], 1) for r in ranks]} ms; sharded "
+          f"{[round(r['sharded_step_ms'], 1) for r in ranks]}, collectives "
+          f"{[round(r['sharded_collective_ms'], 1) for r in ranks]} ms "
+          f"[{card}]")
+    return {k: counts[k] for k in KERNELS}
+
+
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
 # of their entry functions in the library's SASS (K7, K14 and K15 by
 # width: their instantiations at C=768 and 1024).
@@ -4209,7 +4682,8 @@ def main() -> int:
              "merging": run_merging(dev, card),
              "vl": run_vl(dev, card, rows),
              "objectives": run_objectives(dev, card),
-             "trainer": run_trainer(dev, card)}
+             "trainer": run_trainer(dev, card),
+             "distribution": run_distribution(dev, card)}
     for name, row in rows.items():
         for path, launches in paths.items():
             row[f"launches_{path}"] = launches[name]

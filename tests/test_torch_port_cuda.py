@@ -37,6 +37,10 @@ The fused VL pass: K2 over joint text + image lengths (N = 617, 941)
 with caption padding inside the key range, K7 and K8 at N = 617, and one
 full-width VL block, split and joint, against the plain path.
 
+Distribution: two ranks on the one card under gloo, their step's loss
+and averaged gradients against one process's over the global batch, and
+the step at world 1 under NCCL bit-equal to the step without a group.
+
 Fault C10: ``ops/int8.quantize_weight`` gives on the card the CPU's int8
 weights and scales bit for bit.  The merging suite on the card:
 ``merging/device.py`` against the port's host merging (4 ulp, and the
@@ -1453,3 +1457,120 @@ def test_trainer_fit_step_on_card(cuda_device, tmp_path):
     ck = os.path.join(trainer.log_dir, "checkpoints")
     for f in ("last/weights.ckpt", "last/state.pt", "best/weights.ckpt"):
         assert os.path.exists(os.path.join(ck, f))
+
+
+# the distribution tests' model: the COCO irtr @384 config at the ViT-B/16
+# width, 2 layers (the image blocks take K2 and K9, every MLP K13)
+DIST_OVER = dict(num_layers=2, vlffn_start_layer_index=1,
+                 per_device_batch_size=4, batch_size=8, warmup_steps=0)
+
+
+def _dist_setup(dev):
+    """(cfg, spec, f32 params, the 8 pairs of a global batch) from seeds."""
+    from vl_merging_tpu_torch.config import build_config
+    from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
+
+    cfg = build_config(
+        "task_finetune_irtr_coco_square_randaug_base_image384", "ufo",
+        overrides=DIST_OVER)
+    spec = make_model_spec(cfg)
+    gen = torch.Generator().manual_seed(0)
+    params = {k: v.to(dev) for k, v in init_params(spec, gen).items()}
+    n, T = 8, spec.max_text_len
+    batch = {"image": torch.randn(n, 3, spec.image_size, spec.image_size,
+                                  generator=gen).to(dev),
+             "text_ids": torch.randint(1000, spec.vocab_size, (n, T),
+                                       generator=gen).to(dev),
+             "text_masks": (torch.arange(T)[None] < torch.randint(
+                 8, T + 1, (n, 1), generator=gen)).int().to(dev)}
+    return cfg, spec, params, batch
+
+
+def _world2_rank(rank, store, out):
+    """One rank of ``test_world2_gloo_step_on_card``: the step's loss and
+    averaged gradients over this rank's 4 of the 8 pairs."""
+    from vl_merging_tpu_torch import parallel
+    from vl_merging_tpu_torch.ckpt.convert import master_params
+    from vl_merging_tpu_torch.device import rank_device
+    from vl_merging_tpu_torch.parallel.mesh import average_grads, make_mesh
+    from vl_merging_tpu_torch.train import train_step
+
+    dev = rank_device("cuda:0")
+    parallel.initialize("gloo", init_method=f"file://{store}", world_size=2,
+                        rank=rank)
+    cfg, spec, params, batch = _dist_setup(dev)
+    rows = parallel.process_rows(8)
+    loss, metrics, grads = train_step.loss_and_grads(
+        master_params(params), spec, cfg, {k: v[rows] for k, v in
+                                           batch.items()},
+        torch.Generator(dev).manual_seed(1), kernels=True, dp_scale=0.5)
+    average_grads(grads, make_mesh())
+    metrics = train_step.reduce_metrics(metrics)
+    if rank == 0:
+        torch.save({"loss": float(metrics["irtr_loss"]),
+                    "grads": {k: v.cpu() for k, v in grads.items()}}, out)
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_world2_gloo_step_on_card(cuda_device, tmp_path):
+    """Two ranks on cuda:0 under gloo (the kernels built here first, so
+    the ranks only load them): the irtr loss and the averaged gradients
+    of their step over 4 pairs each against one process's over the 8 at
+    dp_scale 1/2 (same params and draws): the loss within 5e-3 relative,
+    the gradients at global cosine 0.999 (bf16 activations summed in
+    another order)."""
+    import torch.multiprocessing as mp
+
+    from vl_merging_tpu_torch.ckpt.convert import master_params
+    from vl_merging_tpu_torch.ops import _build
+    from vl_merging_tpu_torch.train import train_step
+
+    _build.library()
+    cfg, spec, params, batch = _dist_setup(cuda_device)
+    _, metrics, want = train_step.loss_and_grads(
+        master_params(params), spec, cfg, batch,
+        torch.Generator(cuda_device).manual_seed(1), kernels=True,
+        dp_scale=0.5)
+    out = str(tmp_path / "rank0.pt")
+    mp.start_processes(_world2_rank, args=(str(tmp_path / "store"), out),
+                       nprocs=2, join=True, start_method="spawn")
+    got = torch.load(out, weights_only=True)
+    loss = float(metrics["irtr_loss"])
+    assert abs(got["loss"] - loss) <= 5e-3 * abs(loss), (got["loss"], loss)
+    dot = sum((got["grads"][k].double() * want[k].cpu().double()).sum()
+              for k in want)
+    norm = torch.sqrt(sum(v.double().square().sum() for v in
+                          got["grads"].values()) * sum(
+        v.cpu().double().square().sum() for v in want.values()))
+    assert float(dot / norm) >= 0.999, float(dot / norm)
+
+
+@pytest.mark.cuda
+def test_world1_nccl_step_is_the_step_without_a_group(cuda_device, tmp_path):
+    """The train step at world 1 under NCCL gives the params and metrics
+    of the same step without a process group, bit for bit."""
+    from vl_merging_tpu_torch import parallel
+    from vl_merging_tpu_torch.ckpt.convert import master_params
+    from vl_merging_tpu_torch.train.loop import build_train_step
+
+    cfg, spec, params, batch = _dist_setup(cuda_device)
+    feed = {k: v.reshape(2, 4, *v.shape[1:]) for k, v in batch.items()}
+    runs = []
+    for group in (False, True):
+        if group:
+            assert parallel.initialize(
+                "nccl", init_method=f"file://{tmp_path / 'store'}",
+                world_size=1, rank=0)
+        try:
+            state, step = build_train_step(cfg, spec, master_params(params),
+                                           10)
+            state, metrics = step(state, feed)
+            runs.append((state.params, metrics))
+        finally:
+            if group:
+                assert torch.distributed.get_backend() == "nccl"
+                torch.distributed.destroy_process_group()
+    (p0, m0), (p1, m1) = runs
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    assert all(torch.equal(m0[k], m1[k]) for k in m0)

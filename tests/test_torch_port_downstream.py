@@ -32,8 +32,6 @@ from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.train import train_step
 from test_torch_port_vl import TOWER_TOL, jbatch, setup, tbatch, vl_inputs
 
-DISTRIBUTION = "Distribution"
-
 
 @pytest.fixture(autouse=True)
 def _tiny_width_is_built(monkeypatch):
@@ -256,19 +254,19 @@ def test_vqa_and_nlvr2_objectives_match_jax_at_eval(routing):
                      f"{loss}_loss at train=True")
 
 
-def test_one_process_only(monkeypatch, tmp_path):
-    """The JAX package's multi-process branches raise, naming their ROADMAP
-    item, under torch.distributed with more than one process; at one
-    process they are no-ops."""
+def test_one_process_only(tmp_path):
+    """Without a process group the JAX package's multi-process branches
+    are the one-process paths: the tallies' reduction is a no-op, the
+    submission is the one json of the records, and the predictions of no
+    batch are none (their two-rank runs: ``test_torch_port_distributed.
+    py``)."""
     acc = metrics.MetricAccumulator()
     acc.update({"dev_nlvr2_correct": 1.0, "dev_nlvr2_count": 2.0})
     acc.cross_process_reduce(["dev_nlvr2_correct"])
     assert acc.compute() == {"dev_nlvr2_accuracy": 0.5}
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    for call in (lambda: acc.cross_process_reduce(["dev_nlvr2_correct"]),
-                 lambda: downstream.write_vqa_submission([], "m",
-                                                         str(tmp_path)),
-                 lambda: downstream.vqa_predictions({}, None, [], {})):
-        with pytest.raises(NotImplementedError, match=DISTRIBUTION):
-            call()
+    rets = [{"question_id": 1, "answer": "yes"}]
+    path = downstream.write_vqa_submission(rets, "m", str(tmp_path))
+    assert path == str(tmp_path / "vqa_submit_m.json")
+    assert json.load(open(path)) == rets
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["vqa_submit_m.json"]
+    assert downstream.vqa_predictions({}, None, [], {}) == []

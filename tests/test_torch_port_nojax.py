@@ -15,7 +15,9 @@ function, an all-in-one pretrain step on a mixed batch, the decoder, the
 trainable DiscreteVAE, and steps with the adam and sgd optimizers; the
 Trainer, the CLIs and the data pipeline: arrow fixtures written by the
 test, one ``Trainer.fit`` step through ``run.py`` on the CPU, the gram CLI
-and the native JPEG decode) must leave ``jax`` (and
+and the native JPEG decode; distribution: a one-rank gloo group, the
+data-parallel step through it under ``utils/profiling.trace``) must
+leave ``jax`` (and
 ``vl_merging_tpu``, whose subpackages import jax) out of
 ``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
 opened (executing a file by path opens it) or imported.  The check runs in a fresh interpreter
@@ -319,6 +321,29 @@ SCRIPT = textwrap.dedent("""
         assert os.path.exists(grams_path)
         assert datamodule.MTDataModule is not None
     assert runtime.available()
+
+    # distribution: a one-rank gloo group from a file store, the
+    # data-parallel step through it under the profiler's trace
+    from vl_merging_tpu_torch import parallel
+    from vl_merging_tpu_torch.utils import profiling
+    with tempfile.TemporaryDirectory() as tmp:
+        assert parallel.initialize("gloo", use_cpu=True,
+                                   init_method=f"file://{tmp}/store",
+                                   world_size=1, rank=0)
+        assert parallel.make_mesh().size == parallel.get_world_size() == 1
+        state, step = build_train_step(
+            cfg, spec, master_params(init_params(spec, g)), 10)
+        with profiling.trace(tmp):
+            state, metrics = step(state, {"image": images,
+                                          "text_ids": ids[:4],
+                                          "text_masks": masks[:4]})
+        assert os.path.exists(os.path.join(tmp, "trace.json"))
+        assert parallel.reduce_dict({"a": 1.0}) == {"a": 1.0}
+        torch.distributed.destroy_process_group()
+    timer = profiling.StepTimer()
+    timer.tick()
+    assert timer.steps_per_sec is None and \
+        profiling.device_memory_stats() == {}
 
     assert not touched, touched
     leaked = sorted(m for m in sys.modules

@@ -320,10 +320,24 @@ def test_resume_equals_an_uninterrupted_fit(root, weights, tmp_path,
     (dict(device_augment=True), "In-graph preprocessing"),
     (dict(device_mlm=True), "In-graph preprocessing"),
 ])
-def test_trainer_raises_for_what_is_not_ported(root, over, item):
-    cfg = build_config(*IRTR, overrides=tiny(root, "", use_cpu=True, **over))
-    with pytest.raises(NotImplementedError, match=item):
-        loop.Trainer(cfg)
+def test_trainer_raises_for_what_is_not_ported(root, over, item, tmp_path):
+    """The in-graph preprocessing raises, naming its ROADMAP item.  The
+    "Distribution" item is ported: in one process ``num_devices=2`` is
+    refused, naming both counts, and ``use_sharded_training`` trains
+    unsharded (an fsdp axis of 1, as the JAX Trainer's mesh at an odd
+    device count)."""
+    cfg = build_config(*IRTR, overrides=tiny(root, str(tmp_path),
+                                             use_cpu=True, **over))
+    if item != "Distribution":
+        with pytest.raises(NotImplementedError, match=item):
+            loop.Trainer(cfg)
+    elif "num_devices" in over:
+        with pytest.raises(ValueError, match=r"num_devices=2.* 1 process"):
+            loop.Trainer(cfg)
+    else:
+        trainer = loop.Trainer(cfg)
+        assert (trainer.mesh.data, trainer.mesh.fsdp) == (1, 1)
+        trainer.logger.close()
 
 
 def test_trainer_and_gram_cli_need_the_card_unless_asked(root, weights,

@@ -9,7 +9,7 @@ One validation pass accumulating per-module input grams
 ``{log_dir}/{representation_name}.pth`` — byte-compatible with the
 reference's gram caches (reference: src/cache_gram_matrices.py:141-357).
 The batches are ``per_device_batch_size`` rows (32 when unset) on the
-card, or on the CPU with ``use_cpu=True``.
+card, or on the CPU with ``use_cpu=True``, in one process.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from .data.datamodule import MTDataModule
 from .device import require_cuda
 from .models.spec import make_model_spec
 from .train.gram import cache_gram_matrices, save_gram_matrices
-from .train.loop import WORLD_SIZE, device_feed
+from .train.loop import device_feed
 from .utils.logging import print_config, seed_everything
 
 
@@ -44,7 +44,7 @@ def main(argv=None) -> str:
     params = params_from_numpy(params, device)
 
     per_dev = cfg["per_device_batch_size"] or 32
-    loader = dm.val_loader(per_dev * WORLD_SIZE)
+    loader = dm.val_loader(per_dev)
     limit = (None if cfg["limit_val_batches"] == 1.0
              else int(len(loader) * cfg["limit_val_batches"]))
 

@@ -7,11 +7,10 @@ without Lightning: a datamodule builds datasets + tokenizer + collators;
 MT concatenates datasets with a shared collate; MultiMT zips one MT per
 task type into {"v","l","vl"} dict batches (min-size semantics).
 
-Port of ``vl_merging_tpu/data/datamodule.py`` for one process: the
-sampler takes 1 host and index 0 where the JAX package asks
-``jax.process_count()`` / ``process_index()``, and a loader raises
-(``evaluation/downstream.require_single_process``) when
-``torch.distributed`` runs more than one process.
+Port of ``vl_merging_tpu/data/datamodule.py``: the sampler takes the
+process group's size and this process's rank where the JAX package asks
+``jax.process_count()`` / ``process_index()``, so rank r's loader yields
+rows [r·share, (r+1)·share) of each global batch.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ from __future__ import annotations
 import functools
 from typing import Dict, List, Optional
 
-from ..evaluation.downstream import require_single_process
+from ..parallel import host
 from .arrow_dataset import ArrowDataset
 from .collators import MLMCollator
 from .datasets import dataset_class, TextOnlyDataset
@@ -146,7 +145,6 @@ class MTDataModule:
         self.mlm_collator = self.dms[0].mlm_collator
 
     def _loader(self, split: str, batch_size: int, shuffle: bool):
-        require_single_process("a data loader")
         datasets = []
         for dm in self.dms:
             try:
@@ -161,7 +159,7 @@ class MTDataModule:
                                     mlm_collator=self.mlm_collator)
         sampler = ShardedBatchSampler(
             len(concat), batch_size,
-            num_hosts=1, host_index=0,
+            num_hosts=host.get_world_size(), host_index=host.get_rank(),
             shuffle=shuffle, drop_last=shuffle, seed=self.cfg["seed"])
         return DataLoader(concat, sampler, collate,
                           num_workers=self.cfg["num_workers"])

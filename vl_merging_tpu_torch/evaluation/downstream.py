@@ -8,10 +8,10 @@ with the routing arguments (``kernels``, ``fusion``, ``int8_gelu``,
 ``qk_int8``) carried to every block.  The rel-pos bias of the fused pass
 is gathered once per call (``model.fused_layer_biases``).
 
-One process only: the JAX package's multi-host branches (each host's row
-share of a global batch, per-rank submission files merged by process 0)
-raise ``NotImplementedError`` when ``torch.distributed`` runs more than
-one process.
+Over a process group each rank predicts its loader share's questions;
+the submission is one json, merged by rank 0 from the ranks' files in the
+shared output directory after a barrier (the reference's per-rank json,
+barrier and rank-0 glob, objectives.py:742-769).
 """
 
 from __future__ import annotations
@@ -25,19 +25,7 @@ import torch
 
 from ..models import model
 from ..models.spec import ModelSpec, Params
-
-_DISTRIBUTION = '"Distribution"'
-
-
-def require_single_process(what: str) -> None:
-    """Raise where the JAX package would gather across processes: the port
-    runs one (a no-op at world size 1 or without ``torch.distributed``)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and \
-            dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"{what} across {dist.get_world_size()} processes is not ported "
-            f"yet: ROADMAP item {_DISTRIBUTION}")
+from ..parallel import host
 
 
 class _Biases:
@@ -86,8 +74,9 @@ def vqa_predictions(params: Params, spec: ModelSpec, batches: Iterable[Dict],
     one ``lax.scan`` dispatch; here it is a loop over the group, and every
     ``scan_k`` gives the same records.  A feed is a batch's
     ``text_ids``, ``text_masks`` and ``image``; ``qid`` holds its question
-    ids."""
-    require_single_process("VQA prediction")
+    ids.  Over a process group each rank passes its own share of the
+    questions and gets their records (``write_vqa_submission`` merges
+    them)."""
     route = dict(kernels=kernels, int8_gelu=int8_gelu, qk_int8=qk_int8,
                  fusion=fusion)
     biases = _Biases(params, spec)
@@ -135,9 +124,31 @@ def vqa_predictions(params: Params, spec: ModelSpec, batches: Iterable[Dict],
 def write_vqa_submission(rets: List[Dict], model_name: str,
                          output_dir: str) -> str:
     """Write the submission json, ``{output_dir}/vqa_submit_{model_name}
-    .json`` (objectives.py:742-769, one process)."""
-    require_single_process("the VQA submission")
+    .json`` (objectives.py:742-769), and return its path.  Over a process
+    group every rank writes its records to a per-rank json in the shared
+    ``output_dir``, a barrier orders the writes, and rank 0 merges them in
+    rank order into the one submission, each question once (the sampler
+    wrap-pads the last global batch with questions from the start), and
+    removes them; the other ranks return ""."""
     os.makedirs(output_dir, exist_ok=True)
+    world = host.get_world_size()
+    if world > 1:
+        def rank_path(r):
+            return os.path.join(output_dir,
+                                f"vqa_submit_{model_name}_rank{r}.json")
+
+        with open(rank_path(host.get_rank()), "w") as fp:
+            json.dump(rets, fp)
+        host.synchronize()
+        if not host.is_main_process():
+            return ""
+        merged = {}
+        for r in range(world):
+            with open(rank_path(r)) as fp:
+                for rec in json.load(fp):
+                    merged.setdefault(rec["question_id"], rec)
+            os.remove(rank_path(r))
+        rets = list(merged.values())
     path = os.path.join(output_dir, f"vqa_submit_{model_name}.json")
     with open(path, "w") as fp:
         json.dump(rets, fp, indent=4)

@@ -17,7 +17,7 @@ from __future__ import annotations
 import collections
 from typing import Dict, Optional
 
-from .downstream import require_single_process
+from ..parallel import host
 
 
 class MetricAccumulator:
@@ -51,9 +51,16 @@ class MetricAccumulator:
 
     def cross_process_reduce(self, keys) -> None:
         """Sum the named host-side tallies across processes (the JAX
-        package's reduction of per-host tallies such as the NLVR2 split).
-        One process: a no-op; more raise (``require_single_process``)."""
-        require_single_process("reducing metrics")
+        package's reduction of tallies fed from each process's loader
+        share, such as the NLVR2 split).  The steps' metrics are already
+        the global batch's on every process (``train_step.
+        reduce_metrics``) and must not be summed again.  Every process
+        passes the same keys; an absent key counts as 0.  One process: a
+        no-op."""
+        if host.get_world_size() == 1:
+            return
+        summable = {k: self.sums.get(k, 0.0) for k in sorted(keys)}
+        self.sums.update(host.reduce_dict(summable, average=False))
 
     def compute(self) -> Dict[str, float]:
         out = {}

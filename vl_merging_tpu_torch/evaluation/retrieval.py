@@ -7,6 +7,11 @@ batches, the (images x texts) score matrix is formed in f32, and top-k
 recall is taken both ways, all on the features' device.  An opt-in ITM
 rerank (``itm_rerank_topk``) rescores each query's top-k ITC candidates
 with the ITM head over the fused VL pass (``model.infer``).
+
+Over a process group each batch a rank passes is its row share of a
+global batch (``parallel.process_rows``): the towers run on the shares,
+their features are gathered in rank order (each global batch's rows in
+their order), and every rank forms the same score matrix and recall.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from ..models import model
 from ..models.mome import LayerBias
 from ..models.spec import ModelSpec, Params
+from ..parallel import host
 
 
 @torch.no_grad()
@@ -28,7 +34,8 @@ def extract_features(params: Params, spec: ModelSpec, batches: Iterable[Dict],
                      qk_int8: bool = False,
                      fusion: str = "tail") -> torch.Tensor:
     """Run one single-modality tower over ``batches``; returns the stacked
-    ``cls_feats`` (N, hs).  The rel-pos bias is gathered once per call.
+    ``cls_feats`` (N, hs), over a process group every rank's rows of each
+    batch in rank order.  The rel-pos bias is gathered once per call.
     ``int8_gelu`` and ``qk_int8`` reach the int8 eval blocks, ``fusion``
     the eval blocks' route (``mome._block_fast``); the JAX package reads
     them from ``VLM_TPU_I8_GELU``, ``VLM_TPU_I8_QK`` and its fusion gates
@@ -47,9 +54,10 @@ def extract_features(params: Params, spec: ModelSpec, batches: Iterable[Dict],
             true_length = b["text_ids"].shape[1] if (
                 kind == "text" and spec.max_vl_text_len is not None) else None
             bias = model.precompute_bias(params, spec, bias_kind, true_length)
-        feats.append(run(params, spec, b, rel_bias=bias, kernels=kernels,
-                         int8_gelu=int8_gelu, qk_int8=qk_int8,
-                         fusion=fusion)["cls_feats"])
+        feats.append(host.all_gather_rows(run(
+            params, spec, b, rel_bias=bias, kernels=kernels,
+            int8_gelu=int8_gelu, qk_int8=qk_int8,
+            fusion=fusion)["cls_feats"]))
     return torch.cat(feats, dim=0)
 
 
@@ -189,9 +197,14 @@ def compute_irtr_recall(params: Params, spec: ModelSpec,
     if not itm_rerank_topk:
         return retrieval_recall(img, txt, iids, tiids)
     scores = _itc_scores(img, txt)
-    text_ids = torch.cat([b["text_ids"] for b in text_batches])[:n_txt]
-    text_masks = torch.cat([b["text_masks"] for b in text_batches])[:n_txt]
-    images = torch.cat([b["image"] for b in image_batches])[:n_img]
+
+    def rows(batches, key, n):
+        return torch.cat([host.all_gather_rows(b[key]) for b in batches])[:n]
+
+    # every rank reranks every query, over the gathered inputs
+    text_ids = rows(text_batches, "text_ids", n_txt)
+    text_masks = rows(text_batches, "text_masks", n_txt)
+    images = rows(image_batches, "image", n_img)
     bias = model.fused_layer_biases(params, spec, text_ids.shape[1])
     dev = scores.device
     ids_i = torch.as_tensor(np.asarray(iids), device=dev)

@@ -4,6 +4,11 @@
 Rounding follows the JAX package: ``linear`` rounds the product to the
 compute dtype before adding the bias in that dtype, and ``layer_norm``
 takes its statistics in float32 and returns the input dtype.
+
+Random draws are rank-invariant (``rank_rand``): under a process group a
+rank draws the global batch's values and keeps its own rows, so the ranks
+of a data-parallel step draw what one process draws over the global
+batch (as the JAX package's partitionable threefry does).
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel import host
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -44,15 +51,31 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def rank_rand(shape, generator: torch.Generator, axis: int = 0
+              ) -> torch.Tensor:
+    """Uniform [0, 1) draws of ``shape`` on the generator's device for
+    this rank's rows of the global batch: the draw of the global shape
+    (``shape[axis]`` × the world size along ``axis``), this rank's
+    contiguous block of it along ``axis``.  In one process, the draw of
+    ``shape``."""
+    world = host.get_world_size()
+    if world == 1:
+        return torch.rand(shape, generator=generator, device=generator.device)
+    full = list(shape)
+    full[axis] *= world
+    u = torch.rand(full, generator=generator, device=generator.device)
+    return u.narrow(axis, host.get_rank() * shape[axis], shape[axis])
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
-    """Elementwise dropout with a mask drawn from ``generator``; the
-    identity unless training with a generator and rate > 0."""
+    """Elementwise dropout with a mask drawn from ``generator``
+    (``rank_rand`` over the leading batch axis); the identity unless
+    training with a generator and rate > 0."""
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator,
-                      device=generator.device).to(x.device) < keep
+    mask = rank_rand(x.shape, generator).to(x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -66,6 +89,5 @@ def drop_path(x: torch.Tensor, rate: float,
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator,
-                      device=generator.device).to(x.device) < keep
+    mask = rank_rand(shape, generator).to(x.device) < keep
     return x * (mask.to(x.dtype) / keep)

@@ -17,8 +17,10 @@ With ``train=True`` every pass draws its randomness from a
 ``torch.Generator``: the text embedding's dropout and one (L, 2, B) table
 of stochastic-depth scales per pass and per re-run
 (``_dp_scale_table``), whose (2, B) slice a split block's two halves
-share.  The JAX package's per-block remat (``use_remat``) is numerically
-a no-op and is not carried over.  In training the rel-pos bias is
+share.  Under a process group both are drawn at the global batch and
+each rank keeps its rows (``layers.rank_rand``).  The JAX package's
+per-block remat (``use_remat``) is numerically a no-op and is not
+carried over.  In training the rel-pos bias is
 gathered from the table inside the autograd graph on every call, so its
 gradient reaches ``relative_position_bias_table``.
 
@@ -37,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from . import relpos
-from .layers import dropout, gelu, layer_norm, linear
+from ..parallel import host
+from .layers import dropout, gelu, layer_norm, linear, rank_rand
 from .mome import LN_EPS, LayerBias, block_forward, splits
 from .spec import L, ModelSpec, Params, V, VL
 
@@ -112,22 +115,26 @@ def _dp_scale_table(spec: ModelSpec, generator: Optional[torch.Generator],
     """All of a pass's stochastic-depth scales in one draw: (L, 2, B) f32,
     1/keep or 0 per (layer, residual branch, sample) with the layer's keep
     probability (timm DropPath semantics; layer 0 keeps everything).
-    None outside training, without a generator, or at drop rate 0.
+    None outside training, without a generator, or at drop rate 0.  Under
+    a process group ``batch`` is this rank's share and the draw is the
+    global batch's (``layers.rank_rand``).
 
-    ``table`` replaces the draw with given scales of that shape (tests feed
-    the JAX package's table through it)."""
+    ``table`` replaces the draw with given scales of the global shape
+    (L, 2, B × world size), of which this rank takes its samples (tests
+    feed the JAX package's table through it)."""
     if not train or generator is None or spec.drop_rate <= 0.0:
         return None
     shape = (spec.num_layers, 2, batch)
     if table is not None:
         table = torch.as_tensor(np.asarray(table, np.float32), device=device)
-        if tuple(table.shape) != shape:
+        world = host.get_world_size()
+        if tuple(table.shape) != (shape[0], 2, batch * world):
             raise ValueError(f"dp_scale table of shape {tuple(table.shape)}, "
-                             f"expected {shape}")
-        return table
+                             f"expected {(shape[0], 2, batch * world)}")
+        return table[:, :, host.process_rows(batch * world)]
     keep = torch.tensor(1.0 - np.asarray(_drop_path_rates(spec), np.float32),
                         device=generator.device)[:, None, None]
-    u = torch.rand(shape, generator=generator, device=generator.device)
+    u = rank_rand(shape, generator, axis=2)
     return ((u < keep).float() / keep).to(device)
 
 

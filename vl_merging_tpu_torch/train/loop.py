@@ -1,5 +1,6 @@
 """Training orchestration: the fit/validate/test loops (port of
-``vl_merging_tpu/train/loop.py`` for one process on one device).
+``vl_merging_tpu/train/loop.py``), in one process or one process per
+device over a ``torch.distributed`` group.
 
 Replaces the reference's pl.Trainer wiring (reference: src/run.py:141-295)
 with an explicit loop: device batches, one train step, periodic
@@ -7,11 +8,18 @@ validation with the_metric checkpoint selection (save_top_k=1 + last,
 reference run.py:189-195), gradient accumulation derived from the global
 batch size (run.py:210-212), resume support, and JSONL logging.
 
-The Trainer runs on the card; it runs on the CPU only when the config
-says ``use_cpu=True`` (how the JAX package asks, and what the tests
-pass).  It differs from the JAX Trainer in what one process and one
-device make moot (no mesh, no cross-host gathers; the padding to the
-device count is the identity) and in its resume: the full state is one
+The Trainer runs on the card (``device.rank_device``: ``cuda:
+LOCAL_RANK``, or the device the caller names); it runs on the CPU only
+when the config says ``use_cpu=True`` (how the JAX package asks, and what
+the tests pass).  Over a process group (started before the Trainer, as
+``run.py`` does) each rank is one device of the JAX Trainer's mesh, by
+its rules: each loader yields this rank's share of a global micro-batch of
+``per_device_batch_size`` × world rows, ``accum_steps`` and ``dp_scale``
+follow the world size, ``use_sharded_training`` shards params and
+optimizer state over an fsdp axis of 2, the recall feeds each rank's row
+share of its batches, the validation's host tallies are summed over the
+ranks, and rank 0 alone writes the logs and checkpoints.  The Trainer
+differs from the JAX one in its resume: the full state is one
 ``torch.save`` file (``train/checkpointing.py``), and a resumed fit
 continues the epoch at the checkpoint's micro-batch, so it takes the
 batches the uninterrupted fit takes (the JAX Trainer restarts the epoch).
@@ -19,6 +27,7 @@ batches the uninterrupted fit takes (the JAX Trainer restarts the epoch).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -31,22 +40,21 @@ from ..ckpt import io as ckpt_io
 from ..ckpt.convert import eval_cast_params, master_params, \
     params_from_numpy
 from ..ckpt.pipeline import load_params
-from ..device import require_cuda
-from ..evaluation.downstream import (_DISTRIBUTION, nlvr2_logits,
-                                     nlvr2_split_update,
-                                     require_single_process,
+from ..device import rank_device
+from ..evaluation.downstream import (nlvr2_logits, nlvr2_split_update,
                                      vqa_predictions, write_vqa_submission)
 from ..evaluation.metrics import MetricAccumulator, the_metric
 from ..evaluation.retrieval import compute_irtr_recall
 from ..models.spec import ModelSpec, Params, make_model_spec
+from ..parallel import host
+from ..parallel.mesh import (Mesh, broadcast_params, make_mesh,
+                             param_shardings, shard_batch, shard_params)
 from . import train_step as ts
-from .checkpointing import restore_train_state, save_train_state
+from .checkpointing import (load_full_params, restore_train_state,
+                            save_train_state)
 from .optimizer import make_optimizer
 from .schedule import make_schedule
 
-# the port trains in one process on one device (more: ROADMAP item
-# "Distribution")
-WORLD_SIZE = 1
 _IN_GRAPH = '"In-graph preprocessing"'
 
 ARRAY_KEYS_EXCLUDED = ("text", "qid", "vqa_labels", "vqa_scores",
@@ -54,9 +62,10 @@ ARRAY_KEYS_EXCLUDED = ("text", "qid", "vqa_labels", "vqa_scores",
                        "cap_index", "raw_index", "replica")
 
 
-def accum_steps(cfg: Dict) -> int:
+def accum_steps(cfg: Dict, world: Optional[int] = None) -> int:
     """Micro-batches per optimizer step: the config's global batch over the
-    per-device batch times the device count (the JAX Trainer's rule)."""
+    per-device batch times the device count (the JAX Trainer's rule; the
+    count is ``world``, by default the process group's size)."""
     per_dev = cfg["per_device_batch_size"]
     if not per_dev or per_dev <= 0:
         # the reference makes per_gpu_batchsize mandatory too
@@ -65,12 +74,20 @@ def accum_steps(cfg: Dict) -> int:
         raise ValueError(
             "per_device_batch_size must be set (> 0); it is the "
             "reference's per_gpu_batchsize")
-    return max(1, cfg["batch_size"] // (per_dev * WORLD_SIZE))
+    world = host.get_world_size() if world is None else world
+    return max(1, cfg["batch_size"] // (per_dev * world))
+
+
+def fsdp_size(cfg: Dict, world: int) -> int:
+    """The fsdp axis of the JAX Trainer's mesh: 2 under
+    ``use_sharded_training`` when the device count is even, else 1."""
+    return 2 if cfg["use_sharded_training"] and world % 2 == 0 else 1
 
 
 def build_train_step(cfg: Dict, spec: ModelSpec, params: Params,
                      max_steps: int, *, train_fusion: str = "0",
-                     mim_label_fn: Optional[Callable] = None
+                     mim_label_fn: Optional[Callable] = None,
+                     mesh: Optional[Mesh] = None
                      ) -> Tuple[ts.TrainState, Callable]:
     """(state, step_fn) for ``max_steps`` optimizer steps over ``params``,
     which must be f32 masters (``ckpt/convert.master_params``); step_fn
@@ -78,15 +95,26 @@ def build_train_step(cfg: Dict, spec: ModelSpec, params: Params,
     ``accum_steps(cfg)`` micro-batch axis when that is above 1.
     ``train_fusion`` ("0", "tail" or "full") is the training fusion level
     and ``mim_label_fn`` the MIM labels' source
-    (``train_step.make_train_step``)."""
+    (``train_step.make_train_step``).  ``mesh`` (default: the process
+    group with the config's fsdp axis) is the data-parallel group: rank
+    0's params are broadcast into every rank's, ``dp_scale`` is 1 / its
+    size, and with an fsdp axis above 1 the state holds this rank's
+    shards of the params and optimizer moments."""
+    mesh = mesh or make_mesh(fsdp=fsdp_size(cfg, host.get_world_size()))
+    broadcast_params(params)
+    shardings = None
+    if mesh.fsdp > 1:
+        shardings = param_shardings(params, mesh)
+        params = shard_params(params, mesh)
     sched = make_schedule(cfg, max_steps)
     optimizer = make_optimizer(params, cfg, max_steps, sched)
-    state = ts.init_train_state(params, optimizer, seed=cfg["seed"])
+    state = ts.init_train_state(params, optimizer, seed=cfg["seed"],
+                                shardings=shardings, mesh=mesh)
     step_fn = ts.make_train_step(cfg, spec, optimizer,
-                                 dp_scale=1.0 / WORLD_SIZE,
-                                 accum_steps=accum_steps(cfg),
+                                 dp_scale=1.0 / mesh.size,
+                                 accum_steps=accum_steps(cfg, mesh.size),
                                  train_fusion=train_fusion,
-                                 mim_label_fn=mim_label_fn)
+                                 mim_label_fn=mim_label_fn, mesh=mesh)
     return state, step_fn
 
 
@@ -112,22 +140,6 @@ def pad_to_multiple(batch: Dict, size: int):
         else:
             out[k] = v
     return out, n
-
-
-def pad_batch_for_mesh(batch: Dict, ndev: int):
-    """Pad a (possibly mixed-task nested) batch to ``ndev``-divisible rows
-    via :func:`pad_to_multiple`; returns ``(padded, n_valid)`` where
-    ``n_valid`` is the top-level true row count (None for nested batches,
-    whose sub-batches are padded independently).  At one device
-    (``WORLD_SIZE``) it returns the batch as it is."""
-    if any(isinstance(v, dict) for v in batch.values()):
-        return {k: (pad_batch_for_mesh(v, ndev)[0] if isinstance(v, dict)
-                    else v) for k, v in batch.items()}, None
-    n = next((v.shape[0] for v in batch.values()
-              if isinstance(v, np.ndarray) and v.ndim >= 1), None)
-    if n is None:
-        return batch, None
-    return pad_to_multiple(batch, -(-n // ndev) * ndev)
 
 
 def host_filter(batch: Dict) -> Dict:
@@ -179,44 +191,50 @@ def vci_to_opt_steps(vci, micro_per_epoch: int, accum_steps: int):
 
 
 class JsonlLogger:
-    """One JSON line of scalars per call, ``{log_dir}/{name}.jsonl``.
+    """One JSON line of scalars per call, ``{log_dir}/{name}.jsonl``; a
+    logger with ``write=False`` (the ranks other than 0) writes nothing.
 
     The JAX package also writes TensorBoard events when it can import
     ``torch.utils.tensorboard`` (reference run.py:196-199); the port does
     not: that import brings in TensorFlow where it is installed, and
     TensorFlow imports JAX."""
 
-    def __init__(self, log_dir: str, name: str):
-        os.makedirs(log_dir, exist_ok=True)
+    def __init__(self, log_dir: str, name: str, write: bool = True):
         self.path = os.path.join(log_dir, f"{name}.jsonl")
-        self._fh = open(self.path, "a")
+        self._fh = None
+        if write:
+            os.makedirs(log_dir, exist_ok=True)
+            self._fh = open(self.path, "a")
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
+        if self._fh is None:
+            return
         rec = {"step": step, **{k: float(v) for k, v in scalars.items()}}
         self._fh.write(json.dumps(rec) + "\n")
         self._fh.flush()
 
     def close(self) -> None:
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()
 
 
 class Trainer:
-    def __init__(self, cfg: Dict, mim_label_fn=None):
+    """``device`` names the card (e.g. "cuda:0"; ranks share one card
+    only this way); by default ``cuda:LOCAL_RANK``."""
+
+    def __init__(self, cfg: Dict, mim_label_fn=None, device=None):
         self.cfg = cfg
         self.spec: ModelSpec = make_model_spec(cfg)
-        require_single_process("the Trainer")
-        if (cfg["num_devices"] or 1) > 1 or cfg["use_sharded_training"]:
-            raise NotImplementedError(
-                f"training on {cfg['num_devices']} devices or sharded "
-                f"(use_sharded_training={cfg['use_sharded_training']}) is "
-                f"not ported yet: ROADMAP item {_DISTRIBUTION}")
         if cfg.get("device_augment") or cfg.get("device_mlm"):
             raise NotImplementedError(
                 "device_augment / device_mlm are not ported yet: ROADMAP "
                 f"item {_IN_GRAPH}")
+        world = host.get_world_size()
+        self.mesh = make_mesh(num_devices=cfg["num_devices"],
+                              fsdp=fsdp_size(cfg, world))
         # the reference's CPU dry-run path (run.py:236-261): only on request
         self.device = (torch.device("cpu") if cfg["use_cpu"]
-                       else require_cuda())
+                       else rank_device(device))
         self.mim_label_fn = mim_label_fn
 
         params, missing, unexpected = load_params(cfg, self.spec)
@@ -224,13 +242,16 @@ class Trainer:
             print(f"missing_keys: {missing}")
         if unexpected:
             print(f"unexpected_keys: {unexpected}")
-        # f32 masters on the device; the train step updates them in place,
-        # so self.params is the current state's params throughout
-        self.params = master_params(params_from_numpy(params, self.device))
+        # f32 masters on the device; the train step updates them in place
+        # (under sharded training the state holds this rank's shards of
+        # them instead, and ``params`` is None from ``_build_step`` on)
+        self.params: Optional[Params] = master_params(
+            params_from_numpy(params, self.device))
         del params
 
-        self.accum_steps = accum_steps(cfg)
-        self.local_batch = cfg["per_device_batch_size"] * WORLD_SIZE
+        self.accum_steps = accum_steps(cfg, world)
+        # this rank's rows of each global micro-batch
+        self.local_batch = cfg["per_device_batch_size"]
         self.kernels = ts._resolve_kernels(cfg, self.spec)
         self.eval_fn = ts.make_eval_step(cfg, self.spec,
                                          mim_label_fn=self.mim_label_fn)
@@ -240,7 +261,8 @@ class Trainer:
                          if cfg["load_path"] else
                          f'{cfg["exp_name"]}_seed{cfg["seed"]}')
         self.log_dir = os.path.join(cfg["log_dir"], self.exp_name)
-        self.logger = JsonlLogger(self.log_dir, "metrics")
+        self.logger = JsonlLogger(self.log_dir, "metrics",
+                                  write=host.is_main_process())
         self.best_metric = -float("inf")
         # the host's seconds per optimizer step of the last fit, waiting on
         # the loader and on device_feed
@@ -253,10 +275,20 @@ class Trainer:
             return cfg["max_steps"]
         return opt_steps_per_epoch * cfg["max_epoch"]
 
+    def gather_params(self) -> Params:
+        """The current full params.  Under sharded training the shards
+        gathered: a collective that every rank must reach."""
+        if self.params is None:
+            return self.state.full_params()
+        return self.params
+
     def _build_step(self, max_steps: int):
         self.state, self.step_fn = build_train_step(
             self.cfg, self.spec, self.params, max_steps,
-            mim_label_fn=self.mim_label_fn)
+            mim_label_fn=self.mim_label_fn, mesh=self.mesh)
+        if self.state.shardings is not None:
+            # the state holds this rank's shards: the full masters go
+            self.params = None
 
     # -- fit ----------------------------------------------------------------
     def fit(self, datamodule) -> None:
@@ -405,29 +437,36 @@ class Trainer:
         generator = torch.Generator(self.device).manual_seed(0)
         limit = (int(len(loader) * cfg["limit_val_batches"])
                  if cfg["limit_val_batches"] != 1.0 else None)
+        params = self.gather_params()
         for i, batch in enumerate(loader):
             if limit is not None and i >= limit:
                 break
-            # a tail batch is padded to the device count by repeating its
-            # last row (the duplicates enter the scalar loss metrics, as
-            # the reference's DistributedSampler wrap does); per-example
-            # paths slice back to n_valid
-            padded, n_valid = pad_batch_for_mesh(batch, WORLD_SIZE)
-            feed = device_feed(padded, self.device)
-            metrics = self.eval_fn(self.params, feed, generator)
+            # over a process group the sampler wrap-pads the last global
+            # batch, so every rank's share has its full rows (the
+            # duplicates enter the metrics, as the reference's
+            # DistributedSampler wrap does); the JAX Trainer's padding of
+            # a global batch to the device count is moot
+            feed = device_feed(batch, self.device)
+            metrics = self.eval_fn(params, feed, generator)
             # one stacked fetch per batch
             keys = sorted(metrics)
             vals = torch.stack([metrics[k].float() for k in keys]
                                ).cpu().numpy() if keys else []
             metrics = dict(zip(keys, vals))
             if "table_name" in batch and "nlvr2_loss" in metrics:
-                lg = nlvr2_logits(self.params, self.spec, feed,
+                lg = nlvr2_logits(params, self.spec, feed,
                                   kernels=self.kernels)
-                nlvr2_split_update(acc, lg[:n_valid],
+                nlvr2_split_update(acc, lg,
                                    np.asarray(batch["answers"]),
                                    batch["table_name"])
             acc.update(metrics)
 
+        if any("_nlvr2_" in k for k in acc.sums):
+            # the only host tallies (fed from each rank's loader share);
+            # every step metric is already the global batch's
+            acc.cross_process_reduce(
+                [f"{s}_nlvr2_{t}" for s in ("dev", "test")
+                 for t in ("correct", "count")])
         computed = acc.compute()
         recall = None
         out = {}
@@ -458,8 +497,11 @@ class Trainer:
     @torch.no_grad()
     def recall(self, datamodule, split: str = "test") -> Dict[str, float]:
         """Both towers over the split's no-false datasets, in batches of up
-        to 256 (the last padded to the same shape; features are sliced back
-        to the true counts), then ``compute_irtr_recall``."""
+        to 256 rows divisible by the world size (the last padded to the
+        same shape; features are sliced back to the true counts), each
+        rank feeding its row share of every batch (the JAX Trainer's
+        rule), then ``compute_irtr_recall``, which gathers the features in
+        rank order."""
         dm = datamodule.dms[0]
         make = (dm.make_no_false_val_dset if split == "val"
                 else dm.make_no_false_test_dset)
@@ -467,15 +509,21 @@ class Trainer:
         image_dset = make(image_only=True)
         params = self._eval_cast()
 
+        ndev = self.mesh.size
+
         def collect(dset):
-            bs = min(256, len(dset))
+            bs = min(max(256 // ndev * ndev, ndev),
+                     -(-len(dset) // ndev) * ndev)
             batches, ids = [], []
             for start in range(0, len(dset), bs):
                 idx = range(start, min(start + bs, len(dset)))
                 b = dset.collate([dset[i] for i in idx], dm.mlm_collator)
                 ids += list(b["img_index"])
                 b, _ = pad_to_multiple(b, bs)
-                batches.append(device_feed(b, self.device))
+                # ids stay global; each rank feeds its row share
+                batches.append(device_feed(shard_batch(host_filter(b),
+                                                       self.mesh),
+                                           self.device))
             return batches, ids
 
         text_batches, tiids = collect(text_dset)
@@ -487,8 +535,8 @@ class Trainer:
 
     def _eval_cast(self) -> Params:
         return eval_cast_params(
-            {k: v.detach() for k, v in self.params.items()}, self.spec,
-            self.cfg)
+            {k: v.detach() for k, v in self.gather_params().items()},
+            self.spec, self.cfg)
 
     # -- test ----------------------------------------------------------------
     @torch.no_grad()
@@ -514,7 +562,8 @@ class Trainer:
                 model_name = os.path.basename(cfg["load_path"])[:-5] \
                     if cfg["load_path"] else self.exp_name
                 path = write_vqa_submission(rets, model_name, self.log_dir)
-                print(f"vqa submission: {path}")
+                if path:
+                    print(f"vqa submission: {path}")
         results.update(self.validate(datamodule))
         return results
 
@@ -523,16 +572,23 @@ class Trainer:
         return os.path.join(self.log_dir, "checkpoints", tag)
 
     def _save_checkpoint(self, tag: str) -> None:
-        sd = ckpt_io.params_to_state_dict(self.params)
-        os.makedirs(self._ckpt_dir(tag), exist_ok=True)
-        ckpt_io.save_torch_checkpoint(
-            sd, os.path.join(self._ckpt_dir(tag), "weights.ckpt"))
-        with open(os.path.join(self._ckpt_dir(tag), "meta.json"), "w") as f:
-            json.dump({"step": self.state.step,
-                       "best_metric": self.best_metric}, f)
+        """Every rank reaches the gathers of a sharded state; rank 0 alone
+        writes, and the ranks leave together (a barrier), so a resume on
+        any rank reads whole files."""
+        params = self.gather_params()
+        if host.is_main_process():
+            sd = ckpt_io.params_to_state_dict(params)
+            os.makedirs(self._ckpt_dir(tag), exist_ok=True)
+            ckpt_io.save_torch_checkpoint(
+                sd, os.path.join(self._ckpt_dir(tag), "weights.ckpt"))
+            with open(os.path.join(self._ckpt_dir(tag), "meta.json"),
+                      "w") as f:
+                json.dump({"step": self.state.step,
+                           "best_metric": self.best_metric}, f)
         if tag == "last":  # the full-state resume point
             save_train_state(self.state,
                              os.path.join(self._ckpt_dir(tag), "state.pt"))
+        host.synchronize()
 
     def _maybe_resume(self) -> None:
         cfg = self.cfg
@@ -559,11 +615,7 @@ class Trainer:
             return
         sd = ckpt_io.load_torch_checkpoint(path)
         loaded, _, _ = ckpt_io.state_dict_to_params(sd, self.spec)
-        with torch.no_grad():
-            for k, v in loaded.items():
-                self.params[k].copy_(v)
+        load_full_params(self.state, loaded)
         step = meta.get("step", 0)
-        self.state = ts.TrainState(
-            params=self.params, opt_state=self.state.opt_state, step=step,
-            generator=self.state.generator)
+        self.state = dataclasses.replace(self.state, step=step)
         print(f"resumed weights from {path} at step {step}")

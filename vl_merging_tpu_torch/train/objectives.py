@@ -4,16 +4,37 @@ contrastive ifm, ITM with hard negatives, irtr, and the VQA, NLVR2 and
 ImageNet heads, each in training and in eval mode.
 
 The JAX package writes each loss over the global batch under ``jit`` and
-lets XLA insert the cross-replica gathers; the port runs on one device, so
-the batch it is given is the global batch.  A multi-device step will need
-autograd-aware gathers of the contrastive features and of the ITM
-negative pool (ROADMAP item "Distribution").
+lets XLA insert the cross-replica gathers.  The port runs one process per
+device and gathers explicitly (``parallel/host.py``); each rank's losses
+are its share of the global ones, such that their mean over the ranks is
+the global loss, and the mean of the ranks' gradients (the data-parallel
+step's all-reduce) is the one-process gradient over the global batch:
+
+  * ifm and irtr gather the cls features of every rank through
+    ``all_gather_with_grad``, whose backward keeps this rank's rows of the
+    gradient: every rank computes the same full-batch loss, and each
+    rank's parameters see it through its own features only (the
+    reference's gather); the logit scales, which every rank applies alike
+    after the gather, take 1/world of their gradient on each rank
+    (``grad_share``; the reference's DDP gives them the full gradient);
+  * ITM draws its hard negatives over the global similarity matrix (the
+    same draw on every rank, from the shared generator), gathers the
+    negative pool (images, ids, masks; no gradient) and keeps its rows;
+  * the masked means (MLM's tokens, MIM's patches) divide by the global
+    count (an all-reduce of the counts), times the world size, because
+    the masks leave a different count on each rank;
+  * the dense row means (ITM, VQA, NLVR2, ImageNet) are the rank's mean
+    over its equal share of the rows.
+
+The ``*_correct`` and ``*_count`` tallies count this rank's rows, so their
+sum over the ranks is the global one (``train_step.reduce_metrics``).
 
 Gradient-scale parity note (as in the JAX package): the reference
 backprops the full-batch contrastive loss only through local features and
 DDP averages gradients, so its effective ifm/irtr gradient is
 grad(L_full) / world_size; ``train_step.total_loss``'s ``dp_scale``
-reproduces that factor.
+reproduces that factor in one process, and the gather with the gradient
+average reproduces it over ranks.
 
 Dynamic-shape ops of the reference (boolean indexing of masked patches,
 per-sample Python loops) are masked dense reductions, as in the JAX
@@ -31,21 +52,32 @@ import torch
 from ..evaluation.downstream import nlvr2_logits
 from ..models import model
 from ..models.spec import ModelSpec, Params
+from ..parallel import host
 
 IGNORE_INDEX = -100   # the MLM labels of unmasked tokens
+
+
+def _masked_mean(total: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """``total`` over the count of the global batch (at least 1): this
+    rank's share of a masked mean, scaled by the world size so that the
+    ranks' mean is the global mean; in one process total / count."""
+    world = host.get_world_size()
+    count = host.all_reduce_(count.detach().float().clone())
+    return total / count.clamp_min(1.0) * world
 
 
 def _ce_ignore_index(logits: torch.Tensor, labels: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cross-entropy with ignore_index semantics: the f32 log-softmax, the
-    mean over valid targets.  Returns (loss, correct_count, valid_count)."""
+    mean over valid targets (``_masked_mean``).  Returns (loss,
+    correct_count, valid_count)."""
     valid = labels != IGNORE_INDEX
     safe = torch.where(valid, labels, 0).long()
     logits = logits.float()
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
     count = valid.sum()
-    loss = nll.sum() / count.clamp_min(1)
+    loss = _masked_mean(nll.sum(), count)
     correct = ((logits.argmax(-1) == safe) & valid).sum()
     return loss, correct, count
 
@@ -105,7 +137,7 @@ def _mim_loss(params: Params, image_feats: torch.Tensor,
     nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None])[
         ..., 0]
     m = masked_pos.float()
-    loss = (nll * m).sum() / m.sum().clamp_min(1.0)
+    loss = _masked_mean((nll * m).sum(), m.sum())
     correct = ((logits.argmax(-1) == labels) & masked_pos).sum()
     return loss, correct, m.sum()
 
@@ -149,7 +181,12 @@ def compute_mim_image_only(params: Params, spec: ModelSpec, batch: Dict, *,
 
 def _info_nce(image_feats, text_feats,
               logit_scale) -> Tuple[torch.Tensor, ...]:
-    """Symmetric InfoNCE over the batch; f32 logits."""
+    """Symmetric InfoNCE over the global batch (every rank's features,
+    ``all_gather_with_grad``; the logit scale through ``grad_share``); f32
+    logits (global B × B)."""
+    image_feats = host.all_gather_with_grad(image_feats)
+    text_feats = host.all_gather_with_grad(text_feats)
+    logit_scale = host.grad_share(logit_scale)
     logits_i2t = logit_scale * (image_feats @ text_feats.T).float()
     logits_t2i = logits_i2t.T
     labels = torch.arange(image_feats.shape[0], device=image_feats.device)
@@ -160,6 +197,12 @@ def _info_nce(image_feats, text_feats,
 
 def _hits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(-1) == labels).sum()
+
+
+def _rank_hits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``_hits`` over this rank's rows of global logits."""
+    rows = host.process_rows(logits.shape[0])
+    return _hits(logits[rows], labels[rows])
 
 
 def compute_ifm(params: Params, spec: ModelSpec, batch: Dict, *,
@@ -181,14 +224,16 @@ def compute_ifm(params: Params, spec: ModelSpec, batch: Dict, *,
     loss_vl, vl_i2t, vl_t2i, _ = _info_nce(
         infer_imag["cls_vlffn_feats"], infer_text["cls_vlffn_feats"],
         vl_scale)
-    n = labels.shape[0]
+    n = infer_imag["cls_feats"].shape[0]
     return {
         "ifm_loss": (ifm_weight * loss_b + loss_vl) * 0.5,
         "ifm_i2t_logits": i2t, "ifm_t2i_logits": t2i,
-        "ifm_i2t_correct": _hits(i2t, labels), "ifm_i2t_count": n,
-        "ifm_t2i_correct": _hits(t2i, labels), "ifm_t2i_count": n,
-        "ifm_vl_i2t_correct": _hits(vl_i2t, labels), "ifm_vl_i2t_count": n,
-        "ifm_vl_t2i_correct": _hits(vl_t2i, labels), "ifm_vl_t2i_count": n,
+        "ifm_i2t_correct": _rank_hits(i2t, labels), "ifm_i2t_count": n,
+        "ifm_t2i_correct": _rank_hits(t2i, labels), "ifm_t2i_count": n,
+        "ifm_vl_i2t_correct": _rank_hits(vl_i2t, labels),
+        "ifm_vl_i2t_count": n,
+        "ifm_vl_t2i_correct": _rank_hits(vl_t2i, labels),
+        "ifm_vl_t2i_count": n,
         "ifm_logit_scale": scale, "ifm_logit_vl_scale": vl_scale,
     }
 
@@ -207,11 +252,11 @@ def compute_irtr(params: Params, spec: ModelSpec, batch: Dict, *,
     scale = params["logit_scale"].exp()
     loss, i2t, t2i, labels = _info_nce(
         infer_imag["cls_feats"], infer_text["cls_feats"], scale)
-    n = labels.shape[0]
+    n = infer_imag["cls_feats"].shape[0]
     return {
         "irtr_loss": loss,
-        "irtr_i2t_correct": _hits(i2t, labels), "irtr_i2t_count": n,
-        "irtr_t2i_correct": _hits(t2i, labels), "irtr_t2i_count": n,
+        "irtr_i2t_correct": _rank_hits(i2t, labels), "irtr_i2t_count": n,
+        "irtr_t2i_correct": _rank_hits(t2i, labels), "irtr_t2i_count": n,
         "irtr_logit_scale": scale,
     }
 
@@ -253,20 +298,27 @@ def compute_itm_hardneg(params: Params, spec: ModelSpec, batch: Dict,
     text (``sample_hard_negatives`` on ifm's logits), the ITM head on the
     3B cls features against labels [1]·B + [0]·2B.  Without a generator
     (the eval and the gram pass) the negatives come from a generator
-    seeded 0, as the JAX package's draw from PRNGKey(0)."""
+    seeded 0, as the JAX package's draw from PRNGKey(0).  Under a process
+    group the sims are the global batch's: every rank makes the same
+    global draw, keeps its rows' negatives and takes them from the
+    gathered pool of every rank's images and texts."""
     bsz = batch["text_ids"].shape[0]
     if generator is None:
         generator = torch.Generator(sim_i2t.device).manual_seed(0)
     route = dict(train=train, generator=generator, kernels=kernels,
                  train_fusion=train_fusion)
     infer_pos = model.infer(params, spec, batch, **route)
-    neg_img, neg_txt = sample_hard_negatives(sim_i2t, sim_t2i, generator)
+    rows = host.process_rows(sim_i2t.shape[0])
+    neg_img, neg_txt = (idx[rows] for idx in sample_hard_negatives(
+        sim_i2t, sim_t2i, generator))
+    pool = {k: host.all_gather_rows(batch[k])
+            for k in ("image", "text_ids", "text_masks")}
     infer_img_neg = model.infer(params, spec,
-                                dict(batch, image=batch["image"][neg_img]),
+                                dict(batch, image=pool["image"][neg_img]),
                                 **route)
     infer_txt_neg = model.infer(params, spec, dict(
-        batch, text_ids=batch["text_ids"][neg_txt],
-        text_masks=batch["text_masks"][neg_txt]), **route)
+        batch, text_ids=pool["text_ids"][neg_txt],
+        text_masks=pool["text_masks"][neg_txt]), **route)
     cls = torch.cat([infer_pos["cls_feats"], infer_img_neg["cls_feats"],
                      infer_txt_neg["cls_feats"]], dim=0)
     logits = model.itm_head(params, cls).float()

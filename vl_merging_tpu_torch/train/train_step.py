@@ -15,11 +15,22 @@ run.py:210-212) is a Python loop over the leading micro-batch axis of the
 batch: gradients and losses are summed, then divided by the number of
 micro-batches, as the JAX package's ``lax.scan`` does.
 
+Over a process group (``parallel.Mesh``) each rank runs the step on its
+row share of the global batch.  The losses are the ranks' shares
+(``objectives.py``); after the micro-batch accumulation the f32 gradients
+are averaged over the group (``parallel.mesh.average_grads``), or, under
+``use_sharded_training``, reduce-scattered to the shards that each rank
+updates (``reduce_grads``; the full params are gathered for the pass).
+The reported metrics are the global batch's on every rank
+(``reduce_metrics``), and the step equals one process's over the global
+batch with the same ``dp_scale``.
+
 Randomness (text dropout, stochastic depth, ITM's hard negatives) comes
-from the state's ``torch.Generator``.  Not carried over from the JAX
-package: the TPU's ``unsafe_rbg`` PRNG (``_fast_rng``), and the in-graph
-augmentation and MLM masking hooks (``device_augment``, ``device_mlm``:
-the ROADMAP item "In-graph preprocessing").
+from the state's ``torch.Generator``, seeded alike on every rank (the
+draws are rank-invariant: ``models/layers.rank_rand``).  Not carried
+over from the JAX package: the TPU's ``unsafe_rbg`` PRNG (``_fast_rng``),
+and the in-graph augmentation and MLM masking hooks (``device_augment``,
+``device_mlm``: the ROADMAP item "In-graph preprocessing").
 """
 
 from __future__ import annotations
@@ -30,6 +41,9 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..models.spec import ModelSpec, Params
+from ..parallel import host
+from ..parallel.mesh import (Mesh, average_grads, gather_params,
+                             global_sq_norm, make_mesh, reduce_grads)
 from . import objectives
 from .optimizer import Optimizer, OptState
 
@@ -40,6 +54,17 @@ class TrainState:
     opt_state: OptState
     step: int
     generator: torch.Generator   # dropout and stochastic-depth draws
+    # sharded training: each param's shard axis (None: replicated) over
+    # the mesh's fsdp ranks; params and optimizer moments are the shards
+    shardings: Optional[Dict[str, Optional[int]]] = None
+    mesh: Optional[Mesh] = None
+
+    def full_params(self) -> Params:
+        """The full params: under sharded training the shards gathered
+        (a collective every rank reaches), else ``params``."""
+        if self.shardings is None:
+            return self.params
+        return gather_params(self.params, self.shardings, self.mesh)
 
 
 def _resolve_kernels(cfg: Dict, spec: ModelSpec) -> bool:
@@ -145,19 +170,45 @@ def scalar_metrics(out: Dict) -> Dict[str, torch.Tensor]:
             if isinstance(v, torch.Tensor) and v.ndim == 0}
 
 
+# metrics summed over the ranks (each rank counts its own rows)
+_TALLIES = ("_correct", "_count", "_score_sum")
+
+
+def reduce_metrics(metrics: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """The global batch's metrics on every rank: the tallies summed over
+    the ranks, every other metric (the losses, the logit scales) averaged
+    (each rank's loss is its share, ``objectives.py``); f32.  In one
+    process the metrics as they are."""
+    world = host.get_world_size()
+    if world == 1 or not metrics:
+        return metrics
+    keys = sorted(metrics)
+    vals = host.all_reduce_(torch.stack([metrics[k].float() for k in keys]))
+    tally = torch.tensor([k.endswith(_TALLIES) for k in keys],
+                         device=vals.device)
+    return dict(zip(keys, torch.where(tally, vals, vals / world).unbind()))
+
+
 def loss_and_grads(params: Params, spec: ModelSpec, cfg: Dict, batch: Dict,
                    generator: torch.Generator, *, kernels: bool,
                    dp_scale: float = 1.0, train_fusion: str = "0",
                    mim_label_fn: Optional[Callable] = None):
     """(loss, scalar metrics, f32 grads) of one micro-batch.  A param that
-    the loss does not reach gets a zero gradient, as under jax.grad."""
+    the loss does not reach gets a zero gradient, as under jax.grad.
+    Over a process group the contrastive losses' gradient takes
+    ``dp_scale`` × the group's size, which the step's average over the
+    ranks divides back (the loss returned carries ``dp_scale``)."""
     out = compute_losses(params, spec, cfg, batch, generator,
                          kernels=kernels, train_fusion=train_fusion,
                          mim_label_fn=mim_label_fn)
-    loss = total_loss(out, dp_scale)
+    world = host.get_world_size()
+    loss = total_loss(out, dp_scale * world)
     names = list(params)
     grads = torch.autograd.grad(loss, [params[k] for k in names],
                                 allow_unused=True)
+    if world != 1:
+        loss = total_loss(out, dp_scale)
     return loss.detach(), scalar_metrics(out), {
         k: torch.zeros_like(params[k]) if g is None else g
         for k, g in zip(names, grads)}
@@ -179,7 +230,8 @@ def micro_batch(batch: Dict, i: int) -> Dict:
 def make_train_step(cfg: Dict, spec: ModelSpec, optimizer: Optimizer, *,
                     dp_scale: float = 1.0, accum_steps: int = 1,
                     train_fusion: str = "0",
-                    mim_label_fn: Optional[Callable] = None
+                    mim_label_fn: Optional[Callable] = None,
+                    mesh: Optional[Mesh] = None
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """Build the train step.
 
@@ -189,23 +241,31 @@ def make_train_step(cfg: Dict, spec: ModelSpec, optimizer: Optimizer, *,
     The kernel switch is ``_resolve_kernels(cfg, spec)``; ``train_fusion``
     ("0", "tail" or "full") is the training fusion level, the JAX
     package's ``VLM_TPU_TRAIN_FUSION``; ``mim_label_fn`` gives MIM its
-    labels (``compute_losses``)."""
+    labels (``compute_losses``).  ``mesh`` (default: the process group,
+    ``parallel.make_mesh()``) is the group the gradients are reduced
+    over; a state with ``shardings`` is stepped sharded."""
     kernels = _resolve_kernels(cfg, spec)
+    mesh = mesh or make_mesh()
 
-    def micro(state: TrainState, batch: Dict):
-        return loss_and_grads(state.params, spec, cfg, batch,
+    def micro(params: Params, state: TrainState, batch: Dict):
+        return loss_and_grads(params, spec, cfg, batch,
                               state.generator, kernels=kernels,
                               dp_scale=dp_scale, train_fusion=train_fusion,
                               mim_label_fn=mim_label_fn)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        params = state.params
+        if state.shardings is not None:
+            params = {k: v if state.shardings[k] is None
+                      else v.requires_grad_()
+                      for k, v in state.full_params().items()}
         if accum_steps == 1:
-            loss, metrics, grads = micro(state, batch)
+            loss, metrics, grads = micro(params, state, batch)
         else:
             loss, grads = 0.0, None
             for i in range(accum_steps):
                 mb_loss, metrics, mb_grads = micro(
-                    state, micro_batch(batch, i))
+                    params, state, micro_batch(batch, i))
                 loss = loss + mb_loss
                 if grads is None:
                     grads = mb_grads
@@ -214,14 +274,21 @@ def make_train_step(cfg: Dict, spec: ModelSpec, optimizer: Optimizer, *,
                                         [mb_grads[k] for k in grads])
             torch._foreach_div_(list(grads.values()), accum_steps)
             loss = loss / accum_steps
+        if state.shardings is not None:
+            grads = reduce_grads(grads, state.shardings, mesh)
+            grad_norm = global_sq_norm(grads, state.shardings, mesh).sqrt()
+        else:
+            average_grads(grads, mesh)
+            grad_norm = global_norm(grads)
         updates, opt_state = optimizer.update(grads, state.opt_state,
                                               state.params)
         with torch.no_grad():
             torch._foreach_add_([state.params[k] for k in updates],
                                 list(updates.values()))
-        metrics = dict(metrics, total_loss=loss, grad_norm=global_norm(grads))
-        return TrainState(state.params, opt_state, state.step + 1,
-                          state.generator), metrics
+        metrics = dict(reduce_metrics(dict(metrics, total_loss=loss)),
+                       grad_norm=grad_norm)
+        return dataclasses.replace(state, opt_state=opt_state,
+                                   step=state.step + 1), metrics
 
     return step
 
@@ -232,8 +299,9 @@ def make_eval_step(cfg: Dict, spec: ModelSpec,
                                  Dict[str, torch.Tensor]]:
     """The validation step (the JAX package's ``make_eval_step``):
     ``compute_losses(..., train=False)`` under the step's kernel switch
-    (``_resolve_kernels``), then ``scalar_metrics``; no gradient.  The
-    generator feeds ITM's hard-negative draws."""
+    (``_resolve_kernels``), then ``scalar_metrics``, the global batch's
+    (``reduce_metrics``); no gradient.  The generator feeds ITM's
+    hard-negative draws."""
     kernels = _resolve_kernels(cfg, spec)
 
     @torch.no_grad()
@@ -242,18 +310,20 @@ def make_eval_step(cfg: Dict, spec: ModelSpec,
         out = compute_losses(params, spec, cfg, batch, generator,
                              train=False, kernels=kernels,
                              mim_label_fn=mim_label_fn)
-        return scalar_metrics(out)
+        return reduce_metrics(scalar_metrics(out))
 
     return eval_step
 
 
 def init_train_state(params: Params, optimizer: Optimizer,
-                     seed: int = 0) -> TrainState:
+                     seed: int = 0, shardings=None,
+                     mesh: Optional[Mesh] = None) -> TrainState:
     """The state of step 0 over ``params``, which must be the f32 masters
-    (``ckpt/convert.master_params``): the step updates them in place.
-    The generator lives on the params' device."""
+    (``ckpt/convert.master_params``; under sharded training this rank's
+    shards of them, with their ``shardings`` over ``mesh``): the step
+    updates them in place.  The generator lives on the params' device."""
     device = next(iter(params.values())).device
     return TrainState(params=params, opt_state=optimizer.init(params),
                       step=0,
                       generator=torch.Generator(device=device).manual_seed(
-                          seed))
+                          seed), shardings=shardings, mesh=mesh)

@@ -1,0 +1,80 @@
+"""Profiling and observability (port of
+``vl_merging_tpu/utils/profiling.py``).
+
+The reference's only instrumentation is nvidia-smi at startup and a CUDA
+peak-memory print (reference: src/run.py:151,
+src/cache_gram_matrices.py:351-357).  Here: a ``torch.profiler`` trace
+written as a Chrome trace, a step timer with rolling throughput, and the
+card's memory statistics.  Nothing here goes through
+``torch.utils.tensorboard``, whose import brings in TensorFlow where it is
+installed.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Dict, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block (host and, where present, CUDA activity) and
+    write ``{log_dir}/trace.json``, a Chrome trace (chrome://tracing,
+    Perfetto).  Yields the profiler."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+class StepTimer:
+    """Rolling steps/sec over the last ``window`` ticks."""
+
+    def __init__(self, window: int = 50):
+        self.window = window
+        self._times = []
+
+    def tick(self) -> None:
+        self._times.append(time.time())
+        if len(self._times) > self.window:
+            self._times.pop(0)
+
+    @property
+    def steps_per_sec(self) -> Optional[float]:
+        if len(self._times) < 2:
+            return None
+        return (len(self._times) - 1) / (self._times[-1] - self._times[0])
+
+
+def device_memory_stats() -> Dict[str, Dict[str, int]]:
+    """Per-card memory statistics (``torch.cuda.memory_stats``: bytes in
+    use, peak, and the card's total); empty without a card."""
+    out = {}
+    if not torch.cuda.is_available():
+        return out
+    for i in range(torch.cuda.device_count()):
+        stats = torch.cuda.memory_stats(i)
+        out[f"cuda:{i}"] = {
+            "bytes_in_use": stats.get("allocated_bytes.all.current", -1),
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", -1),
+            "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
+        }
+    return out
+
+
+def print_memory_report() -> None:
+    for dev, s in device_memory_stats().items():
+        peak = s["peak_bytes_in_use"] / 1024 ** 3
+        limit = s["bytes_limit"] / 1024 ** 3
+        print(f"{dev}: peak {peak:.2f} GiB / {limit:.2f} GiB")
