@@ -46,7 +46,14 @@ paired pass over 32 pairs; and the @384 eval with the ITM rerank (top 4,
 the training objectives' windows alone: one optimizer step each of the
 NLVR2 @384 fine-tune (2 x 16 pairs) and the VLMo pretrain @224 (32
 pairs), kernel and plain path, and of the all-in-one pretrain (16 images,
-texts and pairs; kernel path).
+texts and pairs; kernel path).  ``python3 chip_profile.py --preprocess``
+runs the device-side preprocessing's windows alone (``chip_smoke.py``
+phase 16): the canvas resize of 64 images and its parts (the weights,
+the two exact passes, the normalization), the train augment of 16 images
+and its parts (the crop-resize, each RandAugment candidate, a stage),
+the whole-word masking's draws and core, and the VLMo pretrain @224 step
+with the device preprocessing and on host-made inputs (a traced window
+each, then 6 steps of each in turns).
 
 ``python3 chip_profile.py --variants`` runs only this: K1, K2, K7, K8, K14,
 K15 and K12 beside design variants that their sources rejected, each built from a
@@ -1158,6 +1165,102 @@ def objective_windows(dev, card: str) -> None:
           f"pairs", lambda: step(state, batch), card)
 
 
+# the pretrain steps timed in turns per path after the traced ones
+PREPROCESS_TURNS = 6
+
+
+def preprocess_windows(dev, card: str) -> None:
+    """``chip_smoke.py`` phase 16's device-side preprocessing, by part:
+    the canvas resize of 64 images (640 canvas to 384) and its parts, the
+    train augment of one micro-batch of 16 and its parts, the whole-word
+    masking core of 32 captions; then the VLMo pretrain @224 step with
+    the device preprocessing and on host-made inputs, one traced window
+    each and PREPROCESS_TURNS steps of each in turns."""
+    from vl_merging_tpu_torch.ops import augment, image as image_ops
+    from vl_merging_tpu_torch.ops import text_masking
+
+    S = make_model_spec(build_config(*smoke.CONFIG)).image_size
+    rng = np.random.RandomState(smoke.SEED + 70)
+    natives = [smoke.photo_like(rng, *smoke.NATIVE_SIZES[
+        i % len(smoke.NATIVE_SIZES)]) for i in range(smoke.CANVAS_IMAGES)]
+    canvas, sizes = image_ops.pack_canvas(natives)
+    c = torch.from_numpy(canvas).to(dev)
+    hw = torch.from_numpy(sizes).to(dev)
+    B, Hc, Wc, _ = c.shape
+    wx = image_ops._resample_weights(hw[:, 1], Wc, S)
+    wy = image_ops._resample_weights(hw[:, 0], Hc, S)
+    x = c.permute(0, 3, 1, 2).float().reshape(B, 3 * Hc, Wc)
+    tmp = image_ops._exact_pass(x, wx).reshape(B, 3, Hc, -1)
+    for name, fn in (
+            ("weights, both axes", lambda: (
+                image_ops._resample_weights(hw[:, 1], Wc, S),
+                image_ops._resample_weights(hw[:, 0], Hc, S))),
+            ("uint8 to f32", lambda: c.permute(0, 3, 1, 2).float()),
+            ("horizontal pass", lambda: image_ops._exact_pass(x, wx)),
+            ("vertical pass", lambda: image_ops._exact_pass(
+                tmp.transpose(2, 3), wy[:, None])),
+            ("normalize", lambda: image_ops.normalize_nchw(tmp[..., :S])),
+            ("resize_normalize_nchw", lambda: image_ops.resize_normalize_nchw(
+                c, hw, S))):
+        print(f"canvas resize, {B} images ({Hc}x{Wc} canvas to {S}), "
+              f"{name}: {smoke.time_ms(fn):.3f} ms [{card}]")
+
+    n = smoke.TRAINER_MICRO
+    p = {k: torch.from_numpy(v).to(dev) for k, v in
+         augment.sample_train_params(rng, sizes[:n], S).items()}
+    crop = augment._resized_crop_u8f(c[:n], p["crop"], S)
+    ops = p["op_idx"][:, 0], p["op_apply"][:, 0], p["affine"][:, 0], \
+        p["factor"][:, 0]
+    for name, fn in (
+            ("crop-resize", lambda: augment._resized_crop_u8f(
+                c[:n], p["crop"], S)),
+            ("the LUT candidates (autocontrast, equalize, brightness)",
+             lambda: (augment._autocontrast_lut(crop),
+                      augment._equalize_lut(crop),
+                      augment._apply_lut(crop, augment._brightness_lut(
+                          ops[3])))),
+            ("the sharpness candidate", lambda: augment._sharpness(
+                crop, ops[3])),
+            ("the warp candidate", lambda: augment._affine_bilinear(
+                crop, ops[2])),
+            ("one RandAugment stage", lambda: augment._randaug_stage(
+                crop, *ops)),
+            ("augment_train_batch", lambda: augment.augment_train_batch(
+                c[:n], p, S))):
+        print(f"train augment, {n} images ({Hc}x{Wc} canvas to {S}), "
+              f"{name}: {smoke.time_ms(fn):.3f} ms [{card}]")
+    del c, hw, wx, wy, x, tmp, crop
+
+    cfg, spec, batch, gen = smoke.device_pretrain_inputs(dev)
+    wid = batch["text_word_ids"]
+    def draw():
+        return text_masking.mlm_draws(wid.shape, gen, spec.vocab_size, True)
+
+    draws = draw()
+    core = smoke.time_ms(lambda: text_masking.apply_mlm(
+        batch["text_ids"], wid < 0, draws, cfg["mlm_prob"], 103,
+        word_ids=wid))
+    print(f"whole-word masking of {tuple(wid.shape)}: the draws "
+          f"{smoke.time_ms(draw):.3f} ms, the core {core:.3f} ms [{card}]")
+    runs = smoke.device_pretrain_runs(spec, dev, 4 + 2 * PREPROCESS_TURNS)
+    label = f"VLMo pretrain @{spec.image_size} step, {len(wid)} pairs"
+    for which, (state, step) in runs.items():
+        trace(f"{label}, {which} preprocessing",
+              lambda: step(state, batch), card)
+    times = {k: [] for k in runs}
+    for i in range(PREPROCESS_TURNS):
+        for which in (list(runs) if i % 2 else list(runs)[::-1]):
+            state, step = runs[which]
+            state, _, ms = smoke.timed_step(step, state, batch)
+            runs[which] = (state, step)
+            times[which].append(ms)
+    for which, ms in times.items():
+        print(f"{label}, {which} preprocessing: median "
+              f"{float(np.median(ms)):.1f} ms, min {min(ms):.1f}, max "
+              f"{max(ms):.1f} ({PREPROCESS_TURNS} steps in turns: "
+              f"{[round(m, 1) for m in ms]}) [{card}]")
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k7", action="store_true",
@@ -1174,6 +1277,9 @@ def main() -> None:
                         help="the fused VL pass's windows alone")
     parser.add_argument("--objectives", action="store_true",
                         help="the training objectives' step windows alone")
+    parser.add_argument("--preprocess", action="store_true",
+                        help="the device-side preprocessing's parts and "
+                             "the pretrain step with it, alone")
     parser.add_argument("--parent", type=Path, metavar="TREE",
                         help="with --variants: K10 and K11 beside those of "
                              "the tree at TREE (another checkout's root)")
@@ -1200,6 +1306,9 @@ def main() -> None:
         return
     if opts.objectives:
         objective_windows(dev, card)
+        return
+    if opts.preprocess:
+        preprocess_windows(dev, card)
         return
     if not opts.int8:
         k7_phases(dev, card)

@@ -25,7 +25,10 @@ and captions are synthetic.
     LN1 + qkv too);
   * the Trainer (``train/loop.Trainer``: fit, validate, recall,
     checkpoints and resume), ``run.main`` and ``cache_gram_matrices.main``
-    over arrows the script writes, read by the port's ``data/``.
+    over arrows the script writes, read by the port's ``data/``;
+  * the device-side preprocessing: the eval's uint8 canvas resized on the
+    card, the Trainer's train augment and a pretrain step's MLM masking
+    on the card.
 
 The merging phase starts from the same config with ``all_moe`` (the
 experts the merges fold into ufo).
@@ -300,10 +303,37 @@ Phases, each fatal on failure:
      world 1 and 2 and the time in collectives, with the card's name and
      power limit.  A rank's failure fails the phase.
 
+ 16. device-side preprocessing (``ops/image.py``, ``ops/augment.py``,
+     ``ops/text_masking.py``, the train step's ``device_augment`` and
+     ``device_mlm``): (a) bench.py's end-to-end eval image path on the
+     COCO irtr @384 config + ``ufo``: 64 seeded photo-like images at
+     native sizes up to 640 (one upscales) packed on a uint8 canvas
+     (``pack_canvas``), copied to the card as uint8, resized there
+     (``resize_normalize_nchw``) and run through the image tower by
+     "tail" (K1-K3 12 a batch of 32); the resize's bytes against PIL's
+     (the JAX package's bound: ≥ 99.7% exact, max |Δ| ≤ 2, mean < 0.005;
+     a TF32 product would break it), its ms, the features against the
+     PIL-resized f32 path's (cosine 0.999; bit-equal or not, printed) and
+     both paths' img/s in turns; (b) ``Trainer.fit`` with
+     ``device_augment`` (2 steps of 2 x 16 pairs, a validation) over
+     arrows of random-noise JPEGs at mixed native sizes, one larger than
+     the canvas, beside the same fit on the host's RandAugment: launches
+     as ``trainer_launches`` derives them, every loss finite, the host's
+     wait per step on the loader and on ``device_feed``; one loaded
+     micro-batch's ``augment_train_batch`` on the card against the port
+     on the CPU (≥ 99.9% equal, max |Δ| ≤ 2); (c) the VLMo pretrain @224
+     (all_moe, 32 pairs) through ``build_train_step`` with
+     ``device_mlm`` (whole-word) and ``device_augment`` on uint8 canvases
+     and word-id maps, in turns with the same step on phase 13's
+     host-made inputs (launches as phase 13's; step ms); the whole-word
+     masking core on the card bit-equal to the CPU's on the same draws,
+     labels -100 off the mask, no special token masked.
+
 Each row of the ``{"kernels": ...}`` line carries the widths it was held
 at (``widths``) and, for the kernels built for 1024, its figures there
 (``at_1024``), and its launches on each phase's path (``launches_<path>``;
-``launches_distribution`` counts phase 15's, both ranks' included).
+``launches_distribution`` counts phase 15's, both ranks' included;
+``launches_preprocess`` phase 16's).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -3710,10 +3740,11 @@ TRAINER_MICRO, TRAINER_STEPS, TRAINER_VCI = 16, 3, 4
 GRAM_CLI_BATCHES = 2
 
 
-def write_coco_arrows(root: Path) -> str:
+def write_coco_arrows(root: Path, train_sizes=None) -> str:
     """The vocabulary and the three COCO karpathy arrows under ``root``, in
     the reference writers' schema (image bytes, caption list, image_id,
-    split); returns the vocabulary's path."""
+    split); returns the vocabulary's path.  The JPEGs are ARROW_PX square,
+    or in the train split the (h, w) of ``train_sizes`` in turn."""
     import io
 
     import pyarrow as pa
@@ -3725,8 +3756,11 @@ def write_coco_arrows(root: Path) -> str:
     for k, split in enumerate(("train", "val", "test")):
         rng = np.random.RandomState(SEED + 60 + k)
         images, captions = [], []
-        for _ in range(ARROW_IMAGES):
-            pixels = (rng.rand(ARROW_PX, ARROW_PX, 3) * 255).astype(np.uint8)
+        for i in range(ARROW_IMAGES):
+            h, w = (train_sizes[i % len(train_sizes)]
+                    if split == "train" and train_sizes else
+                    (ARROW_PX, ARROW_PX))
+            pixels = (rng.rand(h, w, 3) * 255).astype(np.uint8)
             buf = io.BytesIO()
             Image.fromarray(pixels).save(buf, format="JPEG")
             images.append(buf.getvalue())
@@ -4494,6 +4528,353 @@ def run_distribution(dev, card: str) -> dict:
     return {k: counts[k] for k in KERNELS}
 
 
+# --------------------------------------------------------------------------
+# Phase 16: device-side preprocessing
+# --------------------------------------------------------------------------
+
+# native (h, w) sizes of COCO-like photos, all within the 640 canvas; the
+# last upscales to 384
+NATIVE_SIZES = ((480, 640), (640, 427), (375, 500), (500, 333), (640, 640),
+                (300, 400))
+# the train arrows of (b): the sizes above and one larger than the canvas
+# (the dataset downscales it to fit before it rides the link)
+TRAIN_SIZES = NATIVE_SIZES + ((720, 540),)
+CANVAS_IMAGES = 64
+# the resize against PIL (the JAX package's bound, tests/test_jax_image.py)
+# and the augment on the card against the port on the CPU
+RESIZE_EXACT, RESIZE_MAX, RESIZE_MEAN = 0.997, 2, 0.005
+AUGMENT_EQUAL, AUGMENT_MAX = 0.999, 2
+
+
+def photo_like(rng, h: int, w: int) -> np.ndarray:
+    """A smooth (h, w, 3) uint8 image: upscaled noise, which filters like a
+    photo (``tests/test_jax_image.py``)."""
+    from PIL import Image
+
+    small = (rng.rand(max(2, h // 8), max(2, w // 8), 3) * 255).astype(
+        np.uint8)
+    return np.asarray(Image.fromarray(small).resize((w, h), Image.BILINEAR))
+
+
+def byte_agreement(label: str, got: np.ndarray, want: np.ndarray,
+                   share: float, worst: int, mean: float = None) -> float:
+    """The share of equal bytes, the largest and mean |Δ|, against the
+    bounds; returns the share."""
+    d = np.abs(got.astype(np.int64) - want.astype(np.int64))
+    eq, mx, mn = float((d == 0).mean()), int(d.max()), float(d.mean())
+    print(f"{label}: {eq:.6f} of {d.size} bytes equal ({int((d != 0).sum())}"
+          f" differ), max |Δ| {mx}, mean |Δ| {mn:.2e} (need >= {share}, "
+          f"<= {worst}" + (f", < {mean}" if mean is not None else "") + ")")
+    if eq < share or mx > worst or (mean is not None and mn >= mean):
+        fail(f"{label}: outside the bounds")
+    return eq
+
+
+def run_canvas_eval(dev, card: str) -> collections.Counter:
+    """(a) bench.py's end-to-end eval image path: native-size uint8 images
+    on one canvas, to the card as uint8, ``resize_normalize_nchw`` there,
+    then the image tower by "tail"; against the host path (PIL resize,
+    normalized f32 to the card, the same tower) in turns."""
+    from PIL import Image
+
+    from vl_merging_tpu_torch.ops import image as image_ops
+
+    cfg = build_config(*CONFIG)
+    spec = make_model_spec(cfg)
+    S = spec.image_size
+    rng = np.random.RandomState(SEED + 70)
+    natives = [photo_like(rng, *NATIVE_SIZES[i % len(NATIVE_SIZES)])
+               for i in range(CANVAS_IMAGES)]
+    canvas, sizes = image_ops.pack_canvas(natives)
+    t0 = time.perf_counter()
+    pil = np.stack([np.asarray(Image.fromarray(im).resize((S, S),
+                                                          Image.BICUBIC))
+                    for im in natives])
+    host_resize_s = time.perf_counter() - t0
+    resized = np.ascontiguousarray(np.transpose(
+        (pil.astype(np.float32) / np.float32(255) - np.float32(0.5))
+        / np.float32(0.5), (0, 3, 1, 2)))
+
+    canvas_d = torch.from_numpy(canvas).to(dev)
+    sizes_d = torch.from_numpy(sizes).to(dev)
+    got = image_ops.pil_resize_bicubic_u8(canvas_d, sizes_d, S).cpu().numpy()
+    byte_agreement(f"phase 16 (a): resize of {CANVAS_IMAGES} images at "
+                   f"{sorted(set(NATIVE_SIZES))} on a {canvas.shape[1]}x"
+                   f"{canvas.shape[2]} canvas to {S} on the card vs PIL",
+                   got, pil, RESIZE_EXACT, RESIZE_MAX, RESIZE_MEAN)
+    resize_ms = time_ms(lambda: image_ops.resize_normalize_nchw(
+        canvas_d, sizes_d, S))
+    mib = canvas.nbytes / 2**20
+    print(f"phase 16 (a): resize_normalize_nchw {resize_ms:.3f} ms for "
+          f"{CANVAS_IMAGES} images on the card (uint8 {mib:.1f} MiB in); PIL "
+          f"on the host {1e3 * host_resize_s:.1f} ms [{card}]")
+    del canvas_d, sizes_d
+
+    params = eval_cast_params(seeded_params(spec, dev), spec, cfg)
+
+    def canvas_path():
+        feats = []
+        for i in range(0, CANVAS_IMAGES, IMAGE_BATCH):
+            c = torch.from_numpy(canvas[i:i + IMAGE_BATCH]).to(dev)
+            hw = torch.from_numpy(sizes[i:i + IMAGE_BATCH]).to(dev)
+            feats.append(extract_features(params, spec, [{
+                "image": image_ops.resize_normalize_nchw(c, hw, S)}],
+                "image", fusion="tail"))
+        return torch.cat(feats)
+
+    def host_path():
+        return extract_features(params, spec, [
+            {"image": torch.from_numpy(resized[i:i + IMAGE_BATCH]).to(dev)}
+            for i in range(0, CANVAS_IMAGES, IMAGE_BATCH)], "image",
+            fusion="tail")
+
+    with torch.no_grad():
+        reset_launches()
+        feats = canvas_path()
+        counts = check_launches(
+            f"phase 16 (a): canvas eval, {CANVAS_IMAGES} images",
+            scaled(tower_launches(spec, N, IMAGE_BATCH, fusion="tail",
+                                  train=False), CANVAS_IMAGES // IMAGE_BATCH))
+        want = host_path()
+        same = torch.equal(feats, want)
+        cos = float(F.cosine_similarity(feats.float(), want.float(),
+                                        dim=-1).min())
+        print(f"phase 16 (a): cls_feats of the canvas path vs the host "
+              f"path: min cosine {cos:.6f} (need >= {MIN_COSINE}); "
+              + ("bit-equal" if same else "not bit-equal"))
+        if cos < MIN_COSINE or not bool(torch.isfinite(feats).all()):
+            fail("phase 16 (a): the canvas path disagrees with the host path")
+        rates = {"canvas": [], "host": []}
+        for which in ("host", "canvas", "canvas", "host"):
+            rates[which].append(per_sec(
+                canvas_path if which == "canvas" else host_path,
+                CANVAS_IMAGES))
+    print(f"phase 16 (a): end to end from host arrays, uint8 canvas + "
+          f"device resize {max(rates['canvas']):.1f} img/s, PIL-resized f32 "
+          f"{max(rates['host']):.1f} img/s (best of 2 in turns; the host "
+          f"path's PIL resize not included) [{card}]")
+    return collections.Counter(counts)
+
+
+def augment_gate(cfg, batch, dev, card: str) -> None:
+    """``augment_bytes`` of one loaded micro-batch on the card against the
+    port on the CPU, its host draws attached."""
+    from vl_merging_tpu_torch.ops import augment
+
+    host = train_step.attach_augment_params(
+        dict(batch), cfg, np.random.RandomState(SEED + 71))
+    params = {k[4:]: torch.from_numpy(v) for k, v in host.items()
+              if k.startswith("aug_")}
+    canvas = torch.from_numpy(host["image_canvas"])
+    S = cfg["image_size"]
+    want = augment.augment_bytes(canvas, params, S).numpy()
+    got = augment.augment_bytes(canvas.to(dev), {
+        k: v.to(dev) for k, v in params.items()}, S).cpu().numpy()
+    ops = collections.Counter(augment.OPS[i] for i, a in zip(
+        host["aug_op_idx"].ravel(), host["aug_op_apply"].ravel()) if a)
+    byte_agreement(f"phase 16 (b): augment_train_batch of one micro-batch "
+                   f"({len(canvas)} images, applied ops {dict(ops)}) on the "
+                   f"card vs the port on the CPU", got, want, AUGMENT_EQUAL,
+                   AUGMENT_MAX)
+    canvas, params = canvas.to(dev), {k: v.to(dev)
+                                      for k, v in params.items()}
+    ms = time_ms(lambda: augment.augment_train_batch(canvas, params, S))
+    print(f"phase 16 (b): augment_train_batch {ms:.3f} ms for "
+          f"{len(canvas)} images ({canvas.shape[1]} canvas to {S}) [{card}]")
+
+
+def run_augment_trainer(dev, card: str) -> collections.Counter:
+    """(b) ``Trainer.fit`` with ``device_augment`` (2 steps of 2 x 16
+    pairs and a validation) over arrows of mixed native sizes, one over
+    the canvas, beside the same fit on the host's RandAugment."""
+    from vl_merging_tpu_torch.data.datamodule import MTDataModule
+
+    counts = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        vocab = write_coco_arrows(tmp, train_sizes=TRAIN_SIZES)
+        waits = {}
+        for name, over in (
+                ("device_augment", dict(device_augment=True)),
+                ("host RandAugment", dict(
+                    train_transform_keys=["square_transform_randaug"]))):
+            cfg = build_config(*CONFIG, overrides=trainer_overrides(
+                tmp, vocab, tmp / name.replace(" ", "_"), max_steps=2,
+                val_check_interval=1.0, get_recall_metric=False, **over))
+            spec = make_model_spec(cfg)
+            trainer = RecordingTrainer(cfg)
+            dm = MTDataModule(cfg)
+            if name == "device_augment":
+                batch = next(iter(dm.train_loader(TRAINER_MICRO)))
+                if "image_canvas" not in batch or "image" in batch:
+                    fail(f"phase 16 (b): the device_augment loader gave "
+                         f"{sorted(batch)}")
+                augment_gate(cfg, batch, dev, card)
+                del batch
+            val_batches = len(dm.val_loader(TRAINER_MICRO))
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit(dm)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts += check_launches(
+                f"phase 16 (b): Trainer.fit, {name} (2 steps of 2 x "
+                f"{TRAINER_MICRO}, a validation)",
+                trainer_launches(spec, 2, 1, val_batches, False))
+            bad = {s: m for s, m in trainer.steps.items()
+                   if not all(np.isfinite(v) for v in m.values())}
+            if sorted(trainer.steps) != [1, 2] or bad:
+                fail(f"phase 16 (b), {name}: steps {sorted(trainer.steps)},"
+                     f" a metric not finite: {bad}")
+            w = trainer.host_wait
+            waits[name] = (1e3 * w["loader_s"] / w["steps"],
+                           1e3 * w["feed_s"] / w["steps"])
+            print(f"phase 16 (b): Trainer.fit, {name}: {wall:.2f} s; losses "
+                  + ", ".join(f"{s}: {m['total_loss']:.6f}"
+                              for s, m in sorted(trainer.steps.items())))
+            del trainer
+    print("phase 16 (b): host wait per step, " + "; ".join(
+        f"{n}: loader {a:.1f} ms, device_feed {b:.1f} ms"
+        for n, (a, b) in waits.items())
+        + f" (2 steps of 2 x {TRAINER_MICRO} pairs; natives "
+        f"{sorted(set(TRAIN_SIZES))}) [{card}]")
+    return counts
+
+
+def word_id_maps(masks: torch.Tensor, rng) -> torch.Tensor:
+    """The collator's word-boundary map for captions with ``masks`` (on the
+    CPU): -1 on [CLS] (position 0), the last valid token ([SEP]) and
+    padding; words of 1 to 3 tokens elsewhere (continuations share their
+    word's id)."""
+    B, T = masks.shape
+    lengths = masks.sum(1).tolist()
+    out = np.full((B, T), -1, np.int64)
+    for i, n in enumerate(lengths):
+        pos, g = 1, 0
+        while pos < n - 1:
+            ln = min(int(rng.randint(1, 4)), n - 1 - pos)
+            out[i, pos:pos + ln] = g
+            pos, g = pos + ln, g + 1
+    return torch.from_numpy(out)
+
+
+def mlm_gate(cfg, spec, batch, dev) -> None:
+    """The masking core on the card against the CPU on the same draws (bit
+    for bit), and the masks' form: labels -100 off the mask, the masked
+    tokens on word positions only."""
+    from vl_merging_tpu_torch.ops import text_masking
+
+    wid = batch["text_word_ids"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 72)
+    draws = text_masking.mlm_draws(wid.shape, gen, spec.vocab_size, True)
+    args = (batch["text_ids"], wid < 0)
+    got = text_masking.apply_mlm(*args, draws, cfg["mlm_prob"], 103,
+                                 word_ids=wid)
+    want = text_masking.apply_mlm(
+        *(a.cpu() for a in args), {k: v.cpu() for k, v in draws.items()},
+        cfg["mlm_prob"], 103, word_ids=wid.cpu())
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    ids_mlm, labels = got
+    masked = labels != -100
+    shapely = (not bool((masked & (wid < 0)).any())
+               and torch.equal(labels[masked], batch["text_ids"][masked])
+               and torch.equal(ids_mlm[~masked], batch["text_ids"][~masked]))
+    print(f"phase 16 (c): whole-word masking core of {tuple(wid.shape)} on "
+          f"the card vs the CPU on the same draws: "
+          + ("bit-equal" if same else "differs")
+          + f"; {int(masked.sum())} of {int((wid >= 0).sum())} word tokens "
+          f"masked, none special, labels -100 off the mask: {shapely}")
+    if not same or not shapely or not bool(masked.any()):
+        fail("phase 16 (c): the device masks are wrong")
+
+
+# phase 16 (c)'s config: phase 13's pretrain with whole-word masking
+DEVICE_PRETRAIN = dict(per_device_batch_size=PRETRAIN_PAIRS,
+                       batch_size=PRETRAIN_PAIRS, whole_word_masking=True,
+                       mask_token_id=103)
+
+
+def device_pretrain_inputs(dev):
+    """(cfg, spec, batch, generator) of phase 16 (c): phase 13's 32 pairs
+    (masked ids, f32 images: the host-made inputs) with the collator's
+    word-id maps and uint8 canvases of native-size images, their host
+    augment draws attached (the device preprocessing's inputs)."""
+    from vl_merging_tpu_torch.ops import augment, image as image_ops
+
+    cfg = build_config(*CONFIG_PRETRAIN, overrides=dict(
+        DEVICE_PRETRAIN, pallas_attention=True))
+    spec = make_model_spec(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    batch = pretrain_batch(spec, cfg, PRETRAIN_PAIRS, dev, gen)
+    rng = np.random.RandomState(SEED + 73)
+    batch["text_word_ids"] = word_id_maps(batch["text_masks"].cpu(),
+                                          rng).to(dev)
+    canvas, sizes = image_ops.pack_canvas(
+        [photo_like(rng, *NATIVE_SIZES[i % len(NATIVE_SIZES)])
+         for i in range(PRETRAIN_PAIRS)], canvas_hw=(640, 640))
+    aug = augment.sample_train_params(rng, sizes, spec.image_size)
+    batch["image_canvas"] = torch.from_numpy(canvas).to(dev)
+    batch.update({f"aug_{k}": torch.from_numpy(v).to(dev)
+                  for k, v in aug.items()})
+    return cfg, spec, batch, gen
+
+
+def device_pretrain_runs(spec, dev, steps: int) -> dict:
+    """{"device": (state, step), "host": ...}: the pretrain step with
+    ``device_mlm`` and ``device_augment``, and without, from the same
+    masters."""
+    base = seeded_params(spec, dev)
+    return {name: build_train_step(build_config(
+        *CONFIG_PRETRAIN, overrides=dict(
+            DEVICE_PRETRAIN, warmup_steps=0, pallas_attention=True,
+            **flags)), spec, master_params(base), steps)
+        for name, flags in (("device", dict(device_mlm=True,
+                                            device_augment=True)),
+                            ("host", {}))}
+
+
+def run_device_pretrain(dev, card: str) -> collections.Counter:
+    """(c) the VLMo pretrain @224 (all_moe; mlm, ifm, itm; 32 pairs)
+    through ``build_train_step`` with ``device_mlm`` (whole-word) and
+    ``device_augment`` on uint8 canvases and word-id maps, in turns with
+    the same step on host-made inputs (phase 13's: masked ids, f32
+    images)."""
+    cfg, spec, batch, gen = device_pretrain_inputs(dev)
+    mlm_gate(cfg, spec, batch, dev)
+
+    dcfg = dict(cfg, device_mlm=True, device_augment=True)
+    ms = time_ms(lambda: train_step.preprocess(dcfg, spec, batch, gen))
+    print(f"phase 16 (c): the step's device preprocessing alone "
+          f"(train_step.preprocess: the augment of {PRETRAIN_PAIRS} "
+          f"canvases, the whole-word masking) {ms:.3f} ms [{card}]")
+    runs = device_pretrain_runs(spec, dev, TRAIN_STEPS)
+    b, T, I = PRETRAIN_PAIRS, spec.max_text_len, spec.image_len
+    want = (fused_pass_launches(spec, b)
+            + tower_launches(spec, I, b, rerun=True)
+            + tower_launches(spec, T, b, rerun=True)
+            + scaled(fused_pass_launches(spec, b), 3))
+    return collections.Counter(train_in_turns(
+        f"phase 16 (c): VLMo pretrain @{spec.image_size} all_moe ({b} "
+        f"pairs; device: uint8 canvases + word ids, host: f32 images + "
+        f"masked ids)", runs, batch, b, {"device": want, "host": want},
+        card))
+
+
+def run_preprocess(dev, card: str) -> dict:
+    """Phase 16: the canvas eval, the device-augment Trainer and the
+    device-preprocessed pretrain step."""
+    t0 = time.perf_counter()
+    counts = run_canvas_eval(dev, card)
+    torch.cuda.empty_cache()
+    counts += run_augment_trainer(dev, card)
+    torch.cuda.empty_cache()
+    counts += run_device_pretrain(dev, card)
+    torch.cuda.empty_cache()
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s [{card}]")
+    return {k: counts[k] for k in KERNELS}
+
+
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
 # of their entry functions in the library's SASS (K7, K14 and K15 by
 # width: their instantiations at C=768 and 1024).
@@ -4683,7 +5064,8 @@ def main() -> int:
              "vl": run_vl(dev, card, rows),
              "objectives": run_objectives(dev, card),
              "trainer": run_trainer(dev, card),
-             "distribution": run_distribution(dev, card)}
+             "distribution": run_distribution(dev, card),
+             "preprocess": run_preprocess(dev, card)}
     for name, row in rows.items():
         for path, launches in paths.items():
             row[f"launches_{path}"] = launches[name]

@@ -36,7 +36,11 @@ case and save their results to files that the tests read.
      for bit;
   9. ``cluster_spec_from_env`` on the env dicts of
      ``test_train.test_cluster_spec_from_env``, and ``_fsdp_spec`` against
-     the JAX package's.
+     the JAX package's;
+ 10. ``device_mlm`` at world 2: each rank's masks (whole-word, from the
+     collator's word ids, drawn from the step's generator) are its rows of
+     one process's masks over the 16 rows, bit for bit, and the step that
+     derives them has one process's losses (within 1e-4 relative).
 """
 
 import contextlib
@@ -55,6 +59,7 @@ from fixtures import make_fixture_root
 from test_torch_port_model import random_arrays
 from test_torch_port_pretrain import jax_negatives
 from test_torch_port_trainer import IRTR, VQA, argv, only_dir, tiny
+from test_text_masking import _random_row
 from test_train import make_batch, tiny_cfg
 from torch_port_dist_worker import fixed_draws, run
 from vl_merging_tpu.models import make_model_spec as jmake_spec
@@ -82,6 +87,7 @@ STEP = dict(warmup_steps=0, learning_rate=5e-3, train_rng_impl="threefry",
             loss_names={"mlm": 1, "itm": 1, "ifm": 1},
             per_device_batch_size=ROWS // WORLD, batch_size=ROWS)
 RUN_TIMEOUT_S = 240
+MLM_OVER = dict(device_mlm=True, mask_token_id=103, whole_word_masking=True)
 
 
 def draws(num_layers: int):
@@ -216,7 +222,8 @@ def runs(step_setup, jax_forward, data, tmp_path_factory):
                             max_steps=4, per_device_batch_size=2,
                             batch_size=4, drop_rate=0.1,
                             val_check_interval=2, num_devices=WORLD),
-        "tmp": str(tmp),
+        "tmp": str(tmp), "mlm_over": MLM_OVER,
+        "mlm_batch": mlm_batch(batch),
     }
     tmp4 = tmp_path_factory.mktemp("dist_run4")
     ctx = start_ranks(WORLD, job, tmp)
@@ -227,6 +234,18 @@ def runs(step_setup, jax_forward, data, tmp_path_factory):
         ranks = join_ranks(ctx, WORLD, tmp)
         ranks4 = join_ranks(ctx4, 4, tmp4)
     return ranks, dict(jax_out, **jax_forward), ranks4
+
+
+def mlm_batch(batch):
+    """The step's batch for device_mlm: the MLM inputs left out, the
+    collator's word ids (-1 on special and padding tokens) in."""
+    out = {k: v for k, v in batch.items()
+           if k not in ("text_ids_mlm", "text_labels_mlm")}
+    rng = np.random.RandomState(8)
+    rows, length = batch["text_ids"].shape
+    out["text_word_ids"] = np.stack([_random_row(rng, length)
+                                     for _ in range(rows)])
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -513,3 +532,32 @@ def test_fsdp_spec_matches_jax(shape, fsdp):
     spec = tuple(jmesh._fsdp_spec(shape, fsdp))
     want = spec.index(jmesh.FSDP_AXIS) if jmesh.FSDP_AXIS in spec else None
     assert mesh._fsdp_spec(shape, fsdp) == want
+
+
+def test_device_mlm_at_world2_matches_one_process(ranks, step_setup,
+                                                  jax_ref):
+    """(10) The ranks' device MLM masks are one process's over the global
+    batch, row for row, and the world-2 step's losses one process's at
+    dp_scale 1/2 (the same stochastic-depth table and negatives)."""
+    _, cfg, arrays, batch, table, _ = step_setup
+    cfg = dict(cfg, **MLM_OVER)
+    spec = make_model_spec(cfg)
+    tbatch = {k: torch.from_numpy(v) for k, v in mlm_batch(batch).items()}
+    want = train_step.device_mlm_batch(
+        cfg, spec, tbatch, torch.Generator().manual_seed(cfg["seed"]))
+    got = case(ranks, "device_mlm")
+    for key, name in (("ids_mlm", "text_ids_mlm"),
+                      ("labels", "text_labels_mlm")):
+        np.testing.assert_array_equal(
+            np.concatenate([g[key] for g in got]), want[name].numpy())
+    assert (want["text_labels_mlm"] != -100).sum() > 0
+    params = master_params(params_from_numpy(arrays, "cpu"))
+    opt = make_optimizer(params, cfg, cfg["max_steps"],
+                         make_schedule(cfg, cfg["max_steps"]))
+    state = train_step.init_train_state(params, opt, seed=cfg["seed"])
+    step = train_step.make_train_step(cfg, spec, opt, dp_scale=1 / WORLD)
+    with fixed_draws(table, jax_ref["negatives"], []):
+        state, metrics = step(state, tbatch)
+    assert got[0]["metrics"] == got[1]["metrics"]
+    assert_losses_close(got[0]["metrics"],
+                        {k: float(v) for k, v in metrics.items()})

@@ -16,8 +16,11 @@ trainable DiscreteVAE, and steps with the adam and sgd optimizers; the
 Trainer, the CLIs and the data pipeline: arrow fixtures written by the
 test, one ``Trainer.fit`` step through ``run.py`` on the CPU, the gram CLI
 and the native JPEG decode; distribution: a one-rank gloo group, the
-data-parallel step through it under ``utils/profiling.trace``) must
-leave ``jax`` (and
+data-parallel step through it under ``utils/profiling.trace``; the
+device-side preprocessing: the canvas resize, a step under
+``device_augment`` and ``device_mlm``; the distilled embed and trunk,
+relpos's video helpers, the dVAE's codebook probabilities and decoder
+loader) must leave ``jax`` (and
 ``vl_merging_tpu``, whose subpackages import jax) out of
 ``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
 opened (executing a file by path opens it) or imported.  The check runs in a fresh interpreter
@@ -344,6 +347,55 @@ SCRIPT = textwrap.dedent("""
     timer.tick()
     assert timer.steps_per_sec is None and \
         profiling.device_memory_stats() == {}
+
+    # the device-side preprocessing: the resize, the train augment and the
+    # MLM masking, a step under device_augment and device_mlm; the
+    # distilled embed and trunk, relpos's video helpers, the dVAE's
+    # codebook probabilities and decoder loader
+    from vl_merging_tpu_torch.models import distilled, relpos
+    from vl_merging_tpu_torch.ops import augment, image, text_masking
+    from vl_merging_tpu_torch.train import train_step
+    rng = np.random.RandomState(0)
+    canvas, sizes = image.pack_canvas(
+        [rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+         for h, w in ((70, 90), (40, 64), (96, 50), (80, 80))])
+    assert image.resize_normalize_nchw(torch.from_numpy(canvas),
+                                       torch.from_numpy(sizes), 64) \
+        .shape == (4, 3, 64, 64)
+    word_ids = torch.tensor([[-1, 0, 1, 1, 2, -1, -1, -1]] * 4)
+    host = train_step.attach_augment_params(
+        {"image_canvas": canvas, "image_sizes": sizes,
+         "text_ids": ids[:4].numpy(), "text_masks": masks[:4].numpy(),
+         "text_word_ids": word_ids.numpy()},
+        dict(cfg, image_size=64), rng)
+    mcfg = dict(cfg, device_augment=True, device_mlm=True,
+                mask_token_id=103, whole_word_masking=True,
+                loss_names=dict(cfg["loss_names"], mlm=1))
+    mspec = make_model_spec(mcfg)
+    state, step = build_train_step(
+        mcfg, mspec, master_params(init_params(mspec, g)), 10)
+    state, m = step(state, {k: torch.from_numpy(v) for k, v in host.items()})
+    assert bool(torch.isfinite(m["mlm_loss"])) and \
+        bool(torch.isfinite(m["total_loss"]))
+    assert text_masking.budget_table(8, 0.15)[4] == 1
+    assert augment.OPS[0] == "Identity"
+    dspec = make_model_spec(build_config(
+        "task_test_vit_tiny_mlm_itm_ifm_square_randaug_base_vl",
+        overrides=dict(shape, vit="vit_deit_tiny_distilled_patch16_224",
+                       image_size=64)))
+    dparams = init_params(dspec, g)
+    x, xm, _ = distilled.distilled_forward_features(
+        dparams, dspec, images, distilled.distilled_draws(4, 16, g, True),
+        max_image_len=8, mask_it=True)
+    assert x.shape == (4, 10, 128)
+    assert relpos.text_video_relative_position_index(8, 16, 4, 2).ndim == 2
+    probs = discrete.get_codebook_probs(
+        discrete.init_discrete_vae_params(dcfg), torch.rand(
+            2, 3, 16, 16, generator=g), dcfg)
+    assert probs.shape == (2, 12, 4, 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(dec, os.path.join(tmp, "decoder.pkl"))
+        assert set(dvae.load_decoder_params(tmp)) == set(dec)
 
     assert not touched, touched
     leaked = sorted(m for m in sys.modules

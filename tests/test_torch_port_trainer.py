@@ -44,7 +44,7 @@ from vl_merging_tpu_torch.ckpt import io as ckpt_io
 from vl_merging_tpu_torch.config import build_config
 from vl_merging_tpu_torch.data import datamodule
 from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
-from vl_merging_tpu_torch.train import loop
+from vl_merging_tpu_torch.train import loop, train_step
 
 IRTR = ("task_finetune_irtr_coco_square_randaug_base_image384", "ufo")
 NLVR2 = ("task_finetune_nlvr2_square_randaug_base_image384", "ufo")
@@ -321,16 +321,30 @@ def test_resume_equals_an_uninterrupted_fit(root, weights, tmp_path,
     (dict(device_mlm=True), "In-graph preprocessing"),
 ])
 def test_trainer_raises_for_what_is_not_ported(root, over, item, tmp_path):
-    """The in-graph preprocessing raises, naming its ROADMAP item.  The
-    "Distribution" item is ported: in one process ``num_devices=2`` is
-    refused, naming both counts, and ``use_sharded_training`` trains
-    unsharded (an fsdp axis of 1, as the JAX Trainer's mesh at an odd
-    device count)."""
+    """Both items are ported.  "Distribution": in one process
+    ``num_devices=2`` is refused, naming both counts, and
+    ``use_sharded_training`` trains unsharded (an fsdp axis of 1, as the
+    JAX Trainer's mesh at an odd device count).  "In-graph
+    preprocessing": the Trainer builds; under ``device_mlm`` it takes the
+    [MASK] id from the datamodule's tokenizer, under ``device_augment`` a
+    train batch's uint8 canvas takes its host draws from the Trainer's
+    stream."""
     cfg = build_config(*IRTR, overrides=tiny(root, str(tmp_path),
                                              use_cpu=True, **over))
     if item != "Distribution":
-        with pytest.raises(NotImplementedError, match=item):
-            loop.Trainer(cfg)
+        trainer = loop.Trainer(cfg)
+        dm = datamodule.MTDataModule(cfg)
+        if "device_mlm" in over:
+            trainer._bind_tokenizer(dm)
+            assert cfg["mask_token_id"] == \
+                dm.mlm_collator.tokenizer.mask_token_id
+        else:
+            batch = train_step.attach_augment_params(
+                next(iter(dm.train_loader(2))), cfg, trainer._aug_rng)
+            assert batch["image_canvas"].dtype == np.uint8
+            assert {"aug_crop", "aug_op_idx"} <= set(batch)
+            assert "image_sizes" not in batch and "image" not in batch
+        trainer.logger.close()
     elif "num_devices" in over:
         with pytest.raises(ValueError, match=r"num_devices=2.* 1 process"):
             loop.Trainer(cfg)

@@ -150,6 +150,34 @@ def case_steps(rank, world, job):
     return out
 
 
+def case_device_mlm(rank, world, job):
+    """(10) The device-side MLM masks of this rank's rows (``device_mlm``,
+    drawn from the step's generator), and one data-parallel step that
+    derives them."""
+    from vl_merging_tpu_torch.ckpt.convert import master_params, \
+        params_from_numpy
+    from vl_merging_tpu_torch.models.spec import make_model_spec
+    from vl_merging_tpu_torch.parallel import host
+    from vl_merging_tpu_torch.train import train_step
+    from vl_merging_tpu_torch.train.loop import build_train_step
+
+    cfg = dict(job["step_cfg"], **job["mlm_over"])
+    spec = make_model_spec(cfg)
+    rows = host.process_rows(len(job["batch"]["text_ids"]))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v[rows]))
+             for k, v in job["mlm_batch"].items()}
+    masked = train_step.device_mlm_batch(
+        cfg, spec, batch, torch.Generator().manual_seed(cfg["seed"]))
+    with fixed_draws(job["table"], job["negatives"], []):
+        state, step = build_train_step(
+            cfg, spec, master_params(params_from_numpy(job["arrays"], "cpu")),
+            cfg["max_steps"])
+        state, metrics = step(state, batch)
+    return {"ids_mlm": masked["text_ids_mlm"].numpy(),
+            "labels": masked["text_labels_mlm"].numpy(),
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
 def case_recall(rank, world, job):
     """(5) ``Trainer.recall`` at world 2."""
     from vl_merging_tpu_torch.config import build_config
@@ -247,7 +275,7 @@ def case_resume(rank, world, job):
 
 CASES = {"gather": case_gather, "reduce": case_reduce}
 JOB_CASES = {"steps": case_steps, "recall": case_recall, "vqa": case_vqa,
-             "resume": case_resume}
+             "resume": case_resume, "device_mlm": case_device_mlm}
 
 
 def run(rank, world, init_file, job_path, out_dir, cases=None):

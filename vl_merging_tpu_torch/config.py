@@ -77,19 +77,19 @@ def base_config() -> ConfigDict:
         vocab_size=30522,
         whole_word_masking=False,
         mlm_prob=0.15,
-        # In-graph MLM masking (north star / SURVEY §7.6): the collator
-        # emits RNG-free word-boundary ids and the (whole-word) masking +
-        # 80/10/10 replacement compile into the train step's XLA graph
-        # (ops/text_masking.py).  mask_token_id is resolved from the
-        # datamodule tokenizer when None (bert-base-uncased: 103).
+        # Device-side MLM masking: the collator emits RNG-free word-boundary
+        # ids, and the (whole-word) masking + 80/10/10 replacement run on
+        # the card inside the train step (ops/text_masking.py,
+        # train_step.device_mlm_batch).  mask_token_id is resolved from
+        # the datamodule's tokenizer when None (bert-base-uncased: 103).
         device_mlm=False,
         mask_token_id=None,
-        # In-graph train-image augmentation (north star / SURVEY §7.5):
-        # the train dataset emits native-size uint8 on a zero-padded
-        # canvas; RandomResizedCrop + HFlip + RandAugment(2,7) + normalize
-        # compile into the train step (ops/augment.augment_train_batch).
-        # Scalar RNG (crop boxes, op choices) stays host-side — cheap and
-        # torchvision/reference-distribution-exact.
+        # Device-side train-image augmentation: the train dataset emits
+        # native-size uint8 on a zero-padded canvas; RandomResizedCrop +
+        # HFlip + RandAugment(2,7) + normalize run on the card inside the
+        # train step (ops/augment.augment_train_batch).  The scalar draws
+        # (crop boxes, op choices) stay on the host
+        # (train_step.attach_augment_params): torchvision's distributions.
         device_augment=False,
         canvas_size=640,  # natives larger than this are PIL-downscaled
         draw_false_text=0,

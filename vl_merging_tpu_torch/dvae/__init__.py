@@ -4,10 +4,10 @@ the trainable Gumbel-softmax DiscreteVAE (port of
 ``F.conv_transpose2d``): no TPU kernel runs here."""
 
 from .decoder import (  # noqa: F401
-    decode_indices, decoder_output, unmap_pixels,
+    decode_indices, decoder_output, load_decoder_params, unmap_pixels,
 )
 from .discrete import (  # noqa: F401
-    DiscreteVAEConfig, init_discrete_vae_params,
+    DiscreteVAEConfig, get_codebook_probs, init_discrete_vae_params,
 )
 from .encoder import (  # noqa: F401
     VOCAB_SIZE, encoder_logits, get_codebook_indices, init_encoder_params,

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .encoder import GROUP_COUNT, Params, block, blocks_per_group, conv, \
-    exact_f32
+    exact_f32, load_flat_params
 # the logit-laplace epsilon (reference dall_e/utils.py:46-57)
 LOGIT_LAPLACE_EPS = 0.1
 
@@ -57,3 +57,13 @@ def decode_indices(params: Params, indices: torch.Tensor) -> torch.Tensor:
     vocab = params["blocks.input.w"].shape[1]
     z = F.one_hot(indices.long(), vocab).permute(0, 3, 1, 2).float()
     return unmap_pixels(torch.sigmoid(decoder_output(params, z)[:, :3]))
+
+
+def load_decoder_params(weight_path: str) -> Params:
+    """The decoder's params, a flat {name: tensor} dict saved by
+    ``torch.save``, from the file ``weight_path`` or from
+    ``weight_path/decoder.pkl`` (the JAX loader's layout), as f32 CPU
+    tensors.  The released ``decoder.pkl`` is a pickled dall_e module:
+    loading it raises ``NotImplementedError``, as the encoder's loader
+    does."""
+    return load_flat_params(weight_path, "decoder.pkl")

@@ -131,6 +131,12 @@ def get_codebook_indices(params: Params, img: torch.Tensor,
     return encoder_logits(params, img, cfg).argmax(dim=1)
 
 
+def get_codebook_probs(params: Params, img: torch.Tensor,
+                       cfg: DiscreteVAEConfig) -> torch.Tensor:
+    """The softmax over the logit channel (modeling_discrete_vae.py)."""
+    return torch.softmax(encoder_logits(params, img, cfg), dim=1)
+
+
 def decode(params: Params, img_seq: torch.Tensor,
            cfg: DiscreteVAEConfig) -> torch.Tensor:
     """(B, N) codebook ids → (B, C, 8√N, 8√N) images

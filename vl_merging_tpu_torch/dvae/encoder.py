@@ -128,17 +128,16 @@ def init_encoder_params(generator: torch.Generator,
     return params
 
 
-def load_encoder_params(weight_path: str) -> Params:
-    """The encoder's params, a flat {name: tensor} dict saved by
-    ``torch.save``, from the file ``weight_path`` or from
-    ``weight_path/encoder.pkl`` (the JAX loader's directory layout: the
-    reference's discrete_vae_weight_path), as f32 CPU tensors.  The
-    released ``encoder.pkl`` is a pickled dall_e module, which needs those
-    classes to unpickle: loading it is not ported
-    (``NotImplementedError``)."""
+def load_flat_params(weight_path: str, file_name: str) -> Params:
+    """A flat {name: tensor} dict saved by ``torch.save``, from the file
+    ``weight_path`` or from ``weight_path/file_name`` (the JAX loaders'
+    directory layout: the reference's discrete_vae_weight_path), as f32
+    CPU tensors.  The released ``encoder.pkl`` / ``decoder.pkl`` are
+    pickled dall_e modules, which need those classes to unpickle: loading
+    them is not ported (``NotImplementedError``)."""
     path = weight_path
     if os.path.isdir(path):
-        path = os.path.join(path, "encoder.pkl")
+        path = os.path.join(path, file_name)
     try:
         obj = torch.load(path, map_location="cpu", weights_only=True)
     except Exception as e:  # a pickled module, which weights_only refuses
@@ -152,6 +151,11 @@ def load_encoder_params(weight_path: str) -> Params:
             f"{path}: not a flat {{name: tensor}} dict (ROADMAP item "
             f"{_RELEASED})")
     return {k: v.float() for k, v in obj.items()}
+
+
+def load_encoder_params(weight_path: str) -> Params:
+    """The encoder's params (``load_flat_params`` of ``encoder.pkl``)."""
+    return load_flat_params(weight_path, "encoder.pkl")
 
 
 def make_mim_label_fn(weight_path: str) -> Callable[[Dict], torch.Tensor]:

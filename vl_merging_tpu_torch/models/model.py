@@ -297,6 +297,8 @@ def _text_trunk(params: Params, spec: ModelSpec, batch: Dict, *,
             before_vl = x
         x = block_forward(params, spec, b, x, text_masks, bias[i], L,
                           dp_scale=_layer(dp, i), **route)
+    if before_vl is None:   # vlffn_start_layer_index is the depth: the
+        before_vl = x       # re-run starts from the last layer's output
     vlffn = _vlffn_rerun(params, spec, before_vl, text_masks, bias, dp_vl,
                          route, None) if vlffn_rerun else None
     return x, vlffn
@@ -385,6 +387,8 @@ def _image_trunk(params: Params, spec: ModelSpec, image: torch.Tensor, *,
             before_vl = x
         x = block_forward(params, spec, b, x, image_masks, bias[i], V,
                           dp_scale=_layer(dp, i), **route)
+    if before_vl is None:   # vlffn_start_layer_index is the depth: the
+        before_vl = x       # re-run starts from the last layer's output
     vlffn = _vlffn_rerun(params, spec, before_vl, image_masks, bias, dp_vl,
                          route, 0) if vlffn_rerun else None
     return x, vlffn, image_masks

@@ -1,5 +1,7 @@
 """Relative-position index buffers and per-layer bias lookup (port of
-``vl_merging_tpu/models/relpos.py``: the image, text and fused kinds).
+``vl_merging_tpu/models/relpos.py``: the image, text and fused kinds, and
+the video helpers of the frame configs; the port's paths keep
+``num_frames=1``).
 
 One bias table is shared across all layers: shape
 ``(num_relative_distance + text_num_relative_distance + 2, heads * layers)``.
@@ -109,6 +111,58 @@ def text_index(spec: ModelSpec, true_length: Optional[int] = None) -> np.ndarray
 
 def image_index(spec: ModelSpec) -> np.ndarray:
     return image_relative_position_index(spec.window)
+
+
+@functools.lru_cache(maxsize=None)
+def video_relative_position_index(window: int, num_frames: int) -> np.ndarray:
+    """The image index tiled across frames (vilt_module.py:222):
+    ``relative_position_index.repeat(F, F)`` (torch repeat = tile)."""
+    return np.tile(image_relative_position_index(window),
+                   (num_frames, num_frames))
+
+
+@functools.lru_cache(maxsize=None)
+def text_video_relative_position_index(
+    max_text_len: int, max_text_len_of_initckpt: int, window: int,
+    num_frames: int, vl_text_len: Optional[int] = None,
+) -> np.ndarray:
+    """The fused [text; F frames] index (vilt_module.py:219-229, 251-261):
+    the cross-modal entries take the single-frame fused index's two
+    buckets, the image block is the frame-tiled video index."""
+    num_relative_distance = (2 * window - 1) * (2 * window - 1) + 3
+    vid_len = (window * window + 1) * num_frames
+    t_index = text_relative_position_index(
+        max_text_len, max_text_len_of_initckpt, window)
+    v_index = video_relative_position_index(window, num_frames)
+
+    t = max_text_len if vl_text_len is None else min(vl_text_len, max_text_len)
+    t2i = np.full((t, vid_len), num_relative_distance, dtype=np.int64)
+    i2t = np.full((vid_len, t), num_relative_distance + 1, dtype=np.int64)
+
+    top = np.concatenate([t_index[:t, :t], t2i], axis=1)
+    bottom = np.concatenate([i2t, v_index], axis=1)
+    return np.concatenate([top, bottom], axis=0)
+
+
+@functools.lru_cache(maxsize=None)
+def temporal_relative_position_index(window: int,
+                                     num_frames: int) -> np.ndarray:
+    """Frame-distance buckets tiled over the patch positions
+    (vilt_module.py:233-240): ids in [0, 2F); torch ``.repeat`` = tile."""
+    ids = np.arange(num_frames)
+    rel = ids[None, :] - ids[:, None]
+    rel = rel - rel.min()
+    max_imag_len = window * window + 1
+    return np.tile(rel, (max_imag_len, max_imag_len)).astype(np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def mask_for_combining_temporal(window: int, num_frames: int) -> np.ndarray:
+    """The block-diagonal same-frame mask, (1, F·N_img, F·N_img)
+    (vilt_module.py:244-248): eye(F) repeat_interleaved by N_img both
+    ways."""
+    n = window * window + 1
+    return np.kron(np.eye(num_frames), np.ones((n, n)))[None]
 
 
 def per_layer_bias(table: torch.Tensor, index: np.ndarray, num_layers: int,

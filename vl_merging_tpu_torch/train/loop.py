@@ -55,8 +55,6 @@ from .checkpointing import (load_full_params, restore_train_state,
 from .optimizer import make_optimizer
 from .schedule import make_schedule
 
-_IN_GRAPH = '"In-graph preprocessing"'
-
 ARRAY_KEYS_EXCLUDED = ("text", "qid", "vqa_labels", "vqa_scores",
                        "vqa_answer", "table_name", "iid", "img_index",
                        "cap_index", "raw_index", "replica")
@@ -225,10 +223,6 @@ class Trainer:
     def __init__(self, cfg: Dict, mim_label_fn=None, device=None):
         self.cfg = cfg
         self.spec: ModelSpec = make_model_spec(cfg)
-        if cfg.get("device_augment") or cfg.get("device_mlm"):
-            raise NotImplementedError(
-                "device_augment / device_mlm are not ported yet: ROADMAP "
-                f"item {_IN_GRAPH}")
         world = host.get_world_size()
         self.mesh = make_mesh(num_devices=cfg["num_devices"],
                               fsdp=fsdp_size(cfg, world))
@@ -255,6 +249,10 @@ class Trainer:
         self.kernels = ts._resolve_kernels(cfg, self.spec)
         self.eval_fn = ts.make_eval_step(cfg, self.spec,
                                          mim_label_fn=self.mim_label_fn)
+        # device_augment's host stream (crop boxes, op choices), offset by
+        # the rank so the ranks' draws decorrelate (the JAX Trainer's rule)
+        self._aug_rng = np.random.RandomState(
+            cfg["seed"] + 7919 * host.get_rank())
 
         self.exp_name = (f'{cfg["exp_name"]}_seed{cfg["seed"]}'
                          f'_from_{os.path.basename(cfg["load_path"])[:-5]}'
@@ -290,9 +288,20 @@ class Trainer:
             # the state holds this rank's shards: the full masters go
             self.params = None
 
+    def _bind_tokenizer(self, datamodule) -> None:
+        """device_mlm: the [MASK] id from the datamodule's tokenizer, unless
+        the config names it (bert-base-uncased's 103 without a
+        collator)."""
+        if self.cfg.get("device_mlm") and \
+                self.cfg.get("mask_token_id") is None:
+            coll = getattr(datamodule, "mlm_collator", None)
+            self.cfg["mask_token_id"] = (
+                coll.tokenizer.mask_token_id if coll is not None else 103)
+
     # -- fit ----------------------------------------------------------------
     def fit(self, datamodule) -> None:
         cfg = self.cfg
+        self._bind_tokenizer(datamodule)
         train_loader = datamodule.train_loader(self.local_batch)
         # two step units: the loader yields MICRO-batches; the optimizer
         # advances once per accum_steps of them.  `step`/`max_steps`/
@@ -344,6 +353,11 @@ class Trainer:
             while i < micro_per_epoch:
                 t0 = time.perf_counter()
                 batch = next(batches, None)
+                if batch is not None and cfg.get("device_augment"):
+                    # the host side of the device augment: the scalar
+                    # draws; the pixels cross the link once, as uint8
+                    batch = ts.attach_augment_params(batch, cfg,
+                                                     self._aug_rng)
                 wait["loader_s"] += time.perf_counter() - t0
                 if batch is None:
                     break
@@ -427,6 +441,7 @@ class Trainer:
     @torch.no_grad()
     def validate(self, datamodule) -> Dict[str, float]:
         cfg = self.cfg
+        self._bind_tokenizer(datamodule)
         try:
             loader = datamodule.val_loader(self.local_batch)
         except FileNotFoundError:
@@ -542,6 +557,7 @@ class Trainer:
     @torch.no_grad()
     def test(self, datamodule) -> Dict[str, float]:
         cfg = self.cfg
+        self._bind_tokenizer(datamodule)
         results: Dict[str, float] = {}
         if cfg["loss_names"]["vqa"] > 0:
             id2answer = getattr(datamodule.dms[0], "id2answer", None)

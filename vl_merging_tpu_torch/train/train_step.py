@@ -25,12 +25,19 @@ The reported metrics are the global batch's on every rank
 (``reduce_metrics``), and the step equals one process's over the global
 batch with the same ``dp_scale``.
 
-Randomness (text dropout, stochastic depth, ITM's hard negatives) comes
-from the state's ``torch.Generator``, seeded alike on every rank (the
-draws are rank-invariant: ``models/layers.rank_rand``).  Not carried
-over from the JAX package: the TPU's ``unsafe_rbg`` PRNG (``_fast_rng``),
-and the in-graph augmentation and MLM masking hooks (``device_augment``,
-``device_mlm``: the ROADMAP item "In-graph preprocessing").
+Randomness (text dropout, stochastic depth, ITM's hard negatives, the
+device MLM masks) comes from the state's ``torch.Generator``, seeded alike
+on every rank (the draws are rank-invariant: ``models/layers.rank_rand``).
+Not carried over from the JAX package: the TPU's ``unsafe_rbg`` PRNG
+(``_fast_rng``).
+
+Device-side preprocessing, per micro-batch before the losses, as the JAX
+package's ``loss_fn`` does: under ``device_augment`` the uint8
+``image_canvas`` and the host-sampled ``aug_*`` params
+(``attach_augment_params``) become the normalized train image
+(``ops/augment.augment_train_batch``); under ``device_mlm`` the
+collator's ``text_word_ids`` become ``text_ids_mlm`` / ``text_labels_mlm``
+(``ops/text_masking``).  The eval step applies ``device_mlm`` only.
 """
 
 from __future__ import annotations
@@ -38,9 +45,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models.spec import ModelSpec, Params
+from ..ops.augment import augment_train_batch, sample_train_params
+from ..ops.text_masking import apply_mlm, mlm_draws
 from ..parallel import host
 from ..parallel.mesh import (Mesh, average_grads, gather_params,
                              global_sq_norm, make_mesh, reduce_grads)
@@ -190,15 +200,105 @@ def reduce_metrics(metrics: Dict[str, torch.Tensor]
     return dict(zip(keys, torch.where(tally, vals, vals / world).unbind()))
 
 
+def _per_task(fn, batch: Dict) -> Dict:
+    """``fn(sub_batch, task)`` over a mixed batch's {"v", "l", "vl"}
+    sub-batches, or ``fn(batch, None)``."""
+    if any(t in batch for t in ("v", "l", "vl")):
+        return {t: fn(b, t) for t, b in batch.items()}
+    return fn(batch, None)
+
+
+def device_mlm_batch(cfg: Dict, spec: ModelSpec, batch: Dict,
+                     generator: torch.Generator) -> Dict:
+    """``text_ids_mlm`` / ``text_labels_mlm`` derived on the batch's device
+    (``device_mlm``) from the collator's RNG-free ``text_word_ids`` (-1 on
+    special and padding tokens): ``ops/text_masking.apply_mlm`` with its
+    draws from ``generator``.  A mixed {"v", "l", "vl"} batch masks each
+    sub-batch that has word ids, "vl" with ``vl_mlm_prob`` and the others
+    with ``mlm_prob`` (MultiMTDataModule's host convention)."""
+    mask_id = cfg.get("mask_token_id")
+    if mask_id is None:
+        raise ValueError("device_mlm=True needs mask_token_id (the "
+                         "Trainer resolves it from the tokenizer)")
+    whole = cfg["whole_word_masking"]
+
+    def one(b, task):
+        if not isinstance(b, dict) or "text_word_ids" not in b:
+            return b
+        wid = b["text_word_ids"]
+        prob = cfg["vl_mlm_prob"] if task == "vl" else cfg["mlm_prob"]
+        draws = mlm_draws(wid.shape, generator, spec.vocab_size, whole)
+        ids_mlm, labels = apply_mlm(b["text_ids"], wid < 0, draws, prob,
+                                    mask_id, word_ids=wid if whole else None)
+        return dict(b, text_ids_mlm=ids_mlm, text_labels_mlm=labels)
+
+    return _per_task(one, batch)
+
+
+def attach_augment_params(batch: Dict, cfg: Dict,
+                          rng: np.random.RandomState) -> Dict:
+    """The host side of ``device_augment``: every scalar random choice of
+    the train image pipeline (crop boxes by torchvision's rejection loop,
+    flip coins, RandAugment op ids and magnitudes) sampled from ``rng``
+    (the Trainer's stream) for a loaded micro-batch, attached as ``aug_*``
+    arrays in place of ``image_sizes``; the pixel work happens on the card
+    (``device_augment_batch``)."""
+    def one(b, task):
+        if not isinstance(b, dict) or "image_sizes" not in b:
+            return b
+        b = dict(b)
+        params = sample_train_params(rng, b.pop("image_sizes"),
+                                     cfg["image_size"])
+        b.update({f"aug_{k}": v for k, v in params.items()})
+        return b
+
+    return _per_task(one, batch)
+
+
+def device_augment_batch(cfg: Dict, batch: Dict) -> Dict:
+    """The normalized (B, 3, S, S) train ``image`` derived on the batch's
+    device (``device_augment``) from the uint8 ``image_canvas`` and the
+    ``aug_*`` params (``ops/augment.augment_train_batch``); the canvas and
+    the params leave the batch."""
+    def one(b, task):
+        if not isinstance(b, dict) or "image_canvas" not in b:
+            return b
+        params = {k[4:]: v for k, v in b.items() if k.startswith("aug_")}
+        img = augment_train_batch(b["image_canvas"], params,
+                                  cfg["image_size"])
+        rest = {k: v for k, v in b.items()
+                if k != "image_canvas" and not k.startswith("aug_")}
+        return dict(rest, image=img)
+
+    return _per_task(one, batch)
+
+
+def preprocess(cfg: Dict, spec: ModelSpec, batch: Dict,
+               generator: Optional[torch.Generator], *,
+               train: bool = True) -> Dict:
+    """The device-side preprocessing of one micro-batch, where the JAX
+    package's step applies it: the augment (training only), then the MLM
+    masking, each under its config flag."""
+    if train and cfg.get("device_augment"):
+        batch = device_augment_batch(cfg, batch)
+    if cfg.get("device_mlm"):
+        if generator is None:
+            raise ValueError("device_mlm draws its masks from a generator")
+        batch = device_mlm_batch(cfg, spec, batch, generator)
+    return batch
+
+
 def loss_and_grads(params: Params, spec: ModelSpec, cfg: Dict, batch: Dict,
                    generator: torch.Generator, *, kernels: bool,
                    dp_scale: float = 1.0, train_fusion: str = "0",
                    mim_label_fn: Optional[Callable] = None):
-    """(loss, scalar metrics, f32 grads) of one micro-batch.  A param that
-    the loss does not reach gets a zero gradient, as under jax.grad.
-    Over a process group the contrastive losses' gradient takes
-    ``dp_scale`` × the group's size, which the step's average over the
-    ranks divides back (the loss returned carries ``dp_scale``)."""
+    """(loss, scalar metrics, f32 grads) of one micro-batch, after its
+    device-side preprocessing (``preprocess``).  A param that the loss
+    does not reach gets a zero gradient, as under jax.grad.  Over a
+    process group the contrastive losses' gradient takes ``dp_scale`` ×
+    the group's size, which the step's average over the ranks divides
+    back (the loss returned carries ``dp_scale``)."""
+    batch = preprocess(cfg, spec, batch, generator)
     out = compute_losses(params, spec, cfg, batch, generator,
                          kernels=kernels, train_fusion=train_fusion,
                          mim_label_fn=mim_label_fn)
@@ -301,12 +401,13 @@ def make_eval_step(cfg: Dict, spec: ModelSpec,
     ``compute_losses(..., train=False)`` under the step's kernel switch
     (``_resolve_kernels``), then ``scalar_metrics``, the global batch's
     (``reduce_metrics``); no gradient.  The generator feeds ITM's
-    hard-negative draws."""
+    hard-negative draws and, under ``device_mlm``, the masks."""
     kernels = _resolve_kernels(cfg, spec)
 
     @torch.no_grad()
     def eval_step(params: Params, batch: Dict,
                   generator: Optional[torch.Generator]):
+        batch = preprocess(cfg, spec, batch, generator, train=False)
         out = compute_losses(params, spec, cfg, batch, generator,
                              train=False, kernels=kernels,
                              mim_label_fn=mim_label_fn)
