@@ -328,12 +328,44 @@ Phases, each fatal on failure:
      host-made inputs (launches as phase 13's; step ms); the whole-word
      masking core on the card bit-equal to the CPU's on the same draws,
      labels -100 off the mask, no special token masked.
+ 17. the multi-device dry run and the named configs no other phase runs:
+     (a) ``graft_entry.dryrun_multichip(4)`` on cuda:0 under gloo at full
+     width (``task_mlm_itm_ifm_square_randaug_base_vl`` + ``all_moe``:
+     ViT-B/16 @224, 197 image and 40 text tokens, 8 rows a rank on a data
+     2 x fsdp 2 mesh, ``use_sharded_training``), against one process on
+     the same card over the global batch of 32 with the same draws (its
+     ITM negatives replayed in the ranks): the first step's losses within
+     LOSS_REL and its averaged gradients at global cosine 0.999, each
+     rank's state 0.500 of the full state's bytes (its shards alone), the
+     sharded recall equal to one process's (fed the ranks' row shares),
+     the merged ufo state bit-equal to ``merge_weights`` of the same
+     gathered host state and its recall equal, the VQA @384 submission
+     one json equal to one process's; each rank's launches stage by stage
+     as derived (K11 and K13: 197 and 237 tokens are below
+     ``KERNEL_MIN_N``), the step's ms a rank, its share in collectives
+     (``collective_time``) and each stage's seconds; the base_vl step in
+     one process (32 pairs), kernel path against plain path, timed; (b)
+     the ViT-L VQA (``task_finetune_vqa_square_randaug_large_image384_ufo``
+     + ``ufo`` at 384 px: C=1024, 16 heads, 21 split layers of 40 + 577
+     tokens and 3 joint of 617) at full width and depth: the fused pass
+     over 2 x 32 questions by "tail" and in W8A8 (launches as derived,
+     logits cosine 0.999 to the plain path, questions/s in turns), the
+     fine-tune step at micro-batch 8 against the plain path and timed
+     (K2 and K9 at N=577 x 21 and N=617 x 3 a pass), K2 at N = 577 and
+     617 and K2's training launch and K9 at N = 617 under the joint mask
+     at 16 heads against their twins within their ulps (rows: ``at_577_h16``,
+     ``at_617_h16``, ``train_at_617_h16``); (c) ImageNet @224
+     (``img_cls``, 32 images: K11 and K13 12 a step) and the MSR-VTT frame
+     fine-tune (ufo, one frame, irtr + ifm + itm over 32 pairs), kernel
+     path against plain path, timed.
 
-Each row of the ``{"kernels": ...}`` line carries the widths it was held
-at (``widths``) and, for the kernels built for 1024, its figures there
-(``at_1024``), and its launches on each phase's path (``launches_<path>``;
-``launches_distribution`` counts phase 15's, both ranks' included;
-``launches_preprocess`` phase 16's).
+Each phase prints its seconds.  Each row of the ``{"kernels": ...}`` line
+carries the widths it was held at (``widths``) and, for the kernels built
+for 1024, its figures there (``at_1024``), and its launches on each
+phase's path (``launches_<path>``; ``launches_distribution`` counts phase
+15's, both ranks' included; ``launches_preprocess`` phase 16's;
+``launches_dryrun`` phase 17 (a)'s four ranks', ``launches_configs`` the
+rest of phase 17's).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -350,6 +382,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import functools
 import hashlib
 import json
 import re
@@ -364,7 +397,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vl_merging_tpu_torch import dvae, merge
+from vl_merging_tpu_torch import dvae, graft_entry, merge
 from vl_merging_tpu_torch.ckpt.convert import eval_cast_params, \
     master_params, params_from_numpy
 from vl_merging_tpu_torch.ckpt.io import load_torch_checkpoint, \
@@ -392,6 +425,8 @@ from vl_merging_tpu_torch.train.gram import cache_gram_matrices, \
     make_capture_step, make_gram_step, save_gram_matrices
 from vl_merging_tpu_torch.train.loop import Trainer, accum_steps, \
     build_train_step
+from vl_merging_tpu_torch.utils.profiling import collective_time, \
+    storage_bytes
 
 SEED = 0
 CONFIG = ("task_finetune_irtr_coco_square_randaug_base_image384", "ufo")
@@ -714,29 +749,31 @@ def check_training_attention(args, card: str) -> float:
     return train_ms
 
 
-def check_joint_backward(dev, gen, rows, card: str) -> None:
+def check_joint_backward(dev, gen, rows, card: str,
+                         heads: int = HEADS) -> None:
     """K2's training launch and K9 at a fused pass's joint layers (B=32,
-    N=617, the joint mask: zeros inside the key range) as at N=577: the
-    context bit-equal to the eval launch's, the statistics within
-    STATS_REL of the plain ones, K9 against its twin fed the plain
-    forward (dqkv within its ulps, dbias within DBIAS_REL); K9 timed beside
-    its twin, its bound and SDPA's autograd backward (K9's row: ``at_617``;
-    the training launch in K2's: ``train_at_617``)."""
-    n, scale = JOINT_N, 64 ** -0.5
-    qkv = torch.randn(IMAGE_BATCH, n, 3 * C, device=dev,
+    N=617, the joint mask: zeros inside the key range; ``heads`` heads of
+    64) as at N=577: the context bit-equal to the eval launch's, the
+    statistics within STATS_REL of the plain ones, K9 against its twin fed
+    the plain forward (dqkv within its ulps, dbias within DBIAS_REL); K9
+    timed beside its twin, its bound and SDPA's autograd backward (K9's
+    row: ``at_617``; the training launch in K2's: ``train_at_617``; at
+    other than 12 heads the keys end in ``_h{heads}``)."""
+    n, scale, c = JOINT_N, 64 ** -0.5, 64 * heads
+    qkv = torch.randn(IMAGE_BATCH, n, 3 * c, device=dev,
                       generator=gen).bfloat16()
-    bias = torch.randn(HEADS, n, n, device=dev, generator=gen)
+    bias = torch.randn(heads, n, n, device=dev, generator=gen)
     mask = joint_mask(n, dev, gen)
-    g = torch.randn(IMAGE_BATCH, n, C, device=dev, generator=gen).bfloat16()
-    ctx, stats = attn_ops.packed_attention(qkv, bias, mask, scale, HEADS,
+    g = torch.randn(IMAGE_BATCH, n, c, device=dev, generator=gen).bfloat16()
+    ctx, stats = attn_ops.packed_attention(qkv, bias, mask, scale, heads,
                                            with_stats=True)
-    ctx_eval = attn_ops.packed_attention(qkv, bias, mask, scale, HEADS)
+    ctx_eval = attn_ops.packed_attention(qkv, bias, mask, scale, heads)
     ref = attn_ops.packed_attention_stats_reference(qkv, bias, mask, scale,
-                                                    HEADS)
+                                                    heads)
     torch.cuda.synchronize()
     same = torch.equal(ctx, ctx_eval)
     err = float(((stats - ref).abs() / (1.0 + ref.abs())).max())
-    label = f" at N={n} (B={IMAGE_BATCH}, joint mask, " \
+    label = f" at N={n} (B={IMAGE_BATCH}, {heads} heads, joint mask, " \
         f"{int((mask == 0).sum())} zeros inside)"
     print(f"packed_attention training launch{label}: context bit-equal to "
           f"the eval launch {same}; statistics (m, l) worst |kernel - plain|"
@@ -744,7 +781,7 @@ def check_joint_backward(dev, gen, rows, card: str) -> None:
     if not same or not bool(torch.isfinite(stats).all()) or err > STATS_REL:
         fail(f"packed_attention training launch{label} disagrees with its "
              f"eval launch or the plain statistics")
-    args = (qkv, bias, mask, g, stats, scale, HEADS)
+    args = (qkv, bias, mask, g, stats, scale, heads)
     twin_args = plain_args("packed_attention_bwd", args)
     max_err = check_backward(
         args, attn_ops.packed_attention_bwd_reference(*twin_args), label)
@@ -753,17 +790,23 @@ def check_joint_backward(dev, gen, rows, card: str) -> None:
         *twin_args), iters=TIMED_ITERS // 2)
     library_ms = time_ms(library_call("packed_attention_bwd", args))
     train_ms = time_ms(lambda: attn_ops.packed_attention(
-        qkv, bias, mask, scale, HEADS, with_stats=True))
+        qkv, bias, mask, scale, heads, with_stats=True))
     bound_ms, bound_by = bound(*work("packed_attention_bwd", args))
     print(f"packed_attention_bwd{label}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, SDPA backward {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}); K2's training launch there "
           f"{train_ms:.4f} ms [{card}]")
-    rows["packed_attention_bwd"][f"at_{n}"] = {
+    at = f"at_{n}" + ("" if heads == HEADS else f"_h{heads}")
+    for name in ("packed_attention", "packed_attention_bwd"):
+        if c not in rows[name].setdefault("widths", []):
+            rows[name]["widths"].append(c)
+    rows["packed_attention_bwd"][at] = {
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-    rows["packed_attention"][f"train_at_{n}"] = {"ms": train_ms,
-                                                 "stats_rel_err": err}
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "heads": heads}
+    rows["packed_attention"][f"train_{at}"] = {"ms": train_ms,
+                                               "stats_rel_err": err,
+                                               "heads": heads}
 
 
 def fusion_inputs(inputs):
@@ -2060,6 +2103,14 @@ def global_cosine(a: dict, b: dict) -> float:
     return float(dot / (na * nb))
 
 
+def global_norm_ratio(a: dict, b: dict) -> float:
+    """The global norm of ``a`` over that of ``b``: what the cosine cannot
+    see, a scale."""
+    na = sum(a[k].double().square().sum() for k in a)
+    nb = sum(b[k].double().square().sum() for k in b)
+    return float(torch.sqrt(na / nb))
+
+
 def run_training(dev, card: str) -> dict:
     """The irtr fine-tune step: the kernel path's losses and gradients
     against the plain path's on one micro-batch; a warm-up step and
@@ -3226,21 +3277,25 @@ def joint_mask(n: int, dev, gen, batch: int = IMAGE_BATCH):
     return mask
 
 
-def check_joint_attention(dev, rows, card: str) -> None:
-    """K2 alone at the image tower's length (577, a mask of ones) and the
-    fused passes' (617, 941; the joint mask, zeros inside), K11 and K10 at
-    the @224 fused pass's (237, the joint mask): against their twin, timed
-    beside SDPA and their bound; their rows of the kernels line take them
-    under ``at_n``."""
-    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+def check_joint_attention(dev, rows, card: str, heads: int = HEADS,
+                          lengths=K2_LENGTHS) -> None:
+    """K2 alone (``heads`` heads of 64) at the image tower's length (577,
+    a mask of ones) and the fused passes' (617, 941; the joint mask, zeros
+    inside), and at 12 heads K11 and K10 at the @224 fused pass's (237,
+    the joint mask): against their twin, timed beside SDPA and their
+    bound; their rows of the kernels line take them under ``at_n`` (at
+    other than 12 heads ``at_n_h{heads}``)."""
+    suffix = "" if heads == HEADS else f"_h{heads}"
+    gen = torch.Generator(device=dev).manual_seed(
+        SEED + 32 + (0 if heads == HEADS else heads))
     out = {}
-    for n in K2_LENGTHS:
-        qkv = torch.randn(IMAGE_BATCH, n, 3 * C, device=dev,
+    for n in lengths:
+        qkv = torch.randn(IMAGE_BATCH, n, 3 * 64 * heads, device=dev,
                           generator=gen).bfloat16()
-        bias = torch.randn(HEADS, n, n, device=dev, generator=gen)
+        bias = torch.randn(heads, n, n, device=dev, generator=gen)
         mask = torch.ones(IMAGE_BATCH, n, dtype=torch.int32, device=dev) \
             if n == N else joint_mask(n, dev, gen)
-        args = (qkv, bias, mask, 64 ** -0.5, HEADS)
+        args = (qkv, bias, mask, 64 ** -0.5, heads)
         got = attn_ops.packed_attention(*args)
         want = attn_ops.packed_attention_reference(*args)
         torch.cuda.synchronize()
@@ -3251,22 +3306,28 @@ def check_joint_attention(dev, rows, card: str) -> None:
         library_ms = time_ms(library_call("packed_attention", args))
         bound_ms, bound_by = bound(*work("packed_attention", args))
         out[n] = ms
-        print(f"packed_attention at N={n} (B={IMAGE_BATCH}, "
+        print(f"packed_attention at N={n} (B={IMAGE_BATCH}, {heads} heads, "
               f"{'ones' if n == N else 'joint mask, ' + str(int((mask == 0).sum())) + ' zeros inside'}): "
               f"max |kernel - twin| = {max_err:.6g}, worst err/bound = "
               f"{worst:.3f}, {differ:.3e} of the elements differ; kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} "
               f"ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]")
         if not bool(torch.isfinite(got).all()) or worst > 1.0:
-            fail(f"packed_attention disagrees with its twin at N={n}")
-        rows["packed_attention"][f"at_{n}"] = {
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
-    first = K2_LENGTHS[0]
-    print("packed_attention against N=" + str(first) + ": " + ", ".join(
-        f"N={n} {out[n] / out[first]:.3f} x" for n in K2_LENGTHS[1:])
+            fail(f"packed_attention disagrees with its twin at N={n}, "
+                 f"{heads} heads")
+        if 64 * heads not in rows["packed_attention"].setdefault("widths",
+                                                               []):
+            rows["packed_attention"]["widths"].append(64 * heads)
+        rows["packed_attention"][f"at_{n}{suffix}"] = {
+            "max_abs_err": max_err, "worst_err_over_bound": worst,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "heads": heads}
+    first = lengths[0]
+    print(f"packed_attention ({heads} heads) against N={first}: " + ", ".join(
+        f"N={n} {out[n] / out[first]:.3f} x" for n in lengths[1:])
         + f" [{card}]")
+    if heads != HEADS:
+        return
     # K11 and K10 at the @224 fused pass's joint length: the pretrain's 32
     # pairs and the VQA fine-tune's 30 questions
     n = JOINT_N_224
@@ -3582,14 +3643,10 @@ def run_pretrain(dev, card: str) -> dict:
         label = (f"VLMo pretrain @{spec.image_size} {mode} (mlm, ifm, itm; "
                  f"{PRETRAIN_PAIRS} pairs)")
         against_plain(label, cfg, spec, base, batch, dev)
-        b, T, I = PRETRAIN_PAIRS, spec.max_text_len, spec.image_len
-        want = (fused_pass_launches(spec, b)                     # mlm
-                + tower_launches(spec, I, b, rerun=True)          # ifm
-                + tower_launches(spec, T, b, rerun=True)
-                + scaled(fused_pass_launches(spec, b), 3))        # itm
         launches += train_in_turns(
             label, objective_runs(names, spec, base, TRAIN_STEPS, **over),
-            batch, PRETRAIN_PAIRS, {"kernels": want}, card)
+            batch, PRETRAIN_PAIRS,
+            {"kernels": pretrain_launches(spec, PRETRAIN_PAIRS)}, card)
         del base
     return dict(launches)
 
@@ -4090,20 +4147,6 @@ DIST_WORLD, DIST_MICRO = 2, TRAINER_MICRO
 # the Trainer over the ranks: a fit of DIST_FIT_STEPS steps, resumed from
 # its checkpoint for one more
 DIST_FIT_STEPS = 2
-# the collectives whose time the phase takes (parallel/host.py)
-COLLECTIVES = ("all_reduce_", "broadcast_", "all_gather_rows",
-               "reduce_scatter_rows")
-
-
-def storage_bytes(trees) -> int:
-    """The bytes of the distinct storages behind the tensors of ``trees``
-    (a view counts its whole base)."""
-    held = {}
-    for tree in trees:
-        for v in tree.values():
-            st = v.untyped_storage()
-            held[st.data_ptr()] = st.nbytes()
-    return sum(held.values())
 
 
 def free_port() -> int:
@@ -4135,36 +4178,6 @@ def step_launches(spec, micro: int, micro_batches: int):
     return scaled(block_launches(N, micro, L)
                   + block_launches(spec.max_text_len, micro, L),
                   micro_batches)
-
-
-@contextlib.contextmanager
-def collective_time(dev):
-    """The time (ms) spent inside the group's collectives
-    (``parallel/host.py``, each synchronised before and after) while the
-    block runs: yields {"ms", "calls"}."""
-    from vl_merging_tpu_torch.parallel import host
-
-    saved = {name: getattr(host, name) for name in COLLECTIVES}
-    spent = {"ms": 0.0, "calls": 0}
-
-    def timed(fn):
-        def call(*args, **kwargs):
-            torch.cuda.synchronize(dev)
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize(dev)
-            spent["ms"] += 1e3 * (time.perf_counter() - t0)
-            spent["calls"] += 1
-            return out
-        return call
-
-    for name, fn in saved.items():
-        setattr(host, name, timed(fn))
-    try:
-        yield spent
-    finally:
-        for name, fn in saved.items():
-            setattr(host, name, fn)
 
 
 def timed_steps(label: str, state, step, batch, dev, card: str):
@@ -4864,15 +4877,460 @@ def run_device_pretrain(dev, card: str) -> collections.Counter:
 def run_preprocess(dev, card: str) -> dict:
     """Phase 16: the canvas eval, the device-augment Trainer and the
     device-preprocessed pretrain step."""
-    t0 = time.perf_counter()
     counts = run_canvas_eval(dev, card)
     torch.cuda.empty_cache()
     counts += run_augment_trainer(dev, card)
     torch.cuda.empty_cache()
     counts += run_device_pretrain(dev, card)
-    torch.cuda.empty_cache()
-    print(f"phase 16: {time.perf_counter() - t0:.1f} s [{card}]")
     return {k: counts[k] for k in KERNELS}
+
+
+# --------------------------------------------------------------------------
+# Phase 17: the multi-device dry run and the named configs
+# --------------------------------------------------------------------------
+
+# (a) graft_entry.dryrun_multichip at world 4 on the one card under gloo:
+# a data 2 x fsdp 2 mesh, the base_vl pretrain at full width, 8 rows a
+# rank; of its steps (graft_entry.DRYRUN_STEPS) the first is gated, the
+# second timed, the third timed with its collectives
+DRYRUN_WORLD = 4
+# the gated step against one process on the same card, the same kernels
+# and draws: its losses within this relative difference (the reading was
+# 9.08e-08), the gathered gradients' global norm within this of one
+# process's (with the cosine, which cannot see a scale)
+DRYRUN_LOSS_REL, DRYRUN_NORM_TOL = 1e-5, 1e-4
+# the state a rank holds: its shards of the params and both moments, half
+# of the full f32 state within this share
+STATE_SHARE_TOL = 1e-3
+# (b) the ViT-L VQA (24 layers, C=1024, 16 heads; vlffn at 21) at the
+# 384 px its name carries (the config's own image_size is 224, as the VQA
+# fine-tunes train): 21 split layers of 40 + 577 tokens, 3 joint of 617;
+# 2 batches of 32 questions, fine-tune steps at micro-batch 8
+CONFIG_VQA_L = ("task_finetune_vqa_square_randaug_large_image384_ufo", "ufo")
+VQA_L_SIZE, VQA_L_MICRO, VQA_L_SPLIT = 384, 8, 21
+# (c) the @224 configs no other phase runs: ImageNet @224 (32 images) and
+# the MSR-VTT frame fine-tune (32 pairs, one frame, irtr + ifm + itm)
+CONFIG_IMAGENET_224 = ("task_finetune_imagenet_square_randaug_base_image224",)
+CONFIG_MSRVTT = ("task_finetune_irtr_msrvtt_frame_square_randaug_base", "ufo")
+CONFIGS_BATCH = 32
+
+
+def pretrain_launches(spec, b: int) -> collections.Counter:
+    """One step of mlm, ifm (both towers and their vlffn re-runs) and itm
+    (three fused passes) over ``b`` pairs."""
+    T, I = spec.max_text_len, spec.image_len
+    return (fused_pass_launches(spec, b)                       # mlm
+            + tower_launches(spec, I, b, rerun=True)            # ifm
+            + tower_launches(spec, T, b, rerun=True)
+            + scaled(fused_pass_launches(spec, b), 3))          # itm
+
+
+def eval_tower_launches(spec, b: int) -> collections.Counter:
+    """The retrieval towers (no re-run) over ``b`` images and captions."""
+    return (tower_launches(spec, spec.max_text_len, b, train=False)
+            + tower_launches(spec, spec.image_len, b, train=False))
+
+
+@contextlib.contextmanager
+def dryrun_stage_context(tmp: str, stage: str):
+    """The context of a dry-run rank's stage (``graft_entry.
+    dryrun_multichip``): the launches counted from 0 over the stage and
+    rank 0's gradients and states (``graft_entry.kept_states``), in what
+    it yields; in the step, ITM's hard negatives replayed from
+    ``{tmp}/negatives.pt`` (the one-process reference's draws; the
+    generator advances as always)."""
+    reset_launches()
+    real = objectives.sample_hard_negatives
+    if stage == "step":
+        negatives = torch.load(f"{tmp}/negatives.pt", weights_only=True)
+
+        def replay(sim_i2t, sim_t2i, generator):
+            real(sim_i2t, sim_t2i, generator)
+            return tuple(n.to(sim_i2t.device) for n in negatives)
+        objectives.sample_hard_negatives = replay
+    try:
+        with graft_entry.kept_states(stage) as extra:
+            yield extra
+    finally:
+        objectives.sample_hard_negatives = real
+        extra["launches"] = launches_now()
+
+
+def row_shares(batch: dict, k: int) -> list:
+    """``batch`` cut into its ``k`` row shares, each a batch."""
+    return [{key: v.chunk(k)[r] for key, v in batch.items()}
+            for r in range(k)]
+
+
+def dryrun_recall(params, spec, cfg, dev) -> dict:
+    """The dry run's recall in this process: its eval set fed as the
+    ranks' row shares, each a batch."""
+    (text,), (image,), ids = graft_entry.eval_batches(
+        spec, graft_entry.FULL_ROWS * DRYRUN_WORLD, None, dev)
+    return compute_irtr_recall(eval_cast_params(params, spec, cfg), spec,
+                               row_shares(text, DRYRUN_WORLD),
+                               row_shares(image, DRYRUN_WORLD), ids, ids)
+
+
+def run_dryrun(dev, card: str) -> tuple:
+    """Phase 17 (a): the one-process reference of the dry run's step (the
+    base_vl pretrain at full width over the global batch at dp_scale 1/4,
+    its ITM negatives saved for the ranks), then
+    ``graft_entry.dryrun_multichip(4)`` on cuda:0 under gloo, each stage
+    held against one process; and (c)'s base_vl step, kernel path against
+    plain path, timed.  Returns (the ranks' launches, base_vl's)."""
+    cfgs = graft_entry.dryrun_configs(DRYRUN_WORLD, full_width=True)
+    cfg = cfgs["step"]
+    spec = make_model_spec(cfg)
+    rows = graft_entry.FULL_ROWS * DRYRUN_WORLD
+    if (spec.hidden_size, spec.num_layers, spec.image_len,
+            spec.max_text_len, cfg["tasks"]) != (C, 12, N_224, 40, ["vl"]):
+        fail("the dry run's config is not the base_vl pretrain at full "
+             "width")
+    base = graft_entry.seeded_params(spec, dev)
+    batch = {k: v.to(dev) for k, v in graft_entry.make_batch(
+        spec, rows).items()}
+    label = (f"phase 17 (a), one process over the {rows} rows at dp_scale "
+             f"1/{DRYRUN_WORLD}")
+    with replayed_negatives() as negatives:
+        gen = torch.Generator(device=dev).manual_seed(cfg["seed"])
+        _, metrics, want_grads = train_step.loss_and_grads(
+            master_params(base), spec, cfg, batch, gen, kernels=True,
+            dp_scale=1 / DRYRUN_WORLD)
+    want = {k: float(v) for k, v in metrics.items() if k.endswith("_loss")}
+    print(f"{label}: losses {want}")
+
+    # (c) the base_vl pretrain in one process: kernel path against plain
+    n = rows
+    over = dict(per_device_batch_size=n, batch_size=n)
+    names = (graft_entry.DRYRUN_FULL, "all_moe")
+    blabel = f"base_vl pretrain @{spec.image_size} all_moe ({n} pairs)"
+    against_plain(blabel, cfg, spec, base, batch, dev)
+    base_vl = train_in_turns(
+        blabel, objective_runs(names, spec, base, TRAIN_STEPS, **over),
+        batch, n, {"kernels": pretrain_launches(spec, n)}, card)
+    del base, batch
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(tuple(t.cpu() for t in negatives.drawn[0]),
+                   f"{tmp}/negatives.pt")
+        t0 = time.perf_counter()
+        ranks = graft_entry.dryrun_multichip(
+            DRYRUN_WORLD, device="cuda:0", backend="gloo", full_width=True,
+            stage_context=functools.partial(dryrun_stage_context, tmp))
+        wall = time.perf_counter() - t0
+    tag = f"phase 17 (a), dryrun_multichip({DRYRUN_WORLD})"
+    print(f"{tag}: {wall:.1f} s, the ranks' start included; stage seconds "
+          + "; ".join(f"rank {r['rank']} " + ", ".join(
+              f"{k} {v:.2f}" for k, v in r["seconds"].items())
+              for r in ranks) + f" [{card}]")
+    clock = ranks[0]["clock"]
+    print(f"{tag}: seconds from the spawn to rank 0's entry "
+          f"{clock['entered'] - clock['spawned']:.1f}, its card and group "
+          f"{clock['ready'] - clock['entered']:.1f}, its stages "
+          f"{clock['done'] - clock['ready']:.1f}, to the join "
+          f"{clock['joined'] - clock['done']:.1f}, the results' load "
+          f"{clock['loaded'] - clock['joined']:.1f}")
+
+    # the step: losses, gradients, the state each rank holds
+    got = ranks[0]["step"]["metrics"]
+    rel = max(abs(got[k] - v) / abs(v) for k, v in want.items())
+    grads = {k: v.to(dev)
+             for k, v in ranks[0]["extra"]["step"]["grads"].items()}
+    cos = global_cosine(grads, want_grads)
+    norm = global_norm_ratio(grads, want_grads)
+    print(f"{tag}: the step's losses {{"
+          + ", ".join(f"{k}: {got[k]:.6f}" for k in want)
+          + f"}} against one process's: worst relative difference "
+          f"{rel:.3e} (need <= {DRYRUN_LOSS_REL}); the averaged gradients "
+          f"global cosine {cos:.6f} (need >= {MIN_COSINE}), global norm "
+          f"ratio {norm:.7f} (need within {DRYRUN_NORM_TOL} of 1)")
+    if rel > DRYRUN_LOSS_REL or cos < MIN_COSINE or \
+            abs(norm - 1) > DRYRUN_NORM_TOL or any(
+                r["step"]["metrics"] != got for r in ranks):
+        fail(f"{tag}: the world-{DRYRUN_WORLD} step disagrees with one "
+             f"process's")
+    del want_grads, grads
+    for r in ranks:
+        st = r["step"]
+        share = st["held_bytes"] / st["full_bytes"]
+        print(f"{tag}, rank {r['rank']} (mesh data {r['mesh'][0]} x fsdp "
+              f"{r['mesh'][1]}, {r['backend']}, {r['device']}): the state "
+              f"holds {st['held_bytes'] / 2**20:.1f} MiB, {share:.4f} of "
+              f"the full f32 state's {st['full_bytes'] / 2**20:.1f} MiB "
+              f"({st['sharded']} of {st['params']} params sharded); "
+              f"seconds to make the params {st['setup_s']['params']:.1f}, "
+              f"to build the step {st['setup_s']['build']:.1f}; step ms "
+              + ", ".join(f"{ms:.1f}" for ms in st["step_ms"])
+              + f" (gated, timed, with its collectives timed); the timed "
+              f"step {st['timed_ms']:.1f} ms; in the last, "
+              f"{st['collective_calls']} collectives took "
+              f"{st['collective_ms']:.1f} ms, {st['collective_share']:.1%} "
+              f"of it [{card}]")
+        if r["mesh"] != (2, 2) or st["held_bytes"] != st["shard_bytes"] \
+                or abs(share - 0.5) > STATE_SHARE_TOL:
+            fail(f"{tag}, rank {r['rank']}: the state is not this rank's "
+                 f"half of the full state")
+
+    # the recall, the merge and the merged model's recall
+    kept = ranks[0]["extra"]["merge"]
+    trained = {k: v.numpy() for k, v in kept["trained"].items()}
+    want_rec = dryrun_recall(params_from_numpy(trained, dev), spec, cfg, dev)
+    merged, spec_ufo, ufo = graft_entry.merge_to_ufo(trained, cfgs)
+    digest = graft_entry.state_digest(merged)
+    equal = all(bit_equal(kept["merged"][k].numpy(), v)
+                for k, v in merged.items()) and \
+        set(kept["merged"]) == set(merged)
+    want_merged = dryrun_recall({k: v.to(dev) for k, v in ufo.items()},
+                                spec_ufo, cfgs["ufo"], dev)
+    print(f"{tag}: recall {ranks[0]['recall']} (one process "
+          f"{want_rec}); the merged ufo state's digest {digest[:16]} on "
+          f"every rank {all(r['merged_digest'] == digest for r in ranks)}, "
+          f"bit-equal to merge_weights in one process {equal}; the merged "
+          f"model's recall {ranks[0]['merged_recall']} (one process "
+          f"{want_merged})")
+    if any(r["recall"] != want_rec or r["merged_recall"] != want_merged
+           or r["merged_digest"] != digest for r in ranks) or not equal:
+        fail(f"{tag}: the recall or the merge differs from one process's")
+    del trained, merged, ufo, kept
+
+    # VQA: one submission, one process's answers
+    vcfg = cfgs["vqa"]
+    vspec = make_model_spec(vcfg)
+    vparams = eval_cast_params(graft_entry.seeded_params(vspec, dev), vspec,
+                               vcfg)
+    feeds = []
+    for feed in graft_entry.vqa_feeds(vspec, rows, None, dev):
+        qids = feed.pop("qid")
+        for r, part in enumerate(row_shares(feed, DRYRUN_WORLD)):
+            share = len(qids) // DRYRUN_WORLD
+            feeds.append(dict(part, qid=qids[r * share:(r + 1) * share]))
+    want_rets = downstream.vqa_predictions(vparams, vspec, feeds,
+                                           graft_entry.vqa_answers(vspec),
+                                           scan_k=2)
+
+    def key(rec):
+        return rec["question_id"]
+    sub = ranks[0]["submission"]
+    print(f"{tag}: the VQA submission of {len(sub)} records (rank 0 alone "
+          f"{all(r['submission'] is None for r in ranks[1:])}) equal to one "
+          f"process's {sorted(sub, key=key) == sorted(want_rets, key=key)}")
+    if sorted(sub, key=key) != sorted(want_rets, key=key) or any(
+            r["submission"] is not None for r in ranks[1:]):
+        fail(f"{tag}: the VQA submission differs from one process's")
+
+    # each rank's launches, stage by stage
+    want_stage = {
+        "step": scaled(pretrain_launches(spec, graft_entry.FULL_ROWS),
+                       graft_entry.DRYRUN_STEPS),
+        "recall": eval_tower_launches(spec, graft_entry.FULL_ROWS),
+        "merge": eval_tower_launches(spec_ufo, graft_entry.FULL_ROWS),
+        "vqa": scaled(fused_pass_launches(vspec, graft_entry.FULL_ROWS,
+                                          "tail", train=False), 2)}
+    counts = collections.Counter()
+    for r in ranks:
+        for stage, w in want_stage.items():
+            counts.update(check_launches(
+                f"{tag}, rank {r['rank']}, {stage}", w,
+                r["extra"][stage]["launches"]))
+    return {k: counts[k] for k in KERNELS}, base_vl
+
+
+def run_vqa_large(dev, card: str, rows: dict) -> dict:
+    """Phase 17 (b): the ViT-L VQA at full width and depth: the fused pass
+    over 2 x 32 questions by "tail" and in W8A8 against the plain path,
+    the fine-tune step at micro-batch 8 against the plain path and timed,
+    K2 and K9 at 16 heads under the joint mask."""
+    cfg = build_config(*CONFIG_VQA_L, overrides=dict(image_size=VQA_L_SIZE))
+    spec = make_model_spec(cfg)
+    split = sum(mome.splits(b, VL) for b in spec.blocks)
+    if (spec.hidden_size, spec.num_heads, spec.max_text_len + spec.image_len,
+            split, spec.num_layers) != (C_L, HEADS_L, JOINT_N, VQA_L_SPLIT,
+                                        24):
+        fail("the ViT-L VQA config is not 24 layers of C=1024, 16 heads, "
+             "21 split")
+    base = seeded_params(spec, dev)
+    params = eval_cast_params(base, spec, cfg)
+    batches = vqa_batches(spec, dev)
+    n_q = VQA_BATCH * VQA_BATCHES
+    id2answer = {i: f"answer {i}" for i in range(spec.vqav2_label_size)}
+    label = f"phase 17 (b), ViT-L VQA @384 ({VQA_BATCHES} x {VQA_BATCH})"
+    launches = collections.Counter()
+    reset_launches()
+    rets = downstream.vqa_predictions(params, spec, batches, id2answer)
+    launches.update(check_launches(
+        f"{label} bf16 'tail'",
+        scaled(fused_pass_launches(spec, VQA_BATCH, "tail", train=False),
+               VQA_BATCHES)))
+    logits_k = torch.cat([downstream.vqa_logits(params, spec, b)
+                          for b in batches])
+    logits_p = torch.cat([downstream.vqa_logits(params, spec, b,
+                                                kernels=False)
+                          for b in batches])
+    check_cosine(f"{label} bf16 logits", logits_k, logits_p)
+    cfg8 = build_config(*CONFIG_VQA_L, overrides=dict(
+        image_size=VQA_L_SIZE, eval_int8=True))
+    spec8 = make_model_spec(cfg8)
+    params8 = eval_cast_params(base, spec8, cfg8)
+    reset_launches()
+    rets8 = downstream.vqa_predictions(params8, spec8, batches, id2answer)
+    launches.update(check_launches(
+        f"{label} W8A8", scaled(fused_pass_launches(
+            spec8, VQA_BATCH, train=False, int8=True), VQA_BATCHES)))
+    logits8 = torch.cat([downstream.vqa_logits(params8, spec8, b)
+                         for b in batches])
+    with int8_plain_path():
+        logits8_p = torch.cat([downstream.vqa_logits(params8, spec8, b)
+                               for b in batches])
+    check_cosine(f"{label} W8A8 logits (the int8 plain path)", logits8,
+                 logits8_p)
+    print(f"{label}: {len(rets)} answers; W8A8 against bf16 (no gate): "
+          f"{sum(a == b for a, b in zip(rets8, rets))} equal")
+
+    def answers(p, s, kernels=True):
+        return lambda: downstream.vqa_predictions(p, s, batches, id2answer,
+                                                  kernels=kernels)
+
+    rates = rates_in_turns({"bf16 plain": answers(params, spec, False),
+                            "bf16 kernels": answers(params, spec),
+                            "W8A8 kernels": answers(params8, spec8)}, n_q)
+    print(f"{label}: " + ", ".join(f"{k} {v:.1f} questions/s"
+                                   for k, v in rates.items())
+          + f" (best of 2, in turns, the bias gather included) [{card}]")
+    del params, params8, logits_k, logits_p, logits8, logits8_p
+    torch.cuda.empty_cache()
+
+    n = VQA_L_MICRO
+    over = dict(per_device_batch_size=n, batch_size=n,
+                image_size=VQA_L_SIZE)
+    cfg = build_config(*CONFIG_VQA_L, overrides=over)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    batch = masked_captions(spec, n, dev, gen)
+    batch["image"] = torch.randn(n, 3, spec.image_size, spec.image_size,
+                                 device=dev, generator=gen)
+    batch["vqa_targets"] = torch.rand(n, spec.vqav2_label_size, device=dev,
+                                      generator=gen) * (torch.rand(
+        n, spec.vqav2_label_size, device=dev, generator=gen) < 0.002)
+    slabel = f"phase 17 (b), ViT-L VQA fine-tune @384 ({n} questions)"
+    against_plain(slabel, cfg, spec, base, batch, dev)
+    launches.update(train_in_turns(
+        slabel, objective_runs(CONFIG_VQA_L, spec, base, TRAIN_STEPS,
+                               **over),
+        batch, n, {"kernels": fused_pass_launches(spec, n)}, card,
+        unit="questions"))
+    del base
+    torch.cuda.empty_cache()
+    check_joint_attention(dev, rows, card, heads=HEADS_L,
+                          lengths=(N, JOINT_N))
+    check_joint_backward(dev, torch.Generator(device=dev).manual_seed(
+        SEED + 81), rows, card, heads=HEADS_L)
+    return launches
+
+
+def run_configs_224(dev, card: str) -> collections.Counter:
+    """Phase 17 (c): one fine-tune step each of ImageNet @224 and the
+    MSR-VTT frame config, kernel path against plain path, then timed in
+    turns with their launches."""
+    launches = collections.Counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 82)
+    n = CONFIGS_BATCH
+    over = dict(per_device_batch_size=n, batch_size=n)
+    cfg = build_config(*CONFIG_IMAGENET_224, overrides=dict(
+        over, pallas_attention=True))
+    spec = make_model_spec(cfg)
+    if spec.image_len != N_224:
+        fail(f"ImageNet @224 has {spec.image_len} image tokens")
+    batch = {"image": torch.randn(n, 3, spec.image_size, spec.image_size,
+                                  device=dev, generator=gen),
+             "class_label": torch.randint(0, spec.img_cls_label_size, (n,),
+                                          device=dev, generator=gen)}
+    base = seeded_params(spec, dev)
+    label = f"phase 17 (c), ImageNet fine-tune @224 ({n} images)"
+    against_plain(label, cfg, spec, base, batch, dev)
+    launches.update(train_in_turns(
+        label, objective_runs(CONFIG_IMAGENET_224, spec, base, TRAIN_STEPS,
+                              **over),
+        batch, n, {"kernels": tower_launches(spec, spec.image_len, n)}, card,
+        unit="images"))
+    del base
+    cfg = build_config(*CONFIG_MSRVTT, overrides=dict(
+        over, pallas_attention=True))
+    spec = make_model_spec(cfg)
+    if (spec.num_frames, spec.image_len) != (1, N_224):
+        fail("the MSR-VTT frame config is not one frame at @224")
+    batch = masked_captions(spec, n, dev, gen)
+    batch["image"] = torch.randn(n, 3, spec.image_size, spec.image_size,
+                                 device=dev, generator=gen)
+    T, I = spec.max_text_len, spec.image_len
+    want = (tower_launches(spec, I, n) + tower_launches(spec, T, n)  # irtr
+            + tower_launches(spec, I, n, rerun=True)                 # ifm
+            + tower_launches(spec, T, n, rerun=True)
+            + scaled(fused_pass_launches(spec, n), 3))               # itm
+    base = seeded_params(spec, dev)
+    label = (f"phase 17 (c), MSR-VTT frame fine-tune @224 ufo (irtr, ifm, "
+             f"itm; {n} pairs)")
+    against_plain(label, cfg, spec, base, batch, dev)
+    launches.update(train_in_turns(
+        label, objective_runs(CONFIG_MSRVTT, spec, base, TRAIN_STEPS,
+                              **over),
+        batch, n, {"kernels": want}, card))
+    del base
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_entry(dev, card: str) -> collections.Counter:
+    """Phase 17: ``graft_entry.entry()`` as a user calls it, on the card at
+    its full width (ViT-B/16 all_moe, bf16, 4 pairs): its cls features on
+    its f32 masters against the plain path and against its own call on
+    their eval cast, its launches as the routing gives them, its ms."""
+    label = "phase 17, graft_entry.entry() (ViT-B/16 all_moe bf16, 4 pairs)"
+    fn, (params, batch) = graft_entry.entry()
+    cfg = build_config(graft_entry.PRETRAIN, "all_moe",
+                       overrides={"precision": "bf16"})
+    spec = make_model_spec(cfg)
+    if (spec.hidden_size, spec.num_layers, spec.image_len,
+            next(iter(params.values())).device.type) != (
+                C, 12, N_224, "cuda"):
+        fail(f"{label}: not the flagship ViT-B at full width on the card")
+    reset_launches()
+    got = fn(params, batch)
+    launches = check_launches(label, fused_pass_launches(
+        spec, 4, "tail", train=False))
+    if got.shape != (4, C) or got.dtype != torch.bfloat16:
+        fail(f"{label}: cls features {tuple(got.shape)} {got.dtype}")
+    with torch.no_grad():
+        plain = model.infer(params, spec, batch, kernels=False)["cls_feats"]
+    check_cosine(label, got, plain)
+    cast = eval_cast_params(params, spec, cfg)
+    on_cast = fn(cast, batch)
+    cos = min_cosine(got, on_cast)
+    print(f"{label}: on the f32 masters against the eval-cast params: "
+          f"bit-equal {torch.equal(got, on_cast)}, max abs difference "
+          f"{(got.float() - on_cast.float()).abs().max().item():.3e}, min "
+          f"cosine {cos:.6f} (need >= {MIN_COSINE})")
+    if cos < MIN_COSINE:
+        fail(f"{label}: the f32 masters and their eval cast disagree")
+    ms = {name: time_ms(lambda: fn(p, batch))
+          for name, p in (("f32 masters", params), ("eval-cast", cast))}
+    print(f"{label}: " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items())
+          + f" a call ({TIMED_ITERS} back to back) [{card}]")
+    return collections.Counter(launches)
+
+
+def run_dryrun_and_configs(dev, card: str, rows: dict) -> tuple:
+    """Phase 17: (a) the dry run with base_vl's one-process step,
+    ``graft_entry.entry()``, (b) the ViT-L VQA, (c) ImageNet @224 and
+    MSR-VTT; returns (the dry run's launches, the configs' and the
+    entry's launches)."""
+    dryrun, configs = run_dryrun(dev, card)
+    torch.cuda.empty_cache()
+    configs = collections.Counter(configs)
+    configs.update(run_entry(dev, card))
+    configs.update(run_vqa_large(dev, card, rows))
+    configs.update(run_configs_224(dev, card))
+    return dryrun, {k: configs[k] for k in KERNELS}
 
 
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
@@ -5052,20 +5510,32 @@ def main() -> int:
     check_wgmma(_build.library_path())
     usage = check_spills()
     check_serialisation()
-    rows = check_kernels(dev, card, usage)
-    paths = {"eval": run_eval(dev, card),
-             "eval_int8": run_eval_int8(dev, card),
-             "train": run_training(dev, card),
-             "eval_224": run_eval_224(dev, card),
-             "train_fusion": run_train_fusion(dev, card),
-             "large": run_large(dev, card),
-             "tiny": run_tiny(dev, card),
-             "merging": run_merging(dev, card),
-             "vl": run_vl(dev, card, rows),
-             "objectives": run_objectives(dev, card),
-             "trainer": run_trainer(dev, card),
-             "distribution": run_distribution(dev, card),
-             "preprocess": run_preprocess(dev, card)}
+    print(f"phases 1-2: {time.perf_counter() - start:.1f} s [{card}]")
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(dev, card, *args)
+        torch.cuda.empty_cache()
+        print(f"phase {phase} ({fn.__name__}): "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        return out
+
+    rows = timed(3, check_kernels, usage)
+    paths = {"eval": timed(4, run_eval),
+             "eval_int8": timed(5, run_eval_int8),
+             "train": timed(6, run_training),
+             "eval_224": timed(7, run_eval_224),
+             "train_fusion": timed(8, run_train_fusion),
+             "large": timed(9, run_large),
+             "tiny": timed(10, run_tiny),
+             "merging": timed(11, run_merging),
+             "vl": timed(12, run_vl, rows),
+             "objectives": timed(13, run_objectives),
+             "trainer": timed(14, run_trainer),
+             "distribution": timed(15, run_distribution),
+             "preprocess": timed(16, run_preprocess)}
+    paths["dryrun"], paths["configs"] = timed(17, run_dryrun_and_configs,
+                                              rows)
     for name, row in rows.items():
         for path, launches in paths.items():
             row[f"launches_{path}"] = launches[name]

@@ -34,8 +34,10 @@ K10; a training block under ``train_fusion`` takes K6 (and K1 under
 "full").
 
 The fused VL pass: K2 over joint text + image lengths (N = 617, 941)
-with caption padding inside the key range, K7 and K8 at N = 617, and one
-full-width VL block, split and joint, against the plain path.
+with caption padding inside the key range, K2's training launch and K9
+at N = 617 (at 12 heads and at the ViT-L VQA's 16), K7 and K8 at N =
+617, and one full-width VL block, split and joint, against the plain
+path.
 
 Distribution: two ranks on the one card under gloo, their step's loss
 and averaged gradients against one process's over the global batch, and
@@ -1283,12 +1285,23 @@ def test_packed_attention_with_a_joint_mask_on_card(cuda_device, N):
     """K2 over a joint text + image sequence (40 + 577 at @384, 40 + 901 at
     VQA @480) whose key mask has zeros inside the sequence: within 4 ulps
     of its twin, and two launches agree bit for bit."""
-    g = torch.Generator(device=cuda_device).manual_seed(50 + N)
-    B, H = 4, 12
-    qkv = torch.randn(B, N, 3 * 64 * H, device=cuda_device,
-                      generator=g).bfloat16()
-    bias = torch.randn(H, N, N, device=cuda_device, generator=g)
-    mask = _joint_mask(cuda_device, g, B, N)
+    _joint_k2_matches_twin(cuda_device, N, 12, seed=50 + N)
+
+
+@pytest.mark.cuda
+def test_packed_attention_at_16_heads_with_a_joint_mask_on_card(
+        cuda_device):
+    """K2 at the ViT-L VQA's joint layers: 16 heads over 40 + 577 tokens
+    under the joint mask, within 4 ulps of its twin, two launches bit for
+    bit."""
+    _joint_k2_matches_twin(cuda_device, 617, 16, seed=60)
+
+
+def _joint_k2_matches_twin(dev, N, H, seed, B=4):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * 64 * H, device=dev, generator=g).bfloat16()
+    bias = torch.randn(H, N, N, device=dev, generator=g)
+    mask = _joint_mask(dev, g, B, N)
     assert bool((mask[:, :40] == 0).any())
     got = TA.packed_attention(qkv, bias, mask, 0.125, H)
     _bf16_close(got, TA.packed_attention_reference(qkv, bias, mask, 0.125, H),
@@ -1305,14 +1318,24 @@ def test_packed_attention_bwd_with_a_joint_mask_on_card(cuda_device):
     twin fed the plain forward's statistics, dbias within 1e-3 relative
     and finite, the dead sample's gradient zero, and two launches bit for
     bit."""
-    g = torch.Generator(device=cuda_device).manual_seed(53)
-    B, N, H = 5, 617, 12
-    qkv = torch.randn(B, N, 3 * 64 * H, device=cuda_device,
-                      generator=g).bfloat16()
-    bias = torch.randn(H, N, N, device=cuda_device, generator=g)
-    gout = torch.randn(B, N, 64 * H, device=cuda_device,
-                       generator=g).bfloat16()
-    mask = _joint_mask(cuda_device, g, B, N)
+    _joint_k9_matches_twin(cuda_device, 12, seed=53)
+
+
+@pytest.mark.cuda
+def test_packed_attention_bwd_at_16_heads_with_a_joint_mask_on_card(
+        cuda_device):
+    """K2's training launch and K9 at the ViT-L VQA's joint layers: 16
+    heads over 40 + 577 tokens under the joint mask, a dead sample, by
+    the bounds of the 12-head case."""
+    _joint_k9_matches_twin(cuda_device, 16, seed=63)
+
+
+def _joint_k9_matches_twin(dev, H, seed, B=5, N=617):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * 64 * H, device=dev, generator=g).bfloat16()
+    bias = torch.randn(H, N, N, device=dev, generator=g)
+    gout = torch.randn(B, N, 64 * H, device=dev, generator=g).bfloat16()
+    mask = _joint_mask(dev, g, B, N)
     mask[0] = 0
     assert bool((mask[1:, :40] == 0).any())
     o, stats = TA.packed_attention(qkv, bias, mask, 0.125, H,

@@ -20,7 +20,8 @@ data-parallel step through it under ``utils/profiling.trace``; the
 device-side preprocessing: the canvas resize, a step under
 ``device_augment`` and ``device_mlm``; the distilled embed and trunk,
 relpos's video helpers, the dVAE's codebook probabilities and decoder
-loader) must leave ``jax`` (and
+loader; the driver entry points of ``graft_entry.py``: the flagship
+forward and the dry run's stages at world 1) must leave ``jax`` (and
 ``vl_merging_tpu``, whose subpackages import jax) out of
 ``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
 opened (executing a file by path opens it) or imported.  The check runs in a fresh interpreter
@@ -396,6 +397,26 @@ SCRIPT = textwrap.dedent("""
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(dec, os.path.join(tmp, "decoder.pkl"))
         assert set(dvae.load_decoder_params(tmp)) == set(dec)
+
+    # the driver entry points: the flagship forward, and the dry run's
+    # rank at world 1 in this process (its stages, a one-rank group)
+    from vl_merging_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry(graft_entry.tiny_overrides(), device="cpu")
+    assert fn(*args).shape == (4, 64)
+    import contextlib
+    import io
+
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.redirect_stdout(printed):
+        graft_entry.dryrun_rank(0, 1, tmp, dict(
+            device="cpu", backend="gloo", overrides=None, full_width=False,
+            stage_context=None))
+        ranks = torch.load(os.path.join(tmp, "rank0.pt"), weights_only=False)
+    assert ranks["mesh"] == (1, 1) and len(ranks["submission"]) == 4
+    lines = printed.getvalue().splitlines()
+    assert len(lines) == 4 and all(l.endswith(" ok") for l in lines), lines
 
     assert not touched, touched
     leaked = sorted(m for m in sys.modules

@@ -17,6 +17,8 @@ import traceback
 import numpy as np
 import torch
 
+from vl_merging_tpu_torch.utils.profiling import storage_bytes
+
 
 def case_gather(rank, world):
     """(4) The autograd gather against the reference semantics on a
@@ -92,15 +94,17 @@ def fixed_draws(table, negatives, sims):
          objectives.sample_hard_negatives) = saved
 
 
-def storage_bytes(trees) -> int:
-    """The bytes of the distinct storages behind the tensors of ``trees``
-    (a view counts its whole base)."""
-    held = {}
-    for tree in trees:
-        for v in tree.values():
-            st = v.untyped_storage()
-            held[st.data_ptr()] = st.nbytes()
-    return sum(held.values())
+@contextlib.contextmanager
+def step_draws(table, negatives, stage):
+    """The context of ``graft_entry.dryrun_multichip``'s stage ``stage``:
+    ``fixed_draws`` around the train step, and rank 0's gradients and
+    states kept (``graft_entry.kept_states``) in what it yields."""
+    from vl_merging_tpu_torch.graft_entry import kept_states
+
+    with kept_states(stage) as extra:
+        with fixed_draws(table, negatives, []) if stage == "step" else \
+                contextlib.nullcontext():
+            yield extra
 
 
 def case_steps(rank, world, job):

@@ -19,6 +19,46 @@ from typing import Dict, Optional
 
 import torch
 
+# the tensor collectives of ``parallel/host.py`` that ``collective_time``
+# times (every collective of the port goes through one of them)
+COLLECTIVES = ("all_reduce_", "broadcast_", "all_gather_rows",
+               "reduce_scatter_rows")
+
+
+@contextlib.contextmanager
+def collective_time(device=None):
+    """The time (ms) spent inside the process group's collectives
+    (``COLLECTIVES``) while the block runs, each call synchronised with
+    ``device`` (a CUDA device; None: none) before and after: yields
+    {"ms", "calls"}, filled as the block runs."""
+    from ..parallel import host
+
+    saved = {name: getattr(host, name) for name in COLLECTIVES}
+    spent = {"ms": 0.0, "calls": 0}
+
+    def sync():
+        if device is not None and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            spent["ms"] += 1e3 * (time.perf_counter() - t0)
+            spent["calls"] += 1
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(host, name, timed(fn))
+    try:
+        yield spent
+    finally:
+        for name, fn in saved.items():
+            setattr(host, name, fn)
+
 
 @contextlib.contextmanager
 def trace(log_dir: str):
@@ -55,6 +95,17 @@ class StepTimer:
         if len(self._times) < 2:
             return None
         return (len(self._times) - 1) / (self._times[-1] - self._times[0])
+
+
+def storage_bytes(trees) -> int:
+    """The bytes of the distinct storages behind the tensors of ``trees``
+    (dicts of tensors; a view counts its whole base)."""
+    held = {}
+    for tree in trees:
+        for v in tree.values():
+            st = v.untyped_storage()
+            held[st.data_ptr()] = st.nbytes()
+    return sum(held.values())
 
 
 def device_memory_stats() -> Dict[str, Dict[str, int]]:
