@@ -181,7 +181,9 @@ Phases, each fatal on failure:
      load_params`` into ufo (``test_only``; no key missing or
      unexpected) and scored by ``compute_irtr_recall`` over 64 images
      and 320 captions (K1-K3 12 per image batch, K13 12 per text batch;
-     features within cosine 0.999 of the plain path's; recall printed);
+     features within cosine 0.999 and the ITC scores within
+     ``MAX_SCORE_DELTA`` of the plain path's; recall printed beside the
+     plain path's);
      device merging (``merging/device.py``): a fleet of 8 seeded all_moe
      checkpoints by ``merge_weights_device`` (a ratio per member) and
      ``sum_task_vectors_device``, a ``ratio_sweep`` of 11 ratios, every
@@ -349,7 +351,10 @@ Phases, each fatal on failure:
      + ``ufo`` at 384 px: C=1024, 16 heads, 21 split layers of 40 + 577
      tokens and 3 joint of 617) at full width and depth: the fused pass
      over 2 x 32 questions by "tail" and in W8A8 (launches as derived,
-     logits cosine 0.999 to the plain path, questions/s in turns), the
+     logits cosine 0.999 to the plain path, questions/s in turns), and by
+     "qkv" (K8) and "mega" (K7) at C=1024, 16 heads and N=617 under the
+     joint mask (launches, logits bit-equal to "tail"'s or else within
+     K7's 4-ulp bound, the reading printed; questions/s beside), the
      fine-tune step at micro-batch 8 against the plain path and timed
      (K2 and K9 at N=577 x 21 and N=617 x 3 a pass), K2 at N = 577 and
      617 and K2's training launch and K9 at N = 617 under the joint mask
@@ -358,6 +363,28 @@ Phases, each fatal on failure:
      (``img_cls``, 32 images: K11 and K13 12 a step) and the MSR-VTT frame
      fine-tune (ufo, one frame, irtr + ifm + itm over 32 pairs), kernel
      path against plain path, timed.
+ 18. the partial-MoE modes (``ln_moe``, ``attn_moe``, ``ffn_moe``; the
+     paper's "which modules to keep per modality" study) at ViT-B/16
+     width, each: (a) the COCO @384 retrieval eval (64 images, 320
+     captions) of the mode's seeded checkpoint (its LayerNorms drawn too)
+     by "tail", scored as phase 11's merged evals, img/s in turns; (b) the NLVR2 @384 fused pass over 32 pairs
+     (ln_moe's shallow layers composed: per-half LayerNorms around the
+     shared K2 and K13 over the joint 617 tokens; attn_moe's and
+     ffn_moe's split), launches as derived at the real thresholds, the
+     logits at cosine 0.999 to the plain path, pairs/s in turns; (c) the
+     irtr @384 step (32 pairs; K2, K9, K13) and the pretrain @224
+     (``task_mlm_itm_ifm_square_randaug_base`` + the mode, 32 pairs; K11,
+     K13) against the plain path (losses within LOSS_REL) and in turns;
+     (d) the mode's seeded checkpoint written and read back, its gram pass
+     through the taps (f32_device, 32 pairs; the keys the reference's
+     lists give the mode), ``merge.py`` by each method into ufo, each
+     merged checkpoint's ``load_params`` and retrieval eval, a fleet of 4
+     on the card within 4 ulp of the host and ``regmean_device`` within
+     its κ bound; (e) the same suite at ViT-L @384
+     (``task_finetune_irtr_f30k_square_randaug_large_image384`` +
+     ``all_moe`` into ``ufo``: C=1024, 24 layers; the gram pass K2 at 16
+     heads and N=577, the merged eval K1-K3 at C=1024), its parameter and
+     gram counts and bytes printed beside the reckoning and ``free -g``.
 
 Each phase prints its seconds.  Each row of the ``{"kernels": ...}`` line
 carries the widths it was held at (``widths``) and, for the kernels built
@@ -365,7 +392,8 @@ for 1024, its figures there (``at_1024``), and its launches on each
 phase's path (``launches_<path>``; ``launches_distribution`` counts phase
 15's, both ranks' included; ``launches_preprocess`` phase 16's;
 ``launches_dryrun`` phase 17 (a)'s four ranks', ``launches_configs`` the
-rest of phase 17's).
+rest of phase 17's, ``launches_modes`` phase 18 (a)-(d)'s,
+``launches_merging_large`` phase 18 (e)'s).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits 1 and
@@ -381,6 +409,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import contextlib
 import functools
 import hashlib
@@ -407,14 +436,15 @@ from vl_merging_tpu_torch.config import build_config
 from vl_merging_tpu_torch.device import require_cuda
 from vl_merging_tpu_torch.evaluation import downstream, metrics
 from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall, \
-    extract_features, itm_rerank_scores
+    extract_features, itm_rerank_scores, retrieval_recall
 from vl_merging_tpu_torch.merging import core as merging
 from vl_merging_tpu_torch.merging import device as merging_device
 from vl_merging_tpu_torch.models import model, mome
 from vl_merging_tpu_torch.models.layers import layer_norm
 from vl_merging_tpu_torch.models.spec import VL, init_params, \
     make_model_spec
-from vl_merging_tpu_torch.models.taps import MOE_GRAM_SUFFIXES
+from vl_merging_tpu_torch.models.taps import MOE_GRAM_SUFFIXES, \
+    UFO_GRAM_SUFFIXES
 from vl_merging_tpu_torch.ops import _build
 from vl_merging_tpu_torch.ops import attention as attn_ops
 from vl_merging_tpu_torch.ops import fused_block as fb_ops
@@ -489,6 +519,11 @@ DBIAS_REL = 1e-3
 # exponentials taken in steps of the running max), relative error 1e-5
 STATS_REL = 1e-5
 MIN_COSINE = 0.999
+# the largest difference the ITC scores (cosines of unit features) may
+# show between the kernel and the plain path in a retrieval eval: four
+# times the largest an H100 read (1.02e-3 to 1.08e-3, the partial-MoE
+# modes at ViT-B/16 with seeded weights)
+MAX_SCORE_DELTA = 4e-3
 # a training path's losses against the plain path's on the same step: each
 # within LOSS_REL relative (the sound runs on the H100 read at most 5.7e-4,
 # bf16 activations against the plain path's f32 logits)
@@ -1707,16 +1742,32 @@ def block_launches(tokens: int, batch: int, blocks: int, fusion: str = "0",
     return out
 
 
+def composed_in_fused_pass(b) -> bool:
+    """Whether a block runs a fused sequence composed, neither split nor
+    whole: ln_moe's shallow blocks (per-half LayerNorms around the shared
+    attention and MLP, ``mome._block_names`` None)."""
+    return not mome.splits(b, VL) and mome._block_names(b, VL) is None
+
+
 def fused_pass_launches(spec, batch: int, fusion: str = "0",
                         train: bool = True, int8: bool = False):
     """One fused pass: each split layer's text half (40 tokens) and image
-    half, each deep layer's joint sequence."""
+    half, each whole layer's joint sequence, and each composed layer's
+    (``composed_in_fused_pass``) shared attention over the joint sequence
+    and its shared MLP over its rows, as in training."""
     split = sum(mome.splits(b, VL) for b in spec.blocks)
+    composed = sum(composed_in_fused_pass(b) for b in spec.blocks)
     T, I = spec.max_text_len, spec.image_len
     route = dict(fusion=fusion, train=train, int8=int8)
-    return (block_launches(T, batch, split, **route)
-            + block_launches(I, batch, split, **route)
-            + block_launches(T + I, batch, spec.num_layers - split, **route))
+    out = (block_launches(T, batch, split, **route)
+           + block_launches(I, batch, split, **route)
+           + block_launches(T + I, batch, spec.num_layers - split - composed,
+                            **route)
+           + block_launches(T + I, batch, composed))
+    if not train:   # the composed layers' attention takes no backward
+        for k in ("packed_attention_bwd", ("packed_attention_bwd", T + I)):
+            out[k] -= block_launches(T + I, batch, composed)[k]
+    return +out
 
 
 def tower_launches(spec, tokens: int, batch: int, rerun: bool = False,
@@ -2551,34 +2602,62 @@ def seeded_state(spec, seed: int) -> dict:
     return params_to_state_dict(seeded_params(spec, "cpu", seed))
 
 
+def seeded_expert_state(spec, seed: int) -> dict:
+    """``seeded_state`` with every LayerNorm's weight and bias drawn too
+    (1 + 0.1·N(0, 1), 0.1·N(0, 1); the init sets 1 and 0): the experts'
+    norms then differ, and a merge of a mode whose only experts are its
+    norms (ln_moe) is no copy of its checkpoint."""
+    sd = seeded_state(spec, seed)
+    rng = np.random.default_rng(seed)
+    for k, v in sd.items():
+        if ".norm" in k:
+            sd[k] = (float(k.endswith(".weight")) + 0.1 * rng.standard_normal(
+                v.shape)).astype(v.dtype)
+    return sd
+
+
 def bit_equal(a: np.ndarray, b: np.ndarray) -> bool:
     a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
     return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
         a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))
 
 
-def gram_keys(spec) -> set:
-    """The irtr gram pass's tapped modules over all_moe: the v (image) and l
-    (text) experts' attention input, proj input, fc1 and fc2 inputs."""
+# the irtr gram pass's tapped modules by mode: each expert's v (image) and
+# l (text) inputs ("{}"), the shared modules by ufo's names (the reference's
+# lists: MOE_GRAM_SUFFIXES under use_moe, else UFO_GRAM_SUFFIXES, whose
+# norms ln_moe's per-modality LayerNorms do not match)
+GRAM_MODULES = {"all_moe": ("attn.{}", "attn.{}.proj", "mlp.{}.fc1",
+                            "mlp.{}.fc2"),
+                "ln_moe": ("attn.proj", "mlp.fc1", "mlp.fc2"),
+                "attn_moe": ("attn.{}", "attn.{}.proj", "mlp.fc1",
+                             "mlp.fc2"),
+                "ffn_moe": ("attn", "attn.proj", "mlp.{}.fc1", "mlp.{}.fc2")}
+
+
+def gram_keys(spec, mode: str = "all_moe") -> set:
+    """The irtr gram pass's tapped modules in ``mode`` (``GRAM_MODULES``)."""
     keys = {f"transformer.blocks.{i}.{m.format(e)}"
-            for i in range(spec.num_layers) for e in "vl"
-            for m in ("attn.{}", "attn.{}.proj", "mlp.{}.fc1", "mlp.{}.fc2")}
-    if not all(k.endswith(MOE_GRAM_SUFFIXES) for k in keys):
-        fail("gram keys outside MOE_GRAM_SUFFIXES")
+            for i in range(spec.num_layers) for m in GRAM_MODULES[mode]
+            for e in ("vl" if "{}" in m else "-")}
+    if not all(k.endswith(MOE_GRAM_SUFFIXES + UFO_GRAM_SUFFIXES)
+               for k in keys):
+        fail("gram keys outside the reference's lists")
     return keys
 
 
 def gram_rows(spec, key: str, pairs: int) -> int:
     """Rows summed into a gram over ``pairs`` pairs: image tokens for a v
-    expert, text tokens for an l expert."""
-    expert = key.split(".")[4]
-    return pairs * (spec.image_len if expert == "v" else spec.max_text_len)
+    expert, text tokens for an l expert, both for a shared module."""
+    expert = (key.split(".") + [""])[4]
+    return pairs * {"v": spec.image_len, "l": spec.max_text_len}.get(
+        expert, spec.image_len + spec.max_text_len)
 
 
-def run_gram_pass(params, spec, cfg, batches, precision: str, label: str):
+def run_gram_pass(params, spec, cfg, batches, precision: str, label: str,
+                  mode: str = "all_moe"):
     """One ``cache_gram_matrices`` call with its launches gated: K2 once
     per layer and image batch, nothing else (the taps turn off the fused
-    eval block and K13)."""
+    eval block and K13); its keys ``gram_keys(spec, mode)``."""
     reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2590,9 +2669,10 @@ def run_gram_pass(params, spec, cfg, batches, precision: str, label: str):
     want = want_launches(packed_attention=spec.num_layers * len(batches))
     if launches != want:
         fail(f"gram pass {label}: launches {launches}, want {want}")
-    if set(grams) != gram_keys(spec):
-        fail(f"gram pass {label}: keys {sorted(set(grams) ^ gram_keys(spec))}"
-             f" differ from the irtr v/l set")
+    if set(grams) != gram_keys(spec, mode):
+        fail(f"gram pass {label}: keys "
+             f"{sorted(set(grams) ^ gram_keys(spec, mode))} differ from the "
+             f"irtr set of {mode}")
     eps = F64_EPS if precision == "f64_host" else F32_EPS
     pairs = sum(b["image"].shape[0] for b in batches)
     for k, g in grams.items():
@@ -2607,9 +2687,14 @@ def run_gram_pass(params, spec, cfg, batches, precision: str, label: str):
 
 
 def check_merged_eval(params, spec, cfg, dev, label: str, eval_set):
-    """``compute_irtr_recall`` on merged params: K1-K3 12 per image batch,
-    K13 12 per text batch; image and text features finite and within
-    cosine 0.999 of the plain path's on the same params."""
+    """``compute_irtr_recall`` on a checkpoint's params (a merged one, or a
+    partial mode's own): K1-K3 12 per image batch, K13 12 per text batch;
+    image and text features finite and within cosine 0.999 of the plain
+    path's on the same params; the ITC scores within MAX_SCORE_DELTA of
+    the plain path's.  A top-k hit turns on the sign of a difference of
+    two scores, which moves by at most 2δ when no score moves by more than
+    δ: so the recall may differ from the plain path's (printed beside)
+    only by hits whose plain margin is within 2·MAX_SCORE_DELTA."""
     text_batches, image_batches, tiids, iids = eval_set
     params = eval_cast_params(params_from_numpy(params, dev), spec, cfg)
     reset_launches()
@@ -2626,24 +2711,35 @@ def check_merged_eval(params, spec, cfg, dev, label: str, eval_set):
                          mlp=spec.num_layers * len(text_batches))
     if launches != want:
         fail(f"{label} eval launches {launches}, want {want}")
-    cosines = {}
+    cosines, feats = {}, {}
     with torch.no_grad():
-        for kind, batches in (("image", image_batches),
-                              ("text", text_batches)):
-            k = extract_features(params, spec, batches, kind)
-            p = extract_features(params, spec, batches, kind, kernels=False)
+        for kind, batches, n in (("image", image_batches, len(iids)),
+                                 ("text", text_batches, len(tiids))):
+            k = extract_features(params, spec, batches, kind)[:n]
+            p = extract_features(params, spec, batches, kind,
+                                 kernels=False)[:n]
             if not (bool(torch.isfinite(k).all())
                     and bool(torch.isfinite(p).all())):
                 fail(f"{label} {kind} features not finite")
             cosines[kind] = float(F.cosine_similarity(
                 k.float(), p.float(), dim=-1).min())
-    print(f"merged checkpoint ({label}): compute_irtr_recall {seconds:.3f} s "
-          f"for {len(iids)} images and {len(tiids)} captions, launches as "
-          f"wanted; min cosine to the plain path image "
-          f"{cosines['image']:.6f}, text {cosines['text']:.6f} (need >= "
-          f"{MIN_COSINE}); recall {json.dumps(recall)}")
+            feats[kind] = (k, p)
+    (img_k, img_p), (txt_k, txt_p) = feats["image"], feats["text"]
+    delta = float((img_k.float() @ txt_k.float().T
+                   - img_p.float() @ txt_p.float().T).abs().max())
+    plain = retrieval_recall(img_p, txt_p, iids, tiids)
+    print(f"{label}: compute_irtr_recall {seconds:.3f} s for {len(iids)} "
+          f"images and {len(tiids)} captions, launches as wanted; min "
+          f"cosine to the plain path image {cosines['image']:.6f}, text "
+          f"{cosines['text']:.6f} (need >= {MIN_COSINE}); max |Δ ITC score| "
+          f"{delta:.4e} (need <= {MAX_SCORE_DELTA}); recall "
+          f"{json.dumps(recall)}, the plain path's {json.dumps(plain)}, "
+          f"equal {recall == plain}")
     if min(cosines.values()) < MIN_COSINE:
         fail(f"{label}: kernel-path features disagree with the plain path")
+    if delta > MAX_SCORE_DELTA:
+        fail(f"{label}: the ITC scores differ from the plain path's by "
+             f"{delta} > {MAX_SCORE_DELTA}")
     if not all(0.0 <= v <= 1.0 for v in recall.values()):
         fail(f"{label}: recall out of range: {recall}")
     return launches
@@ -2664,21 +2760,47 @@ def fleet_within_4_ulp(fleet: dict, hosts: list, dev, label: str) -> None:
                 fail(f"{label} member {j} {k}: max |Δ| {err} > 4 ulp {tol}")
 
 
+def merge_kw(spec, loss_names: dict) -> dict:
+    """The merge functions' schema arguments for ``spec``."""
+    return dict(num_layers=spec.num_layers,
+                vlffn_start_layer_index=spec.vlffn_start_layer_index,
+                loss_names=loss_names)
+
+
+def run_ratio_sweep(sd_moe, spec, loss_names: dict, dev, card: str) -> None:
+    """``ratio_sweep`` of SWEEP ratios over one checkpoint on the card, each
+    within 4 ulp of the host path."""
+    kw = merge_kw(spec, loss_names)
+    grid = np.linspace(0.0, 1.0, SWEEP)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    swept = merging_device.ratio_sweep(sd_moe, grid, **kw)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    fleet_within_4_ulp(swept, [merging.merge_weights(
+        sd_moe, merge_ratio=float(r), **kw) for r in grid], dev,
+        "ratio_sweep")
+    print(f"ratio_sweep of {SWEEP} {SWEEP / sweep_s:.2f} checkpoints/s (the "
+          f"copy to the card included); each within 4 ulp of the host path "
+          f"[{card}]")
+
+
 def run_device_merging(sd_moe, central, grams64, host_regmean, spec, dev,
-                       card: str) -> None:
-    """A fleet of seeded all_moe checkpoints merged on the card by
+                       card: str, *, loss_names: dict, size: int = FLEET,
+                       label: str = "all_moe") -> None:
+    """A fleet of ``size`` seeded checkpoints merged on the card by
     ``merge_weights_device`` (a ratio per member) and
-    ``sum_task_vectors_device``, a ratio sweep of one checkpoint, each
-    member within 4 ulp of the host path; ``regmean_device`` on the f64
-    grams cast to f32 against the host f64 regmean within
+    ``sum_task_vectors_device``, each member within 4 ulp of the host
+    path; ``regmean_device`` on the f64
+    grams cast to f32 against the host f64 regmean (``host_regmean()``,
+    called when it is needed) within
     ``REGMEAN_MEASURED_SHARE`` of ``regmean_bound`` at each summed gram's
-    condition number.  The fleet's rate is printed end to end (copies to
-    and from the card included) beside the merge alone."""
-    kw = dict(num_layers=spec.num_layers,
-              vlffn_start_layer_index=spec.vlffn_start_layer_index,
-              loss_names=build_config(*CONFIG_MOE)["loss_names"])
+    condition number (a weight whose experts have no grams, a shared
+    module, passes through: 4 ulp).  The fleet's rate is printed end to
+    end (copies to and from the card included) beside the merge alone."""
+    kw = merge_kw(spec, loss_names)
     members = []
-    for j in range(FLEET):
+    for j in range(size):
         gen = torch.Generator(device=dev).manual_seed(SEED + 30 + j)
         members.append({k: (torch.from_numpy(v).to(dev) + 0.01 * torch.randn(
             v.shape, device=dev, generator=gen)).cpu().numpy()
@@ -2688,7 +2810,7 @@ def run_device_merging(sd_moe, central, grams64, host_regmean, spec, dev,
     fleet = merging_device.stack_checkpoints(members)
     torch.cuda.synchronize()
     stack_s = time.perf_counter() - t0
-    ratios = np.linspace(0.2, 0.9, FLEET).astype(np.float32)
+    ratios = np.linspace(0.2, 0.9, size).astype(np.float32)
     merge_s = []
     for _ in range(2):   # the first call warms up
         torch.cuda.synchronize()
@@ -2714,7 +2836,7 @@ def run_device_merging(sd_moe, central, grams64, host_regmean, spec, dev,
         host_s.append(time.perf_counter() - t0)
     fleet_within_4_ulp(merged, hosts, dev, "merge_weights_device")
     del merged, hosts
-    cfleet = {k: v.expand(FLEET, *v.shape[1:]) for k, v in
+    cfleet = {k: v.expand(size, *v.shape[1:]) for k, v in
               merging_device.stack_checkpoints([central]).items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2726,32 +2848,22 @@ def run_device_merging(sd_moe, central, grams64, host_regmean, spec, dev,
         sd, dict(central), sum_lambda=SUM_LAMBDA, **kw) for sd in members],
         dev, "sum_task_vectors_device")
     del tv, fleet, cfleet, members
-    sweep = np.linspace(0.0, 1.0, SWEEP)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    swept = merging_device.ratio_sweep(sd_moe, sweep, **kw)
-    torch.cuda.synchronize()
-    sweep_s = time.perf_counter() - t0
-    fleet_within_4_ulp(swept, [merging.merge_weights(
-        sd_moe, merge_ratio=float(r), **kw) for r in sweep], dev,
-        "ratio_sweep")
-    del swept
-    print(f"device merging (fleet of {FLEET} all_moe checkpoints, "
+    print(f"{label}: device merging (fleet of {size} checkpoints, "
           f"{sum(v.size for v in sd_moe.values()) / 1e6:.1f} M parameters "
           f"each, f32): merge_weights_device end to end "
-          f"{FLEET / end_to_end_s:.4f} checkpoints/s ({end_to_end_s:.3f} s: "
+          f"{size / end_to_end_s:.4f} checkpoints/s ({end_to_end_s:.3f} s: "
           f"the fleet's copy to the card {stack_s:.3f} s, the merge "
           f"{merge_s[1]:.4f} s, the copy back {unstack_s:.3f} s), the merge "
-          f"alone on the resident fleet {FLEET / merge_s[1]:.2f} "
+          f"alone on the resident fleet {size / merge_s[1]:.2f} "
           f"checkpoints/s (first call {merge_s[0]:.4f} s); "
           f"sum_task_vectors_device on the resident fleet "
-          f"{FLEET / tv_s:.2f} checkpoints/s; ratio_sweep of {SWEEP} "
-          f"{SWEEP / sweep_s:.2f} checkpoints/s (the copy to the card "
-          f"included); host merge_weights {float(np.mean(host_s)):.4f} s "
+          f"{size / tv_s:.2f} checkpoints/s; host "
+          f"merge_weights {float(np.mean(host_s)):.4f} s "
           f"per checkpoint ({1 / float(np.mean(host_s)):.4f} "
           f"checkpoints/s); every member within 4 ulp of the host path "
           f"[{card}]")
 
+    host_regmean = host_regmean()
     state = merging_device.stack_checkpoints([sd_moe])
     grams32 = {k: torch.from_numpy(v).to(dev).float()
                for k, v in grams64.items()}
@@ -2763,29 +2875,40 @@ def run_device_merging(sd_moe, central, grams64, host_regmean, spec, dev,
     regmean_s = time.perf_counter() - t0
     if set(got) != set(host_regmean):
         fail("regmean_device: keys differ from the host regmean's")
+    checks_t0 = time.perf_counter()
     worst = {}
     for k, h in host_regmean.items():
         want = torch.from_numpy(h).to(dev).double()
         err = float((got[k][0].double() - want).abs().max())
         m = re.match(r"(transformer\.blocks\.(\d+)\.(attn|mlp))\."
                      r"(qkv|proj|fc1|fc2)\.weight$", k)
-        if m is None:   # averaged or passed through: f32 sums and divisions
+        # the v and l grams: the attention input for qkv, else the module's
+        names = [] if m is None else [
+            f"{m.group(1)}.{e}" + ("" if m.group(4) == "qkv" else
+                                   f".{m.group(4)}") for e in "vl"]
+        if not names or not all(n in grams64 for n in names):
+            # averaged, or passed through (a shared module of a partial
+            # mode): f32 sums and divisions
             tol = 4 * float(np.spacing(np.float32(max(
                 float(want.abs().max()), 1.0))))
             if err > tol:
                 fail(f"regmean_device {k}: max |Δ| {err} > 4 ulp {tol}")
             continue
-        # the v and l grams: the attention input for qkv, else the module's
-        names = [f"{m.group(1)}.{e}" + ("" if m.group(4) == "qkv" else
-                                         f".{m.group(4)}") for e in "vl"]
         summed = sum(NON_DIAG * torch.from_numpy(grams64[n]).to(dev)
                      + (1 - NON_DIAG) * torch.diag(torch.diag(
                          torch.from_numpy(grams64[n]).to(dev)))
                      for n in names)
-        ev = torch.linalg.eigvalsh(summed)
-        if float(ev[0]) <= 0.0:
+        # κ = λmax / λmin: λmax by f32 eigvalsh, λmin as the reciprocal of
+        # the largest eigenvalue of the inverse, the inverse taken in f64
+        # (Cholesky) and its eigenvalues in f32; a largest eigenvalue in
+        # f32 is within about D·2^-24 of itself, so κ is within about
+        # 2·D·2^-24 whatever λmin, without f64 eigvalsh's seconds at D =
+        # 4096
+        chol, info = torch.linalg.cholesky_ex(summed)
+        if int(info) != 0:
             fail(f"regmean {k}: summed gram not positive definite")
-        kappa = float(ev[-1] / ev[0])
+        kappa = float(torch.linalg.eigvalsh(summed.float())[-1]) * float(
+            torch.linalg.eigvalsh(torch.cholesky_inverse(chol).float())[-1])
         rel = err / float(want.abs().max())
         bound = regmean_bound(summed.shape[0], kappa)
         limit = REGMEAN_MEASURED_SHARE * bound
@@ -2801,11 +2924,75 @@ def run_device_merging(sd_moe, central, grams64, host_regmean, spec, dev,
             fail(f"regmean_device {k}: relative drift {rel} > "
                  f"{REGMEAN_MEASURED_SHARE} of its bound, {limit} "
                  f"(κ {kappa})")
-    print(f"regmean_device (one all_moe checkpoint, f32 solve): "
-          f"{regmean_s:.3f} s; limit {REGMEAN_MEASURED_SHARE} of the bound; "
+    print(f"{label}: regmean_device (one checkpoint, f32 solve): "
+          f"{regmean_s:.3f} s (its checks, κ included, "
+          f"{time.perf_counter() - checks_t0:.1f} s); limit "
+          f"{REGMEAN_MEASURED_SHARE} of the bound; "
           f"worst drift / bound by weight "
           + ", ".join(f"{k} {v[0]:.4f} (κ {v[1]:.4e}, drift {v[2]:.4e})"
                       for k, v in sorted(worst.items())) + f" [{card}]")
+
+
+def merge_cli(names, method: str, moe_path: str, central_path: str,
+              gram_path: str, tmp: Path) -> tuple:
+    """``merge.py`` of the checkpoint ``moe_path`` (config ``names``) by
+    ``method``: interpolation, task arithmetic (around
+    ``central_path``) or RegMean (the grams at ``gram_path``); returns
+    (the merged checkpoint's path, seconds)."""
+    extra = {"merge_weights": ["merge_weights=True",
+                               f"merge_ratio={MERGE_RATIO}"],
+             "sum_task_vectors": ["sum_task_vectors=True",
+                                  f"sum_lambda={SUM_LAMBDA}",
+                                  f"central_weight={central_path!r}"],
+             "regmean": ["regmean=True", f"scaling_for_non_diag={NON_DIAG}",
+                         f"gram_matrices={gram_path!r}"]}[method]
+    t0 = time.perf_counter()
+    out = merge.main(["with", *names, f"load_path={moe_path!r}",
+                      f"log_dir={str(tmp / method)!r}", *extra])
+    return out, time.perf_counter() - t0
+
+
+def merge_methods(names, ufo_names, moe_path: str, central_path: str,
+                  gram_path: str, dev, eval_set, tmp: Path,
+                  device_merging) -> dict:
+    """``merge_cli`` by each method, each merged checkpoint read by
+    ``load_params`` into the ufo config ``ufo_names`` and scored by
+    ``check_merged_eval``.  RegMean (the
+    host's f64 solves) runs in a thread beside the other two methods and
+    ``device_merging``, which is called with a function that waits for the
+    host RegMean checkpoint and reads it.  Returns the evals' launches."""
+    ucfg = build_config(*ufo_names)
+    uspec = make_model_spec(ucfg)
+    counts = dict.fromkeys(KERNELS, 0)
+
+    def score(method: str, out: str, merge_s: float) -> None:
+        nonlocal counts
+        lcfg = build_config(*ufo_names, overrides=dict(load_path=out,
+                                                      test_only=True))
+        t0 = time.perf_counter()
+        merged, missing, unexpected = load_params(lcfg, uspec)
+        load_s = time.perf_counter() - t0
+        Path(out).unlink()
+        beside = " in a thread beside the rest" if method == "regmean" \
+            else ""
+        print(f"merge.py {method} ({' + '.join(names)}): {merge_s:.2f} s on "
+              f"the host (read, merge, write){beside}; load_params into ufo "
+              f"{load_s:.2f} s, missing {missing}, unexpected {unexpected}")
+        if missing or unexpected:
+            fail(f"{method}: the merged checkpoint does not fill the ufo "
+                 f"schema")
+        n = check_merged_eval(merged, uspec, ucfg, dev,
+                              f"{method}, {names[-1]}", eval_set)
+        counts = {k: counts[k] + n[k] for k in KERNELS}
+
+    paths = (moe_path, central_path, gram_path, tmp)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        regmean = pool.submit(merge_cli, names, "regmean", *paths)
+        for method in ("merge_weights", "sum_task_vectors"):
+            score(method, *merge_cli(names, method, *paths))
+        device_merging(lambda: load_torch_checkpoint(regmean.result()[0]))
+        score("regmean", *regmean.result())
+    return counts
 
 
 def run_merging(dev, card: str) -> dict:
@@ -2911,39 +3098,17 @@ def run_merging(dev, card: str) -> dict:
         # host merging through the CLI, then ingest into ufo and score
         eval_set = synthetic_eval_set(uspec, dev, torch.Generator(
             device=dev).manual_seed(SEED + 23))
-        methods = {"merge_weights": ["merge_weights=True",
-                                     f"merge_ratio={MERGE_RATIO}"],
-                   "sum_task_vectors": ["sum_task_vectors=True",
-                                        f"sum_lambda={SUM_LAMBDA}",
-                                        f"central_weight={central_path!r}"],
-                   "regmean": ["regmean=True",
-                               f"scaling_for_non_diag={NON_DIAG}",
-                               f"gram_matrices={gram_path!r}"]}
-        host_regmean = None
-        for method, extra in methods.items():
-            log_dir = str(tmp / method)
-            t0 = time.perf_counter()
-            out = merge.main(["with", *CONFIG_MOE, f"load_path={moe_path!r}",
-                              f"log_dir={log_dir!r}", *extra])
-            merge_s = time.perf_counter() - t0
-            if method == "regmean":
-                host_regmean = load_torch_checkpoint(out)
-            lcfg = build_config(*CONFIG, overrides=dict(load_path=out,
-                                                        test_only=True))
-            t0 = time.perf_counter()
-            merged, missing, unexpected = load_params(lcfg, uspec)
-            load_s = time.perf_counter() - t0
-            Path(out).unlink()
-            print(f"merge.py {method}: {merge_s:.2f} s on the host (read, "
-                  f"merge, write); load_params into ufo {load_s:.2f} s, "
-                  f"missing {missing}, unexpected {unexpected}")
-            if missing or unexpected:
-                fail(f"{method}: the merged checkpoint does not fill the ufo "
-                     f"schema")
-            n = check_merged_eval(merged, uspec, ucfg, dev, method, eval_set)
-            counts = {k: counts[k] + n[k] for k in KERNELS}
+
+        def device_merging(host_regmean):
+            run_ratio_sweep(sd_moe, spec, cfg["loss_names"], dev, card)
+            run_device_merging(sd_moe, central, g64, host_regmean, spec, dev,
+                               card, loss_names=cfg["loss_names"])
+
+        n = merge_methods(
+            CONFIG_MOE, CONFIG, moe_path, central_path, gram_path, dev,
+            eval_set, tmp, device_merging)
+        counts = {k: counts[k] + n[k] for k in KERNELS}
         del eval_set
-    run_device_merging(sd_moe, central, g64, host_regmean, spec, dev, card)
     return counts
 
 
@@ -5139,7 +5304,8 @@ def run_dryrun(dev, card: str) -> tuple:
 
 def run_vqa_large(dev, card: str, rows: dict) -> dict:
     """Phase 17 (b): the ViT-L VQA at full width and depth: the fused pass
-    over 2 x 32 questions by "tail" and in W8A8 against the plain path,
+    over 2 x 32 questions by "tail" and in W8A8 against the plain path, by
+    "qkv" and "mega" against "tail",
     the fine-tune step at micro-batch 8 against the plain path and timed,
     K2 and K9 at 16 heads under the joint mask."""
     cfg = build_config(*CONFIG_VQA_L, overrides=dict(image_size=VQA_L_SIZE))
@@ -5169,6 +5335,27 @@ def run_vqa_large(dev, card: str, rows: dict) -> dict:
                                                 kernels=False)
                           for b in batches])
     check_cosine(f"{label} bf16 logits", logits_k, logits_p)
+    # "qkv" (K8) and "mega" (K7) at C=1024, 16 heads: their deep layers'
+    # N=617 under the joint mask (zeros inside the key range)
+    for fusion in ("qkv", "mega"):
+        reset_launches()
+        downstream.vqa_predictions(params, spec, batches, id2answer,
+                                   fusion=fusion)
+        launches.update(check_launches(
+            f"{label} bf16 {fusion!r}",
+            scaled(fused_pass_launches(spec, VQA_BATCH, fusion,
+                                       train=False), VQA_BATCHES)))
+        got = torch.cat([downstream.vqa_logits(params, spec, b,
+                                               fusion=fusion)
+                         for b in batches])
+        equal = torch.equal(got, logits_k)
+        err, worst, share = ulp_check("block_eval", got, logits_k)
+        print(f"{label} bf16 {fusion!r} logits against 'tail': bit-equal "
+              f"{equal}; max |Δ| {err:.3e}, worst {worst:.4f} of the "
+              f"{ULPS['block_eval']}-ulp bound, {share:.4f} of them differ")
+        if not equal and worst > 1.0:
+            fail(f"{label}: the {fusion!r} logits differ from 'tail' beyond "
+                 f"{ULPS['block_eval']} ulps")
     cfg8 = build_config(*CONFIG_VQA_L, overrides=dict(
         image_size=VQA_L_SIZE, eval_int8=True))
     spec8 = make_model_spec(cfg8)
@@ -5188,12 +5375,17 @@ def run_vqa_large(dev, card: str, rows: dict) -> dict:
     print(f"{label}: {len(rets)} answers; W8A8 against bf16 (no gate): "
           f"{sum(a == b for a, b in zip(rets8, rets))} equal")
 
-    def answers(p, s, kernels=True):
+    def answers(p, s, kernels=True, fusion="tail"):
         return lambda: downstream.vqa_predictions(p, s, batches, id2answer,
-                                                  kernels=kernels)
+                                                  kernels=kernels,
+                                                  fusion=fusion)
 
     rates = rates_in_turns({"bf16 plain": answers(params, spec, False),
                             "bf16 kernels": answers(params, spec),
+                            "bf16 'qkv'": answers(params, spec,
+                                                  fusion="qkv"),
+                            "bf16 'mega'": answers(params, spec,
+                                                   fusion="mega"),
                             "W8A8 kernels": answers(params8, spec8)}, n_q)
     print(f"{label}: " + ", ".join(f"{k} {v:.1f} questions/s"
                                    for k, v in rates.items())
@@ -5333,6 +5525,256 @@ def run_dryrun_and_configs(dev, card: str, rows: dict) -> tuple:
     return dryrun, {k: configs[k] for k in KERNELS}
 
 
+
+# --------------------------------------------------------------------------
+# Phase 18: the partial-MoE modes, and the merging suite at ViT-L
+# --------------------------------------------------------------------------
+
+# the paper's "which modules to keep per modality" study: each mode
+# pretrained, then merged into ufo
+PARTIAL_MODES = ("ln_moe", "attn_moe", "ffn_moe")
+# (d) each mode's gram pass (f32_device, one batch of 32 pairs) and a
+# fleet of 4 on the card; (e) the same at ViT-L @384 all_moe
+MODE_GRAM_PAIRS, MODE_FLEET = 32, 4
+CONFIG_L_MOE = (CONFIG_L[0], "all_moe")
+# (e)'s reckoning: about 12·C² weights per expert-layer over 24 x 2 + 3
+# expert-layers and the embeddings, 0.68 G parameters (the grams: 4 per
+# expert-layer, 3·C² + (4C)² entries)
+L_PARAMS_RECKONED = 0.68e9
+
+
+def free_g() -> str:
+    return subprocess.run(["free", "-g"], capture_output=True,
+                          text=True).stdout.strip().replace("\n", " | ")
+
+
+def run_mode_eval(mode: str, sd, dev, card: str,
+                  eval_set) -> collections.Counter:
+    """(a) The COCO @384 retrieval eval of the checkpoint ``sd`` in
+    ``mode`` by "tail", scored by ``check_merged_eval`` (launches, the
+    features and the ITC scores against the plain path, the recall beside
+    the plain path's); images/s in turns."""
+    cfg = build_config(CONFIG[0], mode)
+    spec = make_model_spec(cfg)
+    label = (f"phase 18 (a), COCO @384 {mode} eval ({len(eval_set[3])} "
+             f"images, {len(eval_set[2])} captions)")
+    got = check_merged_eval(sd, spec, cfg, dev, label, eval_set)
+    params = eval_cast_params(params_from_numpy(sd, dev), spec, cfg)
+    image_batches = eval_set[1]
+    rates = rates_in_turns({
+        which: (lambda k=which == "kernels": extract_features(
+            params, spec, image_batches, "image", kernels=k))
+        for which in ("plain", "kernels")}, len(eval_set[3]))
+    print(f"{label}: image tower " + ", ".join(
+        f"{k} {v:.1f} img/s" for k, v in rates.items())
+        + f" (best of 2, in turns) [{card}]")
+    return collections.Counter(got)
+
+
+def run_mode_nlvr2(mode: str, dev, card: str) -> collections.Counter:
+    """(b) The NLVR2 @384 fused pass in ``mode`` over 32 pairs: launches
+    (the split, whole and composed blocks at the real thresholds), the
+    logits against the plain path's, pairs/s in turns."""
+    cfg = build_config(CONFIG_NLVR2, mode)
+    spec = make_model_spec(cfg)
+    params = eval_cast_params(seeded_params(spec, dev, SEED + 52), spec, cfg)
+    batch = nlvr2_batch(spec, dev, torch.Generator(device=dev).manual_seed(
+        SEED + 53), NLVR2_PAIRS)
+    split = sum(mome.splits(b, VL) for b in spec.blocks)
+    composed = sum(composed_in_fused_pass(b) for b in spec.blocks)
+    label = (f"phase 18 (b), NLVR2 @384 {mode} ({NLVR2_PAIRS} pairs; "
+             f"{split} split, {composed} composed, "
+             f"{spec.num_layers - split - composed} whole layers)")
+    reset_launches()
+    with torch.no_grad():
+        logits = downstream.nlvr2_logits(params, spec, batch)
+    got = check_launches(label, scaled(fused_pass_launches(
+        spec, NLVR2_PAIRS, "tail", train=False), 2))
+    with torch.no_grad():
+        plain = downstream.nlvr2_logits(params, spec, batch, kernels=False)
+    # the (B, 2) logits as one vector: a pair's two logits alone may be
+    # near zero
+    check_cosine(f"{label}: the logits", logits.reshape(1, -1),
+                 plain.reshape(1, -1))
+    rates = rates_in_turns({
+        which: (lambda k=which == "kernels": downstream.nlvr2_predictions(
+            params, spec, [batch], kernels=k))
+        for which in ("plain", "kernels")}, NLVR2_PAIRS)
+    print(f"{label}: " + ", ".join(f"{k} {v:.1f} pairs/s"
+                                   for k, v in rates.items())
+          + f" (best of 2, in turns) [{card}]")
+    return collections.Counter(got)
+
+
+def run_mode_training(mode: str, dev, card: str) -> collections.Counter:
+    """(c) The irtr @384 fine-tune step (32 pairs) and the paper's own
+    pretrain @224 (mlm, ifm with its vlffn re-runs, itm with hard
+    negatives; 32 pairs) in ``mode``: kernel against plain path, then in
+    turns."""
+    launches = collections.Counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 54)
+    over = dict(per_device_batch_size=MICRO_BATCH, batch_size=MICRO_BATCH)
+    names = (CONFIG[0], mode)
+    cfg = build_config(*names, overrides=dict(over, pallas_attention=True))
+    spec = make_model_spec(cfg)
+    images = torch.randn(MICRO_BATCH, 3, spec.image_size, spec.image_size,
+                         device=dev, generator=gen)
+    ids, masks = synthetic_captions(spec, MICRO_BATCH, dev, gen)
+    batch = {"image": images, "text_ids": ids, "text_masks": masks}
+    base = seeded_params(spec, dev, SEED + 55)
+    label = f"phase 18 (c), irtr fine-tune @384 {mode} ({MICRO_BATCH} pairs)"
+    against_plain(label, cfg, spec, base, batch, dev)
+    L = spec.num_layers
+    launches += train_in_turns(
+        label, objective_runs(names, spec, base, TRAIN_STEPS, **over),
+        batch, MICRO_BATCH,
+        {"kernels": block_launches(N, MICRO_BATCH, L)
+         + block_launches(spec.max_text_len, MICRO_BATCH, L)}, card)
+    del base
+    names = (CONFIG_PRETRAIN[0], mode)
+    over = dict(per_device_batch_size=PRETRAIN_PAIRS,
+                batch_size=PRETRAIN_PAIRS)
+    cfg = build_config(*names, overrides=dict(over, pallas_attention=True))
+    spec = make_model_spec(cfg)
+    batch = pretrain_batch(spec, cfg, PRETRAIN_PAIRS, dev, gen)
+    base = seeded_params(spec, dev, SEED + 56)
+    label = (f"phase 18 (c), VLMo pretrain @{spec.image_size} {mode} (mlm, "
+             f"ifm, itm; {PRETRAIN_PAIRS} pairs)")
+    against_plain(label, cfg, spec, base, batch, dev)
+    launches += train_in_turns(
+        label, objective_runs(names, spec, base, TRAIN_STEPS, **over),
+        batch, PRETRAIN_PAIRS,
+        {"kernels": pretrain_launches(spec, PRETRAIN_PAIRS)}, card)
+    return launches
+
+
+def gram_batch(spec, pairs: int, dev, seed: int) -> list:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids, masks = synthetic_captions(spec, pairs, dev, gen)
+    return [{"image": torch.randn(pairs, 3, spec.image_size, spec.image_size,
+                                  device=dev, generator=gen),
+             "text_ids": ids, "text_masks": masks}]
+
+
+def merge_suite(names, ufo_names, mode: str, sd, central, dev, card: str,
+                tmp: Path, eval_set, *, size: int,
+                label: str) -> collections.Counter:
+    """The merging suite over the checkpoint ``sd`` (config ``names``,
+    written to ``tmp``): the gram pass (f32_device, MODE_GRAM_PAIRS pairs)
+    through the taps, ``merge_methods`` into ``ufo_names`` around
+    ``central`` (also written), then a fleet of ``size`` and
+    ``regmean_device`` on the card."""
+    cfg = build_config(*names)
+    spec = make_model_spec(cfg)
+    moe_path, central_path, gram_path = (str(tmp / f) for f in (
+        "moe.ckpt", "central.ckpt", "G.pth"))
+    t0 = time.perf_counter()
+    save_torch_checkpoint(sd, moe_path)
+    back = load_torch_checkpoint(moe_path)
+    if set(back) != set(sd) or not all(bit_equal(back[k], sd[k])
+                                       for k in sd):
+        fail(f"{label}: the checkpoint did not read back bit for bit")
+    del back
+    if not Path(central_path).exists():
+        save_torch_checkpoint(central, central_path)
+    print(f"{label}: checkpoint written and read back bit for bit in "
+          f"{time.perf_counter() - t0:.2f} s")
+    params = params_from_numpy(sd, dev)
+    grams, seconds, counts = run_gram_pass(
+        params, spec, cfg, gram_batch(spec, MODE_GRAM_PAIRS, dev, SEED + 57),
+        "f32_device", f"{label}, f32_device, {MODE_GRAM_PAIRS} pairs", mode)
+    del params
+    gram_bytes = sum(g.size for g in grams.values()) * 4
+    print(f"{label}: gram pass {seconds:.3f} s for {MODE_GRAM_PAIRS} pairs, "
+          f"{len(grams)} grams ({gram_bytes / 1e9:.3f} GB in f32), keys as "
+          f"the reference taps name them; K2 {spec.num_layers} a batch and "
+          f"nothing else [{card}]")
+    save_gram_matrices(grams, gram_path)
+    n = merge_methods(
+        names, ufo_names, moe_path, central_path, gram_path, dev, eval_set,
+        tmp, lambda host_regmean: run_device_merging(
+            sd, central, grams, host_regmean, spec, dev, card,
+            loss_names=cfg["loss_names"], size=size, label=label))
+    return collections.Counter(counts) + collections.Counter(n)
+
+
+def run_partial_modes(dev, card: str) -> collections.Counter:
+    """Phase 18 (a)-(d) for each of PARTIAL_MODES at ViT-B/16 width."""
+    launches = collections.Counter()
+    uspec = make_model_spec(build_config(*CONFIG))
+    central = seeded_state(uspec, SEED + 58)
+    eval_set = synthetic_eval_set(uspec, dev, torch.Generator(
+        device=dev).manual_seed(SEED + 59))
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in PARTIAL_MODES:
+            t0 = time.perf_counter()
+            names = (CONFIG[0], mode)
+            spec = make_model_spec(build_config(*names))
+            sd = seeded_expert_state(spec, SEED + 60)
+            print(f"phase 18, {mode}: seeded checkpoint {len(sd)} tensors, "
+                  f"{sum(v.size for v in sd.values()) / 1e6:.1f} M "
+                  f"parameters")
+            launches += run_mode_eval(mode, sd, dev, card, eval_set)
+            launches += run_mode_nlvr2(mode, dev, card)
+            launches += run_mode_training(mode, dev, card)
+            torch.cuda.empty_cache()
+            launches += merge_suite(names, CONFIG, mode, sd, central, dev,
+                                    card, Path(tmp), eval_set,
+                                    size=MODE_FLEET,
+                                    label=f"phase 18 (d), {mode}")
+            del sd
+            torch.cuda.empty_cache()
+            print(f"phase 18, {mode}: {time.perf_counter() - t0:.1f} s "
+                  f"[{card}]")
+    return launches
+
+
+def run_merging_large(dev, card: str) -> collections.Counter:
+    """Phase 18 (e): the merging suite at ViT-L @384 (C=1024, 24 layers):
+    the all_moe checkpoint written and read back, the gram pass (K2 at 16
+    heads, N=577), merge.py by each method into ufo and the merged eval
+    through K1-K3 at C=1024, a fleet of 4 and regmean_device; the memory
+    reckoned first and printed beside the counts."""
+    cfg = build_config(*CONFIG_L_MOE)
+    spec = make_model_spec(cfg)
+    uspec = make_model_spec(build_config(*CONFIG_L))
+    if (spec.hidden_size, spec.num_heads, spec.num_layers) != (C_L, HEADS_L,
+                                                               24):
+        fail("the ViT-L all_moe config is not 24 layers of C=1024, 16 heads")
+    label = "phase 18 (e), ViT-L @384 all_moe into ufo"
+    t0 = time.perf_counter()
+    sd = seeded_expert_state(spec, SEED + 61)
+    central = seeded_state(uspec, SEED + 62)
+    n = sum(v.size for v in sd.values())
+    experts = 2 * spec.num_layers
+    gram_entries = experts * (3 * C_L ** 2 + (4 * C_L) ** 2)
+    print(f"{label}: {len(sd)} tensors, {n / 1e9:.4f} G parameters, "
+          f"{4 * n / 1e9:.3f} GB f32 (reckoned about "
+          f"{L_PARAMS_RECKONED / 1e9:.2f} G, "
+          f"{4 * L_PARAMS_RECKONED / 1e9:.1f} GB); a fleet of {MODE_FLEET} "
+          f"{4 * MODE_FLEET * n / 1e9:.2f} GB on the card and on the host; "
+          f"grams reckoned {experts * 4} ({gram_entries * 4 / 1e9:.3f} GB "
+          f"f32, twice that in the host's f64); the ufo central "
+          f"{sum(v.size for v in central.values()) / 1e9:.4f} G; seeded in "
+          f"{time.perf_counter() - t0:.1f} s; free -g: {free_g()}")
+    eval_set = synthetic_eval_set(uspec, dev, torch.Generator(
+        device=dev).manual_seed(SEED + 63))
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = merge_suite(CONFIG_L_MOE, CONFIG_L, "all_moe", sd, central,
+                               dev, card, Path(tmp), eval_set,
+                               size=MODE_FLEET, label=label)
+    print(f"{label}: free -g after the suite: {free_g()}")
+    return launches
+
+
+def run_modes_and_large(dev, card: str) -> tuple:
+    """Phase 18: (a)-(d) the partial-MoE modes, (e) the merging suite at
+    ViT-L; returns the launches of each."""
+    modes = run_partial_modes(dev, card)
+    torch.cuda.empty_cache()
+    large = run_merging_large(dev, card)
+    return ({k: modes[k] for k in KERNELS}, {k: large[k] for k in KERNELS})
+
 # The kernels redesigned on wgmma, by the length-prefixed (mangled) names
 # of their entry functions in the library's SASS (K7, K14 and K15 by
 # width: their instantiations at C=768 and 1024).
@@ -5377,14 +5819,26 @@ UNSERIALISED = ("ln_qkv_attention.cu", "ln_linear_i8.cu", "split_attention.cu",
 BUILT_AT_1024 = ("block_eval", "ln_linear_i8", "proj_mlp_tail_i8")
 
 
-def check_wgmma(lib) -> None:
+def sass_dump(lib) -> tuple:
+    """The built library's SASS (``cuobjdump``, from the toolkit that built
+    it) written to a temporary file by a process in the background:
+    (the process, the file)."""
+    fh = tempfile.TemporaryFile(mode="w+")
+    return subprocess.Popen([str(Path(_build._nvcc()).with_name("cuobjdump")),
+                             "-sass", str(lib)], stdout=fh, text=True), fh
+
+
+def check_wgmma(dump: tuple) -> None:
     """The redesigned kernels run wgmma: count the HGMMA instructions of
-    each in the built library's SASS (``cuobjdump``, from the toolkit that
-    built it), IGMMA for the int8 ones; fail where one has none, or where
-    K12 has more I2F than K2."""
-    out = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")),
-                          "-sass", str(lib)], capture_output=True, text=True,
-                         check=True).stdout
+    each in the library's SASS (``sass_dump``, waited for here), IGMMA for
+    the int8 ones; fail where one has none, or where K12 has more I2F than
+    K2."""
+    proc, fh = dump
+    if proc.wait() != 0:
+        fail(f"cuobjdump exited with {proc.returncode}")
+    fh.seek(0)
+    out = fh.read()
+    fh.close()
     counts, fns = dict.fromkeys(WGMMA_KERNELS, 0), []
     # K12 converts its s32 logits on the integer and FP32 pipes: its SASS
     # has no more I2F than K2's, whose come from the integer divisions that
@@ -5507,10 +5961,23 @@ def main() -> int:
     print(f"kernels ready in {time.perf_counter() - t0:.1f} s ("
           + ("library already built" if prebuilt else "built by nvcc") + ")")
 
-    check_wgmma(_build.library_path())
+    # the SASS is dumped beside phase 3 and counted after it
+    sass = sass_dump(_build.library_path())
+    try:
+        return run_phases(dev, card, start, sass)
+    finally:
+        if sass[0].poll() is None:
+            sass[0].kill()
+            sass[0].wait()
+
+
+def run_phases(dev, card: str, start: float, sass: tuple) -> int:
+    """Phases 2-18 and the two last lines; ``sass`` the library's SASS
+    dump (``sass_dump``), checked after phase 3."""
     usage = check_spills()
     check_serialisation()
-    print(f"phases 1-2: {time.perf_counter() - start:.1f} s [{card}]")
+    print(f"phases 1-2 (the SASS's wgmma counted after phase 3): "
+          f"{time.perf_counter() - start:.1f} s [{card}]")
 
     def timed(phase, fn, *args):
         t0 = time.perf_counter()
@@ -5521,6 +5988,7 @@ def main() -> int:
         return out
 
     rows = timed(3, check_kernels, usage)
+    check_wgmma(sass)
     paths = {"eval": timed(4, run_eval),
              "eval_int8": timed(5, run_eval_int8),
              "train": timed(6, run_training),
@@ -5536,6 +6004,7 @@ def main() -> int:
              "preprocess": timed(16, run_preprocess)}
     paths["dryrun"], paths["configs"] = timed(17, run_dryrun_and_configs,
                                               rows)
+    paths["modes"], paths["merging_large"] = timed(18, run_modes_and_large)
     for name, row in rows.items():
         for path, launches in paths.items():
             row[f"launches_{path}"] = launches[name]

@@ -24,6 +24,7 @@ from vl_merging_tpu.models.spec import param_shapes as jparam_shapes
 from vl_merging_tpu_torch.ckpt import bicubic, io, pipeline, surgery
 from vl_merging_tpu_torch.models.spec import make_model_spec
 from test_torch_port_merging import assert_dicts_equal
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TINY = dict(num_layers=2, hidden_size=32, num_heads=2, image_size=32,
             max_text_len=8, max_text_len_of_initckpt=16,

@@ -5,6 +5,7 @@ import pytest
 
 from vl_merging_tpu import config as jconfig
 from vl_merging_tpu_torch import config
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 MODES = (None, "ufo", "ln_moe", "attn_moe", "ffn_moe", "all_moe")
 

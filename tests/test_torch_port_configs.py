@@ -50,6 +50,7 @@ from vl_merging_tpu_torch.ops import attention as TA
 from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.ops import mlp as TM
 from vl_merging_tpu_torch.train import train_step
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOWER_TOL = dict(atol=2e-5, rtol=1e-4)
 B = 4

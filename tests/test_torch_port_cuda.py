@@ -64,6 +64,7 @@ from vl_merging_tpu_torch.ops import attention as TA
 from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.ops import int8 as TI
 from vl_merging_tpu_torch.ops import mlp as TM
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 BF16_ULP = 2.0 ** -7
 

@@ -27,6 +27,7 @@ from vl_merging_tpu_torch.config import build_config
 from vl_merging_tpu_torch.dvae import discrete
 from vl_merging_tpu_torch.models import distilled, relpos
 from vl_merging_tpu_torch.models.spec import make_model_spec
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 
@@ -201,7 +202,8 @@ class DecoderStub(torch.nn.Module):
 def test_load_decoder_params(tmp_path):
     """A flat {name: tensor} file, by its path and by its directory
     (``decoder.pkl``), loads the values the JAX loader reads from the
-    pickled module; the port refuses the pickled module."""
+    pickled module; the port refuses that module, whose class is not a
+    dall_e one."""
     module = DecoderStub()
     torch.save(module, tmp_path / "module.pkl")
     want = jdecoder.load_decoder_params(str(tmp_path / "module.pkl"))
@@ -214,5 +216,5 @@ def test_load_decoder_params(tmp_path):
         assert set(got) == set(want) == {"blocks.w", "blocks.b"}
         for k in want:
             np.testing.assert_array_equal(got[k].numpy(), want[k])
-    with pytest.raises(NotImplementedError, match="flat"):
+    with pytest.raises(ValueError, match="not a pickled dall_e module"):
         dvae.load_decoder_params(str(tmp_path / "module.pkl"))

@@ -79,6 +79,7 @@ from vl_merging_tpu_torch.parallel import mesh
 from vl_merging_tpu_torch.train import loop, train_step
 from vl_merging_tpu_torch.train.optimizer import make_optimizer
 from vl_merging_tpu_torch.train.schedule import make_schedule
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 WORLD, ROWS = 2, 16
 LOSS_REL = 1e-4

@@ -31,6 +31,7 @@ from vl_merging_tpu_torch.models import mome
 from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.train import train_step
 from test_torch_port_vl import TOWER_TOL, jbatch, setup, tbatch, vl_inputs
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -28,6 +28,7 @@ from vl_merging_tpu.dvae import discrete as jdiscrete
 from vl_merging_tpu.dvae import encoder as jencoder
 from vl_merging_tpu_torch import dvae
 from vl_merging_tpu_torch.dvae import decoder, discrete, encoder
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(atol=2e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=1e-5, rtol=1e-4)
@@ -117,7 +118,7 @@ def test_encoder_logits_and_indices_match_jax(n_blk):
 def test_load_encoder_params_and_label_fn(tmp_path):
     """A flat {name: tensor} file, by its path and by its directory (the
     JAX loader's layout), gives the label function the JAX package's ids;
-    a pickled module is refused."""
+    a pickled module that is not a dall_e one is refused."""
     arrays = encoder_arrays(1)
     flat = tmp_path / "weights.pt"
     torch.save(tparams(arrays), flat)
@@ -135,7 +136,7 @@ def test_load_encoder_params_and_label_fn(tmp_path):
     assert got.dtype == torch.long and got.shape == (3, 16)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     torch.save(torch.nn.Conv2d(1, 1, 1), tmp_path / "module.pkl")
-    with pytest.raises(NotImplementedError, match="flat"):
+    with pytest.raises(ValueError, match="not a pickled dall_e module"):
         dvae.load_encoder_params(str(tmp_path / "module.pkl"))
 
 

@@ -45,6 +45,7 @@ from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.train import optimizer, schedule, train_step
 from vl_merging_tpu_torch.train.loop import build_train_step
 from test_torch_port_model import random_arrays
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(atol=1e-5, rtol=1e-4)
 SHAPE = dict(hidden_size=128, num_heads=2, num_layers=2, image_size=64,

@@ -43,6 +43,7 @@ from vl_merging_tpu_torch.evaluation import retrieval
 from vl_merging_tpu_torch.models import model
 from vl_merging_tpu_torch.models.spec import make_model_spec
 from vl_merging_tpu_torch.ops import fused_block as TF
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
 TOWER_TOL = dict(atol=1e-5, rtol=1e-4)

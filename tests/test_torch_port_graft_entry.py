@@ -57,6 +57,7 @@ from vl_merging_tpu_torch.evaluation.downstream import vqa_predictions, \
 from vl_merging_tpu_torch.evaluation.retrieval import compute_irtr_recall
 from vl_merging_tpu_torch.models.spec import make_model_spec
 from vl_merging_tpu_torch.train import train_step
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 WORLD = 4
 ROWS = graft_entry.TINY_ROWS * WORLD

@@ -36,6 +36,7 @@ from vl_merging_tpu_torch.models.spec import make_model_spec
 from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.train import gram
 from test_torch_port_merging import assert_dicts_equal
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TASK = "task_finetune_irtr_coco_square_randaug_base_image384"
 OVER = dict(hidden_size=128, num_heads=2, num_layers=2, image_size=64,

@@ -11,6 +11,7 @@ the card (tests/test_torch_port_cuda.py).
 import pytest
 
 from vl_merging_tpu_torch.ops import fused_block as TF
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("C,O", [(768, 2304), (1024, 3072), (768, 256)])

@@ -22,6 +22,7 @@ from vl_merging_tpu.ops import attention as A
 from vl_merging_tpu.ops import fused_block as F
 from vl_merging_tpu_torch.ops import attention as TA
 from vl_merging_tpu_torch.ops import fused_block as TF
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
 BF16_ULP = 2.0 ** -7

@@ -35,6 +35,7 @@ from vl_merging_tpu_torch.ckpt.convert import params_from_numpy
 from vl_merging_tpu_torch.evaluation import retrieval
 from vl_merging_tpu_torch.merging import core, device
 from vl_merging_tpu_torch.models.spec import make_model_spec
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 KW = dict(num_layers=N_LAYERS, vlffn_start_layer_index=VLFFN_START)
 PRETRAIN = {"mlm": 1, "itm": 1, "ifm": 1}

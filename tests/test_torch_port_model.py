@@ -30,6 +30,7 @@ from vl_merging_tpu_torch.models import mome, model, relpos
 from vl_merging_tpu_torch.models.spec import init_params, make_model_spec, \
     param_shapes
 from vl_merging_tpu_torch.ops import fused_block as TF
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOWER_TOL = dict(atol=2e-5, rtol=1e-4)
 N_IMG, CAPS = 8, 5

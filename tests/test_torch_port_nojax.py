@@ -20,11 +20,13 @@ data-parallel step through it under ``utils/profiling.trace``; the
 device-side preprocessing: the canvas resize, a step under
 ``device_augment`` and ``device_mlm``; the distilled embed and trunk,
 relpos's video helpers, the dVAE's codebook probabilities and decoder
-loader; the driver entry points of ``graft_entry.py``: the flagship
-forward and the dry run's stages at world 1) must leave ``jax`` (and
-``vl_merging_tpu``, whose subpackages import jax) out of
-``sys.modules``, and an audit hook sees no file under ``vl_merging_tpu/``
-opened (executing a file by path opens it) or imported.  The check runs in a fresh interpreter
+loader and a pickled ``dall_e`` module read without its classes; the
+Trainer's TensorBoard events; the driver entry points of
+``graft_entry.py``: the flagship forward and the dry run's stages at world
+1) must leave ``jax`` (and ``vl_merging_tpu``, whose subpackages import
+jax), ``tensorboard`` and ``tensorflow`` out of ``sys.modules``, and an
+audit hook sees no file under ``vl_merging_tpu/`` opened (executing a file
+by path opens it) or imported.  The check runs in a fresh interpreter
 because this test process (tests/conftest.py) imports JAX.
 """
 
@@ -32,6 +34,8 @@ import subprocess
 import sys
 import textwrap
 from pathlib import Path
+
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -322,6 +326,9 @@ SCRIPT = textwrap.dedent("""
         assert trainer.state.step == 1 and trainer.device.type == "cpu"
         assert os.path.exists(os.path.join(
             trainer.log_dir, "checkpoints", "last", "state.pt"))
+        import glob
+        assert glob.glob(os.path.join(trainer.log_dir, "tb", "metrics",
+                                      "events.out.tfevents.*"))
         assert os.path.exists(grams_path)
         assert datamodule.MTDataModule is not None
     assert runtime.available()
@@ -397,6 +404,24 @@ SCRIPT = textwrap.dedent("""
     with tempfile.TemporaryDirectory() as tmp:
         torch.save(dec, os.path.join(tmp, "decoder.pkl"))
         assert set(dvae.load_decoder_params(tmp)) == set(dec)
+        # a pickled dall_e module, read once its classes are gone
+        import types
+
+        class Conv2d(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.w = torch.nn.Parameter(torch.ones(2, 3, 1, 1))
+                self.b = torch.nn.Parameter(torch.zeros(2))
+
+        fake = {n: types.ModuleType(n) for n in ("dall_e", "dall_e.utils")}
+        Conv2d.__module__, fake["dall_e.utils"].Conv2d = "dall_e.utils", \
+            Conv2d
+        sys.modules.update(fake)
+        torch.save(Conv2d(), os.path.join(tmp, "released.pkl"))
+        for n in fake:
+            del sys.modules[n]
+        assert list(dvae.load_decoder_params(
+            os.path.join(tmp, "released.pkl"))) == ["w", "b"]
 
     # the driver entry points: the flagship forward, and the dry run's
     # rank at world 1 in this process (its stages, a one-rank group)
@@ -420,7 +445,8 @@ SCRIPT = textwrap.dedent("""
 
     assert not touched, touched
     leaked = sorted(m for m in sys.modules
-                    if m.split(".")[0] in ("jax", "jaxlib", "vl_merging_tpu"))
+                    if m.split(".")[0] in ("jax", "jaxlib", "vl_merging_tpu",
+                                           "tensorboard", "tensorflow"))
     assert not leaked, leaked
     print("ok")
 """)

@@ -62,6 +62,7 @@ from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
 from vl_merging_tpu_torch.ops import augment, image, text_masking
 from vl_merging_tpu_torch.train import loop, train_step
 from vl_merging_tpu_torch.train.loop import build_train_step
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 # The JAX package's functions under jit (each traced once per shape),

@@ -53,6 +53,7 @@ from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.train import gram, objectives, train_step
 from vl_merging_tpu_torch.train.loop import build_train_step
 from test_torch_port_model import random_arrays
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(atol=1e-5, rtol=1e-4)
 GRAM_RTOL = 1e-5
@@ -234,17 +235,28 @@ OBJECTIVES = {"mlm": ("compute_mlm", {}),
               "ifm": ("compute_ifm", {})}
 
 
+@functools.cache
+def jax_objective(name):
+    """The JAX side of ``test_objective_matches_jax``, once per objective
+    for both of the port's routes (every test here runs under the same
+    ``_tables``)."""
+    cfg, jspec, _, _, jparams, _ = setup(PRETRAIN, **HEADS)
+    jb = jtree(pair_batch(1))
+    fn, extra = OBJECTIVES[name]
+    jkw = {"mim_labels": jb["mim_labels"]} if extra else {}
+    return jax_grads(lambda p: getattr(jobjectives, fn)(
+        p, jspec, jb, train=True, rng=jax.random.PRNGKey(3), **jkw), jparams)
+
+
 @pytest.mark.parametrize("name", list(OBJECTIVES))
 def test_objective_matches_jax(name, kernels):
     """Each objective on its own: loss, metrics and every gradient."""
     cfg, jspec, spec, _, jparams, params = setup(PRETRAIN, **HEADS)
     b = pair_batch(1)
     fn, extra = OBJECTIVES[name]
-    jb, tb = jtree(b), ttree(b)
-    jkw = {"mim_labels": jb["mim_labels"]} if extra else {}
+    tb = ttree(b)
     tkw = {"mim_labels": tb["mim_labels"]} if extra else {}
-    want = jax_grads(lambda p: getattr(jobjectives, fn)(
-        p, jspec, jb, train=True, rng=jax.random.PRNGKey(3), **jkw), jparams)
+    want = jax_objective(name)
     got = port_grads(lambda p: getattr(objectives, fn)(
         p, spec, tb, train=True, generator=torch.Generator().manual_seed(0),
         kernels=kernels, **tkw), params)
@@ -254,6 +266,16 @@ def test_objective_matches_jax(name, kernels):
             assert_close(got[1][k], want[1][k], k)
 
 
+@functools.cache
+def jax_itm_step(seed: int):
+    """The JAX side of ``test_itm_with_jax_negatives_matches_jax`` under
+    ``PRNGKey(seed)``, once for both of the port's routes."""
+    cfg, jspec, _, _, jparams, _ = setup(PRETRAIN, ifm=1, itm=1)
+    return jax_grads(lambda p: jtrain_step.compute_losses(
+        p, jspec, cfg, jtree(pair_batch(2)), jax.random.PRNGKey(seed),
+        train=True), jparams)
+
+
 def test_itm_with_jax_negatives_matches_jax(monkeypatch, kernels):
     """ifm + itm through ``compute_losses``: the JAX package's hard
     negatives (drawn under its key from its ifm logits) fed through
@@ -261,8 +283,7 @@ def test_itm_with_jax_negatives_matches_jax(monkeypatch, kernels):
     generator; loss and every gradient."""
     cfg, jspec, spec, _, jparams, params = setup(PRETRAIN, ifm=1, itm=1)
     b, key = pair_batch(2), jax.random.PRNGKey(5)
-    want = jax_grads(lambda p: jtrain_step.compute_losses(
-        p, jspec, cfg, jtree(b), key, train=True), jparams)
+    want = jax_itm_step(5)
     negatives = jax_negatives(key, want[1])
     assert not torch.equal(negatives[0], torch.arange(B))
     gen = torch.Generator().manual_seed(0)

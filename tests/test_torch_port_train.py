@@ -49,6 +49,7 @@ from vl_merging_tpu_torch.ops import mlp as TM
 from vl_merging_tpu_torch.train import optimizer, schedule, train_step
 from vl_merging_tpu_torch.train.loop import build_train_step
 from vl_merging_tpu_torch.ops import fused_block as TF
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(atol=1e-5, rtol=1e-4)
 BF16_TOL = 2.0 ** -6

@@ -50,6 +50,7 @@ from vl_merging_tpu_torch.models.spec import V, make_model_spec
 from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.train import train_step
 from vl_merging_tpu_torch.train.loop import build_train_step
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(atol=2e-5, rtol=2e-5)
 BF16_ULP = 2.0 ** -7

@@ -45,6 +45,7 @@ from vl_merging_tpu_torch.config import build_config
 from vl_merging_tpu_torch.data import datamodule
 from vl_merging_tpu_torch.models.spec import init_params, make_model_spec
 from vl_merging_tpu_torch.train import loop, train_step
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 IRTR = ("task_finetune_irtr_coco_square_randaug_base_image384", "ufo")
 NLVR2 = ("task_finetune_nlvr2_square_randaug_base_image384", "ufo")

@@ -35,6 +35,7 @@ from vl_merging_tpu_torch.models.spec import VL, make_model_spec
 from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.train import gram
 from test_torch_port_model import random_arrays
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOWER_TOL = dict(atol=2e-5, rtol=1e-4)
 GRAM_RTOL = 1e-5

@@ -34,6 +34,7 @@ from vl_merging_tpu_torch.ops import attention as TA
 from vl_merging_tpu_torch.ops import fused_block as TF
 from vl_merging_tpu_torch.ops import int8 as TI
 from vl_merging_tpu_torch.ops import mlp as TM
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 LARGE = "task_finetune_irtr_f30k_square_randaug_large_image384"
 TINY = "task_test_vit_tiny_mlm_itm_ifm_square_randaug_base_vl"

@@ -60,10 +60,9 @@ def decode_indices(params: Params, indices: torch.Tensor) -> torch.Tensor:
 
 
 def load_decoder_params(weight_path: str) -> Params:
-    """The decoder's params, a flat {name: tensor} dict saved by
-    ``torch.save``, from the file ``weight_path`` or from
+    """The decoder's params (``encoder.load_flat_params`` of
+    ``decoder.pkl``): a flat {name: tensor} file or the released pickled
+    dall_e module, from the file ``weight_path`` or from
     ``weight_path/decoder.pkl`` (the JAX loader's layout), as f32 CPU
-    tensors.  The released ``decoder.pkl`` is a pickled dall_e module:
-    loading it raises ``NotImplementedError``, as the encoder's loader
-    does."""
+    tensors."""
     return load_flat_params(weight_path, "decoder.pkl")

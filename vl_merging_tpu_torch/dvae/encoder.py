@@ -20,11 +20,14 @@ from __future__ import annotations
 
 import math
 import os
+import pickle
 import re
 from typing import Callable, Dict
 
 import torch
 import torch.nn.functional as F
+
+from . import released
 
 Params = Dict[str, torch.Tensor]
 
@@ -33,9 +36,9 @@ DEFAULT_N_HID = 256
 DEFAULT_N_BLK = 2
 VOCAB_SIZE = 8192
 
-# where ROADMAP.md lists the released encoder.pkl as waiting
-_RELEASED = ('"Pretrain objectives, the other fine-tunes and the dVAE", '
-             'its "Waiting" line')
+# what waits: the released files themselves (ROADMAP.md, queue A)
+_RELEASED = ("the loader reads the released dall_e pickles; the files "
+             "themselves are not in the repository")
 
 
 def exact_f32():
@@ -129,27 +132,25 @@ def init_encoder_params(generator: torch.Generator,
 
 
 def load_flat_params(weight_path: str, file_name: str) -> Params:
-    """A flat {name: tensor} dict saved by ``torch.save``, from the file
-    ``weight_path`` or from ``weight_path/file_name`` (the JAX loaders'
-    directory layout: the reference's discrete_vae_weight_path), as f32
-    CPU tensors.  The released ``encoder.pkl`` / ``decoder.pkl`` are
-    pickled dall_e modules, which need those classes to unpickle: loading
-    them is not ported (``NotImplementedError``)."""
+    """The dVAE's params from the file ``weight_path`` or from
+    ``weight_path/file_name`` (the JAX loaders' directory layout: the
+    reference's discrete_vae_weight_path), as f32 CPU tensors: a flat
+    {name: tensor} dict saved by ``torch.save``, or a pickled ``dall_e``
+    module (the released ``encoder.pkl`` / ``decoder.pkl``), read without
+    the ``dall_e`` package by ``dvae/released.py`` under the names of its
+    ``named_parameters()``, as the JAX loaders read it.  Anything else
+    raises ``ValueError`` naming the file."""
     path = weight_path
     if os.path.isdir(path):
         path = os.path.join(path, file_name)
     try:
         obj = torch.load(path, map_location="cpu", weights_only=True)
-    except Exception as e:  # a pickled module, which weights_only refuses
-        raise NotImplementedError(
-            f"{path}: not a flat {{name: tensor}} file; unpickling the "
-            f"released dall_e module waits for that file (ROADMAP item "
-            f"{_RELEASED})") from e
+    except pickle.UnpicklingError:  # a pickled module: weights_only refuses
+        return released.load_module_params(path)
     if not isinstance(obj, dict) or not all(
             isinstance(v, torch.Tensor) for v in obj.values()):
-        raise NotImplementedError(
-            f"{path}: not a flat {{name: tensor}} dict (ROADMAP item "
-            f"{_RELEASED})")
+        raise ValueError(f"{path}: neither a flat {{name: tensor}} dict nor "
+                         f"a pickled dall_e module ({_RELEASED})")
     return {k: v.float() for k, v in obj.items()}
 
 

@@ -54,6 +54,8 @@ from .checkpointing import (load_full_params, restore_train_state,
                             save_train_state)
 from .optimizer import make_optimizer
 from .schedule import make_schedule
+from ..utils.logging import EventWriter
+
 
 ARRAY_KEYS_EXCLUDED = ("text", "qid", "vqa_labels", "vqa_scores",
                        "vqa_answer", "table_name", "iid", "img_index",
@@ -189,20 +191,20 @@ def vci_to_opt_steps(vci, micro_per_epoch: int, accum_steps: int):
 
 
 class JsonlLogger:
-    """One JSON line of scalars per call, ``{log_dir}/{name}.jsonl``; a
-    logger with ``write=False`` (the ranks other than 0) writes nothing.
-
-    The JAX package also writes TensorBoard events when it can import
-    ``torch.utils.tensorboard`` (reference run.py:196-199); the port does
-    not: that import brings in TensorFlow where it is installed, and
-    TensorFlow imports JAX."""
+    """One JSON line of scalars per call, ``{log_dir}/{name}.jsonl``, and
+    the same scalars as TensorBoard events under
+    ``{log_dir}/tb/{name}/events.out.tfevents.*`` (the JAX package's
+    layout, reference run.py:196-199), written by
+    ``utils/logging.EventWriter``; a logger with ``write=False`` (the ranks
+    other than 0) writes nothing."""
 
     def __init__(self, log_dir: str, name: str, write: bool = True):
         self.path = os.path.join(log_dir, f"{name}.jsonl")
-        self._fh = None
+        self._fh = self._tb = None
         if write:
             os.makedirs(log_dir, exist_ok=True)
             self._fh = open(self.path, "a")
+            self._tb = EventWriter(os.path.join(log_dir, "tb", name))
 
     def log(self, step: int, scalars: Dict[str, float]) -> None:
         if self._fh is None:
@@ -210,10 +212,14 @@ class JsonlLogger:
         rec = {"step": step, **{k: float(v) for k, v in scalars.items()}}
         self._fh.write(json.dumps(rec) + "\n")
         self._fh.flush()
+        for k, v in scalars.items():
+            self._tb.add_scalar(k, float(v), step)
+        self._tb.flush()
 
     def close(self) -> None:
         if self._fh is not None:
             self._fh.close()
+            self._tb.close()
 
 
 class Trainer:

@@ -5,9 +5,7 @@ The reference's only instrumentation is nvidia-smi at startup and a CUDA
 peak-memory print (reference: src/run.py:151,
 src/cache_gram_matrices.py:351-357).  Here: a ``torch.profiler`` trace
 written as a Chrome trace, a step timer with rolling throughput, and the
-card's memory statistics.  Nothing here goes through
-``torch.utils.tensorboard``, whose import brings in TensorFlow where it is
-installed.
+card's memory statistics.
 """
 
 from __future__ import annotations
